@@ -1,0 +1,6 @@
+"""``python -m multivae_tpu_torch <command>``."""
+
+from .cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,184 @@
+"""The weights bridge between the JAX param tree and the port's modules.
+
+The JAX package keeps a flax param tree: nested dicts whose leaves are
+``kernel [in, out]``, ``bias [out]`` and ``out_logvar [1, D]``. The port's
+``state_dict`` has the same paths joined by dots, with ``weight [out, in]``
+in place of ``kernel``. :func:`tree_to_state_dict` and
+:func:`state_dict_to_tree` convert between the two exactly (a rename and a
+transpose). :func:`flatten_tree` / :func:`unflatten_tree` key a tree by its
+``/``-joined path, the checkpoint format.
+
+The packed and split layouts of the fused kernels (``FLAT_NAMES``,
+``SPLIT_NAMES``, :func:`flatten_params`, :func:`split_params`,
+:func:`join_params`; ``multivae_tpu/ops/fused_step.py:65-105, 164-248``)
+are carried here without their kernels. They stay in the JAX layout
+``[in, out]``, which is what the avatar-sweep kernel takes.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, NamedTuple
+
+import numpy as np
+import torch
+
+
+class FusedDims(NamedTuple):
+    b: int        # batch
+    d1: int       # clinical width
+    d2: int       # rois width
+    h: int        # hidden width
+    cd: int       # class (content) dim
+    s1: int       # clinical style dim
+    s2: int       # rois style dim
+
+
+def dims_from(cfg, batch_size: int) -> FusedDims:
+    return FusedDims(b=batch_size, d1=cfg.input_dim[0], d2=cfg.input_dim[1],
+                     h=cfg.hidden_dim, cd=cfg.class_dim,
+                     s1=cfg.style_dim[0], s2=cfg.style_dim[1])
+
+
+# packed layout (matches the flax param tree)
+FLAT_NAMES = (
+    "enc1_Wh", "enc1_bh", "enc1_Wo", "enc1_bo",
+    "enc2_Wh", "enc2_bh", "enc2_Wo", "enc2_bo",
+    "dec1_Wd", "dec1_bd", "dec1_olv",
+    "dec2_Wd", "dec2_bd", "dec2_olv",
+)
+
+# split layout consumed by the kernels (one tensor per head)
+SPLIT_NAMES = tuple(
+    f"{e}_{part}" for e in ("enc1", "enc2")
+    for part in ("Wh", "bh", "Wcmu", "bcmu", "Wclv", "bclv",
+                 "Wsmu", "bsmu", "Wslv", "bslv")
+) + tuple(
+    f"{d}_{part}" for d in ("dec1", "dec2")
+    for part in ("Wds", "Wdc", "bd", "olv")
+)
+
+
+# ----------------------------------------------------------------- the tree
+def flatten_tree(tree: Mapping, prefix: str = "") -> Dict[str, object]:
+    """Nested param tree -> ``{"enc_rois/heads/kernel": leaf, ...}``."""
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, Mapping):
+            out.update(flatten_tree(val, path + "/"))
+        else:
+            out[path] = val
+    return out
+
+
+def unflatten_tree(flat: Mapping[str, object]) -> Dict:
+    """Inverse of :func:`flatten_tree`."""
+    tree: Dict = {}
+    for path, leaf in flat.items():
+        node = tree
+        *parents, last = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[last] = leaf
+    return tree
+
+
+def tree_to_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """JAX param tree (numpy or array-like leaves) -> port ``state_dict``."""
+    sd = {}
+    for path, leaf in flatten_tree(tree).items():
+        arr = torch.as_tensor(np.array(leaf, dtype=np.float32))
+        *parents, last = path.split("/")
+        if last == "kernel":
+            last, arr = "weight", arr.T.contiguous()
+        sd[".".join(parents + [last])] = arr
+    return sd
+
+
+def state_dict_to_tree(sd: Mapping[str, torch.Tensor],
+                       as_numpy: bool = True) -> Dict:
+    """Port ``state_dict`` -> JAX param tree; leaves are numpy arrays, or
+    the tensors themselves (transposed views for kernels) when
+    ``as_numpy`` is False."""
+    flat = {}
+    for key, val in sd.items():
+        *parents, last = key.split(".")
+        if last == "weight":
+            last, val = "kernel", val.T
+        if as_numpy:
+            val = val.detach().cpu().numpy().copy()
+        flat["/".join(parents + [last])] = val
+    return unflatten_tree(flat)
+
+
+# ------------------------------------------------- packed and split layouts
+def flatten_params(tree: Mapping, mod_names) -> Dict[str, object]:
+    """Param tree -> packed named dict (the flagship 2-modality layout)."""
+    n1, n2 = mod_names
+    return {
+        "enc1_Wh": tree[f"enc_{n1}"]["hidden_0"]["kernel"],
+        "enc1_bh": tree[f"enc_{n1}"]["hidden_0"]["bias"],
+        "enc1_Wo": tree[f"enc_{n1}"]["heads"]["kernel"],
+        "enc1_bo": tree[f"enc_{n1}"]["heads"]["bias"],
+        "enc2_Wh": tree[f"enc_{n2}"]["hidden_0"]["kernel"],
+        "enc2_bh": tree[f"enc_{n2}"]["hidden_0"]["bias"],
+        "enc2_Wo": tree[f"enc_{n2}"]["heads"]["kernel"],
+        "enc2_bo": tree[f"enc_{n2}"]["heads"]["bias"],
+        "dec1_Wd": tree[f"dec_{n1}"]["out_mu"]["kernel"],
+        "dec1_bd": tree[f"dec_{n1}"]["out_mu"]["bias"],
+        "dec1_olv": tree[f"dec_{n1}"]["out_logvar"],
+        "dec2_Wd": tree[f"dec_{n2}"]["out_mu"]["kernel"],
+        "dec2_bd": tree[f"dec_{n2}"]["out_mu"]["bias"],
+        "dec2_olv": tree[f"dec_{n2}"]["out_logvar"],
+    }
+
+
+def split_params(p: Mapping[str, object], dims: FusedDims):
+    """Packed -> split layout: the head columns and the decoder's style and
+    content input rows become separate tensors."""
+    cd = dims.cd
+    out = {}
+    for e, s in (("enc1", dims.s1), ("enc2", dims.s2)):
+        Wo, bo = p[f"{e}_Wo"], p[f"{e}_bo"]
+        out[f"{e}_Wh"] = p[f"{e}_Wh"]
+        out[f"{e}_bh"] = p[f"{e}_bh"]
+        out[f"{e}_Wcmu"] = Wo[:, :cd]
+        out[f"{e}_bcmu"] = bo[:cd]
+        out[f"{e}_Wclv"] = Wo[:, cd:2 * cd]
+        out[f"{e}_bclv"] = bo[cd:2 * cd]
+        out[f"{e}_Wsmu"] = Wo[:, 2 * cd:2 * cd + s]
+        out[f"{e}_bsmu"] = bo[2 * cd:2 * cd + s]
+        out[f"{e}_Wslv"] = Wo[:, 2 * cd + s:]
+        out[f"{e}_bslv"] = bo[2 * cd + s:]
+    for d, s in (("dec1", dims.s1), ("dec2", dims.s2)):
+        Wd = p[f"{d}_Wd"]
+        out[f"{d}_Wds"] = Wd[:s]
+        out[f"{d}_Wdc"] = Wd[s:]
+        out[f"{d}_bd"] = p[f"{d}_bd"]
+        out[f"{d}_olv"] = p[f"{d}_olv"]
+    return out
+
+
+def join_params(sp: Mapping[str, torch.Tensor], dims: FusedDims):
+    """Split -> packed layout of tensors (inverse of :func:`split_params`)."""
+    out = {}
+    for e in ("enc1", "enc2"):
+        out[f"{e}_Wh"] = sp[f"{e}_Wh"]
+        out[f"{e}_bh"] = sp[f"{e}_bh"]
+        out[f"{e}_Wo"] = torch.cat([sp[f"{e}_Wcmu"], sp[f"{e}_Wclv"],
+                                    sp[f"{e}_Wsmu"], sp[f"{e}_Wslv"]], dim=1)
+        out[f"{e}_bo"] = torch.cat([sp[f"{e}_bcmu"], sp[f"{e}_bclv"],
+                                    sp[f"{e}_bsmu"], sp[f"{e}_bslv"]])
+    for d in ("dec1", "dec2"):
+        out[f"{d}_Wd"] = torch.cat([sp[f"{d}_Wds"], sp[f"{d}_Wdc"]])
+        out[f"{d}_bd"] = sp[f"{d}_bd"]
+        out[f"{d}_olv"] = sp[f"{d}_olv"]
+    return out
+
+
+def model_split_params(model, dims: FusedDims) -> Dict[str, torch.Tensor]:
+    """The model's weights in the split layout, as contiguous tensors on
+    the model's device."""
+    tree = state_dict_to_tree(model.state_dict(), as_numpy=False)
+    sp = split_params(flatten_params(tree, model.mod_names), dims)
+    return {k: v.detach().contiguous() for k, v in sp.items()}

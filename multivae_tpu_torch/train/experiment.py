@@ -1,0 +1,134 @@
+"""A trained run loaded for analysis: config, modalities, one model per
+ensemble member, and the train/test datasets.
+
+The loading half of ``multivae_tpu/train/experiment.py``. The datasets come
+from the jax-free data layer of the JAX package (``multivae_tpu.data``,
+which needs pandas and scikit-learn) and are loaded only on request
+(:meth:`MultimodalExperiment.set_datasets`), so a run's models load with
+numpy and torch alone. Residualization is off, as in the JAX package's
+default (``residualize_by`` is empty there).
+"""
+
+from __future__ import annotations
+
+import os
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..models import build_model, make_modalities
+from .checkpoint import find_checkpoint, restore_checkpoint
+from .config import Config
+
+
+class MultimodalExperiment:
+    def __init__(self, cfg: Config, device: torch.device | str):
+        cfg.derive()
+        self.cfg = cfg
+        self.modalities = make_modalities(cfg.input_dim, cfg.style_dim,
+                                          cfg.likelihood)
+        self.mod_names = list(self.modalities)
+        # one model per ensemble member, seeded as the JAX package seeds
+        # its members (cfg.seed + member index)
+        self.models: List[torch.nn.Module] = [
+            build_model(cfg, self.modalities, device, seed=cfg.seed + idx)
+            for idx in range(cfg.num_models)]
+        self.dataset_train = None
+        self.dataset_test = None
+
+    # ------------------------------------------------------------ datasets
+    def set_scalers(self, dataset):
+        """A StandardScaler per modality, fit on the train samples where the
+        modality is present (``experiment.py:146-166``)."""
+        from multivae_tpu.data import StandardScaler
+
+        scalers = {}
+        for mod in self.mod_names:
+            idxs = [i for i in range(len(dataset))
+                    if dataset._present[mod][dataset._true_idx(i)]]
+            rows = dataset._row_idx[mod][
+                dataset.indices[idxs] if dataset.indices is not None
+                else np.asarray(idxs)]
+            scaler = StandardScaler()
+            scaler.fit(np.asarray(dataset.data[mod][rows], dtype=np.float64))
+            scalers[mod] = scaler
+        return scalers
+
+    def set_datasets(self):
+        """Train/test datasets per ensemble member, scaled on the fly by the
+        member's train-fold scalers (``experiment.py:195-254``)."""
+        from multivae_tpu.data import DataManager, MultimodalDataset
+
+        cfg = self.cfg
+        validation = None
+        n_models = 1
+        test_size = 0.2
+        if cfg.num_models > 1:
+            validation = cfg.num_models
+            test_size = 0
+            n_models = validation
+        manager = DataManager(
+            cfg.dataset, cfg.datasetdir, list(self.modalities),
+            overwrite=True, allow_missing_blocks=cfg.allow_missing_blocks,
+            validation=validation, test_size=test_size, seed=cfg.data_seed)
+        fetcher = manager.fetcher
+
+        train, test = [], []
+        for model_idx in range(n_models):
+            train_dataset = manager.train_dataset
+            train_idx = test_idx = None
+            test_input_path = fetcher.test_input_path
+            test_metadata_path = fetcher.test_metadata_path
+            if validation is not None:
+                fold = train_dataset[model_idx]
+                train_idx = fold["train_idx"]
+                test_input_path = fetcher.train_input_path
+                test_metadata_path = fetcher.train_metadata_path
+                test_idx = fold["valid_idx"]
+                train_dataset = fold["train"]
+            scalers = self.set_scalers(train_dataset)
+            train.append(MultimodalDataset(
+                fetcher.train_input_path, fetcher.train_metadata_path,
+                train_idx, on_the_fly_transform=scalers))
+            test.append(MultimodalDataset(
+                test_input_path, test_metadata_path, test_idx,
+                on_the_fly_transform=scalers))
+        if n_models == 1:
+            train, test = train[0], test[0]
+        self.dataset_train = train
+        self.dataset_test = test
+
+    def member_datasets(self, model_idx: int):
+        """``(train, test)`` datasets of one ensemble member."""
+        if self.cfg.num_models == 1:
+            return self.dataset_train, self.dataset_test
+        return self.dataset_train[model_idx], self.dataset_test[model_idx]
+
+    # ------------------------------------------------------------- reload
+    @classmethod
+    def get_experiment(cls, flags_file: str, checkpoints_dir: str,
+                       device: torch.device | str,
+                       load_epoch: Optional[int] = None):
+        """Rebuild a run's config and models from ``flags.json`` and the
+        latest (or ``load_epoch``) checkpoint of every member; datasets are
+        not loaded."""
+        cfg = Config.load(flags_file)
+        exp = cls(cfg, device)
+        for model_idx in range(cfg.num_models):
+            path, _ = find_checkpoint(checkpoints_dir, model_idx,
+                                      cfg.num_models, load_epoch,
+                                      cfg.model_save)
+            print(path)
+            restore_checkpoint(path, exp.models[model_idx])
+        return exp, cfg
+
+
+def load_run(outdir: str, run: str, device: torch.device | str):
+    """:meth:`MultimodalExperiment.get_experiment` of ``<outdir>/<run>``."""
+    expdir = os.path.join(outdir, run)
+    flags_file = os.path.join(expdir, "flags.json")
+    if not os.path.isfile(flags_file):
+        raise ValueError("You need first to train the model.")
+    return MultimodalExperiment.get_experiment(
+        flags_file, os.path.join(expdir, "checkpoints"), device)
