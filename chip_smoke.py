@@ -1,31 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's DAA path on one CUDA card and check it.
+"""Drive the PyTorch port's `daa` and `train` paths on one CUDA card and
+check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
-NVIDIA Hopper card (the kernel is built for sm_90a) and the CUDA toolkit's
-``nvcc``; it imports nothing of JAX. Phases, one line each:
+NVIDIA Hopper card (the kernels are built for sm_90a) and the CUDA
+toolkit's ``nvcc``; it imports nothing of JAX. Flagship widths
+throughout: clinical 7, ROIs 444, hidden 256, latent 20, style [3, 20].
+Phases, one line or more each:
 
 1. device: the card's name and power limit;
-2. build: ``multivae_tpu_torch/csrc/avatar_sweep.cu`` with nvcc;
-3. kernel check: the avatar-sweep kernel against its plain PyTorch version
-   at the flagship widths (clinical 7, ROIs 444, hidden 256, latent 20,
-   style [3, 20]), B=50 and 200 x 7 cells, for the four methods with and
-   without sampled latents (atol = rtol = 1e-4: float32 with another
-   summation order), and both timed with CUDA events;
-4. slice: a seeded-init flagship model written as a port run dir and loaded
-   back, then ``run_daa`` on a numpy cohort (likelihood strategy,
-   n_samples=200, n_validation=2, sampled latents, full artifact), counting
-   the kernel's launches; then the same DAA run at a small size,
-   deterministic, on the card and with the model on the CPU (the plain
-   version), which must agree.
+2. build: every ``multivae_tpu_torch/csrc/*.cu`` at once (one nvcc each),
+   with ptxas' registers and spills;
+3. kernel: the avatar-sweep kernel against its plain PyTorch version, B=50
+   and 200 x 7 cells, four methods with and without sampled latents
+   (atol = rtol = 1e-4), both timed with CUDA events;
+4. train-kernel: the MoPoE step (B=256 and 137) and the presence step
+   (mod_idx 0 and 1, B=256 and 137) against their plain versions, with and
+   without a learned output scale (loss rtol 1e-5; metrics and grads rtol
+   5e-4 / atol 1e-5), flat Adam on random state at count 0 and 1000 (rtol
+   1e-6 / atol 1e-8), an 8-step epoch of each route (params, mu, nu rtol
+   1e-4 / atol 1e-5), and times in turns plain, kernel, kernel, plain: the
+   step, the Adam pass and one flagship epoch of device work;
+5. slice: ``run_daa`` of a seeded-init flagship model on a numpy cohort
+   (n_samples=200, n_validation=2), counting the sweep kernel's launches,
+   and a small deterministic DAA on the card against the CPU;
+6. train-slice: ``workflows.train_exp`` on a 2100-subject synthetic cohort
+   (20 % without ROIs: 5 full + 1 partial complete batches, 1 full + 1
+   partial clinical-only batches per epoch) for 10 epochs, counting each
+   kernel's launches and checking losses, metric families and
+   checkpoints; a profiled epoch (device busy time); ``workflows.daa_exp``
+   of the trained run; one epoch on the card against one on the CPU.
 
-Any failed phase exits non-zero. The last two lines are the JSON record of
-the kernels and ``{"ok": true, "device": {...}}``; before them, the line of
-``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``.
+Any failed phase exits non-zero. The last three lines are the JSON record
+of the kernels, the line of ``nvidia-smi --query-gpu=name,power.limit
+--format=csv,noheader`` and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -79,7 +93,8 @@ def flagship_cfg(method="joint_elbo", **kw):
 
 
 def kernel_check(device):
-    """Phase 3: kernel vs plain version, all methods and both branches."""
+    """Phase kernel: the avatar sweep vs its plain version, all methods and
+    both branches."""
     import torch
 
     from multivae_tpu_torch.models import build_model, make_modalities
@@ -137,6 +152,383 @@ def kernel_check(device):
     return max_err, timing
 
 
+# ------------------------------------------------------------ train kernels
+STEP_RTOL, STEP_ATOL = 5e-4, 1e-5    # metrics and grads (test_fused_step)
+LOSS_RTOL = 1e-5
+ADAM_RTOL, ADAM_ATOL = 1e-6, 1e-8    # one update on identical inputs
+EPOCH_RTOL, EPOCH_ATOL = 1e-4, 1e-5  # params, mu, nu after 8 steps
+# one flagship epoch's steps (2100-subject synthetic cohort, 20 % without
+# the ROI block, batch 256): 5 full + 1 partial complete batches, then the
+# clinical-only group's full and partial batch
+EPOCH_COMPLETE = (256, 256, 256, 256, 256, 64)
+EPOCH_PRESENCE = (256, 164)
+
+
+def flops_per_step(batch: int) -> float:
+    """Matmul FLOPs of one flagship train step (``bench.py:47-62``):
+    6 x the per-sample multiply-adds of the encoders, the 4-head
+    projections and the decoders."""
+    d1, d2 = FLAGSHIP["input_dim"]
+    s1, s2 = FLAGSHIP["style_dim"]
+    h, cd = FLAGSHIP["hidden_dim"], FLAGSHIP["class_dim"]
+    macs = (d1 * h + h * 2 * (cd + s1) + d2 * h + h * 2 * (cd + s2)
+            + (s1 + cd) * d1 + (s2 + cd) * d2)
+    return 6.0 * macs * batch
+
+
+def close(a, b, rtol, atol):
+    """``(max_abs_err, mask of elements outside atol + rtol |b|)``."""
+    diff = (a - b).abs()
+    bad = ~(diff <= atol + rtol * b.abs())
+    return float(diff.max()) if diff.numel() else 0.0, bad
+
+
+def train_setup(device, b: int, seed: int):
+    """Seeded flagship params (flat), a batch and its noise on ``device``."""
+    import torch
+
+    from multivae_tpu_torch.models import build_model, make_modalities
+    from multivae_tpu_torch.params import dims_from, model_flat_params
+
+    cfg = flagship_cfg(seed=seed)
+    model = build_model(cfg, make_modalities(cfg.input_dim, cfg.style_dim,
+                                             cfg.likelihood), device,
+                        seed=seed)
+    dims = dims_from(cfg, b)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x1 = torch.randn((b, dims.d1), generator=gen, device=device)
+    x2 = torch.randn((b, dims.d2), generator=gen, device=device)
+    noise = torch.randn((b, dims.cd + dims.s1 + dims.s2), generator=gen,
+                        device=device)
+    return cfg, dims, model_flat_params(model, dims), x1, x2, noise
+
+
+def check_step(name, ker, ref, names, log_prefix):
+    """Hold one step's (metrics, grads) of the kernel to the plain
+    version; returns the max abs error over metrics and grads."""
+    import torch
+
+    (km, kg), (rm, rg) = ker, ref
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(km).all() and torch.isfinite(kg).all())
+    loss_err, loss_bad = close(km[:1], rm[:1], LOSS_RTOL, 0.0)
+    m_err, m_bad = close(km, rm, STEP_RTOL, STEP_ATOL)
+    worst, bad_tensors = m_err, []
+    for tname, (kt, rt) in names(kg, rg):
+        err, bad = close(kt, rt, STEP_RTOL, STEP_ATOL)
+        worst = max(worst, err)
+        if bool(bad.any()):
+            bad_tensors.append(f"{tname}({int(bad.sum())}, {err:.2e})")
+    ok = (finite and not bool(loss_bad.any()) and not bool(m_bad.any())
+          and not bad_tensors)
+    log("train-kernel", f"{name} {log_prefix} loss {float(km[0]):.6f} vs "
+        f"{float(rm[0]):.6f} (err {loss_err:.2e}), metrics max_abs_err "
+        f"{m_err:.2e}, metrics+grads max_abs_err {worst:.3e} "
+        f"{'ok' if ok else 'MISMATCH ' + ' '.join(bad_tensors)}")
+    if not ok:
+        raise SystemExit(f"{name} disagrees with its plain version "
+                         f"({log_prefix})")
+    return worst
+
+
+def split_pairs(dims):
+    from multivae_tpu_torch.params import flat_views
+
+    def pairs(kg, rg):
+        kv, rv = flat_views(kg, dims), flat_views(rg, dims)
+        return [(n, (kv[n], rv[n])) for n in kv]
+    return pairs
+
+
+def hold_epoch(phase, name, ker, ref, ker_grads, ref_grads, dims,
+               branch=None):
+    """Hold two runs of one epoch from the same state and inputs to each
+    other: ``ker``/``ref`` the state after it (tuples of flat tensors),
+    ``ker_grads``/``ref_grads`` each step's gradients.
+
+    The first step's gradients agree at the step bound everywhere. The
+    state after the epoch agrees at the epoch bound, except for two kinds
+    of element, counted and printed:
+
+    * Adam's trap: Adam divides a gradient by its own size, so an element
+      whose gradient is within rounding of zero can move by up to ~lr in
+      one run only. Such an element's two gradients agree at the step
+      bound at every step, yet at some step differ by more than half the
+      larger of the two (two exact zeros never do);
+    * ``branch``: elements the caller shows to lie behind a branch taken
+      at the rounding level (:func:`relu_flips`).
+
+    Any other element outside the bound fails. Returns the max abs error."""
+    import torch
+
+    from multivae_tpu_torch.params import flat_views
+
+    err1, bad1 = close(ker_grads[0], ref_grads[0], STEP_RTOL, STEP_ATOL)
+    split, grads_apart = torch.zeros_like(bad1), torch.zeros_like(bad1)
+    for a, b in zip(ker_grads, ref_grads):
+        split |= (a - b).abs() > 0.5 * torch.maximum(a.abs(), b.abs())
+        grads_apart |= close(a, b, STEP_RTOL, STEP_ATOL)[1]
+    trap = split & ~grads_apart
+    if branch is None:
+        branch = torch.zeros_like(trap)
+    worst, outside = 0.0, torch.zeros_like(bad1)
+    for a, b in zip(ker, ref):
+        err, bad = close(a, b, EPOCH_RTOL, EPOCH_ATOL)
+        worst, outside = max(worst, err), outside | bad
+    counts = {k: int(v.sum()) for k, v in flat_views(
+        (outside & (trap | branch)).to(torch.uint8), dims).items() if v.any()}
+    log(phase, f"{name}: first-step grads max_abs_err {err1:.3e}; state "
+        f"after the epoch max_abs_err {worst:.3e}, {int(outside.sum())} "
+        f"elements outside rtol {EPOCH_RTOL} / atol {EPOCH_ATOL}: "
+        f"{int((outside & trap).sum())} in Adam's trap (of "
+        f"{int(trap.sum())} elements there), "
+        f"{int((outside & branch & ~trap).sum())} behind a rounding-level "
+        f"branch (of {int(branch.sum())})"
+        + (f"; by tensor: {counts}" if counts else ""))
+    if bool(bad1.any()):
+        raise SystemExit(f"{name}: the first step's gradients disagree")
+    if bool((outside & ~(trap | branch)).any()):
+        raise SystemExit(f"{name}: {int((outside & ~(trap | branch)).sum())}"
+                         f" elements disagree beyond the epoch bound")
+    return worst
+
+
+def epoch_check(name, run, p0, dims):
+    """An 8-step epoch of one route on the kernels and on the plain
+    versions from the same state, held by :func:`hold_epoch`."""
+    import torch
+
+    from multivae_tpu_torch.ops.adam import init_adam_state
+
+    states, grads = {}, {}
+    for version in ("kernel", "plain"):
+        p = p0.clone()
+        st = init_adam_state(p)
+        grads[version] = []
+        run(version, p, st.mu, st.nu, grads[version])
+        states[version] = (p, st.mu, st.nu)
+    torch.cuda.synchronize()
+    return hold_epoch("train-kernel", f"{name} 8-step epoch",
+                      states["kernel"], states["plain"], grads["kernel"],
+                      grads["plain"], dims)
+
+
+def train_kernel_check(device):
+    """Phase train-kernel: the step, presence-step and Adam kernels against
+    their plain versions at the flagship widths, 8-step epochs of each
+    route, and times (CUDA events, in turns plain, kernel, kernel,
+    plain)."""
+    import torch
+
+    from multivae_tpu_torch.ops import adam as adam_ops
+    from multivae_tpu_torch.ops import fused_presence as fp
+    from multivae_tpu_torch.ops import fused_step as fs
+    from multivae_tpu_torch.params import dims_from, flat_views, flatten_split
+
+    result = {k: {"max_abs_err": 0.0} for k in
+              ("mopoe_step", "presence_step", "flat_adam")}
+    consts = fs.FusedConsts(1.0, 1.0, 1.0)
+    hyper = adam_ops.AdamHyper(2e-3, 0.9, 0.999)
+    for b in (256, 137):
+        for learn_scale in (True, False):
+            cfg, dims, p, x1, x2, noise = train_setup(device, b, SEED + b)
+            ej, es1, es2 = fs.split_noise(noise, dims)
+            ker = fs.step_flat(p, x1, x2, ej, es1, es2, dims, consts,
+                               learn_scale)
+            _, rm, rg = fs.fwd_bwd_reference(flat_views(p, dims), x1, x2,
+                                             ej, es1, es2, dims, consts,
+                                             learn_scale)
+            err = check_step("mopoe_step", ker, (rm, flatten_split(rg)),
+                             split_pairs(dims),
+                             f"B={b} learn_scale={learn_scale}")
+            result["mopoe_step"]["max_abs_err"] = max(
+                result["mopoe_step"]["max_abs_err"], err)
+            for mod_idx, x in ((0, x1), (1, x2)):
+                s = dims.s1 if mod_idx == 0 else dims.s2
+                pe = noise[:, dims.cd:dims.cd + s]
+                ker = fp.presence_step_flat(p, x, ej, pe, dims, consts,
+                                            learn_scale, mod_idx)
+                _, rm, rg = fp.presence_fwd_bwd_reference(
+                    flat_views(p, dims), x, ej, pe, dims, consts,
+                    learn_scale, mod_idx)
+                err = check_step("presence_step", ker,
+                                 (rm, flatten_split(rg)), split_pairs(dims),
+                                 f"mod_idx={mod_idx} B={b} "
+                                 f"learn_scale={learn_scale}")
+                result["presence_step"]["max_abs_err"] = max(
+                    result["presence_step"]["max_abs_err"], err)
+
+    # Adam on random state at count 0 and 1000
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n = p.numel()
+    for count in (0, 1000):
+        p0 = torch.randn(n, generator=gen, device=device)
+        g = torch.randn(n, generator=gen, device=device)
+        mu0 = 0.1 * torch.randn(n, generator=gen, device=device)
+        nu0 = 0.01 * torch.rand(n, generator=gen, device=device)
+        outs = []
+        for fn in (adam_ops.adam_update, adam_ops.adam_update_reference):
+            st = [p0.clone(), mu0.clone(), nu0.clone()]
+            fn(*st, g, count + 1, hyper)
+            outs.append(st)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for kt, rt in zip(*outs):
+            err, bad = close(kt, rt, ADAM_RTOL, ADAM_ATOL)
+            worst = max(worst, err)
+            if bool(bad.any()):
+                raise SystemExit(f"flat_adam disagrees with its plain "
+                                 f"version at count {count}")
+        result["flat_adam"]["max_abs_err"] = max(
+            result["flat_adam"]["max_abs_err"], worst)
+        log("train-kernel", f"flat_adam count={count} n={n}: params/mu/nu "
+            f"max_abs_err {worst:.3e} (rtol {ADAM_RTOL}, atol {ADAM_ATOL}) "
+            f"ok")
+
+    # 8-step epochs of each route, kernels against plain versions
+    cfg, dims, p0, _, _, _ = train_setup(device, 256, SEED)
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+
+    def steps_data(b, width_x):
+        return (torch.randn((8, b, width_x), generator=gen, device=device),
+                torch.randn((8, b, dims.cd + dims.s1 + dims.s2),
+                            generator=gen, device=device))
+
+    x1s, noise1 = steps_data(256, dims.d1)
+    x2s = torch.randn((8, 256, dims.d2), generator=gen, device=device)
+
+    def run_complete(version, p, mu, nu, grads):
+        for i in range(8):
+            ej, es1, es2 = fs.split_noise(noise1[i], dims)
+            if version == "kernel":
+                _, g = fs.step_flat(p, x1s[i], x2s[i], ej, es1, es2, dims,
+                                    consts, True)
+                adam_ops.adam_update(p, mu, nu, g, i + 1, hyper)
+            else:
+                _, _, gd = fs.fwd_bwd_reference(flat_views(p, dims), x1s[i],
+                                                x2s[i], ej, es1, es2, dims,
+                                                consts, True)
+                g = flatten_split(gd)
+                adam_ops.adam_update_reference(p, mu, nu, g, i + 1, hyper)
+            grads.append(g)
+
+    result["mopoe_step"]["epoch_err"] = epoch_check(
+        "mopoe_step + flat_adam", run_complete, p0, dims)
+
+    for mod_idx, xs in ((0, x1s), (1, x2s)):
+        s = dims.s1 if mod_idx == 0 else dims.s2
+
+        def run_presence(version, p, mu, nu, grads, mod_idx=mod_idx, xs=xs,
+                         s=s):
+            for i in range(8):
+                ej = noise1[i][:, :dims.cd]
+                es = noise1[i][:, dims.cd:dims.cd + s]
+                if version == "kernel":
+                    _, g = fp.presence_step_flat(p, xs[i], ej, es, dims,
+                                                 consts, True, mod_idx)
+                    adam_ops.adam_update(p, mu, nu, g, i + 1, hyper)
+                else:
+                    _, _, gd = fp.presence_fwd_bwd_reference(
+                        flat_views(p, dims), xs[i], ej, es, dims, consts,
+                        True, mod_idx)
+                    g = flatten_split(gd)
+                    adam_ops.adam_update_reference(p, mu, nu, g, i + 1,
+                                                   hyper)
+                grads.append(g)
+
+        result["presence_step"][f"epoch_err_{mod_idx}"] = epoch_check(
+            f"presence_step(mod_idx={mod_idx}) + flat_adam", run_presence,
+            p0, dims)
+
+    # ---- timing, in turns: plain, kernel, kernel, plain
+    ej, es1, es2 = fs.split_noise(noise1[0], dims)
+    p = p0.clone()
+
+    def time_pair(ker_fn, ref_fn, iters=50):
+        t = [cuda_ms(ref_fn, iters), cuda_ms(ker_fn, iters),
+             cuda_ms(ker_fn, iters), cuda_ms(ref_fn, iters)]
+        return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+    ker_ms, plain_ms, t = time_pair(
+        lambda: fs.step_flat(p, x1s[0], x2s[0], ej, es1, es2, dims, consts,
+                             True),
+        lambda: fs.fwd_bwd_reference(flat_views(p, dims), x1s[0], x2s[0],
+                                     ej, es1, es2, dims, consts, True))
+    result["mopoe_step"].update(ms=ker_ms, plain_ms=plain_ms)
+    fl = flops_per_step(256)
+    log("train-kernel", f"mopoe_step B=256: kernel {t[1]:.4f}/{t[2]:.4f} ms,"
+        f" plain {t[0]:.4f}/{t[3]:.4f} ms per step; kernel "
+        f"{fl / (ker_ms * 1e-3) / 1e12:.3f} TFLOP/s, plain "
+        f"{fl / (plain_ms * 1e-3) / 1e12:.3f} TFLOP/s "
+        f"({fl / 1e6:.1f} MFLOP/step)")
+    pe = noise1[0][:, dims.cd:dims.cd + dims.s1]
+    ker_ms, plain_ms, t = time_pair(
+        lambda: fp.presence_step_flat(p, x1s[0], ej, pe, dims, consts, True,
+                                      0),
+        lambda: fp.presence_fwd_bwd_reference(flat_views(p, dims), x1s[0],
+                                              ej, pe, dims, consts, True, 0))
+    result["presence_step"].update(ms=ker_ms, plain_ms=plain_ms)
+    log("train-kernel", f"presence_step mod_idx=0 B=256: kernel "
+        f"{t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms per step")
+    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
+    g = torch.randn(p.numel(), generator=gen, device=device) * 1e-3
+    ker_ms, plain_ms, t = time_pair(
+        lambda: adam_ops.adam_update(p.clone(), mu, nu, g, 1, hyper),
+        lambda: adam_ops.adam_update_reference(p.clone(), mu, nu, g, 1,
+                                               hyper))
+    result["flat_adam"].update(ms=ker_ms, plain_ms=plain_ms)
+    log("train-kernel", f"flat_adam n={p.numel()}: kernel {t[1]:.4f}/"
+        f"{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms per update (each "
+        f"incl. one {p.numel() * 4 / 1e6:.2f} MB params copy)")
+
+    # one flagship epoch of device work: 6 complete + 2 clinical-only steps
+    batches = []
+    for b in EPOCH_COMPLETE:
+        _, _, _, bx1, bx2, bn = train_setup(device, b, SEED + 7 * b)
+        batches.append(("c", bx1, bx2, bn))
+    for b in EPOCH_PRESENCE:
+        _, _, _, bx1, _, bn = train_setup(device, b, SEED + 11 * b)
+        batches.append(("p", bx1, None, bn))
+
+    def epoch(kernel: bool):
+        q, m_, v_ = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
+        for i, (kind, bx1, bx2, bn) in enumerate(batches):
+            bdims = dims_from(cfg, bx1.shape[0])
+            bej, bes1, bes2 = fs.split_noise(bn, bdims)
+            if kind == "c":
+                if kernel:
+                    _, gg = fs.step_flat(q, bx1, bx2, bej, bes1, bes2, bdims,
+                                         consts, True)
+                else:
+                    _, _, gd = fs.fwd_bwd_reference(
+                        flat_views(q, bdims), bx1, bx2, bej, bes1, bes2,
+                        bdims, consts, True)
+                    gg = flatten_split(gd)
+            else:
+                if kernel:
+                    _, gg = fp.presence_step_flat(q, bx1, bej, bes1, bdims,
+                                                  consts, True, 0)
+                else:
+                    _, _, gd = fp.presence_fwd_bwd_reference(
+                        flat_views(q, bdims), bx1, bej, bes1, bdims, consts,
+                        True, 0)
+                    gg = flatten_split(gd)
+            (adam_ops.adam_update if kernel
+             else adam_ops.adam_update_reference)(q, m_, v_, gg, i + 1,
+                                                  hyper)
+
+    ker_ms, plain_ms, t = time_pair(lambda: epoch(True),
+                                    lambda: epoch(False), iters=10)
+    n_steps = len(batches)
+    result["epoch"] = dict(ms=ker_ms, plain_ms=plain_ms, steps=n_steps)
+    log("train-kernel", f"flagship epoch ({n_steps} steps: complete B="
+        f"{list(EPOCH_COMPLETE)}, clinical-only B={list(EPOCH_PRESENCE)}): "
+        f"kernels {t[1]:.4f}/{t[2]:.4f} ms = "
+        f"{n_steps / (ker_ms * 1e-3):.1f} steps/s, plain {t[0]:.4f}/"
+        f"{t[3]:.4f} ms = {n_steps / (plain_ms * 1e-3):.1f} steps/s")
+    return result
+
+
 def numpy_cohort(rng, cfg, n_train: int, n_test: int):
     """A cohort built with numpy alone: a shared low-rank factor drives a
     clinical block and a ROI block, each standardized."""
@@ -183,7 +575,7 @@ def write_run(root: str, cfg) -> str:
 
 
 def slice_run(device, card: str):
-    """Phase 4: the DAA path end to end; returns the kernel launches."""
+    """Phase slice: the DAA path end to end; returns the kernel launches."""
     import torch
 
     from multivae_tpu_torch.analysis import daa
@@ -304,35 +696,429 @@ def slice_run(device, card: str):
     return launches, sweep_ms
 
 
+# ------------------------------------------------------------- train slice
+SLICE_SUBJECTS, SLICE_EPOCHS = 2100, 10
+SLICE_TRAIN = dict(input_dims=[7, 444], latent_dim=20, style_dim=[3, 20],
+                   batch_size=256, fused_training=True,
+                   use_tensorboard=False)
+
+
+def epoch_batch_counts(datadir: str):
+    """``(complete, clinical-only)`` batch sizes of one training epoch of
+    the cohort, from the port's data layer and sampler."""
+    from multivae_tpu_torch.data import MissingModalitySampler
+    from multivae_tpu_torch.train.experiment import MultimodalExperiment
+
+    cfg = flagship_cfg(dataset="synthetic", datasetdir=datadir,
+                       batch_size=256)
+    exp = MultimodalExperiment(cfg, "cpu")
+    exp.set_datasets()
+    ds = exp.dataset_train
+    start = time.perf_counter()
+    complete, clinical = [], []
+    for idxs in MissingModalitySampler(ds, batch_size=256, seed=cfg.seed):
+        data, _, _ = ds.gather(idxs)
+        (complete if len(data) == 2 else clinical).append(len(idxs))
+    return sorted(complete), sorted(clinical), time.perf_counter() - start
+
+
+class _Tee(io.StringIO):
+    def write(self, text):
+        sys.__stdout__.write(text)
+        return super().write(text)
+
+
+def train_run(datadir, outdir, epochs, device):
+    """``train_exp`` of the slice; returns the run and the train wall of
+    each epoch that it prints."""
+    from multivae_tpu_torch import workflows
+
+    out = _Tee()
+    with contextlib.redirect_stdout(out):
+        run = workflows.train_exp("synthetic", datadir, outdir,
+                                  num_epochs=epochs, device=device,
+                                  **SLICE_TRAIN)
+    line = [ln for ln in out.getvalue().splitlines()
+            if "train wall per epoch (s):" in ln][-1]
+    return run, [float(w) for w in line.split(":", 1)[1].split()]
+
+
+def profile_epoch(datadir, run_dir, device):
+    """Device busy time of one training epoch (``torch.profiler``), its
+    host wall, and the kernels' device time by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from multivae_tpu_torch.train import trainer
+    from multivae_tpu_torch.train.config import Config
+    from multivae_tpu_torch.train.experiment import MultimodalExperiment
+
+    cfg = Config.load(os.path.join(run_dir, "flags.json"))
+    cfg.datasetdir = datadir
+    exp = MultimodalExperiment(cfg, device)
+    exp.set_datasets()
+    exp.set_optimizers()
+    trainer.train_one_epoch(exp, 0, None, trainer.epoch_generator(cfg, 0, 0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        trainer.train_one_epoch(exp, 0, None,
+                                trainer.epoch_generator(cfg, 0, 1), 1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+    by_name = {}
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0:
+            by_name[ev.key] = t / 1e3  # ms
+    return wall, by_name
+
+
+def cpu(x):
+    return x.detach().cpu().clone() if hasattr(x, "detach") else x
+
+
+@contextlib.contextmanager
+def recording_train_loop():
+    """Record every step and Adam update of the train loop on the host:
+    each step's inputs, its (metrics, grads), and each update's state
+    before and after."""
+    from multivae_tpu_torch.ops import adam, fused_presence, fused_step
+
+    rec = {"steps": [], "updates": [], "state": None}
+    saved = (fused_step.step_flat, fused_presence.presence_step_flat,
+             fused_step.adam_update, fused_presence.adam_update)
+
+    def recorder(kind, fn):
+        def step(*args):
+            out = fn(*args)
+            rec["steps"].append((kind, [cpu(a) for a in args],
+                                 [cpu(o) for o in out]))
+            return out
+        return step
+
+    def update(p, mu, nu, g, t, hyper):
+        before = [cpu(x) for x in (p, mu, nu)]
+        adam.adam_update(p, mu, nu, g, t, hyper)
+        rec["updates"].append((before, cpu(g), t, hyper,
+                               [cpu(x) for x in (p, mu, nu)]))
+        rec["state"] = (p, mu, nu)
+
+    fused_step.step_flat = recorder("complete", saved[0])
+    fused_presence.presence_step_flat = recorder("presence", saved[1])
+    fused_step.adam_update = fused_presence.adam_update = update
+    try:
+        yield rec
+    finally:
+        (fused_step.step_flat, fused_presence.presence_step_flat,
+         fused_step.adam_update, fused_presence.adam_update) = saved
+
+
+def relu_flips(card, host, dims):
+    """Hidden units whose ReLU took different branches in the two recorded
+    runs at the rounding level: at some step and row, the unit's input,
+    computed on the host from each run's own state, lies on different
+    sides of zero while the two inputs agree to ``EPOCH_RTOL`` of the sum
+    of their terms' sizes. Returns the mask of the params whose gradients
+    pass through such a unit (its input weights, its bias and its rows of
+    the four heads) and a description of each unit's first flip."""
+    import torch
+
+    from multivae_tpu_torch.params import flat_views
+
+    mask = torch.zeros_like(card["updates"][0][1], dtype=torch.bool)
+    views, flips = flat_views(mask, dims), {}
+    for s, ((kind, args, _), (_, host_args, _)) in enumerate(
+            zip(card["steps"], host["steps"])):
+        # step_flat(p, x1, x2, ...); presence_step_flat(p, x, ..., mod_idx)
+        inputs = ([(1, args[1]), (2, args[2])] if kind == "complete"
+                  else [(args[-1] + 1, args[1])])
+        for e, x in inputs:
+            pre = []
+            for p in (args[0], host_args[0]):
+                w, b = (flat_views(p, dims)[f"enc{e}_{n}"] for n in
+                        ("Wh", "bh"))
+                pre.append(x @ w + b)
+            size = x.abs() @ w.abs() + b.abs()
+            gap = (pre[0] - pre[1]).abs()
+            flip = ((pre[0] > 0) != (pre[1] > 0)) & (gap <= EPOCH_RTOL * size)
+            for r, j in torch.nonzero(flip).tolist():
+                if (e, j) in flips:
+                    continue
+                flips[(e, j)] = (
+                    f"enc{e} unit {j}: step {s} row {r}, input "
+                    f"{float(pre[0][r, j]):.3e} (card's state) vs "
+                    f"{float(pre[1][r, j]):.3e} (CPU's), "
+                    f"{float(gap[r, j] / size[r, j]):.1e} of its terms' size")
+                views[f"enc{e}_Wh"][:, j] = True
+                views[f"enc{e}_bh"][j] = True
+                for head in ("Wcmu", "Wclv", "Wsmu", "Wslv"):
+                    views[f"enc{e}_{head}"][j] = True
+    return mask, list(flips.values())
+
+
+def hold_slice_epoch(card, host, dims):
+    """Hold the card's epoch to the CPU's (``card``/``host``: the records
+    of :func:`recording_train_loop`).
+
+    1. Both runs fed every step the same inputs (batches and noise), bit
+       for bit.
+    2. Along the card's own trajectory, every step and every Adam update
+       is recomputed by the plain versions on the host from the same
+       inputs, and held to the step and Adam bounds, every element.
+    3. The params after the epoch are held by :func:`hold_epoch`, with the
+       params behind the ReLUs of :func:`relu_flips` as its branch."""
+    import torch
+
+    from multivae_tpu_torch.ops import adam, fused_presence, fused_step
+
+    same_inputs = len(card["steps"]) == len(host["steps"]) and all(
+        ck == hk and all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+                         for a, b in zip(ca[1:], ha[1:]))
+        for (ck, ca, _), (hk, ha, _) in zip(card["steps"], host["steps"]))
+    if not same_inputs:
+        raise SystemExit("the card's and the CPU's epochs were fed "
+                         "different inputs")
+    plain = {"complete": fused_step.step_flat,
+             "presence": fused_presence.presence_step_flat}
+    worst_step, worst_adam = 0.0, 0.0
+    for kind, args, (km, kg) in card["steps"]:
+        rm, rg = plain[kind](*args)
+        for a, b, rtol, atol in ((km[:1], rm[:1], LOSS_RTOL, 0.0),
+                                 (km, rm, STEP_RTOL, STEP_ATOL),
+                                 (kg, rg, STEP_RTOL, STEP_ATOL)):
+            err, bad = close(a, b, rtol, atol)
+            worst_step = max(worst_step, err)
+            if bool(bad.any()):
+                raise SystemExit(f"a {kind} step of the card's epoch "
+                                 f"disagrees with the plain version")
+    for before, g, t, hyper, after in card["updates"]:
+        st = [x.clone() for x in before]
+        adam.adam_update_reference(*st, g, t, hyper)
+        for i, (a, b) in enumerate(zip(after, st)):
+            err, bad = close(a, b, ADAM_RTOL, ADAM_ATOL)
+            if i == 0:
+                # 1 - exp(t log b2) cancels ~3 digits at small t, so the
+                # card's and the host's exp (1 ulp apart) give updates
+                # ~1e-4 apart relative to the update itself
+                bad &= (a - b).abs() > 1e-4 * (b - before[0]).abs()
+            worst_adam = max(worst_adam, err)
+            if bool(bad.any()):
+                j = int(torch.argmax((a - b).abs() * bad))
+                log("train-slice", f"Adam t={t} {'p mu nu'.split()[i]}: "
+                    f"{int(bad.sum())} outside; worst [{j}] card "
+                    f"{float(a[j]):.9e} host {float(b[j]):.9e} before "
+                    f"{float(before[i][j]):.9e} g {float(g[j]):.9e} "
+                    f"mu {float(before[1][j]):.6e} "
+                    f"nu {float(before[2][j]):.6e}")
+                raise SystemExit("an Adam update of the card's epoch "
+                                 "disagrees with the plain version")
+    log("train-slice", f"one epoch, card (kernels) vs CPU (plain "
+        f"versions): same inputs at all {len(card['steps'])} steps; the "
+        f"card's steps recomputed by the plain versions max_abs_err "
+        f"{worst_step:.3e}, its {len(card['updates'])} Adam updates "
+        f"{worst_adam:.3e}")
+    branch, flips = relu_flips(card, host, dims)
+    log("train-slice", f"ReLUs that took different branches at the "
+        f"rounding level: {flips if flips else 'none'}")
+    hold_epoch("train-slice", "params after one epoch, card vs CPU",
+               (card["updates"][-1][4][0],), (host["updates"][-1][4][0],),
+               [u[1] for u in card["updates"]],
+               [u[1] for u in host["updates"]], dims, branch)
+
+
+def train_slice(device, card: str):
+    """Phase train-slice: ``workflows.train_exp`` on the card at the
+    flagship width, then ``daa_exp`` of the trained run, then one epoch on
+    the card against one epoch on the CPU (the plain versions)."""
+    import pandas as pd
+    import torch
+
+    from multivae_tpu_torch import workflows
+    from multivae_tpu_torch.data import make_synthetic_cohort
+    from multivae_tpu_torch.ops import adam, fused_presence, fused_step
+
+    counters = {"mopoe_step": fused_step.KERNEL_LAUNCHES,
+                "presence_step": fused_presence.KERNEL_LAUNCHES,
+                "flat_adam": adam.KERNEL_LAUNCHES}
+    with tempfile.TemporaryDirectory() as root:
+        datadir = os.path.join(root, "data")
+        make_synthetic_cohort(datadir, n_subjects=SLICE_SUBJECTS,
+                              n_scores=7, n_rois=444, missing_rate=0.2,
+                              seed=SEED, signal_strength=2.0)
+        complete, clinical, batching_s = epoch_batch_counts(datadir)
+        log("train-slice", f"cohort {SLICE_SUBJECTS} subjects: complete "
+            f"batches {complete}, clinical-only batches {clinical}; host "
+            f"batching (sampler + gather + scaling) {batching_s:.4f} s "
+            f"per epoch")
+        if (complete != sorted(EPOCH_COMPLETE)
+                or clinical != sorted(EPOCH_PRESENCE)):
+            raise SystemExit("unexpected epoch batches")
+        steps = len(complete) + len(clinical)
+
+        for c in counters.values():
+            for k in c:
+                c[k] = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        run, walls = train_run(datadir, os.path.join(root, "out"),
+                               SLICE_EPOCHS, "cuda")
+        total = time.perf_counter() - start
+        launches = {k: c[k] for k, c in counters.items()}
+        rundir = os.path.join(root, "out", run)
+        csv = pd.read_csv(os.path.join(rundir, "logs", "metrics.csv"))
+        tr = csv[csv.phase == "train"]
+        per_step = tr.groupby("step").metric.apply(frozenset)
+        complete_fam = {"loss", "joint_divergence", "log_prob/clinical",
+                        "log_prob/rois", "kld/clinical", "kld/rois",
+                        "kld/clinical_rois", "kld_style/clinical_style",
+                        "kld_style/rois_style", "latent_mu/rois_style"}
+        clinical_fam = {"loss", "joint_divergence", "log_prob/clinical",
+                        "kld/clinical", "kld_style/clinical_style",
+                        "latent_mu/clinical", "latent_logvar/clinical",
+                        "latent_mu/clinical_style",
+                        "latent_logvar/clinical_style"}
+        n_complete = sum(complete_fam <= s for s in per_step)
+        n_clinical = sum(s == clinical_fam for s in per_step)
+        losses = tr[tr.metric == "loss"].sort_values("step").value.to_numpy()
+        first = losses[:steps].mean()
+        last = losses[-steps:].mean()
+        ckpt = os.path.join(rundir, "checkpoints", f"{SLICE_EPOCHS - 1:04d}")
+        checks = {
+            "mopoe_step launches": launches["mopoe_step"]
+            == len(complete) * SLICE_EPOCHS,
+            "presence_step launches": launches["presence_step"]
+            == len(clinical) * SLICE_EPOCHS,
+            "flat_adam launches = steps": launches["flat_adam"]
+            == steps * SLICE_EPOCHS,
+            "losses finite": bool(np.isfinite(csv.value).all()),
+            "last epoch loss < first": bool(last < first),
+            "complete-route families": n_complete
+            == len(complete) * SLICE_EPOCHS,
+            "clinical-only-route families": n_clinical
+            == len(clinical) * SLICE_EPOCHS,
+            "model.npz": os.path.isfile(os.path.join(ckpt, "model.npz")),
+            "opt_state.npz": os.path.isfile(os.path.join(ckpt,
+                                                         "opt_state.npz")),
+        }
+        wall = float(np.median(walls[1:])) if len(walls) > 1 else walls[0]
+        log("train-slice", f"train_exp {SLICE_EPOCHS} epochs x {steps} steps"
+            f" in {total:.3f} s (set-up included); launches {launches}; "
+            f"mean train loss epoch 1 {first:.3f} -> epoch {SLICE_EPOCHS} "
+            f"{last:.3f}; checks "
+            + ", ".join(f"{k}={v}" for k, v in checks.items()))
+        log("train-slice", f"train wall per epoch (train + test + logs, "
+            f"host clock, synchronized): first {walls[0]:.4f} s, median of "
+            f"the rest {wall:.4f} s = {steps / wall:.1f} steps/s end to "
+            f"end; host batching {batching_s:.4f} s = "
+            f"{100 * batching_s / wall:.1f} % of it ({card})")
+        if not all(checks.values()):
+            raise SystemExit(f"train slice wrong: {checks}")
+
+        ep_wall, by_name = profile_epoch(datadir, rundir, device)
+        busy = sum(by_name.values())
+        if busy > 0:
+            ours = {k: v for k, v in by_name.items()
+                    if any(s in k for s in ("gemm", "latent", "colsum",
+                                            "colreduce", "metrics_kernel",
+                                            "flat_adam"))}
+            log("train-slice", f"profiled training epoch: wall "
+                f"{ep_wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
+                f"(idle share {100 * (1 - busy / (ep_wall * 1e3)):.1f} %) ="
+                f" {steps / (busy * 1e-3):.1f} device steps/s; hand "
+                f"kernels {sum(ours.values()):.3f} ms; top: "
+                + ", ".join(f"{k[:40]} {v:.3f}" for k, v in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:6]))
+        else:
+            log("train-slice", f"profiled training epoch: wall "
+                f"{ep_wall * 1e3:.3f} ms; device time not measured (the "
+                f"profiler recorded no device events)")
+
+        # daa of the trained run through its normal entry point
+        start = time.perf_counter()
+        resdir = workflows.daa_exp(
+            "synthetic", datadir, os.path.join(root, "out"), run,
+            n_validation=2, n_samples=50, n_subjects=50, M=100,
+            device="cuda")
+        tsv = os.path.join(resdir, "significant_rois.tsv")
+        with open(tsv) as fh:
+            n_rows = fh.read().count("\n") - 1
+        log("train-slice", f"daa_exp of the trained run: "
+            f"{time.perf_counter() - start:.3f} s, significant_rois.tsv "
+            f"{n_rows} rows")
+
+        # one epoch on the card against one epoch on the CPU
+        from multivae_tpu_torch.params import dims_from
+
+        records = {}
+        for dev in ("cuda", "cpu"):
+            with recording_train_loop() as rec:
+                train_run(datadir, os.path.join(root, f"one_{dev}"), 1, dev)
+            records[dev] = rec
+        hold_slice_epoch(records["cuda"], records["cpu"],
+                         dims_from(flagship_cfg(), 256))
+    return launches
+
+
+KERNELS = ("avatar_sweep", "mopoe_step", "presence_step", "flat_adam")
+# the TPU kernels (bodies) each one replaces on the ported paths
+REPLACES = {
+    "avatar_sweep": "multivae_tpu/ops/fused_daa.py:54",
+    "mopoe_step": "multivae_tpu/ops/fused_step.py:505, "
+                  "multivae_tpu/ops/fused_step.py:587, "
+                  "multivae_tpu/ops/fused_methods.py:341",
+    "presence_step": "multivae_tpu/ops/fused_presence.py:247",
+    "flat_adam": "multivae_tpu/ops/fused_step.py:615, "
+                 "multivae_tpu/ops/fused_presence.py:287, "
+                 "multivae_tpu/ops/fused_methods.py:382"}
+
+
+def build_phase() -> None:
+    """Phase build: every kernel source at once, one nvcc each."""
+    from multivae_tpu_torch.ops import _build
+
+    start = time.perf_counter()
+    built = _build.build_kernels(KERNELS)
+    for name, res in built.items():
+        ptxas = [ln.strip() for ln in res.log.splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log("build", f"{name}.cu built in {res.seconds:.2f} s -> "
+            f"{res.path.name}; " + " | ".join(ptxas))
+    log("build", f"all {len(built)} kernels in "
+        f"{time.perf_counter() - start:.2f} s (parallel nvcc)")
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 1
-    from multivae_tpu_torch.ops import _build
-
     device = torch.device("cuda", 0)
     name = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     log("device", f"{name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
-
-    built = _build.build_kernel("avatar_sweep")
-    ptxas = [ln.strip() for ln in built.log.splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("build", f"avatar_sweep.cu built in {built.seconds:.2f} s -> "
-        f"{built.path.name}; " + " | ".join(ptxas))
+    build_phase()
 
     max_err, (ker_ms, plain_ms) = kernel_check(device)
-    launches, _ = slice_run(device, smi)
+    entries = {"avatar_sweep": dict(max_abs_err=max_err, ms=ker_ms,
+                                    plain_ms=plain_ms)}
+    for kname, res in train_kernel_check(device).items():
+        if kname in KERNELS:
+            entries[kname] = res
+    entries["avatar_sweep"]["launches"], _ = slice_run(device, smi)
+    for kname, n in train_slice(device, smi).items():
+        entries[kname]["launches"] = n
 
     print(json.dumps({"kernels": [{
-        "name": "avatar_sweep", "route": "cuda",
-        "source": "multivae_tpu_torch/csrc/avatar_sweep.cu",
-        "replaces": "multivae_tpu/ops/fused_daa.py:54",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": ker_ms, "plain_ms": plain_ms}]}))
+        "name": k, "route": "cuda",
+        "source": f"multivae_tpu_torch/csrc/{k}.cu",
+        "replaces": REPLACES[k], **{f: entries[k][f] for f in (
+            "launches", "max_abs_err", "ms", "plain_ms")}}
+        for k in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

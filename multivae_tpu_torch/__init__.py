@@ -2,22 +2,30 @@
 
 The JAX package ``multivae_tpu`` is the reference: every module here mirrors
 the module of the same name there and is tested against it on shared inputs.
-This package imports ``torch`` and never ``jax``; the only pieces of the JAX
-package it reuses by import are jax-free (``multivae_tpu.train.config``,
-``multivae_tpu.utils.colors`` and, on the CLI path, ``multivae_tpu.data``).
+This package imports ``torch`` and never ``jax``, nor anything of the JAX
+package: modules it needs that hold no JAX code (the config, the data
+layer, the print helpers) are copied.
 
 Layers, from the entry point down:
-  * ``cli`` / ``workflows`` — the ``daa`` command (``--device``, default
-    ``cuda``);
-  * ``train.experiment`` / ``train.checkpoint`` — load a run: config, model,
-    numpy-format checkpoint, cohort;
+  * ``cli`` / ``workflows`` — the ``train``, ``resume`` and ``daa``
+    commands (``--device``, default ``cuda``);
+  * ``train.trainer`` — the per-epoch driver: batching, routes, noise,
+    logging (``train.logging``), checkpoints (``train.checkpoint``);
+  * ``train.experiment`` — config, models, datasets, train state;
+  * ``train.train_step`` / ``train.losses`` — the general autograd step and
+    the ELBO losses;
   * ``analysis.daa`` / ``analysis.stats`` — the Digital Avatars Analysis
     pipeline and its regressions;
+  * ``data`` — cohorts, splits, samplers, scaling (numpy and pandas);
   * ``models`` — the presence-masked multimodal VAE as ``nn.Module`` s;
-  * ``params`` — the weights bridge to and from the JAX param tree;
-  * ``ops`` — Gaussian and fusion math, and ``ops.fused_daa``, whose avatar
-    sweep runs the hand-written CUDA kernel ``csrc/avatar_sweep.cu`` on a
-    CUDA tensor and its plain PyTorch version on a CPU tensor.
+  * ``params`` — the weights bridge to and from the JAX param tree and the
+    flat train state;
+  * ``ops`` — Gaussian, fusion and likelihood math, and the kernels' Python
+    side: ``fused_daa`` (``csrc/avatar_sweep.cu``), ``fused_step``
+    (``csrc/mopoe_step.cu``), ``fused_presence`` (``csrc/presence_step.cu``)
+    and ``adam`` (``csrc/flat_adam.cu``); each launches its hand-written
+    CUDA kernel on a CUDA tensor and runs its plain PyTorch version on a
+    CPU tensor.
 """
 
 __version__ = "0.1.0"

@@ -67,7 +67,7 @@ class DaaCohort:
 
 def cohort_from_datasets(trainset, testset, datasetdir: str,
                          mod_names: Sequence[str]) -> DaaCohort:
-    """Build a :class:`DaaCohort` from ``multivae_tpu.data`` datasets: their
+    """Build a :class:`DaaCohort` from the data layer's datasets: their
     complete subjects, scaled as the datasets serve them."""
     train_data, _, _ = trainset.gather(complete_indices(trainset))
     test_data, _, metadata = testset.gather(complete_indices(testset))

@@ -1,8 +1,9 @@
-"""Command-line interface of the port: ``python -m multivae_tpu_torch daa``.
+"""Command-line interface of the port: ``python -m multivae_tpu_torch
+{train,resume,daa}``.
 
 Counterpart of ``multivae_tpu/cli.py``: the workflow function's signature
 drives the argument parser, so the flags are its parameters
-(``--n-validation 5``, ``--artifact stats-only``, ``--device cuda``).
+(``--input-dims 7 444``, ``--n-validation 5``, ``--device cuda``).
 """
 
 from __future__ import annotations
@@ -25,10 +26,17 @@ def _add_args_from_signature(parser: argparse.ArgumentParser,
         kw: Dict = {"required": default is inspect.Parameter.empty}
         if not kw["required"]:
             kw["default"] = default
-        if isinstance(default, bool):
+        if name in ("input_dims", "style_dim"):
+            kw["nargs"] = "+"
+            kw["type"] = int
+            if not kw["required"]:
+                kw["default"] = list(default)
+        elif isinstance(default, bool):
             kw["type"] = _as_bool
         elif isinstance(default, (int, float)):
             kw["type"] = type(default)
+        elif param.annotation in (int, "int"):
+            kw["type"] = int
         else:
             kw["type"] = str
         if flag.lower() != flag:
@@ -41,7 +49,8 @@ def _add_args_from_signature(parser: argparse.ArgumentParser,
 def _commands() -> Dict[str, Callable]:
     from . import workflows as wf
 
-    return {"daa": wf.daa_exp}
+    return {"train": wf.train_exp, "resume": wf.resume_exp,
+            "daa": wf.daa_exp}
 
 
 def main(argv: Sequence[str] | None = None) -> int:
@@ -49,7 +58,7 @@ def main(argv: Sequence[str] | None = None) -> int:
     parser = argparse.ArgumentParser(
         prog="multivae_tpu_torch",
         description="PyTorch/CUDA port of the multimodal-VAE "
-                    "interpretability workflows")
+                    "training and interpretability workflows")
     sub = parser.add_subparsers(dest="command", required=True)
     for name, fn in _commands().items():
         p = sub.add_parser(name, help=(fn.__doc__ or "").split("\n")[0])

@@ -49,10 +49,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
+    """The library's path; its hash covers the source, every shared header
+    of ``csrc/`` and the flags."""
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_kernel(name: str) -> BuildResult:
@@ -72,6 +75,14 @@ def build_kernel(name: str) -> BuildResult:
                            f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, so)
     return BuildResult(so, seconds, proc.stdout + proc.stderr)
+
+
+def build_kernels(names) -> Dict[str, BuildResult]:
+    """Build several sources at once, one ``nvcc`` process each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build_kernel, names)))
 
 
 def load_kernel(name: str) -> ctypes.CDLL:

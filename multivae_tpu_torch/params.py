@@ -12,7 +12,12 @@ The packed and split layouts of the fused kernels (``FLAT_NAMES``,
 ``SPLIT_NAMES``, :func:`flatten_params`, :func:`split_params`,
 :func:`join_params`; ``multivae_tpu/ops/fused_step.py:65-105, 164-248``)
 are carried here without their kernels. They stay in the JAX layout
-``[in, out]``, which is what the avatar-sweep kernel takes.
+``[in, out]``, which is what the kernels take.
+
+Training keeps params and the Adam moments as flat buffers in the split
+layout (:func:`flat_views`); :func:`split_flat_to_ravel` and
+:func:`ravel_to_split_flat` convert such a buffer to and from the JAX
+package's raveled ``FlatAdamState`` vectors.
 """
 
 from __future__ import annotations
@@ -182,3 +187,117 @@ def model_split_params(model, dims: FusedDims) -> Dict[str, torch.Tensor]:
     tree = state_dict_to_tree(model.state_dict(), as_numpy=False)
     sp = split_params(flatten_params(tree, model.mod_names), dims)
     return {k: v.detach().contiguous() for k, v in sp.items()}
+
+
+def packed_to_tree(p: Mapping[str, object], mod_names) -> Dict:
+    """Packed named dict -> param tree (inverse of :func:`flatten_params`;
+    ``multivae_tpu`` ``unflatten_grads``)."""
+    n1, n2 = mod_names
+    tree = {}
+    for i, n in ((1, n1), (2, n2)):
+        tree[f"enc_{n}"] = {
+            "hidden_0": {"kernel": p[f"enc{i}_Wh"], "bias": p[f"enc{i}_bh"]},
+            "heads": {"kernel": p[f"enc{i}_Wo"], "bias": p[f"enc{i}_bo"]}}
+        tree[f"dec_{n}"] = {
+            "out_mu": {"kernel": p[f"dec{i}_Wd"], "bias": p[f"dec{i}_bd"]},
+            "out_logvar": p[f"dec{i}_olv"]}
+    return tree
+
+
+# ------------------------------------------------------------ the flat state
+# The port trains on three flat float32 buffers (params, Adam mu, Adam nu)
+# holding the 28 split tensors back to back in SPLIT_NAMES order; the split
+# tensors are views of them. The kernels take a buffer and compute the same
+# offsets from the dims (csrc/step_common.cuh, make_layout).
+def split_shapes(dims: FusedDims) -> Dict[str, tuple]:
+    """Shape of every split tensor, in SPLIT_NAMES order."""
+    shapes = {}
+    for e, d, s in (("enc1", dims.d1, dims.s1), ("enc2", dims.d2, dims.s2)):
+        shapes.update({
+            f"{e}_Wh": (d, dims.h), f"{e}_bh": (dims.h,),
+            f"{e}_Wcmu": (dims.h, dims.cd), f"{e}_bcmu": (dims.cd,),
+            f"{e}_Wclv": (dims.h, dims.cd), f"{e}_bclv": (dims.cd,),
+            f"{e}_Wsmu": (dims.h, s), f"{e}_bsmu": (s,),
+            f"{e}_Wslv": (dims.h, s), f"{e}_bslv": (s,)})
+    for dd, d, s in (("dec1", dims.d1, dims.s1), ("dec2", dims.d2, dims.s2)):
+        shapes.update({f"{dd}_Wds": (s, d), f"{dd}_Wdc": (dims.cd, d),
+                       f"{dd}_bd": (d,), f"{dd}_olv": (1, d)})
+    return {n: shapes[n] for n in SPLIT_NAMES}
+
+
+def flat_size(dims: FusedDims) -> int:
+    return sum(int(np.prod(s)) for s in split_shapes(dims).values())
+
+
+def flat_views(buf: torch.Tensor, dims: FusedDims) -> Dict[str, torch.Tensor]:
+    """The split tensors as views of a flat buffer."""
+    out, off = {}, 0
+    for name, shape in split_shapes(dims).items():
+        n = int(np.prod(shape))
+        out[name] = buf[off:off + n].view(shape)
+        off += n
+    if off != buf.numel():
+        raise ValueError(f"flat buffer holds {buf.numel()} floats, the "
+                         f"split layout {off}")
+    return out
+
+
+def flatten_split(sp: Mapping[str, torch.Tensor]) -> torch.Tensor:
+    """Split tensors -> one new flat buffer in SPLIT_NAMES order."""
+    return torch.cat([sp[n].reshape(-1) for n in SPLIT_NAMES]).contiguous()
+
+
+def model_flat_params(model, dims: FusedDims) -> torch.Tensor:
+    """The model's weights as a flat buffer in the split layout."""
+    return flatten_split(model_split_params(model, dims))
+
+
+@torch.no_grad()
+def load_flat_params(model, flat: torch.Tensor, dims: FusedDims) -> None:
+    """Copy a flat split-layout buffer into the model's parameters."""
+    packed = join_params(flat_views(flat, dims), dims)
+    tree = packed_to_tree(packed, model.mod_names)
+    sd = {}
+    for path, leaf in flatten_tree(tree).items():
+        *parents, last = path.split("/")
+        if last == "kernel":
+            last, leaf = "weight", leaf.T
+        sd[".".join(parents + [last])] = leaf
+    model.load_state_dict(sd, strict=True)
+
+
+def ravel_order(tree: Mapping) -> list:
+    """The flat paths of a param tree in ``jax.flatten_util.ravel_pytree``
+    order: dict keys sorted at every level."""
+    return sorted(flatten_tree(tree), key=lambda p: tuple(p.split("/")))
+
+
+def split_flat_to_ravel(flat: torch.Tensor, dims: FusedDims,
+                        mod_names) -> np.ndarray:
+    """The port's flat state (split layout) -> the JAX package's raveled
+    vector (``FlatAdamState.mu``/``nu`` order)."""
+    flat = torch.as_tensor(flat).detach().cpu()
+    tree = packed_to_tree(join_params(flat_views(flat, dims), dims),
+                          mod_names)
+    leaves = flatten_tree(tree)
+    return np.concatenate([leaves[p].reshape(-1).numpy()
+                           for p in ravel_order(tree)]).astype(np.float32)
+
+
+def ravel_to_split_flat(vec, dims: FusedDims, mod_names) -> torch.Tensor:
+    """Inverse of :func:`split_flat_to_ravel`."""
+    vec = torch.as_tensor(np.asarray(vec, dtype=np.float32))
+    zeros = flat_views(torch.zeros(flat_size(dims)), dims)
+    template = packed_to_tree(join_params(zeros, dims), mod_names)
+    shapes = {p: tuple(v.shape) for p, v in flatten_tree(template).items()}
+    total = sum(int(np.prod(s)) for s in shapes.values())
+    if total != vec.numel():
+        raise ValueError(f"raveled vector holds {vec.numel()} floats, the "
+                         f"param tree {total}")
+    leaves, off = {}, 0
+    for path in ravel_order(template):
+        n = int(np.prod(shapes[path]))
+        leaves[path] = vec[off:off + n].reshape(shapes[path])
+        off += n
+    packed = flatten_params(unflatten_tree(leaves), mod_names)
+    return flatten_split(split_params(packed, dims))

@@ -1,12 +1,14 @@
-"""A trained run loaded for analysis: config, modalities, one model per
-ensemble member, and the train/test datasets.
+"""The experiment: config, modalities, one model per ensemble member, the
+train/test datasets and, for training, each member's train state.
 
-The loading half of ``multivae_tpu/train/experiment.py``. The datasets come
-from the jax-free data layer of the JAX package (``multivae_tpu.data``,
-which needs pandas and scikit-learn) and are loaded only on request
-(:meth:`MultimodalExperiment.set_datasets`), so a run's models load with
-numpy and torch alone. Residualization is off, as in the JAX package's
-default (``residualize_by`` is empty there).
+Counterpart of ``multivae_tpu/train/experiment.py``. The datasets come from
+the port's data layer (:mod:`multivae_tpu_torch.data`, numpy and pandas)
+and are loaded on request (:meth:`MultimodalExperiment.set_datasets`).
+Residualization is off, as in the JAX package's default
+(``residualize_by`` is empty there). For
+training, :meth:`MultimodalExperiment.set_optimizers` gives each member a
+flat params buffer and an Adam state in the split layout
+(:mod:`multivae_tpu_torch.params`), on the experiment's device.
 """
 
 from __future__ import annotations
@@ -17,15 +19,19 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..data import DataManager, MultimodalDataset, StandardScaler
 from ..models import build_model, make_modalities
+from ..params import dims_from
 from .checkpoint import find_checkpoint, restore_checkpoint
 from .config import Config
+from .train_step import init_train_state, param_count
 
 
 class MultimodalExperiment:
     def __init__(self, cfg: Config, device: torch.device | str):
         cfg.derive()
         self.cfg = cfg
+        self.device = torch.device(device)
         self.modalities = make_modalities(cfg.input_dim, cfg.style_dim,
                                           cfg.likelihood)
         self.mod_names = list(self.modalities)
@@ -36,13 +42,24 @@ class MultimodalExperiment:
             for idx in range(cfg.num_models)]
         self.dataset_train = None
         self.dataset_test = None
+        self.params: List[torch.Tensor] = []
+        self.opt_states: List = []
+
+    # ---------------------------------------------------------- train state
+    def set_optimizers(self):
+        """Each member's flat params (from its model) and zero Adam state
+        (``experiment.py:256-279``)."""
+        dims = dims_from(self.cfg, self.cfg.batch_size)
+        states = [init_train_state(m, dims) for m in self.models]
+        self.params = [p for p, _ in states]
+        self.opt_states = [o for _, o in states]
+        print("num parameters: "
+              + str(sum(param_count(m) for m in self.models)))
 
     # ------------------------------------------------------------ datasets
     def set_scalers(self, dataset):
         """A StandardScaler per modality, fit on the train samples where the
         modality is present (``experiment.py:146-166``)."""
-        from multivae_tpu.data import StandardScaler
-
         scalers = {}
         for mod in self.mod_names:
             idxs = [i for i in range(len(dataset))
@@ -58,8 +75,6 @@ class MultimodalExperiment:
     def set_datasets(self):
         """Train/test datasets per ensemble member, scaled on the fly by the
         member's train-fold scalers (``experiment.py:195-254``)."""
-        from multivae_tpu.data import DataManager, MultimodalDataset
-
         cfg = self.cfg
         validation = None
         n_models = 1

@@ -1,0 +1,420 @@
+"""Epoch runner: the per-epoch driver of ``multivae_tpu/train/trainer.py``.
+
+Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
+
+* the :class:`~multivae_tpu_torch.data.MissingModalitySampler` (seeded
+  ``cfg.seed + epoch``) emits subset-homogeneous batches; with
+  ``fused_training`` the full-size complete batches run first, in sampler
+  order, in one epoch call of the MoPoE step kernel
+  (``ops/fused_step.py``, ``csrc/mopoe_step.cu``); the remaining batches
+  then run grouped by ``(presence pattern, rows)`` in
+  :func:`canonical_group_order`, one epoch call per group: a complete
+  partial batch on the same step kernel (the ``joint_elbo`` branch of the
+  TPU method kernel), a single-present group on the presence kernel
+  (``ops/fused_presence.py``, ``csrc/presence_step.cu``); every step is
+  followed by ``csrc/flat_adam.cu``. Without ``fused_training`` every batch
+  takes the general autograd step, in the same order with the same noise;
+* the test split is evaluated with the general forward and
+  :func:`~multivae_tpu_torch.train.losses.total_loss`;
+* every 5 epochs and at the end the model and optimizer state are
+  checkpointed in the JAX package's layout.
+
+Noise: torch cannot reproduce JAX's threefry streams. Each epoch's noise
+comes from one generator seeded by ``(cfg.seed, model_idx, epoch)``
+(:func:`epoch_generator`, the counterpart of ``fold_in(base_rng, epoch)``),
+drawn on the CPU per step in emission order (the full complete batches,
+then the other training batches in sampler order, then the test batches)
+and copied to the device in one transfer for the training steps and one
+for the test pass. The metrics are fetched once for each. Configurations whose TPU route is a kernel the port does not have yet
+raise ``NotImplementedError`` naming the ROADMAP item; nothing falls back.
+The chunked drivers are not ported: ``epoch_chunk`` is accepted and the
+per-epoch driver runs (ROADMAP Queue 1 item 5).
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from ..data import MissingModalitySampler, simple_batches
+from ..ops import fused_methods, fused_presence, fused_step
+from ..ops.adam import AdamState, adam_hyper
+from ..params import dims_from, load_flat_params, model_flat_params
+from ..utils.filehandling import model_checkpoint_dir, model_log_dir
+from .checkpoint import save_checkpoint, save_networks
+from .logging import MetricLogger
+from .train_step import batch_noise_width, eval_step, general_step
+
+
+def unported_features(cfg, model) -> List[str]:
+    """Each part of ``cfg`` whose route in the JAX package is a kernel or a
+    driver the port does not have yet, with its ROADMAP item."""
+    out = []
+    fused = bool(cfg.fused_training)
+    if fused and cfg.method != "joint_elbo":
+        out.append(f"method={cfg.method!r} with fused_training: the "
+                   f"moe/jsd/poe branches of the method and presence "
+                   f"kernels (ROADMAP Queue 2 items 1-2)")
+    if cfg.dropout_rate > 0.0:
+        out.append("dropout_rate > 0: dropout in the port's model and the "
+                   "kernels' streamed masks (ROADMAP Queue 1 item 7, Queue "
+                   "2 items 1-2)")
+    if getattr(cfg, "precision", "float32") != "float32":
+        out.append(f"precision={cfg.precision!r}: bf16 kernel products "
+                   f"(ROADMAP Queue 1 item 8)")
+    if not fused_step.split_layout_ok(cfg, model):
+        out.append("an architecture outside the split layout (deep "
+                   "decoders, per-sample output scale, another likelihood "
+                   "or modality count): the generic kernel (ROADMAP Queue 2 "
+                   "item 4)")
+    if cfg.data_parallel > 1 or cfg.tensor_parallel > 1:
+        out.append("data_parallel/tensor_parallel > 1: multi-GPU training "
+                   "and the row-sharded step kernels (ROADMAP Queue 1 item "
+                   "4, Queue 2 item 3)")
+    if cfg.ensemble_parallel is True and cfg.num_models > 1:
+        out.append("ensemble_parallel=True: the ensemble driver (ROADMAP "
+                   "Queue 1 item 4)")
+    for flag in ("calc_nll", "calc_prd", "calc_clf", "calc_coherence"):
+        if getattr(cfg, flag, False):
+            out.append(f"{flag}: the eval cadence (ROADMAP Queue 1 item 3)")
+    return out
+
+
+def check_supported(cfg, model) -> None:
+    missing = unported_features(cfg, model)
+    if missing:
+        raise NotImplementedError(
+            "not ported to multivae_tpu_torch yet: " + "; ".join(missing))
+
+
+def epoch_generator(cfg, model_idx: int, epoch: int) -> torch.Generator:
+    """The CPU generator of one member's epoch: a pure function of
+    ``(cfg.seed, model_idx, epoch)``, so a resumed run replays the stream
+    of the uninterrupted one."""
+    seed = np.random.SeedSequence(
+        [int(cfg.seed), int(model_idx), int(epoch)]).generate_state(
+            1, dtype=np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed) & (2 ** 63 - 1))
+
+
+def draw_noise(generator: torch.Generator, shapes, device):
+    """One standard-normal draw per ``(rows, width)`` in order, drawn on the
+    CPU and copied to ``device`` once; returns the per-draw views."""
+    flat = [torch.randn(r * w, generator=generator) for r, w in shapes]
+    if not flat:
+        return []
+    buf = torch.cat(flat).to(device)
+    out, off = [], 0
+    for r, w in shapes:
+        out.append(buf[off:off + r * w].view(r, w))
+        off += r * w
+    return out
+
+
+def canonical_group_order(keys, mod_names, batch_size):
+    """The complete-modality full-size group first, then the other
+    ``(presence pattern, rows)`` keys sorted (``trainer.py:75-85``)."""
+    full = (tuple(sorted(mod_names)), batch_size)
+    ordered = [full] if full in keys else []
+    return ordered + sorted(k for k in keys if k != full)
+
+
+def make_group_fused_epoch(cfg, model, key):
+    """The kernel epoch of the batches of one ``(presence pattern, rows)``
+    group (``trainer.py:41-72``): complete batches, full or partial, take
+    the MoPoE step kernel (at a partial row count it is the ``joint_elbo``
+    branch of the TPU method kernel); single-present batches the presence
+    kernel. Returns ``fn(params, opt, xs, noise) -> (opt, metrics [n, k],
+    metric names)`` with ``xs = {mod: [n, B, d]}``, ``noise [n, B, w]``;
+    ``params`` and the moments are updated in place. A group the JAX
+    package routes to a kernel the port does not have raises."""
+    mods, rows = key
+    mod_names = [m.name for m in model.modalities]
+    dims = dims_from(cfg, rows)
+    consts = fused_step.consts_from(cfg)
+    hyper = adam_hyper(cfg)
+    learn_scale = bool(cfg.learn_output_scale)
+    example = {m: None for m in mods}
+    if len(mods) == len(mod_names):
+        # full batches: the step kernel's route; partial ones: the method
+        # kernel's, whose joint_elbo branch is the same step
+        ok = (fused_step.supports_fused(cfg, model, example)
+              if rows == cfg.batch_size else
+              fused_methods.supports_method_fused(cfg, model, example)
+              and cfg.method in fused_methods.PORTED_METHODS
+              and cfg.dropout_rate == 0.0)
+        if not ok:
+            check_supported(cfg, model)
+            raise NotImplementedError(f"no kernel for the group {key}")
+        names = fused_methods.method_metric_names(model, cfg.method)
+
+        def complete(p, opt, xs, noise):
+            metrics = fused_step.epoch_flat(
+                p, opt.mu, opt.nu, opt.count, xs[mod_names[0]],
+                xs[mod_names[1]], noise, dims, consts, hyper, learn_scale)
+            return (AdamState(opt.count + len(noise), opt.mu, opt.nu),
+                    metrics, names)
+        return complete
+    if (not fused_presence.supports_presence_fused(cfg, model, example)
+            or cfg.method not in fused_presence.PORTED_METHODS
+            or cfg.dropout_rate > 0.0):
+        check_supported(cfg, model)
+        raise NotImplementedError(f"no kernel for the group {key}")
+    mod_idx = mod_names.index(mods[0])
+    names = fused_presence.presence_metric_names(model, cfg.method, mod_idx)
+
+    def presence(p, opt, xs, noise):
+        metrics = fused_presence.presence_epoch_flat(
+            p, opt.mu, opt.nu, opt.count, xs[mods[0]], noise, dims, consts,
+            hyper, learn_scale, mod_idx)
+        return (AdamState(opt.count + len(noise), opt.mu, opt.nu), metrics,
+                names)
+    return presence
+
+
+def _rows(data) -> int:
+    return len(next(iter(data.values())))
+
+
+def _stack(batches, mod, device):
+    return torch.from_numpy(np.stack([b[mod] for b in batches])).to(device)
+
+
+def _member_dataset(exp, model_idx, split: str):
+    ds = exp.dataset_train if split == "train" else exp.dataset_test
+    return ds[model_idx] if exp.cfg.num_models > 1 else ds
+
+
+class _Logs:
+    """Per-step metric rows of an epoch, fetched from the device once."""
+
+    def __init__(self):
+        self.blocks = []  # (names, [n, k] tensor, rows of it to log)
+
+    def add(self, names, metrics, rows):
+        self.blocks.append((tuple(names), metrics, list(rows)))
+
+    def write(self, logger: Optional[MetricLogger], phase: str) -> None:
+        if logger is None or not self.blocks:
+            return
+        flat = torch.cat([m.reshape(-1).float() for _, m, _ in
+                          self.blocks]).cpu().numpy()
+        off = 0
+        write = (logger.write_training_logs if phase == "train"
+                 else logger.write_testing_logs)
+        for names, metrics, rows in self.blocks:
+            n, k = metrics.shape
+            block = flat[off:off + n * k].reshape(n, k)
+            off += n * k
+            for j in rows:
+                # jitted JAX steps return their metric dicts key-sorted
+                write(dict(sorted(zip(names, block[j]))))
+
+
+def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
+                    generator: torch.Generator, epoch: int = 0,
+                    log_every: int = 1) -> int:
+    """One epoch of one member; returns the number of steps."""
+    cfg = exp.cfg
+    model = exp.models[model_idx]
+    device = exp.params[model_idx].device
+    dataset = _member_dataset(exp, model_idx, "train")
+    sub_indices = dataset.indices if cfg.num_models > 1 else None
+    sampler = MissingModalitySampler(dataset, batch_size=cfg.batch_size,
+                                     indices=sub_indices,
+                                     seed=cfg.seed + epoch)
+    mod_names = [m.name for m in model.modalities]
+    fused = bool(cfg.fused_training)
+    full, general = [], []
+    for idxs in sampler:
+        data, _, _ = dataset.gather(idxs)
+        if (len(idxs) == cfg.batch_size
+                and all(m in data for m in mod_names)):
+            full.append(data)
+        else:
+            general.append(data)
+    shapes = [(_rows(d), batch_noise_width(cfg, model, d))
+              for d in full + general]
+    noise = draw_noise(generator, shapes, device)
+    noise_full, noise_general = noise[:len(full)], noise[len(full):]
+
+    p = exp.params[model_idx]
+    opt: AdamState = exp.opt_states[model_idx]
+    hyper = adam_hyper(cfg)
+    logs = _Logs()
+    n_steps = 0
+
+    def run_general(data, eps, log: bool):
+        # fused_training=False: autograd of the model, then flat Adam
+        nonlocal opt, n_steps
+        tdata = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+        opt, _, metrics = general_step(cfg, model, p, opt, tdata, eps,
+                                       dims_from(cfg, _rows(data)), hyper)
+        n_steps += 1
+        if log:
+            names = list(metrics)
+            logs.add(names, torch.stack([metrics[k] for k in names])[None],
+                     [0])
+
+    def run_group(key, batches, batch_noise, rows_to_log):
+        # one kernel epoch over the group's batches
+        nonlocal opt, n_steps
+        epoch_fn = make_group_fused_epoch(cfg, model, key)
+        xs = {m: _stack(batches, m, device) for m in key[0]}
+        opt, metrics, names = epoch_fn(p, opt, xs, torch.stack(batch_noise))
+        n_steps += len(batches)
+        logs.add(names, metrics, rows_to_log)
+
+    if fused and full:
+        run_group((tuple(sorted(mod_names)), cfg.batch_size), full,
+                  noise_full, range(0, len(full), log_every))
+    elif not fused:
+        for j, data in enumerate(full):
+            run_general(data, noise_full[j], j % log_every == 0)
+
+    groups: Dict = {}
+    for i, data in enumerate(general):
+        groups.setdefault((tuple(sorted(data)), _rows(data)), []).append(i)
+    for key in canonical_group_order(groups, mod_names, cfg.batch_size):
+        idx = groups[key]
+        if fused:
+            run_group(key, [general[i] for i in idx],
+                      [noise_general[i] for i in idx],
+                      [j for j, i in enumerate(idx) if i % log_every == 0])
+        else:
+            for i in idx:
+                run_general(general[i], noise_general[i], i % log_every == 0)
+
+    exp.opt_states[model_idx] = opt
+    load_flat_params(model, p, dims_from(cfg, cfg.batch_size))
+    logs.write(logger, "train")
+    return n_steps
+
+
+def test_batches(exp, model_idx: int, epoch: int):
+    """The test pass's batches in evaluation order (``trainer.py:347-411``):
+    full complete batches first, then the rest grouped by sorted
+    ``(presence pattern, rows)``; each as ``(data, noise draw index)``
+    with the draws numbered in emission order."""
+    cfg = exp.cfg
+    dataset = _member_dataset(exp, model_idx, "test")
+    mod_names = exp.mod_names
+    scannable, others = [], []
+    for idxs in simple_batches(len(dataset), cfg.batch_size,
+                               np.random.default_rng(cfg.seed + epoch)):
+        data, _, _ = dataset.gather(idxs)
+        if not data:
+            continue
+        if len(idxs) == cfg.batch_size and all(m in data for m in mod_names):
+            scannable.append(data)
+        else:
+            others.append(data)
+    order = [(d, i) for i, d in enumerate(scannable)]
+    groups: Dict = {}
+    for i, data in enumerate(others):
+        groups.setdefault((tuple(sorted(data)), _rows(data)), []).append(i)
+    for key in sorted(groups):
+        order += [(others[i], len(scannable) + i) for i in groups[key]]
+    return order, scannable + others
+
+
+@torch.no_grad()
+def test_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
+                   generator: torch.Generator, epoch: int):
+    """Evaluate the member on its test split; returns the per-batch metric
+    dicts (device tensors) in evaluation order."""
+    cfg = exp.cfg
+    model = exp.models[model_idx]
+    device = next(model.parameters()).device
+    order, emitted = test_batches(exp, model_idx, epoch)
+    noise = draw_noise(generator,
+                       [(_rows(d), batch_noise_width(cfg, model, d))
+                        for d in emitted], device)
+    logs, results = _Logs(), []
+    for data, i in order:
+        tdata = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+        _, metrics = eval_step(cfg, model, tdata, noise[i])
+        results.append(metrics)
+        names = list(metrics)
+        logs.add(names, torch.stack([metrics[k] for k in names])[None], [0])
+    logs.write(logger, "test")
+    return results
+
+
+def resume_from_checkpoints(exp) -> int:
+    """Restore every member's model, params and Adam state from its latest
+    checkpoint; returns (and sets) the epoch to resume from."""
+    from .checkpoint import find_checkpoint, restore_checkpoint, \
+        restore_opt_state
+
+    cfg = exp.cfg
+    dims = dims_from(cfg, cfg.batch_size)
+    latest = 0
+    for model_idx in range(cfg.num_models):
+        model = exp.models[model_idx]
+        path, epoch = find_checkpoint(cfg.dir_checkpoints, model_idx,
+                                      cfg.num_models, None, cfg.model_save)
+        restore_checkpoint(path, model)
+        exp.params[model_idx] = model_flat_params(model, dims)
+        restored = restore_opt_state(os.path.dirname(path), dims,
+                                     model.mod_names, exp.device)
+        if restored is not None:
+            exp.opt_states[model_idx] = restored
+        latest = max(latest, epoch + 1)
+    cfg.start_epoch = latest
+    return latest
+
+
+def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
+               progress: bool = True):
+    """Train every ensemble member in turn (``run_epochs``, per-epoch
+    driver). Returns member 0's host-clock seconds per epoch (train, test,
+    logging, ending in a device synchronize)."""
+    cfg = exp.cfg
+    check_supported(cfg, exp.models[0])
+    if cfg.load_saved:
+        resume_from_checkpoints(exp)
+    cfg.save(os.path.join(cfg.dir_experiment_run, "flags.json"))
+    dims = dims_from(cfg, cfg.batch_size)
+    sync = (torch.cuda.synchronize if exp.device.type == "cuda"
+            else (lambda: None))
+    walls: List[float] = []
+    print("training epochs progress:")
+    for model_idx in range(cfg.num_models):
+        model = exp.models[model_idx]
+        logger = MetricLogger(model_log_dir(cfg, model_idx),
+                              use_tensorboard=use_tensorboard)
+        logger.add_text("FLAGS", cfg.describe())
+        t0 = time.time()
+        for epoch in range(cfg.start_epoch, cfg.end_epoch):
+            start = time.perf_counter()
+            generator = epoch_generator(cfg, model_idx, epoch)
+            train_one_epoch(exp, model_idx, logger, generator, epoch,
+                            log_every)
+            test_one_epoch(exp, model_idx, logger, generator, epoch)
+            sync()
+            if model_idx == 0:
+                walls.append(time.perf_counter() - start)
+            if (epoch + 1) % 5 == 0 or (epoch + 1) == cfg.end_epoch:
+                ckpt_dir = model_checkpoint_dir(cfg, model_idx, epoch)
+                opt = (exp.opt_states[model_idx]
+                       if cfg.save_optimizer != "none" else None)
+                save_checkpoint(ckpt_dir, model, opt, cfg.model_save,
+                                dims=dims)
+                save_networks(os.path.dirname(ckpt_dir)
+                              if cfg.num_models > 1 else cfg.dir_checkpoints,
+                              model)
+            if progress:
+                frac = (epoch + 1 - cfg.start_epoch) / max(
+                    cfg.end_epoch - cfg.start_epoch, 1)
+                print(f"\r  model {model_idx}: epoch {epoch + 1}/"
+                      f"{cfg.end_epoch} ({100 * frac:.1f}%) "
+                      f"[{time.time() - t0:.1f}s]", end="", flush=True)
+        if progress:
+            print()
+        logger.close()
+    return walls

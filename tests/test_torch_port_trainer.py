@@ -1,0 +1,340 @@
+"""The port's `train` slice as a whole against the JAX package.
+
+One epoch of ``train_one_epoch`` on a tiny synthetic cohort (full and
+partial complete batches, full and partial clinical-only batches) is
+rebuilt from the JAX package's own functions: its sampler and group order,
+the port's noise, ``jax.value_and_grad`` of ``fused_loss_reference`` or
+``presence_loss_split``, and ``flat_adam``. Params agree at rtol 1e-4 /
+atol 1e-6 (float32; ``flat_adam`` writes its bias correction ``1 - b ** t``
+where the kernels write ``1 - exp(t log b)``). The test pass is held to
+``total_loss`` with injected noise, and the CLI-level runs (train, resume,
+unported options, checkpoint durability) are checked on the CPU.
+"""
+
+import json
+import os
+import stat
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+import optax
+
+from multivae_tpu.data import MissingModalitySampler as JaxSampler
+from multivae_tpu.models import build_model as jax_build_model
+from multivae_tpu.models import make_modalities as jax_make_modalities
+from multivae_tpu.ops import fused_presence as jax_fp
+from multivae_tpu.ops import fused_step as jax_fs
+from multivae_tpu.train import trainer as jax_trainer
+from multivae_tpu.train.losses import total_loss as jax_total_loss
+from multivae_tpu.train.train_step import flat_adam
+from multivae_tpu_torch import params as bridge
+from multivae_tpu_torch import workflows
+from multivae_tpu_torch.data import make_synthetic_cohort
+from multivae_tpu_torch.train import checkpoint, trainer
+from multivae_tpu_torch.train.config import Config
+from multivae_tpu_torch.train.experiment import MultimodalExperiment
+
+pytestmark = pytest.mark.driver  # cross-framework parity pins
+
+DIMS, HIDDEN, CD, STYLE, BATCH = (3, 12), 16, 4, (2, 3), 12
+# 100 subjects, 20 without ROIs: 64 complete train subjects (5 full + 1
+# partial batch of 12), 20 clinical-only (1 full + 1 partial), 16 test
+N_SUBJECTS = 100
+
+
+@pytest.fixture(scope="module")
+def cohort(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("cohort"))
+    make_synthetic_cohort(d, n_subjects=N_SUBJECTS, n_scores=DIMS[0],
+                          n_rois=DIMS[1], missing_rate=0.2, seed=1)
+    return d
+
+
+def make_cfg(datasetdir, outdir="", **kw):
+    base = dict(dataset="synthetic", datasetdir=datasetdir,
+                dir_experiment=outdir, input_dim=list(DIMS), class_dim=CD,
+                style_dim=list(STYLE), hidden_dim=HIDDEN, batch_size=BATCH,
+                end_epoch=1, initial_learning_rate=2e-3, seed=7)
+    base.update(kw)
+    return Config(**base).derive()
+
+
+def make_exp(datasetdir, **kw):
+    exp = MultimodalExperiment(make_cfg(datasetdir, **kw), "cpu")
+    exp.set_datasets()
+    exp.set_optimizers()
+    return exp
+
+
+def jax_model(cfg):
+    return jax_build_model(cfg, jax_make_modalities(
+        cfg.input_dim, cfg.style_dim, cfg.likelihood))
+
+
+def rows(data):
+    return len(next(iter(data.values())))
+
+
+def test_one_epoch_matches_jax_rebuild(cohort):
+    exp = make_exp(cohort)
+    cfg, model = exp.cfg, exp.models[0]
+    dims = bridge.dims_from(cfg, BATCH)
+    p0 = exp.params[0].clone()
+    steps = trainer.train_one_epoch(exp, 0, None,
+                                    trainer.epoch_generator(cfg, 0, 0), 0)
+
+    # ---- the same epoch from the JAX package's functions
+    ds = exp.dataset_train
+    batches = [ds.gather(i)[0] for i in
+               JaxSampler(ds, batch_size=BATCH, seed=cfg.seed)]
+    names = list(exp.mod_names)
+    is_full = [rows(b) == BATCH and all(m in b for m in names)
+               for b in batches]
+    full = [b for b, f in zip(batches, is_full) if f]
+    general = [b for b, f in zip(batches, is_full) if not f]
+    widths = [CD + sum(STYLE[names.index(m)] for m in b) for b in
+              full + general]
+    noise = trainer.draw_noise(trainer.epoch_generator(cfg, 0, 0),
+                               [(rows(b), w) for b, w in
+                                zip(full + general, widths)], "cpu")
+    groups = {}
+    for i, b in enumerate(general):
+        groups.setdefault((tuple(sorted(b)), rows(b)), []).append(i)
+    order = [(b, noise[i]) for i, b in enumerate(full)]
+    for key in jax_trainer.canonical_group_order(groups, names, BATCH):
+        order += [(general[i], noise[len(full) + i]) for i in groups[key]]
+    kinds = {(len(b), rows(b) == BATCH) for b, _ in order}
+    assert kinds == {(1, True), (1, False), (2, True), (2, False)}
+    assert steps == len(order) == len(batches)
+
+    jm = jax_model(cfg)
+    consts = jax_fs.FusedConsts(cfg.beta, cfg.beta_style, cfg.beta_content)
+    params = jax.tree_util.tree_map(jnp.asarray, bridge.packed_to_tree(
+        {k: v.numpy() for k, v in bridge.join_params(
+            bridge.flat_views(p0, dims), dims).items()}, names))
+    opt = flat_adam(cfg.initial_learning_rate, cfg.beta_1, cfg.beta_2)
+    state = opt.init(params)
+    for data, eps in order:
+        eps = jnp.asarray(eps.numpy())
+        jd = jax_fs.FusedDims(*bridge.dims_from(cfg, rows(data)))
+        if len(data) == 2:
+            def loss_fn(p):
+                return jax_fs.fused_loss_reference(
+                    jax_fs.flatten_params(p, jm), jnp.asarray(data[names[0]]),
+                    jnp.asarray(data[names[1]]), eps[:, :CD],
+                    eps[:, CD:CD + STYLE[0]], eps[:, CD + STYLE[0]:], jd,
+                    consts, learn_scale=True)
+        else:
+            mod_idx = names.index(next(iter(data)))
+
+            def loss_fn(p, mod_idx=mod_idx):
+                sp = jax_fs.split_params(jax_fs.flatten_params(p, jm), jd)
+                return jax_fp.presence_loss_split(
+                    "joint_elbo", jd, consts, True, False, mod_idx, sp,
+                    jnp.asarray(data[names[mod_idx]]), eps)[0]
+        grads = jax.grad(loss_fn)(params)
+        upd, state = opt.update(grads, state, params)
+        params = optax.apply_updates(params, upd)
+
+    want = bridge.flatten_split(bridge.split_params(
+        {k: torch.from_numpy(np.array(v)) for k, v in
+         bridge.flatten_params(params, names).items()}, dims))
+    np.testing.assert_allclose(exp.params[0].numpy(), want.numpy(),
+                               rtol=1e-4, atol=1e-6)
+    assert exp.opt_states[0].count == int(state.count) == steps
+    np.testing.assert_allclose(
+        bridge.split_flat_to_ravel(exp.opt_states[0].mu, dims, names),
+        np.asarray(state.mu), rtol=1e-4, atol=1e-6)
+    # the model holds the trained weights
+    torch.testing.assert_close(bridge.model_flat_params(model, dims),
+                               exp.params[0], rtol=0, atol=0)
+
+
+def test_test_epoch_matches_jax_total_loss(cohort):
+    exp = make_exp(cohort)
+    cfg, model = exp.cfg, exp.models[0]
+    got = trainer.test_one_epoch(exp, 0, None,
+                                 trainer.epoch_generator(cfg, 0, 3), 3)
+    order, emitted = trainer.test_batches(exp, 0, 3)
+    noise = trainer.draw_noise(
+        trainer.epoch_generator(cfg, 0, 3),
+        [(rows(d), CD + sum(STYLE[exp.mod_names.index(m)] for m in d))
+         for d in emitted], "cpu")
+    assert len(got) == len(order) > 1
+    jm = jax_model(cfg)
+    variables = {"params": bridge.state_dict_to_tree(model.state_dict())}
+    for metrics, (data, i) in zip(got, order):
+        batch = {k: jnp.asarray(v) for k, v in data.items()}
+        out = jm.apply(variables, batch, noise=jnp.asarray(noise[i].numpy()))
+        _, want = jax_total_loss(cfg, jm, variables, batch, out,
+                                 jax.random.PRNGKey(0), train=False)
+        assert sorted(metrics) == sorted(want)
+        for k in want:
+            np.testing.assert_allclose(metrics[k].numpy(),
+                                       np.asarray(want[k]), rtol=5e-4,
+                                       atol=1e-5, err_msg=k)
+
+
+def test_general_path_matches_the_fused_path(cohort):
+    """fused_training=False runs every batch through autograd of the model
+    and total_loss, in the same order with the same noise."""
+    fused, general = make_exp(cohort), make_exp(cohort,
+                                                fused_training=False)
+    for exp in (fused, general):
+        trainer.train_one_epoch(exp, 0, None,
+                                trainer.epoch_generator(exp.cfg, 0, 0), 0)
+    np.testing.assert_allclose(general.params[0].numpy(),
+                               fused.params[0].numpy(), rtol=1e-4,
+                               atol=1e-6)
+    assert general.opt_states[0].count == fused.opt_states[0].count
+
+
+def test_general_path_takes_other_methods(cohort):
+    exp = make_exp(cohort, method="moe", fused_training=False)
+    p0 = exp.params[0].clone()
+    trainer.train_one_epoch(exp, 0, None,
+                            trainer.epoch_generator(exp.cfg, 0, 0), 0)
+    assert torch.isfinite(exp.params[0]).all()
+    assert not torch.equal(exp.params[0], p0)
+
+
+def train(cohort, outdir, epochs, **kw):
+    return workflows.train_exp(
+        "synthetic", cohort, str(outdir), list(DIMS), latent_dim=CD,
+        style_dim=list(STYLE), batch_size=BATCH, num_epochs=epochs,
+        use_tensorboard=False, device="cpu", **kw)
+
+
+def test_train_exp_writes_the_run(cohort, tmp_path, capsys):
+    run = train(cohort, tmp_path, 2)
+    rundir = tmp_path / run
+    flags = json.loads((rundir / "flags.json").read_text())
+    assert flags["end_epoch"] == 2 and flags["hidden_dim"] == 256
+    for f in ("model.npz", "opt_state.npz"):
+        assert (rundir / "checkpoints" / "0001" / f).is_file()
+    for m in ("clinical", "rois"):
+        assert (rundir / "checkpoints" / f"enc_{m}.npz").is_file()
+    assert (tmp_path / "runs.tsv").read_text().count(run) == 1
+    import pandas as pd
+    csv = pd.read_csv(rundir / "logs" / "metrics.csv")
+    train_metrics = set(csv[csv.phase == "train"].metric)
+    # the complete routes' and the clinical-only route's families
+    assert {"loss", "joint_divergence", "log_prob/clinical",
+            "log_prob/rois", "kld/clinical_rois", "kld_style/rois_style",
+            "latent_logvar/clinical_style"} <= train_metrics
+    assert set(csv[csv.phase == "test"].metric) >= {"loss",
+                                                    "log_prob/rois"}
+    assert np.isfinite(csv.value).all()
+    walls = [ln for ln in capsys.readouterr().out.splitlines()
+             if "train wall per epoch (s):" in ln]
+    assert len(walls[-1].split(":", 1)[1].split()) == 2
+    with np.load(rundir / "checkpoints" / "0001" / "opt_state.npz") as fh:
+        assert int(fh["count"]) > 0
+        assert fh["mu"].shape == fh["nu"].shape
+
+
+def test_resume_continues_exactly(cohort, tmp_path):
+    straight = train(cohort, tmp_path / "a", 3)
+    split = train(cohort, tmp_path / "b", 2)
+    workflows.resume_exp("synthetic", cohort, str(tmp_path / "b"), split, 3,
+                         use_tensorboard=False, device="cpu")
+    for f in ("model.npz", "opt_state.npz"):
+        with np.load(tmp_path / "a" / straight / "checkpoints" / "0002"
+                     / f) as a, \
+                np.load(tmp_path / "b" / split / "checkpoints" / "0002"
+                        / f) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+UNPORTED = [
+    dict(method="moe"), dict(method="jsd"), dict(method="poe"),
+    dict(dropout_rate=0.1), dict(num_hidden_layer_decoder=1),
+    dict(out_scale_per_subject=True), dict(data_parallel=2),
+    dict(tensor_parallel=2), dict(num_models=2, ensemble_parallel="true"),
+    dict(calc_nll=True), dict(calc_prd=True), dict(calc_clf=True),
+    dict(calc_coherence=True), dict(profile_dir="trace"),
+    dict(save_samples=True),
+]
+
+
+@pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: ",".join(kw))
+def test_unported_options_raise(cohort, tmp_path, kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train(cohort, tmp_path, 1, **kw)
+    assert not (tmp_path / "runs.tsv").exists()
+
+
+def test_bf16_precision_raises(cohort):
+    cfg = make_cfg(cohort, precision="bfloat16")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        trainer.check_supported(cfg, MultimodalExperiment(cfg, "cpu")
+                                .models[0])
+
+
+def test_checkpoint_fsyncs_the_directory(tmp_path, monkeypatch):
+    events = []
+    real_fsync, real_replace = os.fsync, os.replace
+
+    def fsync(fd):
+        kind = "dir" if stat.S_ISDIR(os.fstat(fd).st_mode) else "file"
+        events.append(("fsync", kind))
+        real_fsync(fd)
+
+    def replace(src, dst):
+        events.append(("replace", os.path.basename(dst)))
+        real_replace(src, dst)
+
+    monkeypatch.setattr(checkpoint.os, "fsync", fsync)
+    monkeypatch.setattr(checkpoint.os, "replace", replace)
+    cfg = make_cfg("")
+    exp = MultimodalExperiment(cfg, "cpu")
+    dims = bridge.dims_from(cfg, BATCH)
+    exp.set_optimizers()
+    checkpoint.save_checkpoint(str(tmp_path / "0004"), exp.models[0],
+                               exp.opt_states[0], dims=dims)
+    assert events == [("fsync", "file"), ("replace", "opt_state.npz"),
+                      ("fsync", "dir"), ("fsync", "file"),
+                      ("replace", "model.npz"), ("fsync", "dir")]
+    restored = checkpoint.restore_opt_state(str(tmp_path / "0004"), dims,
+                                            exp.mod_names, "cpu")
+    assert restored.count == 0 and torch.equal(restored.mu,
+                                               exp.opt_states[0].mu)
+
+
+def test_epoch_generator_is_a_function_of_seed_member_epoch():
+    cfg = make_cfg("")
+    draw = lambda *a: torch.randn(5, generator=trainer.epoch_generator(*a))
+    assert torch.equal(draw(cfg, 0, 3), draw(cfg, 0, 3))
+    assert not torch.equal(draw(cfg, 0, 3), draw(cfg, 0, 4))
+    assert not torch.equal(draw(cfg, 0, 3), draw(cfg, 1, 3))
+
+
+def test_canonical_group_order_matches_jax():
+    keys = {(("clinical",), 8), (("clinical", "rois"), 12),
+            (("clinical", "rois"), 4), (("clinical",), 12),
+            (("rois",), 3)}
+    names = ["clinical", "rois"]
+    assert (trainer.canonical_group_order(keys, names, 12)
+            == jax_trainer.canonical_group_order(keys, names, 12))
+
+
+def test_ensemble_members_train_in_turn(cohort, tmp_path):
+    """``num_models > 1`` trains each member on its fold, in turn, with
+    per-member logs and checkpoints (the sequential member loop)."""
+    run = train(cohort, tmp_path, 1, num_models=2)
+    rundir = tmp_path / run
+    states = []
+    for m in range(2):
+        ckpt = rundir / "checkpoints" / f"model_{m}" / "0000"
+        assert (ckpt / "model.npz").is_file()
+        assert (ckpt / "opt_state.npz").is_file()
+        assert (rundir / "logs" / f"model_{m}" / "metrics.csv").is_file()
+        with np.load(ckpt / "model.npz") as fh:
+            states.append(fh["enc_rois/heads/kernel"])
+    assert not np.array_equal(*states)
