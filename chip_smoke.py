@@ -14,26 +14,35 @@ Phases, one line or more each:
 3. kernel: the avatar-sweep kernel against its plain PyTorch version, B=50
    and 200 x 7 cells, four methods with and without sampled latents
    (atol = rtol = 1e-4), both timed with CUDA events;
-4. train-kernel: the MoPoE step (B=256 and 137) and the presence step
-   (mod_idx 0 and 1, B=256 and 137) against their plain versions, with and
-   without a learned output scale (loss rtol 1e-5; metrics and grads rtol
-   5e-4 / atol 1e-5), flat Adam on random state at count 0 and 1000 (rtol
-   1e-6 / atol 1e-8), an 8-step epoch of each route (params, mu, nu rtol
-   1e-4 / atol 1e-5), and times in turns plain, kernel, kernel, plain: the
-   step, the Adam pass and one flagship epoch of device work;
+4. train-kernel: every step route against its plain version at B=256, 64,
+   164 (the flagship epoch's batches) and 137, with and without a learned
+   output scale (loss rtol 1e-5; metrics
+   and grads rtol 5e-4 / atol 1e-5): the MoPoE step; the method step for
+   moe, jsd, poe without masks and for joint_elbo, moe, jsd, poe with
+   dropout masks (rate 0.2); the presence step for the four methods,
+   mod_idx 0 and 1, with and without masks; flat Adam on random state at
+   count 0 and 1000 (rtol 1e-6 / atol 1e-8); an 8-step epoch of each
+   route (params, mu, nu rtol 1e-4 / atol 1e-5); and times in turns
+   plain, kernel, kernel, plain: one step of each method, the Adam pass
+   beside ``torch.optim.Adam(fused=True)``, one flagship epoch of device
+   work; each kernel's bound from its bytes and operations;
 5. slice: ``run_daa`` of a seeded-init flagship model on a numpy cohort
    (n_samples=200, n_validation=2), counting the sweep kernel's launches,
    and a small deterministic DAA on the card against the CPU;
 6. train-slice: ``workflows.train_exp`` on a 2100-subject synthetic cohort
    (20 % without ROIs: 5 full + 1 partial complete batches, 1 full + 1
-   partial clinical-only batches per epoch) for 10 epochs, counting each
-   kernel's launches and checking losses, metric families and
-   checkpoints; a profiled epoch (device busy time); ``workflows.daa_exp``
-   of the trained run; one epoch on the card against one on the CPU.
+   partial clinical-only batches per epoch) for 5 epochs of joint_elbo
+   and 3 epochs each of moe, jsd, poe and poe with dropout_rate=0.2,
+   counting each kernel's launches and checking losses, metric families
+   and checkpoints; a profiled epoch of each (device busy time);
+   ``workflows.daa_exp`` of the trained joint_elbo run; one epoch on the
+   card against one on the CPU.
 
 Any failed phase exits non-zero. The last three lines are the JSON record
-of the kernels, the line of ``nvidia-smi --query-gpu=name,power.limit
---format=csv,noheader`` and ``{"ok": true, "device": {...}}``.
+of the kernels (``launches`` summed over the main paths, each path's own
+counts in ``launches_by_path``, ``ms`` that of ``timed_variant``), the
+line of ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -145,10 +154,25 @@ def kernel_check(device):
                 # in turns on one card: plain, kernel, kernel, plain
                 t = [cuda_ms(run_ref), cuda_ms(run_ker), cuda_ms(run_ker),
                      cuda_ms(run_ref)]
-                timing = ((t[1] + t[2]) / 2, (t[0] + t[3]) / 2)
+                # each input read once, the avatars written once; the
+                # clinical encoder (content heads) and the ROI decoder per
+                # row of every cell
+                rows = cdata.shape[0] * B
+                used = [sp[k] for k in sp if k.startswith(("enc1_Wh",
+                        "enc1_bh", "enc1_Wc", "enc1_bc", "dec2_W",
+                        "dec2_bd"))]
+                timing = dict(
+                    ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                    library_ms=None,
+                    **bound(nbytes(cdata, eps, ker, *post, *used),
+                            2.0 * rows * (dims.d1 * dims.h
+                                          + 2 * dims.h * dims.cd
+                                          + (dims.s2 + dims.cd) * dims.d2)))
                 log("kernel", f"joint_elbo sampled: kernel "
                     f"{t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/"
-                    f"{t[3]:.4f} ms per sweep of {cdata.shape[0]} cells")
+                    f"{t[3]:.4f} ms per sweep of {cdata.shape[0]} cells; "
+                    f"bound {timing['bound_ms']:.5f} ms by "
+                    f"{timing['bound_by']}")
     return max_err, timing
 
 
@@ -162,18 +186,41 @@ EPOCH_RTOL, EPOCH_ATOL = 1e-4, 1e-5  # params, mu, nu after 8 steps
 # clinical-only group's full and partial batch
 EPOCH_COMPLETE = (256, 256, 256, 256, 256, 64)
 EPOCH_PRESENCE = (256, 164)
+STEP_ROWS = (256, 64, 164, 137)  # rows of the step-vs-plain checks
 
 
-def flops_per_step(batch: int) -> float:
-    """Matmul FLOPs of one flagship train step (``bench.py:47-62``):
-    6 x the per-sample multiply-adds of the encoders, the 4-head
-    projections and the decoders."""
-    d1, d2 = FLAGSHIP["input_dim"]
-    s1, s2 = FLAGSHIP["style_dim"]
+# published peaks of one H100 SXM (dense): HBM3 bytes/s, and float32 FLOP/s
+# outside the tensor cores (every product of these kernels is an f32 FMA)
+PEAK_BYTES_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+MASK_RATE = 0.2
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over the f32 peak."""
+    t_bytes = 1e3 * n_bytes / PEAK_BYTES_S
+    t_ops = 1e3 * flops / PEAK_F32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def step_flops(batch: int, enc_passes=(1, 1), dec_passes=(1, 1)) -> float:
+    """Matmul FLOPs that one flagship train step needs: per row and pass,
+    4 per multiply-add of an encoder's hidden layer (forward and weight
+    gradient: nothing takes the gradient of the input rows) and 6 per
+    multiply-add of its 4-head projection and of a decoder (forward, weight
+    gradient and the gradient of the activations that feed it)."""
+    d, s = FLAGSHIP["input_dim"], FLAGSHIP["style_dim"]
     h, cd = FLAGSHIP["hidden_dim"], FLAGSHIP["class_dim"]
-    macs = (d1 * h + h * 2 * (cd + s1) + d2 * h + h * 2 * (cd + s2)
-            + (s1 + cd) * d1 + (s2 + cd) * d2)
-    return 6.0 * macs * batch
+    per_row = sum(enc_passes[e] * (4 * d[e] * h + 6 * h * 2 * (cd + s[e]))
+                  + dec_passes[e] * 6 * (s[e] + cd) * d[e] for e in range(2))
+    return float(per_row * batch)
 
 
 def close(a, b, rtol, atol):
@@ -293,70 +340,194 @@ def hold_epoch(phase, name, ker, ref, ker_grads, ref_grads, dims,
     return worst
 
 
-def epoch_check(name, run, p0, dims):
+class Route:
+    """One step route of the trainer at the flagship widths: its kernel,
+    its plain version, and the noise and masks it takes. ``kind`` is
+    ``mopoe``, ``method`` or ``presence``."""
+
+    def __init__(self, kind, method="joint_elbo", mod_idx=None,
+                 masked=False):
+        self.kind, self.method = kind, method
+        self.mod_idx, self.masked = mod_idx, masked
+        self.kernel = {"mopoe": "mopoe_step", "method": "method_step",
+                       "presence": "presence_step"}[kind]
+        tag = [] if kind == "mopoe" else [method]
+        if mod_idx is not None:
+            tag.append(f"mod_idx={mod_idx}")
+        if masked:
+            tag.append("masks")
+        self.name = self.kernel + (f"[{', '.join(tag)}]" if tag else "")
+        poe = method == "poe"
+        # passes through (encoder 1, encoder 2) and (decoder 1, decoder 2)
+        present = [1, 1] if mod_idx is None else [int(mod_idx == e)
+                                                  for e in range(2)]
+        self.dec_passes = [n * (2 if poe else 1) for n in present]
+        self.enc_passes = [n * (2 if poe and masked else 1)
+                           for n in present]
+
+    def noise_width(self, dims) -> int:
+        s = (dims.s1, dims.s2)
+        if self.kind == "presence":
+            return (dims.cd + s[self.mod_idx]) * (
+                2 if self.method == "poe" else 1)
+        w = dims.cd + dims.s1 + dims.s2
+        return w + (2 * dims.cd + dims.s1 + dims.s2
+                    if self.method == "poe" else 0)
+
+    def n_masks(self) -> int:
+        if not self.masked:
+            return 0
+        per_pass = 1 if self.kind == "presence" else 2
+        return per_pass * (2 if self.method == "poe" else 1)
+
+    def inputs(self, dims, gen, device, steps=None):
+        """Seeded ``(x1, x2, noise, masks)`` on the card, with a leading
+        ``steps`` axis if given."""
+        import torch
+
+        lead = () if steps is None else (steps,)
+        b = dims.b
+
+        def randn(*shape):
+            return torch.randn(lead + shape, generator=gen, device=device)
+
+        x1, x2 = randn(b, dims.d1), randn(b, dims.d2)
+        noise = randn(b, self.noise_width(dims))
+        masks = None
+        if self.masked:
+            keep = torch.rand(lead + (self.n_masks(), b, dims.h),
+                              generator=gen, device=device) < 1 - MASK_RATE
+            masks = keep.float() / (1 - MASK_RATE)
+        return x1, x2, noise, masks
+
+    def step(self, version, p, inp, dims, consts, learn_scale=True):
+        """``(metrics, grads)`` (flat) of one step by the kernel or the
+        plain version."""
+        from multivae_tpu_torch.ops import fused_methods as fm
+        from multivae_tpu_torch.ops import fused_presence as fp
+        from multivae_tpu_torch.ops import fused_step as fs
+        from multivae_tpu_torch.params import flat_views, flatten_split
+
+        x1, x2, noise, masks = inp
+        x = x1 if self.mod_idx == 0 else x2
+        if version == "kernel":
+            if self.kind == "mopoe":
+                return fs.step_flat(p, x1, x2, *fs.split_noise(noise, dims),
+                                    dims, consts, learn_scale)
+            if self.kind == "method":
+                return fm.method_step_flat(self.method, p, x1, x2, noise,
+                                           dims, consts, learn_scale, masks)
+            return fp.presence_step_flat(p, x, noise, dims, consts,
+                                         learn_scale, self.mod_idx,
+                                         self.method, masks)
+        sp = flat_views(p, dims)
+        if self.kind == "mopoe":
+            _, m, g = fs.fwd_bwd_reference(
+                sp, x1, x2, *fs.split_noise(noise, dims), dims, consts,
+                learn_scale)
+        elif self.kind == "method":
+            _, m, g = fm.method_fwd_bwd_reference(
+                self.method, sp, x1, x2, noise, dims, consts, learn_scale,
+                masks)
+        else:
+            _, m, g = fp.presence_fwd_bwd_reference(
+                sp, x, noise, dims, consts, learn_scale, self.mod_idx,
+                self.method, masks)
+        return m, flatten_split(g)
+
+    def bound(self, p, inp, dims) -> dict:
+        """The step's bound from this run's tensors: the params it reads,
+        its batch, noise and masks in, every gradient and the metrics out;
+        the operations of its passes."""
+        from multivae_tpu_torch.params import flat_views
+
+        x1, x2, noise, masks = inp
+        read = nbytes(*[v for k, v in flat_views(p, dims).items()
+                        if self.mod_idx is None
+                        or k[3] == str(self.mod_idx + 1)])
+        xs = (x1, x2) if self.mod_idx is None else (
+            (x1,) if self.mod_idx == 0 else (x2,))
+        moved = read + nbytes(*xs, noise, masks) + nbytes(p) + 4 * 19
+        return bound(moved, step_flops(dims.b, self.enc_passes,
+                                       self.dec_passes))
+
+
+MASK_CASES = ([(m, False) for m in ("moe", "jsd", "poe")]
+              + [(m, True) for m in ("joint_elbo", "moe", "jsd", "poe")])
+
+
+def all_routes():
+    """Every step route the trainer can take at the flagship layout."""
+    routes = [Route("mopoe")]
+    routes += [Route("method", m, None, masked) for m, masked in MASK_CASES]
+    for mod_idx in (0, 1):
+        routes.append(Route("presence", "joint_elbo", mod_idx))
+        routes += [Route("presence", m, mod_idx, masked)
+                   for m, masked in MASK_CASES]
+    return routes
+
+
+def epoch_check(route, p0, dims, consts, hyper, gen, device):
     """An 8-step epoch of one route on the kernels and on the plain
     versions from the same state, held by :func:`hold_epoch`."""
     import torch
 
+    from multivae_tpu_torch.ops import adam as adam_ops
     from multivae_tpu_torch.ops.adam import init_adam_state
 
+    x1s, x2s, noises, masks = route.inputs(dims, gen, device, steps=8)
     states, grads = {}, {}
     for version in ("kernel", "plain"):
         p = p0.clone()
         st = init_adam_state(p)
         grads[version] = []
-        run(version, p, st.mu, st.nu, grads[version])
+        update = (adam_ops.adam_update if version == "kernel"
+                  else adam_ops.adam_update_reference)
+        for i in range(8):
+            inp = (x1s[i], x2s[i], noises[i],
+                   None if masks is None else masks[i])
+            _, g = route.step(version, p, inp, dims, consts)
+            update(p, st.mu, st.nu, g, i + 1, hyper)
+            grads[version].append(g)
         states[version] = (p, st.mu, st.nu)
     torch.cuda.synchronize()
-    return hold_epoch("train-kernel", f"{name} 8-step epoch",
-                      states["kernel"], states["plain"], grads["kernel"],
-                      grads["plain"], dims)
+    return hold_epoch("train-kernel", f"{route.name} + flat_adam 8-step "
+                      f"epoch", states["kernel"], states["plain"],
+                      grads["kernel"], grads["plain"], dims)
 
 
 def train_kernel_check(device):
-    """Phase train-kernel: the step, presence-step and Adam kernels against
+    """Phase train-kernel: every step route and the Adam kernel against
     their plain versions at the flagship widths, 8-step epochs of each
     route, and times (CUDA events, in turns plain, kernel, kernel,
-    plain)."""
+    plain) beside each kernel's bound."""
     import torch
 
     from multivae_tpu_torch.ops import adam as adam_ops
-    from multivae_tpu_torch.ops import fused_presence as fp
     from multivae_tpu_torch.ops import fused_step as fs
-    from multivae_tpu_torch.params import dims_from, flat_views, flatten_split
+    from multivae_tpu_torch.params import dims_from
 
-    result = {k: {"max_abs_err": 0.0} for k in
-              ("mopoe_step", "presence_step", "flat_adam")}
-    consts = fs.FusedConsts(1.0, 1.0, 1.0)
+    result = {k: {"max_abs_err": 0.0, "variants": {}} for k in
+              ("mopoe_step", "method_step", "presence_step", "flat_adam")}
+    # beta_style != 1 so the squared style factor shows
+    consts = fs.FusedConsts(1.0, 0.7, 1.2)
     hyper = adam_ops.AdamHyper(2e-3, 0.9, 0.999)
-    for b in (256, 137):
-        for learn_scale in (True, False):
-            cfg, dims, p, x1, x2, noise = train_setup(device, b, SEED + b)
-            ej, es1, es2 = fs.split_noise(noise, dims)
-            ker = fs.step_flat(p, x1, x2, ej, es1, es2, dims, consts,
-                               learn_scale)
-            _, rm, rg = fs.fwd_bwd_reference(flat_views(p, dims), x1, x2,
-                                             ej, es1, es2, dims, consts,
-                                             learn_scale)
-            err = check_step("mopoe_step", ker, (rm, flatten_split(rg)),
-                             split_pairs(dims),
-                             f"B={b} learn_scale={learn_scale}")
-            result["mopoe_step"]["max_abs_err"] = max(
-                result["mopoe_step"]["max_abs_err"], err)
-            for mod_idx, x in ((0, x1), (1, x2)):
-                s = dims.s1 if mod_idx == 0 else dims.s2
-                pe = noise[:, dims.cd:dims.cd + s]
-                ker = fp.presence_step_flat(p, x, ej, pe, dims, consts,
-                                            learn_scale, mod_idx)
-                _, rm, rg = fp.presence_fwd_bwd_reference(
-                    flat_views(p, dims), x, ej, pe, dims, consts,
-                    learn_scale, mod_idx)
-                err = check_step("presence_step", ker,
-                                 (rm, flatten_split(rg)), split_pairs(dims),
-                                 f"mod_idx={mod_idx} B={b} "
-                                 f"learn_scale={learn_scale}")
-                result["presence_step"]["max_abs_err"] = max(
-                    result["presence_step"]["max_abs_err"], err)
+    routes = all_routes()
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    # the flagship epoch's full and partial batches, and a row count that
+    # neither 2 nor 3 divides
+    for b in STEP_ROWS:
+        cfg, dims, p, _, _, _ = train_setup(device, b, SEED + b)
+        for route in routes:
+            for learn_scale in (True, False):
+                inp = route.inputs(dims, gen, device)
+                err = check_step(
+                    route.name,
+                    route.step("kernel", p, inp, dims, consts, learn_scale),
+                    route.step("plain", p, inp, dims, consts, learn_scale),
+                    split_pairs(dims), f"B={b} learn_scale={learn_scale}")
+                result[route.kernel]["max_abs_err"] = max(
+                    result[route.kernel]["max_abs_err"], err)
 
     # Adam on random state at count 0 and 1000
     gen = torch.Generator(device=device).manual_seed(SEED)
@@ -388,60 +559,12 @@ def train_kernel_check(device):
     # 8-step epochs of each route, kernels against plain versions
     cfg, dims, p0, _, _, _ = train_setup(device, 256, SEED)
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
-
-    def steps_data(b, width_x):
-        return (torch.randn((8, b, width_x), generator=gen, device=device),
-                torch.randn((8, b, dims.cd + dims.s1 + dims.s2),
-                            generator=gen, device=device))
-
-    x1s, noise1 = steps_data(256, dims.d1)
-    x2s = torch.randn((8, 256, dims.d2), generator=gen, device=device)
-
-    def run_complete(version, p, mu, nu, grads):
-        for i in range(8):
-            ej, es1, es2 = fs.split_noise(noise1[i], dims)
-            if version == "kernel":
-                _, g = fs.step_flat(p, x1s[i], x2s[i], ej, es1, es2, dims,
-                                    consts, True)
-                adam_ops.adam_update(p, mu, nu, g, i + 1, hyper)
-            else:
-                _, _, gd = fs.fwd_bwd_reference(flat_views(p, dims), x1s[i],
-                                                x2s[i], ej, es1, es2, dims,
-                                                consts, True)
-                g = flatten_split(gd)
-                adam_ops.adam_update_reference(p, mu, nu, g, i + 1, hyper)
-            grads.append(g)
-
-    result["mopoe_step"]["epoch_err"] = epoch_check(
-        "mopoe_step + flat_adam", run_complete, p0, dims)
-
-    for mod_idx, xs in ((0, x1s), (1, x2s)):
-        s = dims.s1 if mod_idx == 0 else dims.s2
-
-        def run_presence(version, p, mu, nu, grads, mod_idx=mod_idx, xs=xs,
-                         s=s):
-            for i in range(8):
-                ej = noise1[i][:, :dims.cd]
-                es = noise1[i][:, dims.cd:dims.cd + s]
-                if version == "kernel":
-                    _, g = fp.presence_step_flat(p, xs[i], ej, es, dims,
-                                                 consts, True, mod_idx)
-                    adam_ops.adam_update(p, mu, nu, g, i + 1, hyper)
-                else:
-                    _, _, gd = fp.presence_fwd_bwd_reference(
-                        flat_views(p, dims), xs[i], ej, es, dims, consts,
-                        True, mod_idx)
-                    g = flatten_split(gd)
-                    adam_ops.adam_update_reference(p, mu, nu, g, i + 1,
-                                                   hyper)
-                grads.append(g)
-
-        result["presence_step"][f"epoch_err_{mod_idx}"] = epoch_check(
-            f"presence_step(mod_idx={mod_idx}) + flat_adam", run_presence,
-            p0, dims)
+    for route in routes:
+        err = epoch_check(route, p0, dims, consts, hyper, gen, device)
+        worst = result[route.kernel].get("epoch_err", 0.0)
+        result[route.kernel]["epoch_err"] = max(worst, err)
 
     # ---- timing, in turns: plain, kernel, kernel, plain
-    ej, es1, es2 = fs.split_noise(noise1[0], dims)
     p = p0.clone()
 
     def time_pair(ker_fn, ref_fn, iters=50):
@@ -449,76 +572,74 @@ def train_kernel_check(device):
              cuda_ms(ker_fn, iters), cuda_ms(ref_fn, iters)]
         return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
+    # the route whose time stands for its kernel in the record, then the
+    # other methods' steps
+    headline = {"mopoe_step": "mopoe_step", "method_step":
+                "method_step[poe]", "presence_step":
+                "presence_step[joint_elbo, mod_idx=0]"}
+    timed = [r for r in routes if r.kind != "presence"
+             or (r.mod_idx == 0 and r.method in ("joint_elbo", "poe"))]
+    for route in timed:
+        inp = route.inputs(dims, gen, device)
+        ker_ms, plain_ms, t = time_pair(
+            lambda: route.step("kernel", p, inp, dims, consts),
+            lambda: route.step("plain", p, inp, dims, consts), iters=30)
+        entry = dict(ms=ker_ms, plain_ms=plain_ms, library_ms=None,
+                     **route.bound(p, inp, dims))
+        result[route.kernel]["variants"][route.name] = entry
+        if headline[route.kernel] == route.name:
+            result[route.kernel].update(entry, timed_variant=route.name)
+        fl = step_flops(256, route.enc_passes, route.dec_passes)
+        log("train-kernel", f"{route.name} B=256: kernel {t[1]:.4f}/"
+            f"{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms per step; "
+            f"bound {entry['bound_ms']:.5f} ms by {entry['bound_by']} "
+            f"({fl / 1e6:.1f} MFLOP); kernel "
+            f"{fl / (ker_ms * 1e-3) / 1e12:.3f} TFLOP/s = "
+            f"{100 * entry['bound_ms'] / ker_ms:.2f} % of the bound's rate")
+
+    # Adam in place on one state, beside torch's fused Adam on one flat
+    # parameter (the library call; the port never calls it)
+    q = p0.clone()
+    mu, nu = torch.zeros_like(q), torch.zeros_like(q)
+    g = torch.randn(q.numel(), generator=gen, device=device) * 1e-3
+    lib_p = torch.nn.Parameter(p0.clone())
+    lib_p.grad = g.clone()
+    lib = torch.optim.Adam([lib_p], lr=hyper.lr, betas=(hyper.b1, hyper.b2),
+                           eps=hyper.eps, fused=True)
+    r = p0.clone()
+    rmu, rnu = torch.zeros_like(r), torch.zeros_like(r)
     ker_ms, plain_ms, t = time_pair(
-        lambda: fs.step_flat(p, x1s[0], x2s[0], ej, es1, es2, dims, consts,
-                             True),
-        lambda: fs.fwd_bwd_reference(flat_views(p, dims), x1s[0], x2s[0],
-                                     ej, es1, es2, dims, consts, True))
-    result["mopoe_step"].update(ms=ker_ms, plain_ms=plain_ms)
-    fl = flops_per_step(256)
-    log("train-kernel", f"mopoe_step B=256: kernel {t[1]:.4f}/{t[2]:.4f} ms,"
-        f" plain {t[0]:.4f}/{t[3]:.4f} ms per step; kernel "
-        f"{fl / (ker_ms * 1e-3) / 1e12:.3f} TFLOP/s, plain "
-        f"{fl / (plain_ms * 1e-3) / 1e12:.3f} TFLOP/s "
-        f"({fl / 1e6:.1f} MFLOP/step)")
-    pe = noise1[0][:, dims.cd:dims.cd + dims.s1]
-    ker_ms, plain_ms, t = time_pair(
-        lambda: fp.presence_step_flat(p, x1s[0], ej, pe, dims, consts, True,
-                                      0),
-        lambda: fp.presence_fwd_bwd_reference(flat_views(p, dims), x1s[0],
-                                              ej, pe, dims, consts, True, 0))
-    result["presence_step"].update(ms=ker_ms, plain_ms=plain_ms)
-    log("train-kernel", f"presence_step mod_idx=0 B=256: kernel "
-        f"{t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms per step")
-    mu, nu = torch.zeros_like(p), torch.zeros_like(p)
-    g = torch.randn(p.numel(), generator=gen, device=device) * 1e-3
-    ker_ms, plain_ms, t = time_pair(
-        lambda: adam_ops.adam_update(p.clone(), mu, nu, g, 1, hyper),
-        lambda: adam_ops.adam_update_reference(p.clone(), mu, nu, g, 1,
-                                               hyper))
-    result["flat_adam"].update(ms=ker_ms, plain_ms=plain_ms)
-    log("train-kernel", f"flat_adam n={p.numel()}: kernel {t[1]:.4f}/"
-        f"{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms per update (each "
-        f"incl. one {p.numel() * 4 / 1e6:.2f} MB params copy)")
+        lambda: adam_ops.adam_update(q, mu, nu, g, 1, hyper),
+        lambda: adam_ops.adam_update_reference(r, rmu, rnu, g, 1, hyper))
+    lib_ms = cuda_ms(lib.step, 50)
+    result["flat_adam"].update(
+        ms=ker_ms, plain_ms=plain_ms, library_ms=lib_ms,
+        **bound(nbytes(q, mu, nu, g) + nbytes(q, mu, nu), 12.0 * q.numel()))
+    log("train-kernel", f"flat_adam n={q.numel()}: kernel {t[1]:.4f}/"
+        f"{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms, "
+        f"torch.optim.Adam(fused=True) {lib_ms:.4f} ms per update in place; "
+        f"bound {result['flat_adam']['bound_ms']:.5f} ms by "
+        f"{result['flat_adam']['bound_by']}")
 
     # one flagship epoch of device work: 6 complete + 2 clinical-only steps
+    mopoe, presence = routes[0], next(
+        r for r in routes if r.name == headline["presence_step"])
     batches = []
-    for b in EPOCH_COMPLETE:
-        _, _, _, bx1, bx2, bn = train_setup(device, b, SEED + 7 * b)
-        batches.append(("c", bx1, bx2, bn))
-    for b in EPOCH_PRESENCE:
-        _, _, _, bx1, _, bn = train_setup(device, b, SEED + 11 * b)
-        batches.append(("p", bx1, None, bn))
+    for route, sizes in ((mopoe, EPOCH_COMPLETE), (presence, EPOCH_PRESENCE)):
+        for b in sizes:
+            bdims = dims_from(cfg, b)
+            batches.append((route, bdims, route.inputs(bdims, gen, device)))
 
-    def epoch(kernel: bool):
+    def epoch(version):
         q, m_, v_ = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
-        for i, (kind, bx1, bx2, bn) in enumerate(batches):
-            bdims = dims_from(cfg, bx1.shape[0])
-            bej, bes1, bes2 = fs.split_noise(bn, bdims)
-            if kind == "c":
-                if kernel:
-                    _, gg = fs.step_flat(q, bx1, bx2, bej, bes1, bes2, bdims,
-                                         consts, True)
-                else:
-                    _, _, gd = fs.fwd_bwd_reference(
-                        flat_views(q, bdims), bx1, bx2, bej, bes1, bes2,
-                        bdims, consts, True)
-                    gg = flatten_split(gd)
-            else:
-                if kernel:
-                    _, gg = fp.presence_step_flat(q, bx1, bej, bes1, bdims,
-                                                  consts, True, 0)
-                else:
-                    _, _, gd = fp.presence_fwd_bwd_reference(
-                        flat_views(q, bdims), bx1, bej, bes1, bdims, consts,
-                        True, 0)
-                    gg = flatten_split(gd)
-            (adam_ops.adam_update if kernel
-             else adam_ops.adam_update_reference)(q, m_, v_, gg, i + 1,
-                                                  hyper)
+        update = (adam_ops.adam_update if version == "kernel"
+                  else adam_ops.adam_update_reference)
+        for i, (route, bdims, inp) in enumerate(batches):
+            _, gg = route.step(version, q, inp, bdims, consts)
+            update(q, m_, v_, gg, i + 1, hyper)
 
-    ker_ms, plain_ms, t = time_pair(lambda: epoch(True),
-                                    lambda: epoch(False), iters=10)
+    ker_ms, plain_ms, t = time_pair(lambda: epoch("kernel"),
+                                    lambda: epoch("plain"), iters=10)
     n_steps = len(batches)
     result["epoch"] = dict(ms=ker_ms, plain_ms=plain_ms, steps=n_steps)
     log("train-kernel", f"flagship epoch ({n_steps} steps: complete B="
@@ -697,7 +818,10 @@ def slice_run(device, card: str):
 
 
 # ------------------------------------------------------------- train slice
-SLICE_SUBJECTS, SLICE_EPOCHS = 2100, 10
+SLICE_SUBJECTS, SLICE_EPOCHS = 2100, 5
+# the other methods' slices: (method, dropout_rate), 3 epochs each
+METHOD_SLICES = (("moe", 0.0), ("jsd", 0.0), ("poe", 0.0), ("poe", 0.2))
+METHOD_SLICE_EPOCHS = 3
 SLICE_TRAIN = dict(input_dims=[7, 444], latent_dim=20, style_dim=[3, 20],
                    batch_size=256, fused_training=True,
                    use_tensorboard=False)
@@ -728,16 +852,16 @@ class _Tee(io.StringIO):
         return super().write(text)
 
 
-def train_run(datadir, outdir, epochs, device):
-    """``train_exp`` of the slice; returns the run and the train wall of
-    each epoch that it prints."""
+def train_run(datadir, outdir, epochs, device, **kw):
+    """``train_exp`` of the slice (``kw``: method, dropout_rate); returns
+    the run and the train wall of each epoch that it prints."""
     from multivae_tpu_torch import workflows
 
     out = _Tee()
     with contextlib.redirect_stdout(out):
         run = workflows.train_exp("synthetic", datadir, outdir,
                                   num_epochs=epochs, device=device,
-                                  **SLICE_TRAIN)
+                                  **SLICE_TRAIN, **kw)
     line = [ln for ln in out.getvalue().splitlines()
             if "train wall per epoch (s):" in ln][-1]
     return run, [float(w) for w in line.split(":", 1)[1].split()]
@@ -832,9 +956,10 @@ def relu_flips(card, host, dims):
     views, flips = flat_views(mask, dims), {}
     for s, ((kind, args, _), (_, host_args, _)) in enumerate(
             zip(card["steps"], host["steps"])):
-        # step_flat(p, x1, x2, ...); presence_step_flat(p, x, ..., mod_idx)
+        # step_flat(p, x1, x2, ...); presence_step_flat(p, x, noise, dims,
+        # consts, learn_scale, mod_idx, ...)
         inputs = ([(1, args[1]), (2, args[2])] if kind == "complete"
-                  else [(args[-1] + 1, args[1])])
+                  else [(args[6] + 1, args[1])])
         for e, x in inputs:
             pre = []
             for p in (args[0], host_args[0]):
@@ -929,20 +1054,126 @@ def hold_slice_epoch(card, host, dims):
                [u[1] for u in host["updates"]], dims, branch)
 
 
-def train_slice(device, card: str):
-    """Phase train-slice: ``workflows.train_exp`` on the card at the
-    flagship width, then ``daa_exp`` of the trained run, then one epoch on
-    the card against one epoch on the CPU (the plain versions)."""
+def slice_counters():
+    from multivae_tpu_torch.ops import (adam, fused_methods, fused_presence,
+                                        fused_step)
+
+    return {"mopoe_step": fused_step.KERNEL_LAUNCHES,
+            "method_step": fused_methods.KERNEL_LAUNCHES,
+            "presence_step": fused_presence.KERNEL_LAUNCHES,
+            "flat_adam": adam.KERNEL_LAUNCHES}
+
+
+def train_and_check(outdir, datadir, device, card, method, rate, epochs,
+                    complete, clinical, batching_s):
+    """``train_exp`` of one method on the card with every count set to 0
+    just before and read just after; checks the launches of its routes, the
+    losses, the metric families and the checkpoints. ``outdir`` is the
+    run's own (run names have the resolution of a minute). Returns
+    ``(run, launches)``."""
+    import types
+
     import pandas as pd
     import torch
 
+    from multivae_tpu_torch.ops import fused_methods, fused_presence
+
+    counters = slice_counters()
+    tag = method + (f", dropout {rate}" if rate else "")
+    steps = len(complete) + len(clinical)
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    run, walls = train_run(datadir, outdir, epochs, "cuda", method=method,
+                           dropout_rate=rate)
+    total = time.perf_counter() - start
+    launches = {k: c[k] for k, c in counters.items()}
+    rundir = os.path.join(outdir, run)
+    csv = pd.read_csv(os.path.join(rundir, "logs", "metrics.csv"))
+    tr = csv[csv.phase == "train"]
+    per_step = tr.groupby("step").metric.apply(frozenset)
+    names = types.SimpleNamespace(modalities=[
+        types.SimpleNamespace(name="clinical"),
+        types.SimpleNamespace(name="rois")])
+    complete_fam = frozenset(fused_methods.method_metric_names(names,
+                                                               method))
+    clinical_fam = frozenset(fused_presence.presence_metric_names(
+        names, method, 0))
+    n_complete = sum(s == complete_fam for s in per_step)
+    n_clinical = sum(s == clinical_fam for s in per_step)
+    losses = tr[tr.metric == "loss"].sort_values("step").value.to_numpy()
+    first = losses[:steps].mean()
+    last = losses[-steps:].mean()
+    ckpt = os.path.join(rundir, "checkpoints", f"{epochs - 1:04d}")
+    # joint_elbo without dropout keeps the MoPoE step; every other
+    # complete batch takes the method step
+    mopoe = method == "joint_elbo" and not rate
+    checks = {
+        "mopoe_step launches": launches["mopoe_step"]
+        == (len(complete) * epochs if mopoe else 0),
+        "method_step launches": launches["method_step"]
+        == (0 if mopoe else len(complete) * epochs),
+        "presence_step launches": launches["presence_step"]
+        == len(clinical) * epochs,
+        "flat_adam launches = steps": launches["flat_adam"]
+        == steps * epochs,
+        "losses finite": bool(np.isfinite(csv.value).all()),
+        "last epoch loss < first": bool(last < first),
+        "complete-route families": n_complete == len(complete) * epochs,
+        "log_prob_uni only for poe": ("log_prob_uni/rois" in complete_fam)
+        == (method == "poe"),
+        "clinical-only-route families": n_clinical
+        == len(clinical) * epochs,
+        "model.npz": os.path.isfile(os.path.join(ckpt, "model.npz")),
+        "opt_state.npz": os.path.isfile(os.path.join(ckpt,
+                                                     "opt_state.npz")),
+    }
+    wall = float(np.median(walls[1:])) if len(walls) > 1 else walls[0]
+    log("train-slice", f"[{tag}] train_exp {epochs} epochs x {steps} steps"
+        f" in {total:.3f} s (set-up included); launches {launches}; "
+        f"mean train loss epoch 1 {first:.3f} -> epoch {epochs} "
+        f"{last:.3f}; checks "
+        + ", ".join(f"{k}={v}" for k, v in checks.items()))
+    log("train-slice", f"[{tag}] train wall per epoch (train + test + "
+        f"logs, host clock, synchronized): first {walls[0]:.4f} s, median "
+        f"of the rest {wall:.4f} s = {steps / wall:.1f} steps/s end to "
+        f"end; host batching {batching_s:.4f} s = "
+        f"{100 * batching_s / wall:.1f} % of it ({card})")
+    if not all(checks.values()):
+        raise SystemExit(f"train slice wrong ({tag}): {checks}")
+
+    ep_wall, by_name = profile_epoch(datadir, rundir, device)
+    busy = sum(by_name.values())
+    if busy > 0:
+        ours = {k: v for k, v in by_name.items()
+                if any(s in k for s in ("gemm", "latent", "colsum",
+                                        "colreduce", "metrics_kernel",
+                                        "flat_adam"))}
+        log("train-slice", f"[{tag}] profiled training epoch: wall "
+            f"{ep_wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
+            f"(idle share {100 * (1 - busy / (ep_wall * 1e3)):.1f} %) ="
+            f" {steps / (busy * 1e-3):.1f} device steps/s; hand "
+            f"kernels {sum(ours.values()):.3f} ms; top: "
+            + ", ".join(f"{k[:40]} {v:.3f}" for k, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:6]))
+    else:
+        log("train-slice", f"[{tag}] profiled training epoch: wall "
+            f"{ep_wall * 1e3:.3f} ms; device time not measured (the "
+            f"profiler recorded no device events)")
+    return run, launches
+
+
+def train_slice(device, card: str):
+    """Phase train-slice: ``workflows.train_exp`` on the card at the
+    flagship width for joint_elbo, moe, jsd, poe and poe with dropout, then
+    ``daa_exp`` of the trained joint_elbo run, then one epoch on the card
+    against one epoch on the CPU (the plain versions). Returns each train
+    run's launches, ``{path: {kernel: count}}``."""
     from multivae_tpu_torch import workflows
     from multivae_tpu_torch.data import make_synthetic_cohort
-    from multivae_tpu_torch.ops import adam, fused_presence, fused_step
 
-    counters = {"mopoe_step": fused_step.KERNEL_LAUNCHES,
-                "presence_step": fused_presence.KERNEL_LAUNCHES,
-                "flat_adam": adam.KERNEL_LAUNCHES}
     with tempfile.TemporaryDirectory() as root:
         datadir = os.path.join(root, "data")
         make_synthetic_cohort(datadir, n_subjects=SLICE_SUBJECTS,
@@ -956,85 +1187,17 @@ def train_slice(device, card: str):
         if (complete != sorted(EPOCH_COMPLETE)
                 or clinical != sorted(EPOCH_PRESENCE)):
             raise SystemExit("unexpected epoch batches")
-        steps = len(complete) + len(clinical)
 
-        for c in counters.values():
-            for k in c:
-                c[k] = 0
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        run, walls = train_run(datadir, os.path.join(root, "out"),
-                               SLICE_EPOCHS, "cuda")
-        total = time.perf_counter() - start
-        launches = {k: c[k] for k, c in counters.items()}
-        rundir = os.path.join(root, "out", run)
-        csv = pd.read_csv(os.path.join(rundir, "logs", "metrics.csv"))
-        tr = csv[csv.phase == "train"]
-        per_step = tr.groupby("step").metric.apply(frozenset)
-        complete_fam = {"loss", "joint_divergence", "log_prob/clinical",
-                        "log_prob/rois", "kld/clinical", "kld/rois",
-                        "kld/clinical_rois", "kld_style/clinical_style",
-                        "kld_style/rois_style", "latent_mu/rois_style"}
-        clinical_fam = {"loss", "joint_divergence", "log_prob/clinical",
-                        "kld/clinical", "kld_style/clinical_style",
-                        "latent_mu/clinical", "latent_logvar/clinical",
-                        "latent_mu/clinical_style",
-                        "latent_logvar/clinical_style"}
-        n_complete = sum(complete_fam <= s for s in per_step)
-        n_clinical = sum(s == clinical_fam for s in per_step)
-        losses = tr[tr.metric == "loss"].sort_values("step").value.to_numpy()
-        first = losses[:steps].mean()
-        last = losses[-steps:].mean()
-        ckpt = os.path.join(rundir, "checkpoints", f"{SLICE_EPOCHS - 1:04d}")
-        checks = {
-            "mopoe_step launches": launches["mopoe_step"]
-            == len(complete) * SLICE_EPOCHS,
-            "presence_step launches": launches["presence_step"]
-            == len(clinical) * SLICE_EPOCHS,
-            "flat_adam launches = steps": launches["flat_adam"]
-            == steps * SLICE_EPOCHS,
-            "losses finite": bool(np.isfinite(csv.value).all()),
-            "last epoch loss < first": bool(last < first),
-            "complete-route families": n_complete
-            == len(complete) * SLICE_EPOCHS,
-            "clinical-only-route families": n_clinical
-            == len(clinical) * SLICE_EPOCHS,
-            "model.npz": os.path.isfile(os.path.join(ckpt, "model.npz")),
-            "opt_state.npz": os.path.isfile(os.path.join(ckpt,
-                                                         "opt_state.npz")),
-        }
-        wall = float(np.median(walls[1:])) if len(walls) > 1 else walls[0]
-        log("train-slice", f"train_exp {SLICE_EPOCHS} epochs x {steps} steps"
-            f" in {total:.3f} s (set-up included); launches {launches}; "
-            f"mean train loss epoch 1 {first:.3f} -> epoch {SLICE_EPOCHS} "
-            f"{last:.3f}; checks "
-            + ", ".join(f"{k}={v}" for k, v in checks.items()))
-        log("train-slice", f"train wall per epoch (train + test + logs, "
-            f"host clock, synchronized): first {walls[0]:.4f} s, median of "
-            f"the rest {wall:.4f} s = {steps / wall:.1f} steps/s end to "
-            f"end; host batching {batching_s:.4f} s = "
-            f"{100 * batching_s / wall:.1f} % of it ({card})")
-        if not all(checks.values()):
-            raise SystemExit(f"train slice wrong: {checks}")
-
-        ep_wall, by_name = profile_epoch(datadir, rundir, device)
-        busy = sum(by_name.values())
-        if busy > 0:
-            ours = {k: v for k, v in by_name.items()
-                    if any(s in k for s in ("gemm", "latent", "colsum",
-                                            "colreduce", "metrics_kernel",
-                                            "flat_adam"))}
-            log("train-slice", f"profiled training epoch: wall "
-                f"{ep_wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
-                f"(idle share {100 * (1 - busy / (ep_wall * 1e3)):.1f} %) ="
-                f" {steps / (busy * 1e-3):.1f} device steps/s; hand "
-                f"kernels {sum(ours.values()):.3f} ms; top: "
-                + ", ".join(f"{k[:40]} {v:.3f}" for k, v in sorted(
-                    by_name.items(), key=lambda kv: -kv[1])[:6]))
-        else:
-            log("train-slice", f"profiled training epoch: wall "
-                f"{ep_wall * 1e3:.3f} ms; device time not measured (the "
-                f"profiler recorded no device events)")
+        by_path = {}
+        run, by_path["train joint_elbo"] = train_and_check(
+            os.path.join(root, "out"), datadir, device, card, "joint_elbo",
+            0.0, SLICE_EPOCHS, complete, clinical, batching_s)
+        for method, rate in METHOD_SLICES:
+            path = f"train {method}" + (f" dropout {rate}" if rate else "")
+            _, by_path[path] = train_and_check(
+                os.path.join(root, f"out_{method}_{rate}"), datadir, device,
+                card, method, rate, METHOD_SLICE_EPOCHS, complete, clinical,
+                batching_s)
 
         # daa of the trained run through its normal entry point
         start = time.perf_counter()
@@ -1059,10 +1222,11 @@ def train_slice(device, card: str):
             records[dev] = rec
         hold_slice_epoch(records["cuda"], records["cpu"],
                          dims_from(flagship_cfg(), 256))
-    return launches
+    return by_path
 
 
-KERNELS = ("avatar_sweep", "mopoe_step", "presence_step", "flat_adam")
+KERNELS = ("avatar_sweep", "mopoe_step", "presence_step", "flat_adam",
+           "method_step")
 # the TPU kernels (bodies) each one replaces on the ported paths
 REPLACES = {
     "avatar_sweep": "multivae_tpu/ops/fused_daa.py:54",
@@ -1070,6 +1234,7 @@ REPLACES = {
                   "multivae_tpu/ops/fused_step.py:587, "
                   "multivae_tpu/ops/fused_methods.py:341",
     "presence_step": "multivae_tpu/ops/fused_presence.py:247",
+    "method_step": "multivae_tpu/ops/fused_methods.py:341",
     "flat_adam": "multivae_tpu/ops/fused_step.py:615, "
                  "multivae_tpu/ops/fused_presence.py:287, "
                  "multivae_tpu/ops/fused_methods.py:382"}
@@ -1103,21 +1268,38 @@ def main() -> int:
         f"CUDA {torch.version.cuda}")
     build_phase()
 
-    max_err, (ker_ms, plain_ms) = kernel_check(device)
-    entries = {"avatar_sweep": dict(max_abs_err=max_err, ms=ker_ms,
-                                    plain_ms=plain_ms)}
-    for kname, res in train_kernel_check(device).items():
-        if kname in KERNELS:
-            entries[kname] = res
-    entries["avatar_sweep"]["launches"], _ = slice_run(device, smi)
-    for kname, n in train_slice(device, smi).items():
-        entries[kname]["launches"] = n
+    from multivae_tpu_torch.ops.fused_step import full_f32_products
+
+    # the plain versions' products in full float32 while kernels are held
+    # to them; the process-wide flag is restored afterwards
+    with full_f32_products():
+        max_err, timing = kernel_check(device)
+        entries = {"avatar_sweep": dict(max_abs_err=max_err, **timing)}
+        for kname, res in train_kernel_check(device).items():
+            if kname in KERNELS:
+                entries[kname] = res
+        by_path = {"daa": {"avatar_sweep": slice_run(device, smi)[0]}}
+        by_path.update(train_slice(device, smi))
+    for k in KERNELS:
+        # each path's own count (set to 0 just before it, read just after)
+        # and their sum
+        entries[k]["launches_by_path"] = {
+            path: counts[k] for path, counts in by_path.items()
+            if k in counts}
+        entries[k]["launches"] = sum(
+            entries[k]["launches_by_path"].values())
+        if entries[k]["launches"] < 1:
+            raise SystemExit(f"the main paths never launched {k}")
 
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
         "source": f"multivae_tpu_torch/csrc/{k}.cu",
         "replaces": REPLACES[k], **{f: entries[k][f] for f in (
-            "launches", "max_abs_err", "ms", "plain_ms")}}
+            "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "launches_by_path")},
+        **({"timed_variant": entries[k]["timed_variant"],
+            "variants": entries[k]["variants"]}
+           if entries[k].get("variants") else {})}
         for k in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,7 @@
 // split tensor in a flat buffer of the same layout.
 //
 // What bounds it: at the flagship widths (d = 7/444, h = 256, cd = 20,
-// s = 3/20) and B = 256 a step is ~254 MFLOP over ~0.67 MB of params, a
+// s = 3/20) and B = 256 a step needs ~195 MFLOP over ~0.67 MB of params, a
 // few MB of activations at most: compute-light, and every product is small
 // (M, N, K <= 444), so launch count and the serial K loops bound it, not
 // HBM or the f32 pipes. The TPU kernel keeps params and both Adam moments
@@ -373,7 +373,7 @@ int mopoe_step_launch(const float* params, float* grads, float* metrics,
       const step::DecLayout& D = L.dec[e];
       rb.p[e] = step::DecReduce{w.r[e], P + D.olv, w.g_loc[e], G + D.bd,
                                 G + D.olv, w.nll_col + (e == 0 ? 0 : d1),
-                                d[e]};
+                                d[e], nullptr, nullptr, nullptr};
     }
     rb.b = b;
     rb.learn_scale = learn_scale;

@@ -1,5 +1,5 @@
 // Shared device code of the train-step kernels (mopoe_step.cu,
-// presence_step.cu), for Hopper (sm_90a).
+// method_step.cu, presence_step.cu), for Hopper (sm_90a).
 //
 // * The split layout: the 28 split tensors of multivae_tpu/ops/fused_step.py
 //   (SPLIT_NAMES) back to back in one flat float32 buffer, in the JAX layout
@@ -13,11 +13,16 @@
 //   thread, every sum over k in one fixed order. dW = A^T G is the same
 //   product with transposed A: the reduction over the batch rows runs in a
 //   fixed order inside one block, never across blocks, so there is no float
-//   atomicAdd anywhere and two runs give the same bits.
-// * colsum: bias gradients, one thread per column summing the rows in order.
+//   atomicAdd anywhere and two runs give the same bits. A problem may carry
+//   a dropout keep mask (pre-scaled, [M, N]): the forward epilogue
+//   multiplies it in after the ReLU, the backward one where the ReLU let
+//   the unit through.
+// * colsum: bias gradients, one thread per column summing the rows in order
+//   (of one source, or of two passes' sources one after the other).
 // * dec_colreduce: per decoder column, the residual's gradient
 //   g_loc = -r exp(-olv) / b, its column sum (bias gradient), the
-//   output-log-variance gradient and the column's NLL sum.
+//   output-log-variance gradient and the column's NLL sum; with a second
+//   residual (poe's unimodal decode) the gradients are the two passes' sums.
 // * block_sum: a fixed-order tree reduction inside one block.
 
 #pragma once
@@ -83,8 +88,9 @@ constexpr int kMaxProblems = 12;
 enum Epilogue {
   kStore = 0,     // C = acc
   kBias = 1,      // C = acc + bias[n]
-  kBiasRelu = 2,  // C = max(acc + bias[n], 0)
-  kReluMask = 3,  // C = aux[m, n] > 0 ? acc : 0   (ReLU backward)
+  kBiasRelu = 2,  // C = max(acc + bias[n], 0) [* mask[m, n]]
+  kReluMask = 3,  // C = aux[m, n] > 0 ? acc [* mask[m, n]] : 0 (ReLU backward;
+                  // aux is the masked activation: it is 0 where the mask is)
   kResidual = 4,  // C = aux[m, n] - (acc + bias[n])   (r = x - loc)
 };
 
@@ -103,7 +109,8 @@ struct Problem {
   int ldc, epilogue;
   const float* bias;
   const float* aux;
-  int ld_aux, tiles_n, tile_begin;
+  const float* mask;  // optional pre-scaled keep mask, nullptr for none
+  int ld_aux, ld_mask, tiles_n, tile_begin;
 };
 
 struct GemmBatch {
@@ -182,10 +189,18 @@ grouped_gemm_kernel(const GemmBatch batch) {
           break;
         case kBiasRelu:
           v = fmaxf(v + P.bias[n], 0.0f);
+          if (P.mask != nullptr) {
+            v *= P.mask[static_cast<long long>(m) * P.ld_mask + n];
+          }
           break;
         case kReluMask:
-          v = P.aux[static_cast<long long>(m) * P.ld_aux + n] > 0.0f ? v
-                                                                      : 0.0f;
+          if (P.aux[static_cast<long long>(m) * P.ld_aux + n] > 0.0f) {
+            if (P.mask != nullptr) {
+              v *= P.mask[static_cast<long long>(m) * P.ld_mask + n];
+            }
+          } else {
+            v = 0.0f;
+          }
           break;
         case kResidual:
           v = P.aux[static_cast<long long>(m) * P.ld_aux + n] -
@@ -212,7 +227,8 @@ struct GemmBuilder {
   // C[M, N] = epilogue(sum over the segments added by add_segment)
   Problem* add(int M, int N, int transA, int transB, float* C, int ldc,
                int epilogue = kStore, const float* bias = nullptr,
-               const float* aux = nullptr, int ld_aux = 0) {
+               const float* aux = nullptr, int ld_aux = 0,
+               const float* mask = nullptr, int ld_mask = 0) {
     if (batch.count >= kMaxProblems) {
       overflow = true;
       return nullptr;
@@ -229,6 +245,8 @@ struct GemmBuilder {
     P.bias = bias;
     P.aux = aux;
     P.ld_aux = ld_aux;
+    P.mask = mask;
+    P.ld_mask = ld_mask;
     P.tiles_n = (N + kTile - 1) / kTile;
     P.tile_begin = batch.total_tiles;
     batch.total_tiles += ((M + kTile - 1) / kTile) * P.tiles_n;
@@ -257,8 +275,9 @@ constexpr int kMaxColSums = 12;
 constexpr int kColThreads = 128;
 
 struct ColSum {
-  const float* src;  // [rows, ld]
-  float* dst;        // [cols]
+  const float* src;   // [rows, ld]
+  const float* src2;  // a second pass's [rows, ld] summed in, or nullptr
+  float* dst;         // [cols]
   int rows, cols, ld, col_begin;
 };
 
@@ -278,6 +297,11 @@ __global__ void colsum_kernel(const ColSumBatch batch) {
   for (int r = 0; r < P.rows; ++r) {
     acc += P.src[static_cast<long long>(r) * P.ld + c];
   }
+  if (P.src2 != nullptr) {
+    for (int r = 0; r < P.rows; ++r) {
+      acc += P.src2[static_cast<long long>(r) * P.ld + c];
+    }
+  }
   P.dst[c] = acc;
 }
 
@@ -290,12 +314,13 @@ struct ColSumBuilder {
     batch.total_cols = 0;
   }
 
-  void add(const float* src, int rows, int cols, float* dst) {
+  void add(const float* src, int rows, int cols, float* dst,
+           const float* src2 = nullptr) {
     if (batch.count >= kMaxColSums) {
       overflow = true;
       return;
     }
-    batch.p[batch.count++] = ColSum{src, dst, rows, cols, cols,
+    batch.p[batch.count++] = ColSum{src, src2, dst, rows, cols, cols,
                                     batch.total_cols};
     batch.total_cols += cols;
   }
@@ -318,6 +343,11 @@ struct DecReduce {
   float* g_olv;      // [d]
   float* nll_col;    // [d] column sums of the per-element NLL
   int d;
+  // a second decode of the same modality (poe's unimodal pass), or nullptr:
+  // g_bd and g_olv are then the sums over both passes
+  const float* r2;
+  float* g_loc2;
+  float* nll_col2;
 };
 
 struct DecReduceBatch {
@@ -343,9 +373,23 @@ __global__ void dec_colreduce_kernel(const DecReduceBatch batch) {
     acc_o += 0.5f - q;
     acc_n += 0.5f * kLog2Pi + 0.5f * olv + q;
   }
+  P.nll_col[c] = acc_n;
+  if (P.r2 != nullptr) {
+    acc_n = 0.0f;
+    for (int row = 0; row < batch.b; ++row) {
+      const long long i = static_cast<long long>(row) * P.d + c;
+      const float rv = P.r2[i];
+      const float gl = -rv * iv / bf;
+      const float q = 0.5f * (rv * rv) * iv;
+      P.g_loc2[i] = gl;
+      acc_g += gl;
+      acc_o += 0.5f - q;
+      acc_n += 0.5f * kLog2Pi + 0.5f * olv + q;
+    }
+    P.nll_col2[c] = acc_n;
+  }
   P.g_bd[c] = acc_g;
   P.g_olv[c] = batch.learn_scale ? acc_o / bf : 0.0f;
-  P.nll_col[c] = acc_n;
 }
 
 // Fixed-order tree sum of `n` values read by `get(i)` across one block of

@@ -72,8 +72,6 @@ def sweep_cells_reference(sp, posteriors, cdata, eps, dims: FusedDims,
                           sample_latents: bool, method: str = "joint_elbo"):
     """Plain PyTorch version of the kernel: decoded ROI locs
     ``[n_cells, B, d2]`` of every cell (the math of ``_avatar_kernel``)."""
-    # full f32 matmuls on the card: TF32 keeps ~3 decimal digits
-    torch.backends.cuda.matmul.allow_tf32 = False
     cd, b = dims.cd, dims.b
     cmu2, clv2, smu2, slv2 = posteriors
     h1 = torch.relu(cdata @ sp["enc1_Wh"] + sp["enc1_bh"])

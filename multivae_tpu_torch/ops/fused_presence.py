@@ -1,31 +1,45 @@
 """Train steps of batches where only one modality is present: a
-hand-written CUDA kernel (``joint_elbo``) and its plain PyTorch version.
+hand-written CUDA kernel and its plain PyTorch version.
 
 Counterpart of ``multivae_tpu/ops/fused_presence.py``. With
 ``allow_missing_blocks`` about a fifth of the flagship cohort has no ROI
 block, so every epoch has clinical-only batches. The TPU kernel
 (``_presence_epoch_kernel``) differentiates ``presence_loss_split`` inside
-the kernel for four methods; the port ports its ``joint_elbo`` branch with
-a hand-derived backward: :func:`presence_fwd_bwd_reference` (plain) and
-``csrc/presence_step.cu`` (kernel), for ``mod_idx`` 0 or 1 and any row
-count. The absent modality's parameters get zero gradients and still take
-the Adam update (their moments decay and a nonzero ``mu`` still moves
-them), as in the JAX package. The other methods' branches and dropout
-masks stay with the TPU kernel (ROADMAP Queue 2) and raise here.
+the kernel for the four methods, with optional streamed dropout masks; the
+port derives the backward by hand: :func:`presence_fwd_bwd_reference`
+(plain) and ``csrc/presence_step.cu`` (kernel), for ``mod_idx`` 0 or 1 and
+any row count. Noise ``[B, presence_noise_width]``: ``cd | s_i``, twice
+for poe (the unimodal re-run's draw); masks ``(dm,)``, for poe
+``(dm, dm_uni)``. The absent modality's parameters get zero gradients and
+still take the Adam update (their moments decay and a nonzero ``mu`` still
+moves them), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..params import FusedDims, flat_size, flat_views, flatten_split
 from .adam import AdamHyper, adam_update
-from .fused_methods import METHODS
+from .fused_methods import (
+    METHODS,
+    check_masks,
+    decode_bwd,
+    decode_nll,
+    encode,
+    encode_bwd,
+    jsd_prior,
+    kl_grads,
+    kl_sum,
+    poe_with_prior,
+    poe_with_prior_bwd,
+    reparam_bwd,
+    row_masks,
+)
 from .fused_step import (
-    LOG2PI,
     POE_EPS,
     FusedConsts,
     check_inputs,
@@ -36,8 +50,7 @@ from .fused_step import (
 # launches of each kernel in this module; a caller resets and reads it
 KERNEL_LAUNCHES: Dict[str, int] = {"presence_step": 0}
 
-PORTED_METHODS = ("joint_elbo",)
-N_PRESENCE_METRICS = 9
+PORTED_METHODS = METHODS
 
 
 def presence_metric_names(model, method: str, mod_idx: int) -> Tuple[str, ...]:
@@ -55,6 +68,18 @@ def presence_metric_names(model, method: str, mod_idx: int) -> Tuple[str, ...]:
     return tuple(names)
 
 
+def n_presence_metrics(method: str) -> int:
+    return 10 if method == "poe" else 9
+
+
+def n_presence_masks(method: str, rate: float) -> int:
+    """Keep masks streamed per single-present step: one per encoder
+    pass."""
+    if rate <= 0.0:
+        return 0
+    return 2 if method == "poe" else 1
+
+
 def presence_noise_width(cfg, mod_idx: int) -> int:
     """Noise columns per sample: ``cd | s_i`` (twice for poe)."""
     w = cfg.class_dim + cfg.style_dim[mod_idx]
@@ -67,8 +92,7 @@ def supports_presence_fused(cfg, model, batch) -> bool:
     """The TPU kernel's eligibility (``multivae_tpu``
     ``supports_presence_fused`` less its VMEM guard): the split-layout
     architecture, any of the four methods, exactly one of the two
-    modalities present. Only ``joint_elbo`` without dropout has a kernel
-    in the port."""
+    modalities present."""
     names = [m.name for m in model.modalities]
     present = [n for n in names if n in batch]
     return (cfg.method in METHODS
@@ -77,73 +101,120 @@ def supports_presence_fused(cfg, model, batch) -> bool:
             and (cfg.method != "poe" or cfg.poe_unimodal_elbos))
 
 
-def presence_fwd_bwd_reference(sp, x, ej, es, dims: FusedDims,
+def presence_fwd_bwd_reference(sp, x, noise, dims: FusedDims,
                                consts: FusedConsts, learn_scale: bool,
-                               mod_idx: int):
-    """Plain PyTorch version of the kernel: ``(loss, metrics[9], grads)``
-    of the ``joint_elbo`` branch of ``presence_loss_split`` with its hand
-    backward; ``grads`` holds all 28 split tensors, the absent modality's
-    zero."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+                               mod_idx: int, method: str = "joint_elbo",
+                               dropout_masks: Optional[Sequence] = None):
+    """Plain PyTorch version of the kernel: ``(loss, metrics[9 | 10],
+    grads)`` of ``presence_loss_split`` with a hand-derived backward;
+    ``grads`` holds all 28 split tensors, the absent modality's zero."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    n_masks = 0 if dropout_masks is None else len(dropout_masks)
+    if n_masks not in (0, 2 if method == "poe" else 1):
+        raise ValueError(f"{method} takes {2 if method == 'poe' else 1} "
+                         f"dropout masks, got {n_masks}")
     e, d = f"enc{mod_idx + 1}", f"dec{mod_idx + 1}"
+    s_dim = dims.s1 if mod_idx == 0 else dims.s2
+    cd = dims.cd
     b = float(dims.b)
     beta, beta_style, beta_content = consts
+    dm = dropout_masks[0] if n_masks else None
+    g = {n: torch.zeros_like(v) for n, v in sp.items()}
 
-    h = torch.relu(x @ sp[f"{e}_Wh"] + sp[f"{e}_bh"])
-    cmu = h @ sp[f"{e}_Wcmu"] + sp[f"{e}_bcmu"]
-    clv = h @ sp[f"{e}_Wclv"] + sp[f"{e}_bclv"]
-    smu = h @ sp[f"{e}_Wsmu"] + sp[f"{e}_bsmu"]
-    slv = h @ sp[f"{e}_Wslv"] + sp[f"{e}_bslv"]
+    h, cmu, clv, smu, slv = encode(sp, e, x, dm)
     ev = torch.exp(clv)
     t = 1.0 / (ev + POE_EPS)
-    # masked PoE of the bare expert: mu unchanged, logvar = -log t
-    lv = -torch.log(t)
-    sj, ss = torch.exp(0.5 * lv), torch.exp(0.5 * slv)
-    zc = cmu + ej * sj
-    zs = smu + es * ss
-    olv = sp[f"{d}_olv"]
-    loc = zs @ sp[f"{d}_Wds"] + zc @ sp[f"{d}_Wdc"] + sp[f"{d}_bd"]
-    r = x - loc
-    iv = torch.exp(-olv)
-    nll = torch.sum(0.5 * LOG2PI + 0.5 * olv + 0.5 * torch.square(r) * iv) / b
+    ej, es = noise[:, :cd], noise[:, cd:cd + s_dim]
 
-    def kl_sum(mu, logvar):
-        return -0.5 * torch.sum(1.0 - torch.exp(logvar) - torch.square(mu)
-                                + logvar) / b
+    if method == "joint_elbo":
+        # masked PoE of the bare expert: mu unchanged, logvar = -log t
+        joint_mu, joint_lv = cmu, -torch.log(t)
+        kld_m = kl_sum(cmu, joint_lv, b)
+        group_div = kld_m
+    elif method == "moe":
+        joint_mu, joint_lv = cmu, clv
+        kld_m = kl_sum(cmu, clv, b)
+        group_div = kld_m
+    elif method == "jsd":
+        kld_m = kl_sum(cmu, clv, b)  # a metric only
+        m_a, _ = row_masks(dims.b, 2, x.device)
+        joint_mu = m_a * cmu  # unit rows: mu = 0
+        joint_lv = m_a * clv  # unit rows: logvar = 0
+        jsd_sum, ((j_mu, j_lv),) = jsd_prior(
+            [(cmu, clv, t)], b, beta * beta_content / (2.0 * b))
+        group_div = jsd_sum / 2.0
+    else:  # poe: the singleton subset fuses with the unit prior expert
+        mu_s, lv_s, ts = poe_with_prior(cmu, t)
+        joint_mu, joint_lv = mu_s, lv_s
+        kld_m = kl_sum(mu_s, lv_s, b)
+        group_div = kld_m
 
-    kld_m, kld_s = kl_sum(cmu, lv), kl_sum(smu, slv)
-    group_div = kld_m
-    loss = nll + beta * (beta_style * beta_style * kld_s
-                         + beta_content * group_div)
+    zc = joint_mu + ej * torch.exp(0.5 * joint_lv)
+    zs = smu + es * torch.exp(0.5 * slv)
+    nll, r, iv = decode_nll(sp, d, x, zs, zc, b)
+    kld_s = kl_sum(smu, slv, b)
+    style = beta_style * beta_style * kld_s
+    extra = []
+    if method != "poe":
+        loss = nll + beta * (style + beta_content * group_div)
+    else:
+        off = cd + s_dim
+        uj, us = noise[:, off:off + cd], noise[:, off + cd:off + cd + s_dim]
+        # the unimodal re-run: the same posterior, or under dropout a
+        # second encoding with its own mask
+        hu, cmuu, clvu, smuu, slvu = h, cmu, clv, smu, slv
+        tu, mu_u, lv_u, ts_u = t, mu_s, lv_s, ts
+        if n_masks:
+            hu, cmuu, clvu, smuu, slvu = encode(sp, e, x, dropout_masks[1])
+            tu = 1.0 / (torch.exp(clvu) + POE_EPS)
+            mu_u, lv_u, ts_u = poe_with_prior(cmuu, tu)
+        zcu = mu_u + uj * torch.exp(0.5 * lv_u)
+        zsu = smuu + us * torch.exp(0.5 * slvu)
+        nll_uni, r_u, iv_u = decode_nll(sp, d, x, zsu, zcu, b)
+        loss = nll_uni + nll + beta * (2.0 * beta_content * kld_m
+                                       + 2.0 * style)
+        extra = [nll_uni]
     metrics = torch.stack([loss, group_div, nll, kld_m, kld_s, cmu.mean(),
-                           clv.mean(), smu.mean(), slv.mean()])
+                           clv.mean(), smu.mean(), slv.mean()] + extra)
 
-    g = {n: torch.zeros_like(v) for n, v in sp.items()}
-    g_loc = -r * iv / b
-    g[f"{d}_Wds"] = zs.T @ g_loc
-    g[f"{d}_Wdc"] = zc.T @ g_loc
-    g[f"{d}_bd"] = g_loc.sum(0)
-    if learn_scale:
-        g[f"{d}_olv"] = torch.sum(0.5 - 0.5 * torch.square(r) * iv, 0,
-                                  keepdim=True) / b
-    g_zs = g_loc @ sp[f"{d}_Wds"].T
-    g_zc = g_loc @ sp[f"{d}_Wdc"].T
+    # ---------------- backward ----------------
+    g_zs, g_zc = decode_bwd(sp, g, d, r, iv, zs, zc, b, learn_scale)
+    g_jmu, g_jlv = reparam_bwd(g_zc, ej, joint_lv)
+    g_smu, g_slv = reparam_bwd(g_zs, es, slv)
     cg = beta * beta_content / b
     cs = beta * beta_style * beta_style / b
-    g_cmu = g_zc + cg * cmu
-    g_lv = g_zc * ej * 0.5 * sj + cg * 0.5 * (torch.exp(lv) - 1.0)
-    g_clv = g_lv * ev * t  # d(-log t)/d clv = exp(clv) t
-    g_smu = g_zs + cs * smu
-    g_slv = g_zs * es * 0.5 * ss + cs * 0.5 * (torch.exp(slv) - 1.0)
-    g_h = torch.zeros_like(h)
-    for part, gh in (("cmu", g_cmu), ("clv", g_clv), ("smu", g_smu),
-                     ("slv", g_slv)):
-        g[f"{e}_W{part}"] = h.T @ gh
-        g[f"{e}_b{part}"] = gh.sum(0)
-        g_h = g_h + gh @ sp[f"{e}_W{part}"].T
-    g_h = g_h * (h > 0.0).float()
-    g[f"{e}_Wh"] = x.T @ g_h
-    g[f"{e}_bh"] = g_h.sum(0)
+    if method == "poe":
+        cg, cs = 2.0 * cg, 2.0 * cs  # the unimodal and the joint ELBO
+    if method == "joint_elbo":
+        k_mu, k_lv = kl_grads(cmu, joint_lv, cg)
+        g_cmu = g_jmu + k_mu
+        g_clv = (g_jlv + k_lv) * ev * t  # d(-log t)/d clv = exp(clv) t
+    elif method == "moe":
+        k_mu, k_lv = kl_grads(cmu, clv, cg)
+        g_cmu, g_clv = g_jmu + k_mu, g_jlv + k_lv
+    elif method == "jsd":
+        g_cmu, g_clv = m_a * g_jmu + j_mu, m_a * g_jlv + j_lv
+    else:
+        k_mu, k_lv = kl_grads(mu_s, lv_s, cg)
+        g_mu_s, g_lv_s = g_jmu + k_mu, g_jlv + k_lv
+        g_zsu, g_zcu = decode_bwd(sp, g, d, r_u, iv_u, zsu, zcu, b,
+                                  learn_scale)
+        g_mu_u, g_lv_u = reparam_bwd(g_zcu, uj, lv_u)
+        g_smuu, g_slvu = reparam_bwd(g_zsu, us, slvu)
+        if n_masks:
+            # the second pass takes the unimodal NLL's gradient alone
+            gc, gt = poe_with_prior_bwd(cmuu, tu, ts_u, mu_u, g_mu_u, g_lv_u)
+            encode_bwd(sp, g, e, x, hu, dropout_masks[1],
+                       (gc, -gt * torch.exp(clvu) * tu * tu, g_smuu, g_slvu))
+        else:
+            g_mu_s, g_lv_s = g_mu_s + g_mu_u, g_lv_s + g_lv_u
+            g_smu, g_slv = g_smu + g_smuu, g_slv + g_slvu
+        g_cmu, g_t = poe_with_prior_bwd(cmu, t, ts, mu_s, g_mu_s, g_lv_s)
+        g_clv = -g_t * ev * t * t
+    k_mu, k_lv = kl_grads(smu, slv, cs)
+    encode_bwd(sp, g, e, x, h, dm, (g_cmu, g_clv, g_smu + k_mu,
+                                    g_slv + k_lv))
     return loss, metrics, g
 
 
@@ -154,36 +225,44 @@ def _presence_library():
     if lib.presence_step_launch.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.presence_step_launch.argtypes = (
-            [ptr] * 5 + [i32, ptr, i32, ptr] + [i32] * 8 + [f32] * 3
+            [ptr] * 5 + [i32, ptr, ptr, i32, ptr] + [i32] * 9 + [f32] * 3
             + [i32, ptr])
         lib.presence_step_launch.restype = i32
-        lib.presence_step_workspace_floats.argtypes = [i32] * 5
+        lib.presence_step_workspace_floats.argtypes = [i32] * 7
         lib.presence_step_workspace_floats.restype = ctypes.c_longlong
         lib.presence_step_error_string.argtypes = [i32]
         lib.presence_step_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def _launch_presence(p, x, ej, es, dims: FusedDims, consts: FusedConsts,
-                     learn_scale: bool, mod_idx: int, metrics, grads):
+def _launch_presence(p, x, noise, dims: FusedDims, consts: FusedConsts,
+                     learn_scale: bool, mod_idx: int, method: str, masks,
+                     metrics, grads):
     device = p.device
     b = dims.b
     d = dims.d1 if mod_idx == 0 else dims.d2
     s = dims.s1 if mod_idx == 0 else dims.s2
+    width = (dims.cd + s) * (2 if method == "poe" else 1)
     check_inputs("presence_step", device, [
         (p, (flat_size(dims),)), (grads, (flat_size(dims),)),
-        (metrics, (N_PRESENCE_METRICS,)), (x, (b, d)), (ej, (b, dims.cd)),
-        (es, (b, s))])
+        (metrics, (n_presence_metrics(method),)), (x, (b, d)),
+        (noise, (b, width))])
     if not x.is_contiguous():
         raise ValueError("presence_step takes a contiguous batch")
+    masks = check_masks("presence_step", masks,
+                        2 if method == "poe" else 1, b, dims.h, device)
+    mask_ptrs = [m.data_ptr() for m in masks] + [None] * (2 - len(masks))
+    ld_mask = masks[0].stride(0) if masks else 0
     lib = _presence_library()
-    work = workspace(lib, "presence_step", device, b, d, dims.h, dims.cd, s)
+    method_idx = METHODS.index(method)
+    work = workspace(lib, "presence_step", device, method_idx,
+                     int(bool(masks)), b, d, dims.h, dims.cd, s)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.presence_step_launch(
             p.data_ptr(), grads.data_ptr(), metrics.data_ptr(),
-            x.data_ptr(), ej.data_ptr(), ej.stride(0), es.data_ptr(),
-            es.stride(0), work.data_ptr(), int(mod_idx), b, dims.d1,
+            x.data_ptr(), noise.data_ptr(), noise.stride(0), *mask_ptrs,
+            ld_mask, work.data_ptr(), method_idx, int(mod_idx), b, dims.d1,
             dims.d2, dims.h, dims.cd, dims.s1, dims.s2,
             *(float(c) for c in consts), int(bool(learn_scale)), stream)
     if rc != 0:
@@ -192,39 +271,43 @@ def _launch_presence(p, x, ej, es, dims: FusedDims, consts: FusedConsts,
     KERNEL_LAUNCHES["presence_step"] += 1
 
 
-def presence_step_flat(p, x, ej, es, dims: FusedDims, consts: FusedConsts,
-                       learn_scale: bool, mod_idx: int):
-    """One presence step on a flat params buffer: ``(metrics[9], grads)``.
-    The kernel for CUDA tensors, the plain version for CPU tensors."""
+def presence_step_flat(p, x, noise, dims: FusedDims, consts: FusedConsts,
+                       learn_scale: bool, mod_idx: int,
+                       method: str = "joint_elbo", dropout_masks=None):
+    """One presence step on a flat params buffer: ``(metrics[9 | 10],
+    grads)``. The kernel for CUDA tensors, the plain version for CPU
+    tensors."""
     if mod_idx not in (0, 1):
         raise ValueError(f"mod_idx must be 0 or 1, got {mod_idx}")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
     if p.device.type == "cuda":
-        metrics = torch.empty(N_PRESENCE_METRICS, dtype=torch.float32,
-                              device=p.device)
+        metrics = torch.empty(n_presence_metrics(method),
+                              dtype=torch.float32, device=p.device)
         grads = torch.empty_like(p)
-        _launch_presence(p, x, ej, es, dims, consts, learn_scale, mod_idx,
-                         metrics, grads)
+        _launch_presence(p, x, noise, dims, consts, learn_scale, mod_idx,
+                         method, dropout_masks, metrics, grads)
         return metrics, grads
     if p.device.type == "cpu":
         _, metrics, g = presence_fwd_bwd_reference(
-            flat_views(p, dims), x, ej, es, dims, consts, learn_scale,
-            mod_idx)
+            flat_views(p, dims), x, noise, dims, consts, learn_scale,
+            mod_idx, method, dropout_masks)
         return metrics, flatten_split(g)
     raise ValueError(f"presence_step: no kernel for {p.device}")
 
 
 def presence_epoch_flat(p, mu, nu, count: int, xs, noise, dims: FusedDims,
                         consts: FusedConsts, hyper: AdamHyper,
-                        learn_scale: bool, mod_idx: int):
+                        learn_scale: bool, mod_idx: int,
+                        method: str = "joint_elbo", masks=None):
     """``n`` presence steps on flat buffers, each followed by Adam over all
-    28 tensors; ``noise [n, B, cd + s_i]`` (layout ``cd | s_i``). Returns
-    ``metrics [n, 9]``."""
-    cd = dims.cd
+    28 tensors; ``noise [n, B, presence_noise_width]``, ``masks [n, 1 | 2,
+    B, hidden]`` or None. Returns ``metrics [n, 9 | 10]``."""
     steps = []
     for i in range(xs.shape[0]):
         metrics, grads = presence_step_flat(
-            p, xs[i], noise[i][:, :cd], noise[i][:, cd:], dims, consts,
-            learn_scale, mod_idx)
+            p, xs[i], noise[i], dims, consts, learn_scale, mod_idx, method,
+            None if masks is None else masks[i])
         adam_update(p, mu, nu, grads, count + i + 1, hyper)
         steps.append(metrics)
     return torch.stack(steps)
@@ -232,12 +315,12 @@ def presence_epoch_flat(p, mu, nu, count: int, xs, noise, dims: FusedDims,
 
 def presence_epoch(sp, mu, nu, count: int, xs, noise, dims: FusedDims,
                    consts: FusedConsts, hyper: AdamHyper, learn_scale: bool,
-                   mod_idx: int):
-    """``(sp, mu, nu, metrics[n, 9])`` of an epoch over single-present
-    batches (the ``joint_elbo`` branch of ``build_presence_epoch``); the
-    inputs are not modified."""
+                   mod_idx: int, method: str = "joint_elbo", masks=None):
+    """``(sp, mu, nu, metrics[n, 9 | 10])`` of an epoch over single-present
+    batches (the contract of ``build_presence_epoch`` with the noise and
+    masks as inputs); the inputs are not modified."""
     p, m, v = (flatten_split(t) for t in (sp, mu, nu))
     metrics = presence_epoch_flat(p, m, v, count, xs, noise, dims, consts,
-                                  hyper, learn_scale, mod_idx)
+                                  hyper, learn_scale, mod_idx, method, masks)
     return (flat_views(p, dims), flat_views(m, dims), flat_views(v, dims),
             metrics)

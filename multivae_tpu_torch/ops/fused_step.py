@@ -16,6 +16,7 @@ back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import Dict, NamedTuple, Tuple
@@ -30,7 +31,6 @@ from ..params import (
     flatten_split,
 )
 from .adam import AdamHyper, adam_update
-from .fused_methods import _uniform_bounds
 
 LOG2PI = math.log(2.0 * math.pi)
 POE_EPS = 1e-8
@@ -95,6 +95,26 @@ def supports_fused(cfg, model, batch) -> bool:
             and cfg.dropout_rate == 0.0)
 
 
+def _uniform_bounds(b: int, k: int):
+    """Row partition of a k-component uniform stratified mixture."""
+    size = int(math.floor(b / k))
+    return [i * size for i in range(1, k)]
+
+
+@contextlib.contextmanager
+def full_f32_products():
+    """Full-float32 matrix products on the card inside the block (TF32
+    keeps ~3 decimal digits); the process-wide flag is restored on exit.
+    The plain versions are held to the kernels under this setting, which is
+    also PyTorch's default."""
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+
+
 def mixture_bounds(b: int) -> Tuple[int, int]:
     """Row partition of the 3-subset uniform mixture."""
     k1, k2 = _uniform_bounds(b, 3)
@@ -106,8 +126,6 @@ def fwd_bwd_reference(sp, x1, x2, ej, es1, es2, dims: FusedDims,
                       consts: FusedConsts, learn_scale: bool = True):
     """Plain PyTorch version of the kernel: ``(loss, metrics[17], grads)``,
     ``grads`` a dict of the split tensors' gradients (``_fwd_bwd``)."""
-    # full f32 matmuls on the card: TF32 keeps ~3 decimal digits
-    torch.backends.cuda.matmul.allow_tf32 = False
     k1, k2 = mixture_bounds(dims.b)
     b = float(dims.b)
     beta, beta_style, beta_content = consts

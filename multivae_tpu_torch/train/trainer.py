@@ -5,15 +5,17 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
 * the :class:`~multivae_tpu_torch.data.MissingModalitySampler` (seeded
   ``cfg.seed + epoch``) emits subset-homogeneous batches; with
   ``fused_training`` the full-size complete batches run first, in sampler
-  order, in one epoch call of the MoPoE step kernel
-  (``ops/fused_step.py``, ``csrc/mopoe_step.cu``); the remaining batches
-  then run grouped by ``(presence pattern, rows)`` in
-  :func:`canonical_group_order`, one epoch call per group: a complete
-  partial batch on the same step kernel (the ``joint_elbo`` branch of the
-  TPU method kernel), a single-present group on the presence kernel
-  (``ops/fused_presence.py``, ``csrc/presence_step.cu``); every step is
-  followed by ``csrc/flat_adam.cu``. Without ``fused_training`` every batch
-  takes the general autograd step, in the same order with the same noise;
+  order, in one epoch call; the remaining batches then run grouped by
+  ``(presence pattern, rows)`` in :func:`canonical_group_order`, one epoch
+  call per group. Complete batches, full or partial, of ``joint_elbo``
+  without dropout take the MoPoE step kernel (``ops/fused_step.py``,
+  ``csrc/mopoe_step.cu``), those of moe, jsd, poe and of any method with
+  dropout the method step kernel (``ops/fused_methods.py``,
+  ``csrc/method_step.cu``); a single-present group takes the presence
+  kernel (``ops/fused_presence.py``, ``csrc/presence_step.cu``); every
+  step is followed by ``csrc/flat_adam.cu``. Without ``fused_training``
+  every batch takes the general autograd step, in the same order with the
+  same noise;
 * the test split is evaluated with the general forward and
   :func:`~multivae_tpu_torch.train.losses.total_loss`;
 * every 5 epochs and at the end the model and optimizer state are
@@ -25,8 +27,15 @@ comes from one generator seeded by ``(cfg.seed, model_idx, epoch)``
 drawn on the CPU per step in emission order (the full complete batches,
 then the other training batches in sampler order, then the test batches)
 and copied to the device in one transfer for the training steps and one
-for the test pass. The metrics are fetched once for each. Configurations whose TPU route is a kernel the port does not have yet
-raise ``NotImplementedError`` naming the ROADMAP item; nothing falls back.
+for the test pass. With ``dropout_rate > 0`` the kernels' pre-scaled keep
+masks (``bernoulli(1 - rate) / (1 - rate)``, ``[B, hidden]``, one per
+encoder pass) come from a generator of their own (:func:`mask_generator`,
+the counterpart of ``fold_in(key, 7)``), so the noise of a run does not
+depend on its dropout rate; they are drawn in the same order and copied
+once per epoch. The test pass runs in eval mode and takes no mask. The
+metrics are fetched once for each pass. Configurations whose TPU route is
+a kernel the port does not have yet raise ``NotImplementedError`` naming
+the ROADMAP item; nothing falls back.
 The chunked drivers are not ported: ``epoch_chunk`` is accepted and the
 per-epoch driver runs (ROADMAP Queue 1 item 5).
 """
@@ -54,15 +63,10 @@ def unported_features(cfg, model) -> List[str]:
     """Each part of ``cfg`` whose route in the JAX package is a kernel or a
     driver the port does not have yet, with its ROADMAP item."""
     out = []
-    fused = bool(cfg.fused_training)
-    if fused and cfg.method != "joint_elbo":
-        out.append(f"method={cfg.method!r} with fused_training: the "
-                   f"moe/jsd/poe branches of the method and presence "
-                   f"kernels (ROADMAP Queue 2 items 1-2)")
-    if cfg.dropout_rate > 0.0:
-        out.append("dropout_rate > 0: dropout in the port's model and the "
-                   "kernels' streamed masks (ROADMAP Queue 1 item 7, Queue "
-                   "2 items 1-2)")
+    if cfg.dropout_rate > 0.0 and not cfg.fused_training:
+        out.append("dropout_rate > 0 with fused_training=False: dropout in "
+                   "the general step and the port's modules (ROADMAP Queue "
+                   "1 item 7)")
     if getattr(cfg, "precision", "float32") != "float32":
         out.append(f"precision={cfg.precision!r}: bf16 kernel products "
                    f"(ROADMAP Queue 1 item 8)")
@@ -70,11 +74,11 @@ def unported_features(cfg, model) -> List[str]:
         out.append("an architecture outside the split layout (deep "
                    "decoders, per-sample output scale, another likelihood "
                    "or modality count): the generic kernel (ROADMAP Queue 2 "
-                   "item 4)")
+                   "item 2)")
     if cfg.data_parallel > 1 or cfg.tensor_parallel > 1:
         out.append("data_parallel/tensor_parallel > 1: multi-GPU training "
                    "and the row-sharded step kernels (ROADMAP Queue 1 item "
-                   "4, Queue 2 item 3)")
+                   "4, Queue 2 item 1)")
     if cfg.ensemble_parallel is True and cfg.num_models > 1:
         out.append("ensemble_parallel=True: the ensemble driver (ROADMAP "
                    "Queue 1 item 4)")
@@ -101,6 +105,37 @@ def epoch_generator(cfg, model_idx: int, epoch: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed) & (2 ** 63 - 1))
 
 
+MASK_STREAM = 7  # the tag of the dropout masks' stream
+
+
+def mask_generator(cfg, model_idx: int, epoch: int) -> torch.Generator:
+    """The CPU generator of one member's epoch of dropout masks: a pure
+    function of ``(cfg.seed, model_idx, epoch)`` and a fixed tag, apart
+    from the noise's stream."""
+    seed = np.random.SeedSequence(
+        [int(cfg.seed), int(model_idx), int(epoch),
+         MASK_STREAM]).generate_state(1, dtype=np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed) & (2 ** 63 - 1))
+
+
+def draw_masks(generator: torch.Generator, shapes, rate: float, device):
+    """Pre-scaled dropout keep masks (values in ``{0, 1 / (1 - rate)}``),
+    one ``[n_masks, rows, hidden]`` block per entry of ``shapes`` in order
+    (``None`` where ``n_masks`` is 0), drawn on the CPU and copied to
+    ``device`` once."""
+    keep = 1.0 - float(rate)
+    flat = [(torch.rand(n * r * h, generator=generator) < keep).float()
+            / keep for n, r, h in shapes if n]
+    if not flat:
+        return [None] * len(shapes)
+    buf = torch.cat(flat).to(device)
+    out, off = [], 0
+    for n, r, h in shapes:
+        out.append(buf[off:off + n * r * h].view(n, r, h) if n else None)
+        off += n * r * h
+    return out
+
+
 def draw_noise(generator: torch.Generator, shapes, device):
     """One standard-normal draw per ``(rows, width)`` in order, drawn on the
     CPU and copied to ``device`` once; returns the per-draw views."""
@@ -125,11 +160,12 @@ def canonical_group_order(keys, mod_names, batch_size):
 
 def make_group_fused_epoch(cfg, model, key):
     """The kernel epoch of the batches of one ``(presence pattern, rows)``
-    group (``trainer.py:41-72``): complete batches, full or partial, take
-    the MoPoE step kernel (at a partial row count it is the ``joint_elbo``
-    branch of the TPU method kernel); single-present batches the presence
-    kernel. Returns ``fn(params, opt, xs, noise) -> (opt, metrics [n, k],
-    metric names)`` with ``xs = {mod: [n, B, d]}``, ``noise [n, B, w]``;
+    group (``trainer.py:41-72, 885-895``): complete batches, full or
+    partial, take the MoPoE step kernel for ``joint_elbo`` without dropout
+    and the method step kernel otherwise; single-present batches the
+    presence kernel. Returns ``fn(params, opt, xs, noise, masks) -> (opt,
+    metrics [n, k], metric names)`` with ``xs = {mod: [n, B, d]}``,
+    ``noise [n, B, w]``, ``masks [n, n_masks, B, hidden]`` or None;
     ``params`` and the moments are updated in place. A group the JAX
     package routes to a kernel the port does not have raises."""
     mods, rows = key
@@ -138,42 +174,48 @@ def make_group_fused_epoch(cfg, model, key):
     consts = fused_step.consts_from(cfg)
     hyper = adam_hyper(cfg)
     learn_scale = bool(cfg.learn_output_scale)
+    method = cfg.method
     example = {m: None for m in mods}
     if len(mods) == len(mod_names):
-        # full batches: the step kernel's route; partial ones: the method
-        # kernel's, whose joint_elbo branch is the same step
-        ok = (fused_step.supports_fused(cfg, model, example)
-              if rows == cfg.batch_size else
-              fused_methods.supports_method_fused(cfg, model, example)
-              and cfg.method in fused_methods.PORTED_METHODS
-              and cfg.dropout_rate == 0.0)
-        if not ok:
+        if not fused_methods.supports_method_fused(cfg, model, example):
             check_supported(cfg, model)
             raise NotImplementedError(f"no kernel for the group {key}")
-        names = fused_methods.method_metric_names(model, cfg.method)
+        names = fused_methods.method_metric_names(model, method)
+        mopoe = fused_step.supports_fused(cfg, model, example)
 
-        def complete(p, opt, xs, noise):
-            metrics = fused_step.epoch_flat(
-                p, opt.mu, opt.nu, opt.count, xs[mod_names[0]],
-                xs[mod_names[1]], noise, dims, consts, hyper, learn_scale)
+        def complete(p, opt, xs, noise, masks=None):
+            x1s, x2s = xs[mod_names[0]], xs[mod_names[1]]
+            if mopoe:
+                metrics = fused_step.epoch_flat(
+                    p, opt.mu, opt.nu, opt.count, x1s, x2s, noise, dims,
+                    consts, hyper, learn_scale)
+            else:
+                metrics = fused_methods.method_epoch_flat(
+                    method, p, opt.mu, opt.nu, opt.count, x1s, x2s, noise,
+                    dims, consts, hyper, learn_scale, masks)
             return (AdamState(opt.count + len(noise), opt.mu, opt.nu),
                     metrics, names)
         return complete
-    if (not fused_presence.supports_presence_fused(cfg, model, example)
-            or cfg.method not in fused_presence.PORTED_METHODS
-            or cfg.dropout_rate > 0.0):
+    if not fused_presence.supports_presence_fused(cfg, model, example):
         check_supported(cfg, model)
         raise NotImplementedError(f"no kernel for the group {key}")
     mod_idx = mod_names.index(mods[0])
-    names = fused_presence.presence_metric_names(model, cfg.method, mod_idx)
+    names = fused_presence.presence_metric_names(model, method, mod_idx)
 
-    def presence(p, opt, xs, noise):
+    def presence(p, opt, xs, noise, masks=None):
         metrics = fused_presence.presence_epoch_flat(
             p, opt.mu, opt.nu, opt.count, xs[mods[0]], noise, dims, consts,
-            hyper, learn_scale, mod_idx)
+            hyper, learn_scale, mod_idx, method, masks)
         return (AdamState(opt.count + len(noise), opt.mu, opt.nu), metrics,
                 names)
     return presence
+
+
+def group_mask_count(cfg, n_mods: int, data) -> int:
+    """Keep masks one step of a batch takes on the kernel routes."""
+    if len(data) == n_mods:
+        return fused_methods.n_dropout_masks(cfg.method, cfg.dropout_rate)
+    return fused_presence.n_presence_masks(cfg.method, cfg.dropout_rate)
 
 
 def _rows(data) -> int:
@@ -241,6 +283,14 @@ def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
               for d in full + general]
     noise = draw_noise(generator, shapes, device)
     noise_full, noise_general = noise[:len(full)], noise[len(full):]
+    masks = [None] * len(shapes)
+    if fused and cfg.dropout_rate > 0.0:
+        masks = draw_masks(
+            mask_generator(cfg, model_idx, epoch),
+            [(group_mask_count(cfg, len(mod_names), d), _rows(d),
+              cfg.hidden_dim) for d in full + general],
+            cfg.dropout_rate, device)
+    masks_full, masks_general = masks[:len(full)], masks[len(full):]
 
     p = exp.params[model_idx]
     opt: AdamState = exp.opt_states[model_idx]
@@ -260,18 +310,20 @@ def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
             logs.add(names, torch.stack([metrics[k] for k in names])[None],
                      [0])
 
-    def run_group(key, batches, batch_noise, rows_to_log):
+    def run_group(key, batches, batch_noise, batch_masks, rows_to_log):
         # one kernel epoch over the group's batches
         nonlocal opt, n_steps
         epoch_fn = make_group_fused_epoch(cfg, model, key)
         xs = {m: _stack(batches, m, device) for m in key[0]}
-        opt, metrics, names = epoch_fn(p, opt, xs, torch.stack(batch_noise))
+        opt, metrics, names = epoch_fn(
+            p, opt, xs, torch.stack(batch_noise),
+            None if batch_masks[0] is None else torch.stack(batch_masks))
         n_steps += len(batches)
         logs.add(names, metrics, rows_to_log)
 
     if fused and full:
         run_group((tuple(sorted(mod_names)), cfg.batch_size), full,
-                  noise_full, range(0, len(full), log_every))
+                  noise_full, masks_full, range(0, len(full), log_every))
     elif not fused:
         for j, data in enumerate(full):
             run_general(data, noise_full[j], j % log_every == 0)
@@ -284,6 +336,7 @@ def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
         if fused:
             run_group(key, [general[i] for i in idx],
                       [noise_general[i] for i in idx],
+                      [masks_general[i] for i in idx],
                       [j for j, i in enumerate(idx) if i % log_every == 0])
         else:
             for i in idx:

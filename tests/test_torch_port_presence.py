@@ -1,13 +1,16 @@
-"""The port's presence step (joint_elbo, one modality present) against the
-JAX package.
+"""The port's presence step (one modality present; four methods, with and
+without dropout masks) against the JAX package.
 
 The port's plain version carries a hand-derived backward; the JAX package
 gets its gradient from ``jax.value_and_grad`` of ``presence_loss_split``
 inside its Pallas kernel, which is the oracle here. The epoch runs the
 JAX package's own Pallas body (``_presence_epoch_kernel``) in interpret
 mode with the port's noise fed in (``build_presence_epoch`` draws its own,
-so the test builds the same ``pallas_call`` with the noise as an input).
-Tolerances as in ``test_torch_port_train_step.py``.
+so the test builds the same ``pallas_call`` with the noise and the masks
+as inputs). The method cases use ``beta_style != 1`` and the row counts 12
+and 7 (2-way bounds 6 and 3). Tolerances as in
+``test_torch_port_train_step.py``; params, mu and nu after a 3-step epoch
+of a method case at rtol 1e-4 / atol 1e-5.
 """
 
 from functools import partial
@@ -93,8 +96,8 @@ def test_reference_matches_jax_autodiff(mod_idx, learn_scale, b):
     launches = dict(fused_presence.KERNEL_LAUNCHES)
     tmet, tg = fused_presence.presence_step_flat(
         bridge.flatten_split(t(sp)), torch.from_numpy(x),
-        torch.from_numpy(noise[:, :CD]), torch.from_numpy(noise[:, CD:]),
-        dims(b), fused_step.FusedConsts(*CONSTS), learn_scale, mod_idx)
+        torch.from_numpy(noise), dims(b), fused_step.FusedConsts(*CONSTS),
+        learn_scale, mod_idx)
     assert fused_presence.KERNEL_LAUNCHES == launches  # plain on the CPU
     close(tmet[0], loss, rtol=LOSS_RTOL, atol=0)
     close(tmet, np.stack([np.asarray(m) for m in metrics]))
@@ -103,16 +106,18 @@ def test_reference_matches_jax_autodiff(mod_idx, learn_scale, b):
         close(got[name], want[name])
 
 
-def jax_presence_epoch(sp, mu, nu, count, xs, noise, mod_idx):
-    """``build_presence_epoch``'s ``pallas_call`` (joint_elbo, no dropout)
-    with the noise as an input."""
+def jax_presence_epoch(sp, mu, nu, count, xs, noise, mod_idx,
+                       method="joint_elbo", masks=None, consts=CONSTS):
+    """``build_presence_epoch``'s ``pallas_call`` with the noise and the
+    masks (``[n, n_masks, b, hidden]`` or None) as inputs."""
     n = len(jax_fs.SPLIT_NAMES)
     n_steps, b = xs.shape[:2]
     jd = jax_fs.FusedDims(*dims(b))
-    n_met = fused_presence.N_PRESENCE_METRICS
-    kernel = partial(jax_fp._presence_epoch_kernel, "joint_elbo", jd,
-                     jax_fs.FusedConsts(*CONSTS), True, False, mod_idx,
-                     tuple(HYPER), n_met, 0)
+    n_met = fused_presence.n_presence_metrics(method)
+    n_masks = 0 if masks is None else masks.shape[1]
+    kernel = partial(jax_fp._presence_epoch_kernel, method, jd,
+                     jax_fs.FusedConsts(*consts), True, False, mod_idx,
+                     tuple(HYPER), n_met, n_masks)
     whole = pl.BlockSpec(memory_space=pltpu.VMEM)
     stream = lambda w: pl.BlockSpec((1, b, w), lambda i: (i, 0, 0))
     names = jax_fs.SPLIT_NAMES
@@ -121,8 +126,9 @@ def jax_presence_epoch(sp, mu, nu, count, xs, noise, mod_idx):
         out_shape=([jax.ShapeDtypeStruct((n_steps, n_met), jnp.float32)]
                    + [jax.ShapeDtypeStruct(sp[nm].shape, jnp.float32)
                       for nm in names] * 3),
-        in_specs=([stream(xs.shape[2]), stream(noise.shape[2]),
-                   pl.BlockSpec(memory_space=pltpu.SMEM)]
+        in_specs=([stream(xs.shape[2]), stream(noise.shape[2])]
+                  + [stream(HIDDEN)] * n_masks
+                  + [pl.BlockSpec(memory_space=pltpu.SMEM)]
                   + [whole] * (3 * n)),
         out_specs=([pl.BlockSpec(memory_space=pltpu.SMEM)]
                    + [whole] * (3 * n)),
@@ -130,6 +136,7 @@ def jax_presence_epoch(sp, mu, nu, count, xs, noise, mod_idx):
         compiler_params=pltpu.CompilerParams(
             dimension_semantics=("arbitrary",)),
     )(jnp.asarray(xs), jnp.asarray(noise),
+      *[jnp.asarray(masks[:, i]) for i in range(n_masks)],
       jnp.asarray(count, jnp.int32).reshape(1, 1),
       *[jnp.asarray(sp[nm]) for nm in names],
       *[jnp.asarray(mu[nm]) for nm in names],
@@ -158,6 +165,126 @@ def test_epoch_matches_jax_pallas_body(mod_idx):
     for k, want in enumerate((jp, jmu, jnu)):
         for name in bridge.SPLIT_NAMES:
             close(got[k][name], want[name], rtol=1e-4, atol=1e-6)
+
+
+# ------------------------------------------------- the four methods, masks
+METHOD_CONSTS = (1.3, 0.7, 1.2)  # beta, beta_style, beta_content
+RATE = 0.2
+OTHER = ("moe", "jsd", "poe")
+CASES = [(m, False) for m in OTHER] + [
+    (m, True) for m in ("joint_elbo",) + OTHER]
+
+
+def method_np(method, masked, mod_idx, b, seed, steps=None):
+    """``(x, noise, masks)`` of a presence step of ``method``; masks
+    ``[(steps,) n_masks, b, hidden]`` of pre-scaled keep values, or None."""
+    rng = np.random.default_rng(seed)
+    lead = () if steps is None else (steps,)
+    width = (CD + STYLE[mod_idx]) * (2 if method == "poe" else 1)
+    x = rng.normal(size=lead + (b, DIMS[mod_idx])).astype(np.float32)
+    noise = rng.normal(size=lead + (b, width)).astype(np.float32)
+    masks = None
+    if masked:
+        n = fused_presence.n_presence_masks(method, RATE)
+        keep = rng.random(size=lead + (n, b, HIDDEN)) < 1.0 - RATE
+        masks = (keep / (1.0 - RATE)).astype(np.float32)
+    return x, noise, masks
+
+
+@pytest.mark.parametrize("b", [B, B_PARTIAL])
+@pytest.mark.parametrize("learn_scale", [True, False])
+@pytest.mark.parametrize("mod_idx", [0, 1])
+@pytest.mark.parametrize("method,masked", CASES)
+def test_method_reference_matches_jax_autodiff(method, masked, mod_idx,
+                                               learn_scale, b):
+    sp = split_np(40 + mod_idx)
+    x, noise, masks = method_np(method, masked, mod_idx, b, 41 + b)
+    jd = jax_fs.FusedDims(*dims(b))
+
+    def loss_fn(p):
+        return jax_fp.presence_loss_split(
+            method, jd, jax_fs.FusedConsts(*METHOD_CONSTS), learn_scale,
+            False, mod_idx, p, jnp.asarray(x), jnp.asarray(noise),
+            dropout_masks=None if masks is None else tuple(
+                jnp.asarray(m) for m in masks))
+
+    (loss, metrics), want = jax.value_and_grad(loss_fn, has_aux=True)(j(sp))
+    launches = dict(fused_presence.KERNEL_LAUNCHES)
+    tmet, tg = fused_presence.presence_step_flat(
+        bridge.flatten_split(t(sp)), torch.from_numpy(x),
+        torch.from_numpy(noise), dims(b),
+        fused_step.FusedConsts(*METHOD_CONSTS), learn_scale, mod_idx, method,
+        None if masks is None else torch.from_numpy(masks))
+    assert fused_presence.KERNEL_LAUNCHES == launches  # plain on the CPU
+    assert tmet.shape == (fused_presence.n_presence_metrics(method),)
+    close(tmet[0], loss, rtol=LOSS_RTOL, atol=0)
+    close(tmet, np.stack([np.asarray(m) for m in metrics]))
+    got = bridge.flat_views(tg, dims(b))
+    absent = f"{2 - mod_idx}"
+    for name in bridge.SPLIT_NAMES:
+        close(got[name], want[name])
+        if name[3] == absent:
+            assert not got[name].any()
+
+
+@pytest.mark.parametrize("mod_idx", [0, 1])
+@pytest.mark.parametrize("method,masked", CASES)
+def test_method_epoch_matches_jax_pallas_body(method, masked, mod_idx):
+    sp = split_np(50 + mod_idx)
+    rng = np.random.default_rng(51)
+    mu = {k: (0.01 * rng.normal(size=v.shape)).astype(np.float32)
+          for k, v in sp.items()}
+    nu = {k: (1e-4 * rng.random(size=v.shape)).astype(np.float32)
+          for k, v in sp.items()}
+    xs, noise, masks = method_np(method, masked, mod_idx, B_PARTIAL, 52,
+                                 steps=3)
+    (jp, jmu, jnu), jmet = jax_presence_epoch(
+        sp, mu, nu, 4, xs, noise, mod_idx, method, masks, METHOD_CONSTS)
+    got = fused_presence.presence_epoch(
+        t(sp), t(mu), t(nu), 4, torch.from_numpy(xs),
+        torch.from_numpy(noise), dims(B_PARTIAL),
+        fused_step.FusedConsts(*METHOD_CONSTS), HYPER, True, mod_idx, method,
+        None if masks is None else torch.from_numpy(masks))
+    close(got[3][:, 0], jmet[:, 0], rtol=LOSS_RTOL, atol=0)
+    close(got[3], jmet)
+    for k, want in enumerate((jp, jmu, jnu)):
+        for name in bridge.SPLIT_NAMES:
+            close(got[k][name], want[name], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("mod_idx", [0, 1])
+@pytest.mark.parametrize("method", ("joint_elbo",) + OTHER)
+def test_plain_step_matches_general_autograd_step(method, mod_idx):
+    """Without dropout the kernel path's plain step equals the port's
+    general step (autograd of the model and ``total_loss``) on a batch
+    with one modality, on the same noise."""
+    from multivae_tpu_torch.train import train_step
+
+    cfg = Config(method=method, input_dim=list(DIMS), class_dim=CD,
+                 style_dim=list(STYLE), hidden_dim=HIDDEN,
+                 beta=METHOD_CONSTS[0], beta_style=METHOD_CONSTS[1],
+                 beta_content=METHOD_CONSTS[2]).derive()
+    model = build_model(cfg, make_modalities(cfg.input_dim, cfg.style_dim,
+                                             cfg.likelihood), "cpu")
+    sp = t(split_np(60))
+    bridge.load_flat_params(model, bridge.flatten_split(sp), dims(B_PARTIAL))
+    x, noise, _ = method_np(method, False, mod_idx, B_PARTIAL, 61)
+    x, noise = torch.from_numpy(x), torch.from_numpy(noise)
+    batch = {model.mod_names[mod_idx]: x}
+    assert noise.shape[1] == train_step.batch_noise_width(cfg, model, batch)
+    model.zero_grad()
+    loss, metrics = train_step.loss_and_metrics(cfg, model, batch, noise)
+    loss.backward()
+    d = dims(B_PARTIAL)
+    want = bridge.flat_views(train_step.grads_flat(model, d), d)
+    tloss, tmet, got = fused_presence.presence_fwd_bwd_reference(
+        sp, x, noise, d, fused_step.consts_from(cfg), True, mod_idx, method)
+    close(tloss, loss.detach(), rtol=LOSS_RTOL, atol=0)
+    names = fused_presence.presence_metric_names(model, method, mod_idx)
+    assert sorted(names) == sorted(metrics)
+    close(tmet, torch.stack([metrics[n].detach() for n in names]))
+    for name in bridge.SPLIT_NAMES:
+        close(got[name], want[name])
 
 
 def test_absent_half_takes_the_adam_decay():
@@ -216,5 +343,19 @@ def test_names_width_and_support_match_jax():
 def test_presence_step_checks_mod_idx():
     with pytest.raises(ValueError, match="mod_idx"):
         fused_presence.presence_step_flat(
-            torch.zeros(bridge.flat_size(dims())), None, None, None, dims(),
+            torch.zeros(bridge.flat_size(dims())), None, None, dims(),
             fused_step.FusedConsts(*CONSTS), True, 2)
+
+
+def test_presence_step_checks_method_and_mask_count():
+    p = torch.zeros(bridge.flat_size(dims()))
+    cs = fused_step.FusedConsts(*CONSTS)
+    with pytest.raises(ValueError, match="unknown method"):
+        fused_presence.presence_step_flat(p, None, None, dims(), cs, True, 0,
+                                          "mopoe")
+    x, noise, masks = method_np("poe", True, 0, B, 70)
+    with pytest.raises(ValueError, match="dropout masks"):
+        fused_presence.presence_step_flat(
+            p, torch.from_numpy(x), torch.from_numpy(noise), dims(), cs,
+            True, 0, "poe", torch.from_numpy(masks)[:1])
+    assert fused_presence.PORTED_METHODS == jax_fp.METHODS

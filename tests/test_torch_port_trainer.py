@@ -8,7 +8,10 @@ the port's noise, ``jax.value_and_grad`` of ``fused_loss_reference`` or
 atol 1e-6 (float32; ``flat_adam`` writes its bias correction ``1 - b ** t``
 where the kernels write ``1 - exp(t log b)``). The test pass is held to
 ``total_loss`` with injected noise, and the CLI-level runs (train, resume,
-unported options, checkpoint durability) are checked on the CPU.
+unported options, checkpoint durability) are checked on the CPU. The moe,
+jsd and poe routes and the dropout masks get the same rebuild from
+``method_loss_split`` / ``presence_loss_split`` with the port's noise and
+masks, and a ``train_exp`` run each.
 """
 
 import json
@@ -26,6 +29,7 @@ import optax
 from multivae_tpu.data import MissingModalitySampler as JaxSampler
 from multivae_tpu.models import build_model as jax_build_model
 from multivae_tpu.models import make_modalities as jax_make_modalities
+from multivae_tpu.ops import fused_methods as jax_fm
 from multivae_tpu.ops import fused_presence as jax_fp
 from multivae_tpu.ops import fused_step as jax_fs
 from multivae_tpu.train import trainer as jax_trainer
@@ -154,6 +158,118 @@ def test_one_epoch_matches_jax_rebuild(cohort):
                                exp.params[0], rtol=0, atol=0)
 
 
+ROUTES = [("moe", 0.0), ("jsd", 0.0), ("poe", 0.0), ("poe", 0.2),
+          ("joint_elbo", 0.2), ("moe", 0.2), ("jsd", 0.2)]
+ROUTE_IDS = [f"{m}-dropout{r}" for m, r in ROUTES]
+
+
+@pytest.mark.parametrize("method,rate", ROUTES, ids=ROUTE_IDS)
+def test_one_epoch_of_each_route_matches_jax_rebuild(cohort, method, rate):
+    """One epoch of a method's kernel routes (plain versions on the CPU)
+    against ``jax.grad`` of the JAX package's split losses and
+    ``flat_adam``, fed the port's noise and masks; ``beta_style != 1``."""
+    from multivae_tpu_torch.ops import adam, fused_methods, fused_presence
+    from multivae_tpu_torch.ops import fused_step
+
+    exp = make_exp(cohort, method=method, dropout_rate=rate, beta_style=0.7,
+                   beta_content=1.2)
+    cfg = exp.cfg
+    dims = bridge.dims_from(cfg, BATCH)
+    p0 = exp.params[0].clone()
+    counters = (adam.KERNEL_LAUNCHES, fused_methods.KERNEL_LAUNCHES,
+                fused_presence.KERNEL_LAUNCHES, fused_step.KERNEL_LAUNCHES)
+    launches = [dict(c) for c in counters]
+    steps = trainer.train_one_epoch(exp, 0, None,
+                                    trainer.epoch_generator(cfg, 0, 2), 2)
+    assert [dict(c) for c in counters] == launches  # plain on the CPU
+
+    ds = exp.dataset_train
+    batches = [ds.gather(i)[0] for i in
+               JaxSampler(ds, batch_size=BATCH, seed=cfg.seed + 2)]
+    names = list(exp.mod_names)
+    is_full = [rows(b) == BATCH and all(m in b for m in names)
+               for b in batches]
+    emitted = ([b for b, f in zip(batches, is_full) if f]
+               + [b for b, f in zip(batches, is_full) if not f])
+    n_full = sum(is_full)
+    noise = trainer.draw_noise(
+        trainer.epoch_generator(cfg, 0, 2),
+        [(rows(b), trainer.batch_noise_width(cfg, exp.models[0], b))
+         for b in emitted], "cpu")
+    masks = trainer.draw_masks(
+        trainer.mask_generator(cfg, 0, 2),
+        [(trainer.group_mask_count(cfg, 2, b), rows(b), HIDDEN)
+         for b in emitted], rate, "cpu")
+    assert all((m is None) == (rate == 0.0) for m in masks)
+    groups = {}
+    for i, b in enumerate(emitted[n_full:]):
+        groups.setdefault((tuple(sorted(b)), rows(b)), []).append(n_full + i)
+    order = list(range(n_full))
+    for key in jax_trainer.canonical_group_order(groups, names, BATCH):
+        order += groups[key]
+    assert steps == len(order) == len(batches)
+    assert {(len(emitted[i]), rows(emitted[i]) == BATCH) for i in order} \
+        == {(1, True), (1, False), (2, True), (2, False)}
+
+    jm = jax_model(cfg)
+    consts = jax_fs.FusedConsts(cfg.beta, cfg.beta_style, cfg.beta_content)
+    params = jax.tree_util.tree_map(jnp.asarray, bridge.packed_to_tree(
+        {k: v.numpy() for k, v in bridge.join_params(
+            bridge.flat_views(p0, dims), dims).items()}, names))
+    opt = flat_adam(cfg.initial_learning_rate, cfg.beta_1, cfg.beta_2)
+    state = opt.init(params)
+    for i in order:
+        data = emitted[i]
+        eps = jnp.asarray(noise[i].numpy())
+        dm = None if masks[i] is None else tuple(
+            jnp.asarray(m.numpy()) for m in masks[i])
+        jd = jax_fs.FusedDims(*bridge.dims_from(cfg, rows(data)))
+
+        def loss_fn(p, data=data, eps=eps, dm=dm, jd=jd):
+            sp = jax_fs.split_params(jax_fs.flatten_params(p, jm), jd)
+            if len(data) == 2:
+                return jax_fm.method_loss_split(
+                    method, jd, consts, True, False, sp,
+                    jnp.asarray(data[names[0]]), jnp.asarray(data[names[1]]),
+                    eps, dropout_masks=dm)[0]
+            mod_idx = names.index(next(iter(data)))
+            return jax_fp.presence_loss_split(
+                method, jd, consts, True, False, mod_idx, sp,
+                jnp.asarray(data[names[mod_idx]]), eps, dropout_masks=dm)[0]
+        grads = jax.grad(loss_fn)(params)
+        upd, state = opt.update(grads, state, params)
+        params = optax.apply_updates(params, upd)
+
+    want = bridge.flatten_split(bridge.split_params(
+        {k: torch.from_numpy(np.array(v)) for k, v in
+         bridge.flatten_params(params, names).items()}, dims))
+    np.testing.assert_allclose(exp.params[0].numpy(), want.numpy(),
+                               rtol=1e-4, atol=1e-5)
+    assert exp.opt_states[0].count == int(state.count) == steps
+
+
+def test_masks_are_a_stream_of_their_own():
+    """The mask stream is a function of (seed, member, epoch) apart from
+    the noise's: a run with dropout draws the noise of a run without."""
+    cfg = make_cfg("")
+    shapes = [(2, 5, HIDDEN), (0, 5, HIDDEN), (1, 3, HIDDEN)]
+    a = trainer.draw_masks(trainer.mask_generator(cfg, 0, 1), shapes, 0.25,
+                           "cpu")
+    b = trainer.draw_masks(trainer.mask_generator(cfg, 0, 1), shapes, 0.25,
+                           "cpu")
+    c = trainer.draw_masks(trainer.mask_generator(cfg, 0, 2), shapes, 0.25,
+                           "cpu")
+    assert a[1] is None and a[0].shape == (2, 5, HIDDEN)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[2], b[2])
+    assert not torch.equal(a[0], c[0])
+    values = torch.cat([a[0].reshape(-1), a[2].reshape(-1)]).unique()
+    np.testing.assert_allclose(values.numpy(), [0.0, 1.0 / 0.75], rtol=1e-6)
+    gen = trainer.epoch_generator(cfg, 0, 1)
+    mgen = trainer.mask_generator(cfg, 0, 1)
+    assert gen.initial_seed() != mgen.initial_seed()
+    assert trainer.draw_masks(mgen, [(0, 4, 2)], 0.25, "cpu") == [None]
+
+
 def test_test_epoch_matches_jax_total_loss(cohort):
     exp = make_exp(cohort)
     cfg, model = exp.cfg, exp.models[0]
@@ -253,8 +369,9 @@ def test_resume_continues_exactly(cohort, tmp_path):
 
 
 UNPORTED = [
-    dict(method="moe"), dict(method="jsd"), dict(method="poe"),
-    dict(dropout_rate=0.1), dict(num_hidden_layer_decoder=1),
+    dict(dropout_rate=0.1, fused_training=False),
+    dict(method="poe", dropout_rate=0.1, fused_training=False),
+    dict(num_hidden_layer_decoder=1),
     dict(out_scale_per_subject=True), dict(data_parallel=2),
     dict(tensor_parallel=2), dict(num_models=2, ensemble_parallel="true"),
     dict(calc_nll=True), dict(calc_prd=True), dict(calc_clf=True),
@@ -268,6 +385,59 @@ def test_unported_options_raise(cohort, tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(cohort, tmp_path, 1, **kw)
     assert not (tmp_path / "runs.tsv").exists()
+
+
+@pytest.mark.parametrize("method,rate", ROUTES, ids=ROUTE_IDS)
+def test_train_exp_runs_each_route(cohort, tmp_path, method, rate):
+    """The slice as a whole on the CPU: ``train_exp`` of each method runs
+    the plain versions, launches no kernel and logs each route's metric
+    families."""
+    import pandas as pd
+
+    from multivae_tpu_torch.ops import adam, fused_methods, fused_presence
+    from multivae_tpu_torch.ops import fused_step
+
+    counters = (adam.KERNEL_LAUNCHES, fused_methods.KERNEL_LAUNCHES,
+                fused_presence.KERNEL_LAUNCHES, fused_step.KERNEL_LAUNCHES)
+    launches = [dict(c) for c in counters]
+    run = train(cohort, tmp_path, 2, method=method, dropout_rate=rate)
+    assert [dict(c) for c in counters] == launches
+    rundir = tmp_path / run
+    flags = json.loads((rundir / "flags.json").read_text())
+    assert flags["method"] == method and flags["dropout_rate"] == rate
+    csv = pd.read_csv(rundir / "logs" / "metrics.csv")
+    assert np.isfinite(csv.value).all()
+    per_step = csv[csv.phase == "train"].groupby("step").metric.apply(
+        frozenset)
+    model = MultimodalExperiment(make_cfg(cohort, method=method),
+                                 "cpu").models[0]
+    from multivae_tpu_torch.ops.fused_methods import method_metric_names
+    from multivae_tpu_torch.ops.fused_presence import presence_metric_names
+    complete = frozenset(method_metric_names(model, method))
+    clinical = frozenset(presence_metric_names(model, method, 0))
+    assert ("log_prob_uni/clinical" in complete) == (method == "poe")
+    # per epoch: 6 complete steps and 2 clinical-only steps
+    assert sum(s == complete for s in per_step) == 12
+    assert sum(s == clinical for s in per_step) == 4
+    for f in ("model.npz", "opt_state.npz"):
+        assert (rundir / "checkpoints" / "0001" / f).is_file()
+
+
+def test_resume_restores_the_route_and_the_mask_stream(cohort, tmp_path):
+    """A resumed poe run with dropout ends where the uninterrupted one
+    does: same route, same noise and mask streams."""
+    kw = dict(method="poe", dropout_rate=0.2)
+    straight = train(cohort, tmp_path / "a", 3, **kw)
+    split = train(cohort, tmp_path / "b", 2, **kw)
+    workflows.resume_exp("synthetic", cohort, str(tmp_path / "b"), split, 3,
+                         use_tensorboard=False, device="cpu")
+    for f in ("model.npz", "opt_state.npz"):
+        with np.load(tmp_path / "a" / straight / "checkpoints" / "0002"
+                     / f) as a, \
+                np.load(tmp_path / "b" / split / "checkpoints" / "0002"
+                        / f) as b:
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_bf16_precision_raises(cohort):
