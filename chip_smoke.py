@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's `daa` and `train` paths on one CUDA card and
-check them.
+"""Drive the PyTorch port's `daa` and `train` paths (unsharded,
+data-parallel and ensemble) on one CUDA card and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
 NVIDIA Hopper card (the kernels are built for sm_90a) and the CUDA
@@ -36,12 +36,35 @@ Phases, one line or more each:
    counting each kernel's launches and checking losses, metric families
    and checkpoints; a profiled epoch of each (device busy time);
    ``workflows.daa_exp`` of the trained joint_elbo run; one epoch on the
-   card against one on the CPU.
+   card against one on the CPU;
+7. dp-kernel: the row-slice entry points of the MoPoE and method steps
+   (``dp_step``, ``dp_method_step``) at B=256 split over 2 and 4 shards,
+   for the MoPoE step and the seven method routes, with and without a
+   learned output scale: every shard against its plain version with the
+   same ``row_offset`` and ``b_total`` (the train-kernel bounds); the
+   shards' summed gradients and rescaled metrics against the unsharded
+   kernel on the whole batch (same bounds); the slice that is the whole
+   batch against the unsharded kernel (equal bits); an 8-step
+   data-parallel epoch of each route against the plain one; times of one
+   slice step at 64 rows and of one whole 4-shard step, each with its
+   bound;
+8. dp-slice: ``train_exp(data_parallel=4)`` on the train-slice cohort,
+   joint_elbo 3 epochs and poe with dropout_rate=0.2 2 epochs: launches
+   (per epoch 5 full complete batches x 4 slice launches, the partial
+   complete batch on the unsharded step, 2 presence steps, 8 Adam
+   updates), losses, metric families, checkpoints; the first epoch
+   against a ``data_parallel=1`` run from the same seed; a profiled epoch;
+9. ensemble-slice: ``train_exp(num_models=2, ensemble_parallel=True)``
+   against ``ensemble_parallel=False`` from the same seed (every param and
+   moment of both members bit-identical), and ``avatar_sweep_sharded``
+   over a 4-entry mesh against the unsharded sweep (identical).
 
-Any failed phase exits non-zero. The last three lines are the JSON record
-of the kernels (``launches`` summed over the main paths, each path's own
-counts in ``launches_by_path``, ``ms`` that of ``timed_variant``), the
-line of ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
+The meshes of phases 7-9 start at card 0 and wrap at the card count, so one
+card holds every shard and member (on a machine with several cards they
+spread over them). Any failed phase exits non-zero. The last three lines
+are the JSON record of the kernels (``launches`` summed
+over the main paths, each path's own counts in ``launches_by_path``, ``ms``
+that of ``timed_variant``), the line of ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``
 and ``{"ok": true, "device": {...}}``.
 """
 
@@ -250,7 +273,8 @@ def train_setup(device, b: int, seed: int):
     return cfg, dims, model_flat_params(model, dims), x1, x2, noise
 
 
-def check_step(name, ker, ref, names, log_prefix):
+def check_step(name, ker, ref, names, log_prefix, phase="train-kernel",
+               quiet=False):
     """Hold one step's (metrics, grads) of the kernel to the plain
     version; returns the max abs error over metrics and grads."""
     import torch
@@ -268,10 +292,11 @@ def check_step(name, ker, ref, names, log_prefix):
             bad_tensors.append(f"{tname}({int(bad.sum())}, {err:.2e})")
     ok = (finite and not bool(loss_bad.any()) and not bool(m_bad.any())
           and not bad_tensors)
-    log("train-kernel", f"{name} {log_prefix} loss {float(km[0]):.6f} vs "
-        f"{float(rm[0]):.6f} (err {loss_err:.2e}), metrics max_abs_err "
-        f"{m_err:.2e}, metrics+grads max_abs_err {worst:.3e} "
-        f"{'ok' if ok else 'MISMATCH ' + ' '.join(bad_tensors)}")
+    if not (ok and quiet):
+        log(phase, f"{name} {log_prefix} loss {float(km[0]):.6f} vs "
+            f"{float(rm[0]):.6f} (err {loss_err:.2e}), metrics max_abs_err "
+            f"{m_err:.2e}, metrics+grads max_abs_err {worst:.3e} "
+            f"{'ok' if ok else 'MISMATCH ' + ' '.join(bad_tensors)}")
     if not ok:
         raise SystemExit(f"{name} disagrees with its plain version "
                          f"({log_prefix})")
@@ -288,7 +313,7 @@ def split_pairs(dims):
 
 
 def hold_epoch(phase, name, ker, ref, ker_grads, ref_grads, dims,
-               branch=None):
+               branch=None, downstream_ok=False):
     """Hold two runs of one epoch from the same state and inputs to each
     other: ``ker``/``ref`` the state after it (tuples of flat tensors),
     ``ker_grads``/``ref_grads`` each step's gradients.
@@ -305,7 +330,16 @@ def hold_epoch(phase, name, ker, ref, ker_grads, ref_grads, dims,
     * ``branch``: elements the caller shows to lie behind a branch taken
       at the rounding level (:func:`relu_flips`).
 
-    Any other element outside the bound fails. Returns the max abs error."""
+    Any other element outside the bound fails, unless ``downstream_ok``: a
+    caller that has also held every step of one run to the other's
+    functions from the same state may accept what parts downstream of the
+    trap. An element that fell into the trap (its gradients agreed at the
+    step bound at every step so far, and at this step differ by more than
+    half the larger) moved by ~lr in one run only; from the next step on
+    the two runs compute different functions (hidden units near zero change
+    branch), so other elements part too. Then the count of such elements
+    and the first trap step are printed, and the run fails only if no
+    element was trapped before. Returns the max abs error."""
     import torch
 
     from multivae_tpu_torch.params import flat_views
@@ -334,7 +368,36 @@ def hold_epoch(phase, name, ker, ref, ker_grads, ref_grads, dims,
         + (f"; by tensor: {counts}" if counts else ""))
     if bool(bad1.any()):
         raise SystemExit(f"{name}: the first step's gradients disagree")
-    if bool((outside & ~(trap | branch)).any()):
+    left = outside & ~(trap | branch)
+    if downstream_ok and bool(left.any()):
+        # the trap in step order: an element counts from the step at which
+        # it splits while it has agreed at the step bound so far
+        agreed, first = torch.ones_like(trap), None
+        early = torch.zeros_like(trap)
+        for s, (a, b) in enumerate(zip(ker_grads, ref_grads)):
+            agreed &= ~close(a, b, STEP_RTOL, STEP_ATOL)[1]
+            now = agreed & ((a - b).abs() > 0.5 * torch.maximum(a.abs(),
+                                                                b.abs()))
+            if first is None and bool(now.any()):
+                first = s
+            early |= now
+        if first is not None:
+            log(phase, f"{name}: {int(early.sum())} elements fell into "
+                f"Adam's trap while both runs still agreed (the first at "
+                f"step {first}); {int((left & ~early).sum())} other "
+                f"elements part downstream of them and are not held here")
+            left = torch.zeros_like(left)
+    if bool(left.any()):
+        j = int(torch.argmax(sum((a - b).abs() for a, b in zip(ker, ref))
+                             * left))
+        log(phase, f"{name}: not excused, by tensor: "
+            + str({k: int(v.sum()) for k, v in flat_views(
+                left.to(torch.uint8), dims).items() if v.any()})
+            + f"; worst element [{j}]: state "
+            + str([(float(a[j]), float(b[j])) for a, b in zip(ker, ref)])
+            + "; its gradient at each step: "
+            + str([(float(a[j]), float(b[j]))
+                   for a, b in zip(ker_grads, ref_grads)]))
         raise SystemExit(f"{name}: {int((outside & ~(trap | branch)).sum())}"
                          f" elements disagree beyond the epoch bound")
     return worst
@@ -351,6 +414,9 @@ class Route:
         self.mod_idx, self.masked = mod_idx, masked
         self.kernel = {"mopoe": "mopoe_step", "method": "method_step",
                        "presence": "presence_step"}[kind]
+        # the kernel's row-slice entry point (complete batches only)
+        self.dp_kernel = {"mopoe": "dp_step", "method": "dp_method_step",
+                          "presence": None}[kind]
         tag = [] if kind == "mopoe" else [method]
         if mod_idx is not None:
             tag.append(f"mod_idx={mod_idx}")
@@ -433,6 +499,35 @@ class Route:
             _, m, g = fp.presence_fwd_bwd_reference(
                 sp, x, noise, dims, consts, learn_scale, self.mod_idx,
                 self.method, masks)
+        return m, flatten_split(g)
+
+    def slice_step(self, version, p, inp, local, consts, learn_scale,
+                   row_offset, b_total):
+        """``(metrics, grads)`` (flat, partial sums) of one step on a row
+        slice by the kernel's row-slice entry point or the plain version;
+        ``inp`` holds the slice's rows, ``local.b`` of them."""
+        from multivae_tpu_torch.ops import fused_methods as fm
+        from multivae_tpu_torch.ops import fused_step as fs
+        from multivae_tpu_torch.params import flat_views, flatten_split
+
+        x1, x2, noise, masks = inp
+        if version == "kernel":
+            if self.kind == "mopoe":
+                return fs.slice_step_flat(
+                    p, x1, x2, *fs.split_noise(noise, local), local, consts,
+                    learn_scale, row_offset, b_total)
+            return fm.slice_method_step_flat(
+                self.method, p, x1, x2, noise, local, consts, learn_scale,
+                masks, row_offset, b_total)
+        sp = flat_views(p, local)
+        if self.kind == "mopoe":
+            _, m, g = fs.fwd_bwd_reference(
+                sp, x1, x2, *fs.split_noise(noise, local), local, consts,
+                learn_scale, row_offset, b_total)
+        else:
+            _, m, g = fm.method_fwd_bwd_reference(
+                self.method, sp, x1, x2, noise, local, consts, learn_scale,
+                masks, row_offset, b_total)
         return m, flatten_split(g)
 
     def bound(self, p, inp, dims) -> dict:
@@ -647,6 +742,254 @@ def train_kernel_check(device):
         f"kernels {t[1]:.4f}/{t[2]:.4f} ms = "
         f"{n_steps / (ker_ms * 1e-3):.1f} steps/s, plain {t[0]:.4f}/"
         f"{t[3]:.4f} ms = {n_steps / (plain_ms * 1e-3):.1f} steps/s")
+    return result
+
+
+# ------------------------------------------------------- row-slice kernels
+DP_SHARDS = (2, 4)   # local rows 128 and 64 of B=256
+DP_TIMED = ("mopoe_step", "method_step[poe, masks]")
+
+
+def shard_inputs(inp, rows):
+    """The rows ``rows`` of one step's ``(x1, x2, noise, masks)``: views."""
+    x1, x2, noise, masks = inp
+    return (x1[rows], x2[rows], noise[rows],
+            None if masks is None else masks[:, rows])
+
+
+def sharded(route, version, p, inp, dims, consts, n_dev, learn_scale=True):
+    """Every shard's ``(metrics, grads)`` of one step of ``route``, and
+    their sums in shard order (the metrics rescaled): ``(shards, whole)``."""
+    from multivae_tpu_torch.ops.fused_sharded import mean_rescale
+
+    local = dims._replace(b=dims.b // n_dev)
+    shards, msum, gsum = [], None, None
+    for k in range(n_dev):
+        rows = slice(k * local.b, (k + 1) * local.b)
+        m, g = route.slice_step(version, p, shard_inputs(inp, rows), local,
+                                consts, learn_scale, k * local.b, dims.b)
+        shards.append((m, g))
+        msum = m if msum is None else msum + m
+        gsum = g if gsum is None else gsum + g
+    return shards, (mean_rescale(msum, n_dev), gsum)
+
+
+@contextlib.contextmanager
+def recording_adam(module):
+    """Collect the gradient of every Adam update that ``module`` makes."""
+    grads, saved = [], module.adam_update
+
+    def update(p, mu, nu, g, t, hyper):
+        grads.append(g.clone())
+        saved(p, mu, nu, g, t, hyper)
+
+    module.adam_update = update
+    try:
+        yield grads
+    finally:
+        module.adam_update = saved
+
+
+def dp_step(route, p, mu, nu, t, inp, dims, consts, hyper, mesh):
+    """One data-parallel step of ``route`` with its Adam update, through
+    the port's entry point."""
+    from multivae_tpu_torch.ops import fused_sharded as fsh
+
+    x1, x2, noise, masks = inp
+    if route.kind == "mopoe":
+        return fsh.dp_step_flat(p, mu, nu, t, x1, x2, noise, dims, consts,
+                                hyper, True, mesh)
+    return fsh.dp_method_step_flat(route.method, p, mu, nu, t, x1, x2, noise,
+                                   dims, consts, hyper, True, mesh, masks)
+
+
+def plain_dp_step(route, p, mu, nu, t, inp, dims, consts, hyper, n_dev):
+    """The plain data-parallel step: plain slices, sums in shard order,
+    the rescale and the plain Adam; returns the summed gradient."""
+    from multivae_tpu_torch.ops.adam import adam_update_reference
+
+    _, (_, g) = sharded(route, "plain", p, inp, dims, consts, n_dev)
+    adam_update_reference(p, mu, nu, g, t, hyper)
+    return g
+
+
+def dp_epoch_check(route, p0, dims, consts, hyper, gen, device, n_dev):
+    """An 8-step data-parallel epoch of one route through the port's entry
+    points against the plain one.
+
+    1. Along the kernels' own trajectory every step is recomputed by the
+       plain data-parallel step from the same state and inputs: the summed
+       gradients are held to the step bound, and the kernels' Adam update to
+       the plain Adam on the same gradient (the Adam bound), every element.
+    2. The free-running plain epoch from the same start is held by
+       :func:`hold_epoch`, which accepts what parts downstream of Adam's
+       trap (1. holds every step)."""
+    import torch
+
+    from multivae_tpu_torch.ops import fused_sharded as fsh
+    from multivae_tpu_torch.ops.adam import (adam_update_reference,
+                                             init_adam_state)
+    from multivae_tpu_torch.parallel import data_mesh, spread
+
+    name = (f"{route.dp_kernel} of {route.name} x {n_dev} shards + flat_adam "
+            f"8-step epoch")
+    mesh = data_mesh(n_dev, spread(device, n_dev))
+    x1s, x2s, noises, masks = route.inputs(dims, gen, device, steps=8)
+    steps = [(x1s[i], x2s[i], noises[i], None if masks is None else masks[i])
+             for i in range(8)]
+    p, q = p0.clone(), p0.clone()
+    sp, sq = init_adam_state(p), init_adam_state(q)
+    worst_step = worst_adam = 0.0
+    with recording_adam(fsh) as ker_grads:
+        for i, inp in enumerate(steps):
+            before = [x.clone() for x in (p, sp.mu, sp.nu)]
+            dp_step(route, p, sp.mu, sp.nu, i + 1, inp, dims, consts, hyper,
+                    mesh)
+            _, (_, g_plain) = sharded(route, "plain", before[0], inp, dims,
+                                      consts, n_dev)
+            err, bad = close(ker_grads[-1], g_plain, STEP_RTOL, STEP_ATOL)
+            worst_step = max(worst_step, err)
+            if bool(bad.any()):
+                raise SystemExit(f"{name}: step {i}'s summed gradient "
+                                 f"disagrees with the plain version from "
+                                 f"the same state ({int(bad.sum())} "
+                                 f"elements, max_abs_err {err:.3e})")
+            adam_update_reference(*before, ker_grads[-1], i + 1, hyper)
+            for k, (a, b) in enumerate(zip((p, sp.mu, sp.nu), before)):
+                err, bad = close(a, b, ADAM_RTOL, ADAM_ATOL)
+                if k == 0:
+                    # 1 - exp(t log b2) cancels ~3 digits at small t, so
+                    # the card's and the plain exp (1 ulp apart) give
+                    # updates ~1e-4 apart relative to an update of ~lr
+                    bad &= (a - b).abs() > 1e-4 * hyper.lr
+                worst_adam = max(worst_adam, err)
+                if bool(bad.any()):
+                    raise SystemExit(f"{name}: step {i}'s Adam update "
+                                     f"disagrees with the plain version")
+    ref_grads = [plain_dp_step(route, q, sq.mu, sq.nu, i + 1, inp, dims,
+                               consts, hyper, n_dev)
+                 for i, inp in enumerate(steps)]
+    torch.cuda.synchronize()
+    log("dp-kernel", f"{name}: every step recomputed by the plain version "
+        f"from the kernels' state: summed gradients max_abs_err "
+        f"{worst_step:.3e}, Adam updates {worst_adam:.3e}")
+    return hold_epoch("dp-kernel", name, (p, sp.mu, sp.nu),
+                      (q, sq.mu, sq.nu), ker_grads, ref_grads, dims,
+                      downstream_ok=True)
+
+
+def dp_kernel_check(device):
+    """Phase dp-kernel: the row-slice entry points of the MoPoE and method
+    step kernels at B=256 over 2 and 4 shards (see the module docstring);
+    returns the record entries of ``dp_step`` and ``dp_method_step``."""
+    import torch
+
+    from multivae_tpu_torch.ops import adam as adam_ops
+    from multivae_tpu_torch.ops import fused_step as fs
+    from multivae_tpu_torch.ops.adam import init_adam_state
+    from multivae_tpu_torch.parallel import data_mesh, spread
+
+    result = {k: {"max_abs_err": 0.0, "variants": {}}
+              for k in ("dp_step", "dp_method_step")}
+    consts = fs.FusedConsts(1.0, 0.7, 1.2)
+    hyper = adam_ops.AdamHyper(2e-3, 0.9, 0.999)
+    routes = [r for r in all_routes() if r.kind != "presence"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 4)
+    cfg, dims, p, _, _, _ = train_setup(device, 256, SEED + 4)
+    for route in routes:
+        entry = result[route.dp_kernel]
+        for learn_scale in (True, False):
+            inp = route.inputs(dims, gen, device)
+            whole = route.step("kernel", p, inp, dims, consts, learn_scale)
+            # the slice that is the whole batch: the unsharded kernel's bits
+            same = route.slice_step("kernel", p, inp, dims, consts,
+                                    learn_scale, 0, dims.b)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(same, whole)):
+                raise SystemExit(f"{route.dp_kernel} of {route.name} with "
+                                 f"row_offset=0, b_total=b is not the "
+                                 f"unsharded kernel bit for bit")
+            for n_dev in DP_SHARDS:
+                tag = (f"B={dims.b} shards={n_dev} "
+                       f"learn_scale={learn_scale}")
+                kers, summed = sharded(route, "kernel", p, inp, dims, consts,
+                                       n_dev, learn_scale)
+                refs, _ = sharded(route, "plain", p, inp, dims, consts,
+                                  n_dev, learn_scale)
+                local = dims._replace(b=dims.b // n_dev)
+                err = max(check_step(
+                    f"{route.dp_kernel} of {route.name}", ker, ref,
+                    split_pairs(local), f"{tag} shard {k}", "dp-kernel",
+                    quiet=True) for k, (ker, ref) in enumerate(zip(kers,
+                                                                   refs)))
+                err_sum = check_step(
+                    f"{route.dp_kernel} of {route.name}: sum of shards vs "
+                    f"the unsharded kernel", summed, whole,
+                    split_pairs(dims), tag, "dp-kernel", quiet=True)
+                entry["max_abs_err"] = max(entry["max_abs_err"], err)
+                log("dp-kernel", f"{route.dp_kernel} of {route.name} {tag}: "
+                    f"every shard vs its plain version max_abs_err "
+                    f"{err:.3e}, sum of shards vs the unsharded kernel "
+                    f"{err_sum:.3e} (loss {float(summed[0][0]):.6f} vs "
+                    f"{float(whole[0][0]):.6f}), row_offset=0 b_total=b "
+                    f"equal bits ok")
+
+    # 8-step data-parallel epochs: jsd's three partitions at 2 and 4 shards
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    for route in routes:
+        for n_dev in (DP_SHARDS if route.method == "jsd" else (4,)):
+            err = dp_epoch_check(route, p, dims, consts, hyper, gen, device,
+                                 n_dev)
+            entry = result[route.dp_kernel]
+            entry["epoch_err"] = max(entry.get("epoch_err", 0.0), err)
+
+    # ---- timing, in turns: plain, kernel, kernel, plain
+    def time_pair(ker_fn, ref_fn, iters=30):
+        t = [cuda_ms(ref_fn, iters), cuda_ms(ker_fn, iters),
+             cuda_ms(ker_fn, iters), cuda_ms(ref_fn, iters)]
+        return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+    n_dev = 4
+    local = dims._replace(b=dims.b // n_dev)
+    mesh = data_mesh(n_dev, spread(device, n_dev))
+    for route in routes:
+        if route.name not in DP_TIMED:
+            continue
+        inp = route.inputs(dims, gen, device)
+        sl = shard_inputs(inp, slice(local.b, 2 * local.b))
+        ker_ms, plain_ms, t = time_pair(
+            lambda: route.slice_step("kernel", p, sl, local, consts, True,
+                                     local.b, dims.b),
+            lambda: route.slice_step("plain", p, sl, local, consts, True,
+                                     local.b, dims.b))
+        variant = f"{route.dp_kernel} of {route.name}, rows 64-127 of 256"
+        entry = dict(ms=ker_ms, plain_ms=plain_ms, library_ms=None,
+                     **route.bound(p, sl, local))
+        result[route.dp_kernel]["variants"][variant] = entry
+        result[route.dp_kernel].update(entry, timed_variant=variant)
+        log("dp-kernel", f"{variant}: kernel {t[1]:.4f}/{t[2]:.4f} ms, plain "
+            f"{t[0]:.4f}/{t[3]:.4f} ms per slice step; bound "
+            f"{entry['bound_ms']:.5f} ms by {entry['bound_by']}; "
+            f"{100 * entry['bound_ms'] / ker_ms:.2f} % of the bound's rate")
+        # one whole step: 4 slices, the sums, the rescale, one Adam update
+        q, r = p.clone(), p.clone()
+        sq, sr = init_adam_state(q), init_adam_state(r)
+        ker_ms, plain_ms, t = time_pair(
+            lambda: dp_step(route, q, sq.mu, sq.nu, 1, inp, dims, consts,
+                            hyper, mesh),
+            lambda: plain_dp_step(route, r, sr.mu, sr.nu, 1, inp, dims,
+                                  consts, hyper, n_dev), iters=20)
+        # state read and written once, the batch, noise and masks read once
+        moved = 2 * nbytes(q, sq.mu, sq.nu) + nbytes(*inp) + 4 * 19
+        whole = dict(ms=ker_ms, plain_ms=plain_ms, library_ms=None, **bound(
+            moved, step_flops(dims.b, route.enc_passes, route.dec_passes)
+            + 12.0 * q.numel()))
+        variant = (f"{route.dp_kernel} of {route.name} x {n_dev} shards + "
+                   f"sums + flat_adam, B=256")
+        result[route.dp_kernel]["variants"][variant] = whole
+        log("dp-kernel", f"{variant}: kernels {t[1]:.4f}/{t[2]:.4f} ms, "
+            f"plain {t[0]:.4f}/{t[3]:.4f} ms per step; bound "
+            f"{whole['bound_ms']:.5f} ms by {whole['bound_by']}")
     return result
 
 
@@ -882,13 +1225,16 @@ def profile_epoch(datadir, run_dir, device):
     exp = MultimodalExperiment(cfg, device)
     exp.set_datasets()
     exp.set_optimizers()
-    trainer.train_one_epoch(exp, 0, None, trainer.epoch_generator(cfg, 0, 0))
+    dp_epoch = trainer.make_dp_epoch(cfg, exp.models[0], exp.device)
+    trainer.train_one_epoch(exp, 0, None, trainer.epoch_generator(cfg, 0, 0),
+                            dp_epoch=dp_epoch)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
         trainer.train_one_epoch(exp, 0, None,
-                                trainer.epoch_generator(cfg, 0, 1), 1)
+                                trainer.epoch_generator(cfg, 0, 1), 1,
+                                dp_epoch=dp_epoch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     by_name = {}
@@ -908,12 +1254,19 @@ def cpu(x):
 def recording_train_loop():
     """Record every step and Adam update of the train loop on the host:
     each step's inputs, its (metrics, grads), and each update's state
-    before and after."""
-    from multivae_tpu_torch.ops import adam, fused_presence, fused_step
+    before and after. A data-parallel step is recorded as one step of its
+    whole batch: the unsharded step's inputs, the rescaled metrics and the
+    summed gradient."""
+    from multivae_tpu_torch.ops import (adam, fused_methods, fused_presence,
+                                        fused_sharded, fused_step)
 
     rec = {"steps": [], "updates": [], "state": None}
-    saved = (fused_step.step_flat, fused_presence.presence_step_flat,
-             fused_step.adam_update, fused_presence.adam_update)
+    modules = (fused_step, fused_methods, fused_presence, fused_sharded)
+    owner = {"step_flat": fused_step, "method_step_flat": fused_methods,
+             "presence_step_flat": fused_presence,
+             "dp_step_flat": fused_sharded,
+             "dp_method_step_flat": fused_sharded}
+    orig = {name: getattr(m, name) for name, m in owner.items()}
 
     def recorder(kind, fn):
         def step(*args):
@@ -930,14 +1283,54 @@ def recording_train_loop():
                                [cpu(x) for x in (p, mu, nu)]))
         rec["state"] = (p, mu, nu)
 
-    fused_step.step_flat = recorder("complete", saved[0])
-    fused_presence.presence_step_flat = recorder("presence", saved[1])
-    fused_step.adam_update = fused_presence.adam_update = update
+    def method_recorder(method, p, x1, x2, noise, dims, consts, learn_scale,
+                        masks=None):
+        out = orig["method_step_flat"](method, p, x1, x2, noise, dims,
+                                       consts, learn_scale, masks)
+        rec["steps"].append((
+            "method", [cpu(a) for a in (p, x1, x2, noise, dims, consts,
+                                        learn_scale, masks, method)],
+            [cpu(o) for o in out]))
+        return out
+
+    def dp_mopoe_recorder(p, mu, nu, t, x1, x2, noise, dims, consts, hyper,
+                          learn_scale, mesh):
+        args = [cpu(a) for a in (p, x1, x2, *fused_step.split_noise(
+            noise, dims), dims, consts, learn_scale)]
+        m = orig["dp_step_flat"](p, mu, nu, t, x1, x2, noise, dims, consts,
+                                 hyper, learn_scale, mesh)
+        rec["steps"].append(("complete", args,
+                             [cpu(m), rec["updates"][-1][1]]))
+        return m
+
+    def dp_method_recorder(method, p, mu, nu, t, x1, x2, noise, dims,
+                           consts, hyper, learn_scale, mesh, masks=None):
+        args = [cpu(a) for a in (p, x1, x2, noise, dims, consts,
+                                 learn_scale, masks, method)]
+        m = orig["dp_method_step_flat"](method, p, mu, nu, t, x1, x2, noise,
+                                        dims, consts, hyper, learn_scale,
+                                        mesh, masks)
+        rec["steps"].append(("method", args,
+                             [cpu(m), rec["updates"][-1][1]]))
+        return m
+
+    new = {"step_flat": recorder("complete", orig["step_flat"]),
+           "method_step_flat": method_recorder,
+           "presence_step_flat": recorder("presence",
+                                          orig["presence_step_flat"]),
+           "dp_step_flat": dp_mopoe_recorder,
+           "dp_method_step_flat": dp_method_recorder}
+    for name, m in owner.items():
+        setattr(m, name, new[name])
+    for m in modules:
+        m.adam_update = update
     try:
         yield rec
     finally:
-        (fused_step.step_flat, fused_presence.presence_step_flat,
-         fused_step.adam_update, fused_presence.adam_update) = saved
+        for name, m in owner.items():
+            setattr(m, name, orig[name])
+        for m in modules:
+            m.adam_update = adam.adam_update
 
 
 def relu_flips(card, host, dims):
@@ -956,10 +1349,10 @@ def relu_flips(card, host, dims):
     views, flips = flat_views(mask, dims), {}
     for s, ((kind, args, _), (_, host_args, _)) in enumerate(
             zip(card["steps"], host["steps"])):
-        # step_flat(p, x1, x2, ...); presence_step_flat(p, x, noise, dims,
-        # consts, learn_scale, mod_idx, ...)
-        inputs = ([(1, args[1]), (2, args[2])] if kind == "complete"
-                  else [(args[6] + 1, args[1])])
+        # complete and method steps: (p, x1, x2, ...); presence_step_flat(p,
+        # x, noise, dims, consts, learn_scale, mod_idx, ...)
+        inputs = ([(args[6] + 1, args[1])] if kind == "presence"
+                  else [(1, args[1]), (2, args[2])])
         for e, x in inputs:
             pre = []
             for p in (args[0], host_args[0]):
@@ -984,9 +1377,12 @@ def relu_flips(card, host, dims):
     return mask, list(flips.values())
 
 
-def hold_slice_epoch(card, host, dims):
+def hold_slice_epoch(card, host, dims, phase="train-slice",
+                     labels=("card (kernels)", "CPU (plain versions)"),
+                     referee64=False):
     """Hold the card's epoch to the CPU's (``card``/``host``: the records
-    of :func:`recording_train_loop`).
+    of :func:`recording_train_loop`; ``labels`` name the two runs, which
+    may also be two runs on the card).
 
     1. Both runs fed every step the same inputs (batches and noise), bit
        for bit.
@@ -994,31 +1390,69 @@ def hold_slice_epoch(card, host, dims):
        is recomputed by the plain versions on the host from the same
        inputs, and held to the step and Adam bounds, every element.
     3. The params after the epoch are held by :func:`hold_epoch`, with the
-       params behind the ReLUs of :func:`relu_flips` as its branch."""
+       params behind the ReLUs of :func:`relu_flips` as its branch.
+
+    ``referee64`` (two runs on the card, held on a cohort's own steps): in
+    2. the plain steps run in float64, so the bound holds the kernels' own
+    error and not the sum of two float32 roundings, and a gradient's
+    absolute bound is ``STEP_ATOL`` times the largest element of its split
+    tensor (at least 1): a float32 sum's error grows with its terms, and a
+    cohort's poe step has gradients of hundreds where the seeded checks of
+    train-kernel have ones. In 3. what parts downstream of Adam's trap is
+    accepted (``hold_epoch(downstream_ok=True)``): 2. holds every step."""
     import torch
 
-    from multivae_tpu_torch.ops import adam, fused_presence, fused_step
+    from multivae_tpu_torch.ops import (adam, fused_methods, fused_presence,
+                                        fused_step)
+
+    def tensors_equal(a, b):
+        return torch.equal(a, b) if torch.is_tensor(a) else a == b
 
     same_inputs = len(card["steps"]) == len(host["steps"]) and all(
-        ck == hk and all(torch.equal(a, b) if torch.is_tensor(a) else a == b
+        ck == hk and all(tensors_equal(a, b)
                          for a, b in zip(ca[1:], ha[1:]))
         for (ck, ca, _), (hk, ha, _) in zip(card["steps"], host["steps"]))
     if not same_inputs:
-        raise SystemExit("the card's and the CPU's epochs were fed "
-                         "different inputs")
+        raise SystemExit(f"the epochs of {labels[0]} and {labels[1]} were "
+                         f"fed different inputs")
     plain = {"complete": fused_step.step_flat,
-             "presence": fused_presence.presence_step_flat}
+             "presence": fused_presence.presence_step_flat,
+             "method": lambda p, x1, x2, noise, d, consts, ls, masks, method:
+             fused_methods.method_step_flat(method, p, x1, x2, noise, d,
+                                            consts, ls, masks)}
     worst_step, worst_adam = 0.0, 0.0
+    def on_host(x):
+        if referee64 and torch.is_tensor(x) and x.is_floating_point():
+            return x.double()
+        return x
+
+    from multivae_tpu_torch.params import flat_views
+
+    worst_scale = 1.0
     for kind, args, (km, kg) in card["steps"]:
-        rm, rg = plain[kind](*args)
+        rm, rg = plain[kind](*[on_host(a) for a in args])
+        g_atol = STEP_ATOL
+        if referee64:
+            g_atol = torch.empty_like(rg)
+            for t, v in zip(flat_views(g_atol, dims).values(),
+                            flat_views(rg, dims).values()):
+                t.fill_(STEP_ATOL * max(1.0, float(v.abs().max())))
+            worst_scale = max(worst_scale, float(g_atol.max()) / STEP_ATOL)
         for a, b, rtol, atol in ((km[:1], rm[:1], LOSS_RTOL, 0.0),
                                  (km, rm, STEP_RTOL, STEP_ATOL),
-                                 (kg, rg, STEP_RTOL, STEP_ATOL)):
+                                 (kg, rg, STEP_RTOL, g_atol)):
             err, bad = close(a, b, rtol, atol)
             worst_step = max(worst_step, err)
             if bool(bad.any()):
-                raise SystemExit(f"a {kind} step of the card's epoch "
-                                 f"disagrees with the plain version")
+                j = int(torch.argmax((a - b).abs() * bad))
+                log(phase, f"a {kind} step, tensor of {a.numel()}: "
+                    f"{int(bad.sum())} elements outside rtol {rtol} / atol "
+                    f"{atol if isinstance(atol, float) else 'scaled'}; worst "
+                    f"[{j}] {float(a.reshape(-1)[j]):.9e} vs "
+                    f"plain {float(b.reshape(-1)[j]):.9e}")
+                raise SystemExit(f"a {kind} step of the epoch of "
+                                 f"{labels[0]} disagrees with the plain "
+                                 f"version")
     for before, g, t, hyper, after in card["updates"]:
         st = [x.clone() for x in before]
         adam.adam_update_reference(*st, g, t, hyper)
@@ -1032,26 +1466,31 @@ def hold_slice_epoch(card, host, dims):
             worst_adam = max(worst_adam, err)
             if bool(bad.any()):
                 j = int(torch.argmax((a - b).abs() * bad))
-                log("train-slice", f"Adam t={t} {'p mu nu'.split()[i]}: "
+                log(phase, f"Adam t={t} {'p mu nu'.split()[i]}: "
                     f"{int(bad.sum())} outside; worst [{j}] card "
                     f"{float(a[j]):.9e} host {float(b[j]):.9e} before "
                     f"{float(before[i][j]):.9e} g {float(g[j]):.9e} "
                     f"mu {float(before[1][j]):.6e} "
                     f"nu {float(before[2][j]):.6e}")
-                raise SystemExit("an Adam update of the card's epoch "
-                                 "disagrees with the plain version")
-    log("train-slice", f"one epoch, card (kernels) vs CPU (plain "
-        f"versions): same inputs at all {len(card['steps'])} steps; the "
-        f"card's steps recomputed by the plain versions max_abs_err "
-        f"{worst_step:.3e}, its {len(card['updates'])} Adam updates "
-        f"{worst_adam:.3e}")
+                raise SystemExit(f"an Adam update of the epoch of "
+                                 f"{labels[0]} disagrees with the plain "
+                                 f"version")
+    log(phase, f"one epoch, {labels[0]} vs {labels[1]}: same inputs at all "
+        f"{len(card['steps'])} steps; the former's steps recomputed by the "
+        f"plain versions on the host"
+        + (f" in float64 (gradient atol {STEP_ATOL} x its tensor's largest "
+           f"element, at most x {worst_scale:.1f})" if referee64 else "")
+        + f" max_abs_err {worst_step:.3e}, its "
+        f"{len(card['updates'])} Adam updates {worst_adam:.3e}")
     branch, flips = relu_flips(card, host, dims)
-    log("train-slice", f"ReLUs that took different branches at the "
-        f"rounding level: {flips if flips else 'none'}")
-    hold_epoch("train-slice", "params after one epoch, card vs CPU",
+    log(phase, f"ReLUs that took different branches at the rounding level"
+        + (" (sums in another order may flip one)" if referee64 else "")
+        + f": {flips if flips else 'none'}")
+    hold_epoch(phase, f"params after one epoch, {labels[0]} vs {labels[1]}",
                (card["updates"][-1][4][0],), (host["updates"][-1][4][0],),
                [u[1] for u in card["updates"]],
-               [u[1] for u in host["updates"]], dims, branch)
+               [u[1] for u in host["updates"]], dims, branch,
+               downstream_ok=referee64)
 
 
 def slice_counters():
@@ -1059,18 +1498,22 @@ def slice_counters():
                                         fused_step)
 
     return {"mopoe_step": fused_step.KERNEL_LAUNCHES,
+            "dp_step": fused_step.KERNEL_LAUNCHES,
             "method_step": fused_methods.KERNEL_LAUNCHES,
+            "dp_method_step": fused_methods.KERNEL_LAUNCHES,
             "presence_step": fused_presence.KERNEL_LAUNCHES,
             "flat_adam": adam.KERNEL_LAUNCHES}
 
 
 def train_and_check(outdir, datadir, device, card, method, rate, epochs,
-                    complete, clinical, batching_s):
+                    complete, clinical, batching_s, data_parallel=1,
+                    phase="train-slice"):
     """``train_exp`` of one method on the card with every count set to 0
     just before and read just after; checks the launches of its routes, the
     losses, the metric families and the checkpoints. ``outdir`` is the
-    run's own (run names have the resolution of a minute). Returns
-    ``(run, launches)``."""
+    run's own (run names have the resolution of a minute). With
+    ``data_parallel > 1`` the full complete batches take ``data_parallel``
+    row-slice launches each. Returns ``(run, launches)``."""
     import types
 
     import pandas as pd
@@ -1079,15 +1522,19 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
     from multivae_tpu_torch.ops import fused_methods, fused_presence
 
     counters = slice_counters()
-    tag = method + (f", dropout {rate}" if rate else "")
+    tag = method + (f", dropout {rate}" if rate else "") + (
+        f", data_parallel {data_parallel}" if data_parallel > 1 else "")
     steps = len(complete) + len(clinical)
+    # the complete batches that split over the shards, and the others
+    n_dp = sum(b == 256 for b in complete) if data_parallel > 1 else 0
+    n_whole = len(complete) - n_dp
     for c in counters.values():
         for k in c:
             c[k] = 0
     torch.cuda.synchronize()
     start = time.perf_counter()
     run, walls = train_run(datadir, outdir, epochs, "cuda", method=method,
-                           dropout_rate=rate)
+                           dropout_rate=rate, data_parallel=data_parallel)
     total = time.perf_counter() - start
     launches = {k: c[k] for k, c in counters.items()}
     rundir = os.path.join(outdir, run)
@@ -1112,9 +1559,13 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
     mopoe = method == "joint_elbo" and not rate
     checks = {
         "mopoe_step launches": launches["mopoe_step"]
-        == (len(complete) * epochs if mopoe else 0),
+        == (n_whole * epochs if mopoe else 0),
         "method_step launches": launches["method_step"]
-        == (0 if mopoe else len(complete) * epochs),
+        == (0 if mopoe else n_whole * epochs),
+        "dp_step launches": launches["dp_step"]
+        == (n_dp * data_parallel * epochs if mopoe else 0),
+        "dp_method_step launches": launches["dp_method_step"]
+        == (0 if mopoe else n_dp * data_parallel * epochs),
         "presence_step launches": launches["presence_step"]
         == len(clinical) * epochs,
         "flat_adam launches = steps": launches["flat_adam"]
@@ -1131,12 +1582,12 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
                                                      "opt_state.npz")),
     }
     wall = float(np.median(walls[1:])) if len(walls) > 1 else walls[0]
-    log("train-slice", f"[{tag}] train_exp {epochs} epochs x {steps} steps"
+    log(phase, f"[{tag}] train_exp {epochs} epochs x {steps} steps"
         f" in {total:.3f} s (set-up included); launches {launches}; "
         f"mean train loss epoch 1 {first:.3f} -> epoch {epochs} "
         f"{last:.3f}; checks "
         + ", ".join(f"{k}={v}" for k, v in checks.items()))
-    log("train-slice", f"[{tag}] train wall per epoch (train + test + "
+    log(phase, f"[{tag}] train wall per epoch (train + test + "
         f"logs, host clock, synchronized): first {walls[0]:.4f} s, median "
         f"of the rest {wall:.4f} s = {steps / wall:.1f} steps/s end to "
         f"end; host batching {batching_s:.4f} s = "
@@ -1151,7 +1602,7 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
                 if any(s in k for s in ("gemm", "latent", "colsum",
                                         "colreduce", "metrics_kernel",
                                         "flat_adam"))}
-        log("train-slice", f"[{tag}] profiled training epoch: wall "
+        log(phase, f"[{tag}] profiled training epoch: wall "
             f"{ep_wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
             f"(idle share {100 * (1 - busy / (ep_wall * 1e3)):.1f} %) ="
             f" {steps / (busy * 1e-3):.1f} device steps/s; hand "
@@ -1159,10 +1610,29 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
             + ", ".join(f"{k[:40]} {v:.3f}" for k, v in sorted(
                 by_name.items(), key=lambda kv: -kv[1])[:6]))
     else:
-        log("train-slice", f"[{tag}] profiled training epoch: wall "
+        log(phase, f"[{tag}] profiled training epoch: wall "
             f"{ep_wall * 1e3:.3f} ms; device time not measured (the "
             f"profiler recorded no device events)")
     return run, launches
+
+
+def slice_cohort(root: str, phase: str):
+    """The train slices' cohort under ``root``: ``(datadir, complete batch
+    sizes, clinical-only batch sizes, host batching seconds per epoch)``."""
+    from multivae_tpu_torch.data import make_synthetic_cohort
+
+    datadir = os.path.join(root, "data")
+    make_synthetic_cohort(datadir, n_subjects=SLICE_SUBJECTS, n_scores=7,
+                          n_rois=444, missing_rate=0.2, seed=SEED,
+                          signal_strength=2.0)
+    complete, clinical, batching_s = epoch_batch_counts(datadir)
+    log(phase, f"cohort {SLICE_SUBJECTS} subjects: complete batches "
+        f"{complete}, clinical-only batches {clinical}; host batching "
+        f"(sampler + gather + scaling) {batching_s:.4f} s per epoch")
+    if (complete != sorted(EPOCH_COMPLETE)
+            or clinical != sorted(EPOCH_PRESENCE)):
+        raise SystemExit("unexpected epoch batches")
+    return datadir, complete, clinical, batching_s
 
 
 def train_slice(device, card: str):
@@ -1172,22 +1642,10 @@ def train_slice(device, card: str):
     against one epoch on the CPU (the plain versions). Returns each train
     run's launches, ``{path: {kernel: count}}``."""
     from multivae_tpu_torch import workflows
-    from multivae_tpu_torch.data import make_synthetic_cohort
 
     with tempfile.TemporaryDirectory() as root:
-        datadir = os.path.join(root, "data")
-        make_synthetic_cohort(datadir, n_subjects=SLICE_SUBJECTS,
-                              n_scores=7, n_rois=444, missing_rate=0.2,
-                              seed=SEED, signal_strength=2.0)
-        complete, clinical, batching_s = epoch_batch_counts(datadir)
-        log("train-slice", f"cohort {SLICE_SUBJECTS} subjects: complete "
-            f"batches {complete}, clinical-only batches {clinical}; host "
-            f"batching (sampler + gather + scaling) {batching_s:.4f} s "
-            f"per epoch")
-        if (complete != sorted(EPOCH_COMPLETE)
-                or clinical != sorted(EPOCH_PRESENCE)):
-            raise SystemExit("unexpected epoch batches")
-
+        datadir, complete, clinical, batching_s = slice_cohort(
+            root, "train-slice")
         by_path = {}
         run, by_path["train joint_elbo"] = train_and_check(
             os.path.join(root, "out"), datadir, device, card, "joint_elbo",
@@ -1225,8 +1683,143 @@ def train_slice(device, card: str):
     return by_path
 
 
-KERNELS = ("avatar_sweep", "mopoe_step", "presence_step", "flat_adam",
+# ------------------------------------------- data-parallel and ensembles
+DP_SLICES = (("train_dp_joint_elbo", "joint_elbo", 0.0, 3),
+             ("train_dp_poe_dropout", "poe", 0.2, 2))
+DATA_PARALLEL = 4
+
+
+def dp_slice(device, card: str):
+    """Phase dp-slice: ``train_exp(data_parallel=4)`` on the card for
+    joint_elbo and for poe with dropout, and each one's first epoch against
+    a ``data_parallel=1`` run from the same seed. Returns each run's
+    launches, ``{path: {kernel: count}}``."""
+    from multivae_tpu_torch.params import dims_from
+
+    by_path = {}
+    with tempfile.TemporaryDirectory() as root:
+        datadir, complete, clinical, batching_s = slice_cohort(
+            root, "dp-slice")
+        for path, method, rate, epochs in DP_SLICES:
+            _, by_path[path] = train_and_check(
+                os.path.join(root, path), datadir, device, card, method,
+                rate, epochs, complete, clinical, batching_s,
+                data_parallel=DATA_PARALLEL, phase="dp-slice")
+            records = {}
+            for n in (DATA_PARALLEL, 1):
+                with recording_train_loop() as rec:
+                    train_run(datadir, os.path.join(root, f"{path}_one_{n}"),
+                              1, "cuda", method=method, dropout_rate=rate,
+                              data_parallel=n)
+                records[n] = rec
+            hold_slice_epoch(
+                records[DATA_PARALLEL], records[1],
+                dims_from(flagship_cfg(), 256), "dp-slice",
+                (f"{method} data_parallel={DATA_PARALLEL}",
+                 f"{method} data_parallel=1 (both on the card)"),
+                referee64=True)
+    return by_path
+
+
+def run_arrays(rundir: str, member: int, epoch: int):
+    """Every array of a member's checkpoint: params and Adam state."""
+    out = {}
+    ckpt = os.path.join(rundir, "checkpoints", f"model_{member}",
+                        f"{epoch:04d}")
+    for name in ("model.npz", "opt_state.npz"):
+        with np.load(os.path.join(ckpt, name)) as fh:
+            out.update({f"{name}:{k}": fh[k] for k in fh.files})
+    return out
+
+
+def ensemble_slice(device, card: str):
+    """Phase ensemble-slice: two members trained by the ensemble runner
+    (two streams) against the sequential member loop from the same seed,
+    and the sharded avatar sweep against the unsharded one. Returns the
+    launches, ``{path: {kernel: count}}``."""
+    import torch
+
+    from multivae_tpu_torch.analysis import daa
+    from multivae_tpu_torch.models import build_model, make_modalities
+    from multivae_tpu_torch.ops import fused_daa
+    from multivae_tpu_torch.parallel import data_mesh, spread
+
+    epochs, members = 2, 2
+    counters = slice_counters()
+    by_path = {}
+    with tempfile.TemporaryDirectory() as root:
+        datadir, _, _, _ = slice_cohort(root, "ensemble-slice")
+        runs, walls = {}, {}
+        for parallel in (True, False):
+            for c in counters.values():
+                for k in c:
+                    c[k] = 0
+            out = os.path.join(root, f"ensemble_{parallel}")
+            run, walls[parallel] = train_run(
+                datadir, out, epochs, "cuda", num_models=members,
+                ensemble_parallel=parallel)
+            runs[parallel] = os.path.join(out, run)
+            if parallel:
+                by_path["train_ensemble"] = {k: c[k]
+                                             for k, c in counters.items()}
+        n_arrays, differ = 0, []
+        for m in range(members):
+            a = run_arrays(runs[True], m, epochs - 1)
+            b = run_arrays(runs[False], m, epochs - 1)
+            n_arrays += len(a)
+            differ += [f"member {m} {k}" for k in a
+                       if not np.array_equal(a[k], b[k])]
+        files = all(os.path.isfile(os.path.join(
+            runs[True], "logs", f"model_{m}", "metrics.csv"))
+            for m in range(members))
+        log("ensemble-slice", f"train_exp num_models={members} {epochs} "
+            f"epochs, ensemble_parallel=True (a stream per member) vs False "
+            f"(members in turn): {n_arrays} arrays of params and Adam state "
+            f"compared, {len(differ)} differ; per-member metrics.csv "
+            f"{files}; launches {by_path['train_ensemble']}; wall per epoch "
+            f"(all members, s) {walls[True]} vs member 0 alone "
+            f"{walls[False]} ({card})")
+        if differ or not files or not n_arrays:
+            raise SystemExit(f"the ensemble runner is not the sequential "
+                             f"run bit for bit: {differ[:5]}")
+
+    # the sharded sweep over a 4-entry mesh against the unsharded sweep
+    cfg = flagship_cfg(seed=SEED)
+    model = build_model(cfg, make_modalities(
+        cfg.input_dim, cfg.style_dim, cfg.likelihood), device, seed=SEED)
+    mesh = data_mesh(4, spread(device, 4))
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    data = {"clinical": torch.randn((B, 7), generator=gen, device=device),
+            "rois": torch.randn((B, 444), generator=gen, device=device)}
+    sharded_launches = 0
+    # 1400 cells split evenly; 1407 cells need one pad cell
+    for n_samples in (N_SAMPLES, N_SAMPLES + 1):
+        scores = torch.randn((n_samples, B, 7), generator=gen, device=device)
+        outs = []
+        for fn, extra in ((daa.avatar_sweep, ()),
+                          (daa.avatar_sweep_sharded, (mesh,))):
+            g = torch.Generator(device=device).manual_seed(SEED + 7)
+            fused_daa.KERNEL_LAUNCHES["avatar_sweep"] = 0
+            outs.append(fn(model, data, scores, True, g, *extra, cfg))
+            if extra:
+                sharded_launches += fused_daa.KERNEL_LAUNCHES["avatar_sweep"]
+        torch.cuda.synchronize()
+        same = (outs[0].shape == outs[1].shape == (B, 7, n_samples, 444)
+                and torch.equal(outs[0], outs[1]))
+        log("ensemble-slice", f"avatar_sweep_sharded over {mesh} vs "
+            f"avatar_sweep, {n_samples * 7} cells: identical={same}")
+        if not same:
+            raise SystemExit("the sharded sweep differs from the unsharded")
+    by_path["daa_sharded"] = {"avatar_sweep": sharded_launches}
+    return by_path
+
+
+# every source under csrc/ and the kernels (entry points) the record lists
+SOURCES = ("avatar_sweep", "mopoe_step", "presence_step", "flat_adam",
            "method_step")
+KERNELS = SOURCES + ("dp_step", "dp_method_step")
+SOURCE_OF = {**{k: k for k in SOURCES}, "dp_step": "mopoe_step",
+             "dp_method_step": "method_step"}
 # the TPU kernels (bodies) each one replaces on the ported paths
 REPLACES = {
     "avatar_sweep": "multivae_tpu/ops/fused_daa.py:54",
@@ -1235,6 +1828,8 @@ REPLACES = {
                   "multivae_tpu/ops/fused_methods.py:341",
     "presence_step": "multivae_tpu/ops/fused_presence.py:247",
     "method_step": "multivae_tpu/ops/fused_methods.py:341",
+    "dp_step": "multivae_tpu/ops/fused_sharded.py:69",
+    "dp_method_step": "multivae_tpu/ops/fused_sharded.py:110",
     "flat_adam": "multivae_tpu/ops/fused_step.py:615, "
                  "multivae_tpu/ops/fused_presence.py:287, "
                  "multivae_tpu/ops/fused_methods.py:382"}
@@ -1245,7 +1840,7 @@ def build_phase() -> None:
     from multivae_tpu_torch.ops import _build
 
     start = time.perf_counter()
-    built = _build.build_kernels(KERNELS)
+    built = _build.build_kernels(SOURCES)
     for name, res in built.items():
         ptxas = [ln.strip() for ln in res.log.splitlines()
                  if "registers" in ln or "spill" in ln]
@@ -1280,6 +1875,9 @@ def main() -> int:
                 entries[kname] = res
         by_path = {"daa": {"avatar_sweep": slice_run(device, smi)[0]}}
         by_path.update(train_slice(device, smi))
+        entries.update(dp_kernel_check(device))
+        by_path.update(dp_slice(device, smi))
+        by_path.update(ensemble_slice(device, smi))
     for k in KERNELS:
         # each path's own count (set to 0 just before it, read just after)
         # and their sum
@@ -1293,7 +1891,7 @@ def main() -> int:
 
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda",
-        "source": f"multivae_tpu_torch/csrc/{k}.cu",
+        "source": f"multivae_tpu_torch/csrc/{SOURCE_OF[k]}.cu",
         "replaces": REPLACES[k], **{f: entries[k][f] for f in (
             "launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "launches_by_path")},

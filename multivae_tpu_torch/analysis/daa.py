@@ -9,11 +9,14 @@ across rounds (and ensemble members).
 The avatar sweep runs on the hand-written kernel
 (:func:`multivae_tpu_torch.ops.fused_daa.fused_avatar_sweep`) for every
 configuration the kernel takes; the regressions run on the host in float64
-(:mod:`multivae_tpu_torch.analysis.stats`).
+(:mod:`multivae_tpu_torch.analysis.stats`). With a data mesh
+(:func:`avatar_sweep_sharded`, ``use_sharding``) the (sample, score) cells
+are split over the mesh's entries, each slice through the same kernel with
+the unsharded sweep's noise, cell for cell.
 
 Not ported yet (ROADMAP Queue 1): the general per-cell sweep for
-configurations the kernel does not take, the multi-GPU sharded sweep and
-the ``sampled`` artifact mode.
+configurations the kernel does not take, sharded or not, and the
+``sampled`` artifact mode.
 """
 
 from __future__ import annotations
@@ -29,7 +32,14 @@ import numpy as np
 import torch
 from numpy.lib.format import open_memmap
 
-from ..ops.fused_daa import fused_avatar_sweep, supports_fused_sweep
+from ..ops.fused_daa import (
+    avatar_layout,
+    fused_avatar_sweep,
+    prepare_sweep,
+    supports_fused_sweep,
+    sweep_cells,
+)
+from ..parallel import data_mesh, spread, visible_cards
 from ..utils.colors import print_result, print_subtitle, print_text
 from .stats import (
     fixed_regression_batch,
@@ -182,6 +192,47 @@ def avatar_sweep(model, data, scores_values, sample_latents: bool,
                               generator, cfg)
 
 
+@torch.no_grad()
+def avatar_sweep_sharded(model, data, scores_values, sample_latents: bool,
+                         generator: torch.Generator, mesh, cfg):
+    """:func:`avatar_sweep` with the (sample, score) cells split over the
+    mesh's ``data`` axis (``daa.py:268-336``, the fused branch): every
+    entry decodes an equal slice of the cell grid on the avatar-sweep
+    kernel. The noise is the unsharded sweep's one draw, so the result does
+    not depend on the mesh; a cell count the mesh does not divide is padded
+    with repeated cells (zero noise) that are dropped. The data and the
+    result live on the first entry's device; a slice whose entry is another
+    device takes copies of the params, the posteriors and its cells."""
+    if not supports_fused_sweep(cfg, model, data):
+        raise NotImplementedError(
+            "the sharded avatar sweep for configurations outside the "
+            "kernel's (flagship architecture) is not ported yet: see "
+            "ROADMAP.md, Queue 1, the general DAA sweep")
+    devices = mesh.axis_devices("data")
+    n_samples, _, n_scores = scores_values.shape
+    n_cells = n_samples * n_scores
+    sp, posteriors, cdata, eps, dims = prepare_sweep(
+        model, data, scores_values, generator, cfg)
+    first = cdata.device
+    if devices[0] != first:
+        raise ValueError(f"the data is on {first}, the mesh's first data "
+                         f"entry is {devices[0]}")
+    pad = (-n_cells) % len(devices)
+    if pad:
+        cdata = torch.cat([cdata, cdata[:pad]])
+        eps = torch.cat([eps, eps.new_zeros((pad,) + eps.shape[1:])])
+    per = (n_cells + pad) // len(devices)
+    parts = []
+    for k, dev in enumerate(devices):
+        cells = slice(k * per, (k + 1) * per)
+        out = sweep_cells({n: t.to(dev) for n, t in sp.items()},
+                          tuple(t.to(dev) for t in posteriors),
+                          cdata[cells].to(dev), eps[cells].to(dev), dims,
+                          sample_latents, method=cfg.method)
+        parts.append(out.to(first))
+    return avatar_layout(torch.cat(parts)[:n_cells], n_samples, n_scores)
+
+
 def sample_artificial_scores(strategy: str, clinical_values: np.ndarray,
                              n_samples: int, n_subjects: int,
                              rng: np.random.Generator):
@@ -218,7 +269,8 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
             trust_level: float = 0.75, seed: Optional[int] = 1037,
             reg_method: str = "hierarchical", sample_latents: bool = True,
             vote_prop: float = 1.0, exact_reconstruction="auto",
-            fetch_dtype: str = "float16", artifact: str = "full") -> str:
+            fetch_dtype: str = "float16", artifact: str = "full",
+            use_sharding="auto") -> str:
     """Full DAA pipeline; returns the result directory.
 
     ``models`` and ``cohorts`` hold one entry per ensemble member
@@ -235,6 +287,9 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
     ``rois_digital_avatars.npy`` memmap; ``"stats-only"`` reduces each round
     to the regression sufficient statistics on the device and never
     fetches the avatars (same regression outputs to float tolerance).
+    ``use_sharding``: split each round's cell grid over the visible cards
+    (:func:`avatar_sweep_sharded`); ``"auto"`` does so whenever the models
+    are on a card and more than one is visible.
     """
     if sampling_strategy not in SAMPLING_STRATEGIES:
         raise ValueError("sampling_strategy must be either linear, uniform"
@@ -255,6 +310,14 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
         raise ValueError(f"need {n_models} models and cohorts, got "
                          f"{len(models)} and {len(cohorts)}")
     device = next(models[0].parameters()).device
+    if isinstance(use_sharding, str):
+        use_sharding = (use_sharding == "auto"
+                        or use_sharding.lower() in ("true", "1", "yes"))
+    mesh = None
+    n_cards = len(visible_cards())
+    if use_sharding and device.type == "cuda" and n_cards > 1:
+        mesh = data_mesh(n_cards, spread(device, n_cards))
+        print_text(f"avatar grid sharded over {n_cards} devices")
     clinical_names = cohorts[0].clinical_names
     rois_names = cohorts[0].rois_names
     n_scores = len(clinical_names)
@@ -330,8 +393,13 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
                     np.transpose(scores_grid, (2, 0, 1)),
                     dtype=torch.float32, device=device)       # [P, B, S]
 
-            avatars = avatar_sweep(model, data, scores_values,
-                                   sample_latents, generator, cfg)
+            if mesh is not None:
+                avatars = avatar_sweep_sharded(model, data, scores_values,
+                                               sample_latents, generator,
+                                               mesh, cfg)
+            else:
+                avatars = avatar_sweep(model, data, scores_values,
+                                       sample_latents, generator, cfg)
             if stats_only:
                 rt = None if wire == torch.float32 else wire
                 suffstats_rounds.append(tuple(

@@ -15,6 +15,21 @@
 // re-encodings of 1 and 2). Out: the 17 metrics of method_metric_names (19
 // for poe) and the gradient of every split tensor.
 //
+// The same step on one shard's row slice of a batch
+// (method_step_slice_launch) replaces multivae_tpu/ops/fused_sharded.py::
+// _dp_method_kernel: the rows at hand (x, noise and masks alike) are rows
+// [row_offset, row_offset + B) of a batch of b_total rows. Every row
+// partition is the whole batch's (a row compares its global index with the
+// bounds from b_total: moe's 2-way, joint_elbo's 3-way, jsd's 3-way and the
+// 2-way of its kld metric), every sum that the loss holds is divided by
+// b_total, so metrics 0-8, poe's 17-18 and all gradients are partial sums
+// that add up over the shards to the whole batch's; metrics 9-16 (the latent
+// means) stay means over the local rows, as in the TPU kernel, and the
+// caller divides their sum by the number of shards. A shard may hold no row
+// of a subset. Workspace, grids and every product's row extent are the
+// local B. With row_offset = 0 and b_total = B it is the unsharded step, bit
+// for bit: method_step_launch calls it so.
+//
 // Per method (t_e = 1 / (exp(clv_e) + 1e-8), tp = 1 / (1 + 1e-8)):
 //   joint_elbo  subsets a, b bare (lv = -log t_e), c = PoE with the prior;
 //               joint = 3-way row mixture; divergence = mean of the 3 KLs.
@@ -130,11 +145,12 @@ struct LatentArgs {
   const float *g_zc, *g_zs[2], *g_zcu[2], *g_zsu[2];
   float* part;
   int method, b, cd, s[2];
-  int k3a, k3b, k2;  // bounds of the 3-way and the 2-way row partition
-  float cg, cs;      // KL coefficients / b, see method_step_launch
+  int row_offset;    // global index of local row 0
+  int k3a, k3b, k2;  // bounds of the 3-way and the 2-way partition (global)
+  float cg, cs;      // KL coefficients / b_total, see the launch function
 };
 
-// sum term of a KL to the unit prior: the metric is -0.5 sum / B
+// sum term of a KL to the unit prior: the metric is -0.5 sum / b_total
 __device__ inline float kl_term(float mu, float lv) {
   return 1.0f - expf(lv) - mu * mu + lv;
 }
@@ -149,8 +165,9 @@ __global__ void latent_fwd_kernel(const LatentArgs a) {
   const int cd = a.cd;
   const float tp = 1.0f / (1.0f + kPoeEps);
   const float* nz = a.noise + static_cast<long long>(i) * a.ld;
-  const bool in3a = i < a.k3a, in3b = i >= a.k3a && i < a.k3b;
-  const bool in2a = i < a.k2;
+  const int gi = a.row_offset + i;  // the row's index in the whole batch
+  const bool in3a = gi < a.k3a, in3b = gi >= a.k3a && gi < a.k3b;
+  const bool in2a = gi < a.k2;
   float p_a = 0.0f, p_b = 0.0f, p_c = 0.0f, p_j = 0.0f;
   float m_cmu1 = 0.0f, m_clv1 = 0.0f, m_cmu2 = 0.0f, m_clv2 = 0.0f;
   for (int c = 0; c < cd; ++c) {
@@ -253,10 +270,11 @@ __global__ void latent_bwd_kernel(const LatentArgs a) {
   const int cd = a.cd;
   const float tp = 1.0f / (1.0f + kPoeEps);
   const float* nz = a.noise + static_cast<long long>(i) * a.ld;
-  const float m3a = i < a.k3a ? 1.0f : 0.0f;
-  const float m3b = (i >= a.k3a && i < a.k3b) ? 1.0f : 0.0f;
-  const float m3c = i >= a.k3b ? 1.0f : 0.0f;
-  const float m2a = i < a.k2 ? 1.0f : 0.0f, m2b = 1.0f - m2a;
+  const int gi = a.row_offset + i;
+  const float m3a = gi < a.k3a ? 1.0f : 0.0f;
+  const float m3b = (gi >= a.k3a && gi < a.k3b) ? 1.0f : 0.0f;
+  const float m3c = gi >= a.k3b ? 1.0f : 0.0f;
+  const float m2a = gi < a.k2 ? 1.0f : 0.0f, m2b = 1.0f - m2a;
   const float cg = a.cg;
   for (int c = 0; c < cd; ++c) {
     const long long j = static_cast<long long>(i) * cd + c;
@@ -390,10 +408,12 @@ struct MetricArgs {
   const float* part;     // [kParts, b]
   const float* nll_col;  // [2, d1 + d2]
   float* metrics;        // [17], poe [19]
-  int method, b, d1, d2, cd, s1, s2;
+  int method, b, b_total, d1, d2, cd, s1, s2;
   float beta, beta_style, beta_content;
 };
 
+// Sums over the local rows: those of the loss divided by b_total (partial
+// sums of the whole batch's), the latent means by the local element count.
 __global__ void __launch_bounds__(step::kMetricThreads)
 metrics_kernel(const MetricArgs a) {
   __shared__ float scratch[step::kMetricThreads];
@@ -410,7 +430,7 @@ metrics_kernel(const MetricArgs a) {
         q % 2 == 0 ? a.d1 : a.d2, [&](int i) { return p[i]; }, scratch);
   }
   if (threadIdx.x != 0) return;
-  const float b = static_cast<float>(a.b);
+  const float b = static_cast<float>(a.b_total);
   const float nll1 = nll_sum[0] / b, nll2 = nll_sum[1] / b;
   const float kld_a = -0.5f * sums[0] / b;
   const float kld_b = -0.5f * sums[1] / b;
@@ -437,7 +457,8 @@ metrics_kernel(const MetricArgs a) {
     }
     loss = nll1 + nll2 + a.beta * (style + a.beta_content * group_div);
   }
-  const float n_c = b * a.cd, n_s1 = b * a.s1, n_s2 = b * a.s2;
+  const float bl = static_cast<float>(a.b);
+  const float n_c = bl * a.cd, n_s1 = bl * a.s1, n_s2 = bl * a.s2;
   const float head[17] = {loss,  group_div, nll1, nll2, kld_a, kld_b,
                           kld_c, kld_s1,    kld_s2,
                           sums[5] / n_c,  sums[6] / n_c,
@@ -464,22 +485,30 @@ long long method_step_workspace_floats(int method, int has_masks, int b,
   return carve(nullptr, method, passes, b, d1, d2, h, cd, s1, s2).total;
 }
 
-// One step on `stream`: grads (flat, split layout) and the metrics from the
-// flat params. method: 0 joint_elbo, 1 moe, 2 jsd, 3 poe. mask0..mask3 are
-// all null (no dropout) or the keep masks of encoder 1, encoder 2 and, for
+// One step on `stream` over rows [row_offset, row_offset + b) of a batch of
+// b_total rows: grads (flat, split layout) and the metrics from the flat
+// params, as partial sums of the whole batch's (see the header). method:
+// 0 joint_elbo, 1 moe, 2 jsd, 3 poe. mask0..mask3 are all null (no
+// dropout) or the keep masks of encoder 1, encoder 2 and, for
 // poe, of the unimodal re-encodings of 1 and 2 (null otherwise), each
-// [B, h] with row stride ld_mask. Returns the first CUDA error (0 on
-// success). Synchronizes nothing and allocates nothing: `work` holds
-// method_step_workspace_floats(...) floats.
-int method_step_launch(const float* params, float* grads, float* metrics,
-                       const float* x1, const float* x2, const float* noise,
-                       int ld_noise, const float* mask0, const float* mask1,
-                       const float* mask2, const float* mask3, int ld_mask,
-                       float* work, int method, int b, int d1, int d2, int h,
-                       int cd, int s1, int s2, float beta, float beta_style,
-                       float beta_content, int learn_scale,
-                       void* stream_ptr) {
+// [B, h] with row stride ld_mask (the local rows, like x and the noise).
+// Returns the first CUDA error (0 on success). Synchronizes nothing and
+// allocates nothing: `work` holds method_step_workspace_floats(..., b, ...)
+// floats.
+int method_step_slice_launch(const float* params, float* grads,
+                             float* metrics, const float* x1, const float* x2,
+                             const float* noise, int ld_noise,
+                             const float* mask0, const float* mask1,
+                             const float* mask2, const float* mask3,
+                             int ld_mask, float* work, int method, int b,
+                             int row_offset, int b_total, int d1, int d2,
+                             int h, int cd, int s1, int s2, float beta,
+                             float beta_style, float beta_content,
+                             int learn_scale, void* stream_ptr) {
   if (method < kJointElbo || method > kPoe) return cudaErrorInvalidValue;
+  if (b < 1 || row_offset < 0 || b_total < row_offset + b) {
+    return cudaErrorInvalidValue;
+  }
   const bool masked = mask0 != nullptr;
   if (masked != (mask1 != nullptr)) return cudaErrorInvalidValue;
   const bool uni_masked = mask2 != nullptr;
@@ -559,10 +588,11 @@ int method_step_launch(const float* params, float* grads, float* metrics,
   la.method = method;
   la.b = b;
   la.cd = cd;
-  la.k3a = b / 3;  // floor(b / k) i, fused_methods.py:125-129
-  la.k3b = 2 * (b / 3);
-  la.k2 = b / 2;
-  const float bf = static_cast<float>(b);
+  la.row_offset = row_offset;
+  la.k3a = b_total / 3;  // floor(b_total / k) i, fused_methods.py:125-139
+  la.k3b = 2 * (b_total / 3);
+  la.k2 = b_total / 2;
+  const float bf = static_cast<float>(b_total);
   // the divergence's weight on each unit-prior (jsd: dynamic-prior) KL
   const float n_kl = method == kJointElbo || method == kJsd ? 3.0f
                      : method == kMoe                      ? 2.0f
@@ -604,6 +634,7 @@ int method_step_launch(const float* params, float* grads, float* metrics,
                                 poe ? nll + d1 + d2 : nullptr};
     }
     rb.b = b;
+    rb.b_total = b_total;
     rb.learn_scale = learn_scale;
     const int dmax = d1 > d2 ? d1 : d2;
     dim3 grid((dmax + step::kColThreads - 1) / step::kColThreads, 2);
@@ -700,12 +731,28 @@ int method_step_launch(const float* params, float* grads, float* metrics,
     STEP_CHECK(g.launch(stream));
   }
   // 11. metrics
-  MetricArgs ma{w.part, w.nll_col, metrics, method, b,    d1,
-                d2,     cd,        s1,      s2,     beta, beta_style,
-                beta_content};
+  MetricArgs ma{w.part, w.nll_col, metrics, method, b,    b_total,
+                d1,     d2,        cd,      s1,     s2,   beta,
+                beta_style, beta_content};
   metrics_kernel<<<1, step::kMetricThreads, 0, stream>>>(ma);
   STEP_CHECK(cudaGetLastError());
   return 0;
+}
+
+// The unsharded step: the slice that is the whole batch.
+int method_step_launch(const float* params, float* grads, float* metrics,
+                       const float* x1, const float* x2, const float* noise,
+                       int ld_noise, const float* mask0, const float* mask1,
+                       const float* mask2, const float* mask3, int ld_mask,
+                       float* work, int method, int b, int d1, int d2, int h,
+                       int cd, int s1, int s2, float beta, float beta_style,
+                       float beta_content, int learn_scale,
+                       void* stream_ptr) {
+  return method_step_slice_launch(params, grads, metrics, x1, x2, noise,
+                                  ld_noise, mask0, mask1, mask2, mask3,
+                                  ld_mask, work, method, b, 0, b, d1, d2, h,
+                                  cd, s1, s2, beta, beta_style, beta_content,
+                                  learn_scale, stream_ptr);
 }
 
 const char* method_step_error_string(int code) {

@@ -11,6 +11,19 @@
 // metrics in METRIC_TEMPLATES order (loss first) and the gradient of every
 // split tensor in a flat buffer of the same layout.
 //
+// The same step on one shard's row slice of a batch (mopoe_step_slice_launch)
+// replaces multivae_tpu/ops/fused_sharded.py::_dp_kernel: the rows at hand
+// are rows [row_offset, row_offset + B) of a batch of b_total rows. The
+// 3-way mixture partition is the whole batch's (a row compares its global
+// index with floor(b_total / 3) and twice that), every sum that the loss
+// holds is divided by b_total, so metrics 0-8 and all gradients are partial
+// sums that add up over the shards to the whole batch's; metrics 9-16 (the
+// latent means) stay means over the local rows, as in the TPU kernel, and
+// the caller divides their sum by the number of shards. Workspace, grids
+// and every product's row extent are the local B. With row_offset = 0 and
+// b_total = B it is the unsharded step, bit for bit: mopoe_step_launch
+// calls it so.
+//
 // What bounds it: at the flagship widths (d = 7/444, h = 256, cd = 20,
 // s = 3/20) and B = 256 a step needs ~195 MFLOP over ~0.67 MB of params, a
 // few MB of activations at most: compute-light, and every product is small
@@ -105,20 +118,23 @@ struct LatentArgs {
   float *zc, *zs[2];
   const float *g_zc, *g_zs[2];
   float* part;
-  int b, cd, s[2], k1, k2;
-  float cg, cs;  // beta beta_content / (3 b), beta beta_style^2 / b
+  int b, cd, s[2];
+  int row_offset, k1, k2;  // global index of local row 0; partition bounds
+  // beta beta_content / (3 b_total), beta beta_style^2 / b_total
+  float cg, cs;
 };
 
 // Forward latents, one thread per row. Row partials (each [B]):
 // 0-2 KL sums of the subsets a, b, c; 3-4 style KL sums; 5-12 the sums of
 // cmu1, clv1, smu1, slv1, cmu2, clv2, smu2, slv2 (for the latent means).
-// A KL sum is sum(1 - exp(lv) - mu^2 + lv); the metric is -0.5 sum / B.
+// A KL sum is sum(1 - exp(lv) - mu^2 + lv); the metric is -0.5 sum / b_total.
 __global__ void latent_fwd_kernel(const LatentArgs a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.b) return;
   const int cd = a.cd;
   const float tp = 1.0f / (1.0f + kPoeEps);
-  const bool in_a = i < a.k1, in_b = i >= a.k1 && i < a.k2;
+  const int gi = a.row_offset + i;  // the row's index in the whole batch
+  const bool in_a = gi < a.k1, in_b = gi >= a.k1 && gi < a.k2;
   float p_a = 0.0f, p_b = 0.0f, p_c = 0.0f;
   float m_cmu1 = 0.0f, m_clv1 = 0.0f, m_cmu2 = 0.0f, m_clv2 = 0.0f;
   for (int c = 0; c < cd; ++c) {
@@ -171,9 +187,10 @@ __global__ void latent_bwd_kernel(const LatentArgs a) {
   if (i >= a.b) return;
   const int cd = a.cd;
   const float tp = 1.0f / (1.0f + kPoeEps);
-  const float m_a = i < a.k1 ? 1.0f : 0.0f;
-  const float m_b = (i >= a.k1 && i < a.k2) ? 1.0f : 0.0f;
-  const float m_c = i >= a.k2 ? 1.0f : 0.0f;
+  const int gi = a.row_offset + i;
+  const float m_a = gi < a.k1 ? 1.0f : 0.0f;
+  const float m_b = (gi >= a.k1 && gi < a.k2) ? 1.0f : 0.0f;
+  const float m_c = gi >= a.k2 ? 1.0f : 0.0f;
   const float cg = a.cg;
   for (int c = 0; c < cd; ++c) {
     const long long j = static_cast<long long>(i) * cd + c;
@@ -222,10 +239,12 @@ struct MetricArgs {
   const float* part;     // [kParts, b]
   const float* nll_col;  // [d1 + d2]
   float* metrics;        // [17]
-  int b, d1, d2, cd, s1, s2;
+  int b, b_total, d1, d2, cd, s1, s2;
   float beta, beta_style, beta_content;
 };
 
+// Sums over the local rows: those of the loss divided by b_total (partial
+// sums of the whole batch's), the latent means by the local element count.
 __global__ void __launch_bounds__(step::kMetricThreads)
 metrics_kernel(const MetricArgs a) {
   __shared__ float scratch[step::kMetricThreads];
@@ -239,7 +258,7 @@ metrics_kernel(const MetricArgs a) {
   const float nll2_sum = step::block_sum(
       a.d2, [&](int i) { return a.nll_col[a.d1 + i]; }, scratch);
   if (threadIdx.x != 0) return;
-  const float b = static_cast<float>(a.b);
+  const float b = static_cast<float>(a.b_total);
   const float nll1 = nll1_sum / b, nll2 = nll2_sum / b;
   const float kld_a = -0.5f * sums[0] / b;
   const float kld_b = -0.5f * sums[1] / b;
@@ -251,7 +270,8 @@ metrics_kernel(const MetricArgs a) {
   const float loss =
       nll1 + nll2 + a.beta * (a.beta_style * a.beta_style * kld_style +
                               a.beta_content * group_div);
-  const float n_c = b * a.cd, n_s1 = b * a.s1, n_s2 = b * a.s2;
+  const float bl = static_cast<float>(a.b);
+  const float n_c = bl * a.cd, n_s1 = bl * a.s1, n_s2 = bl * a.s2;
   const float out[17] = {loss,  group_div, nll1, nll2, kld_a, kld_b,
                          kld_c, kld_s1,    kld_s2,
                          sums[5] / n_c,  sums[6] / n_c,
@@ -281,17 +301,22 @@ long long mopoe_step_workspace_floats(int b, int d1, int d2, int h, int cd,
   return carve(nullptr, b, d1, d2, h, cd, s1, s2).total;
 }
 
-// One step on `stream`: grads (flat, split layout) and metrics[17] from the
-// flat params. Returns the first CUDA error (0 on success). Synchronizes
-// nothing and allocates nothing: `work` holds
-// mopoe_step_workspace_floats(...) floats.
-int mopoe_step_launch(const float* params, float* grads, float* metrics,
-                      const float* x1, const float* x2, const float* ej,
-                      int ld_ej, const float* es1, int ld_es1,
-                      const float* es2, int ld_es2, float* work, int b,
-                      int d1, int d2, int h, int cd, int s1, int s2,
-                      float beta, float beta_style, float beta_content,
-                      int learn_scale, void* stream_ptr) {
+// One step on `stream` over rows [row_offset, row_offset + b) of a batch of
+// b_total rows: grads (flat, split layout) and metrics[17] from the flat
+// params, as partial sums of the whole batch's (see the header). Returns the
+// first CUDA error (0 on success). Synchronizes nothing and allocates
+// nothing: `work` holds mopoe_step_workspace_floats(b, ...) floats.
+int mopoe_step_slice_launch(const float* params, float* grads, float* metrics,
+                            const float* x1, const float* x2, const float* ej,
+                            int ld_ej, const float* es1, int ld_es1,
+                            const float* es2, int ld_es2, float* work, int b,
+                            int row_offset, int b_total, int d1, int d2,
+                            int h, int cd, int s1, int s2, float beta,
+                            float beta_style, float beta_content,
+                            int learn_scale, void* stream_ptr) {
+  if (b < 1 || row_offset < 0 || b_total < row_offset + b) {
+    return cudaErrorInvalidValue;
+  }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const step::Layout L = step::make_layout(d1, d2, h, cd, s1, s2);
   const Work w = carve(work, b, d1, d2, h, cd, s1, s2);
@@ -347,10 +372,11 @@ int mopoe_step_launch(const float* params, float* grads, float* metrics,
   la.part = w.part;
   la.b = b;
   la.cd = cd;
-  la.k1 = b / 3;  // floor(b/3), fused_step.py:251-255
-  la.k2 = 2 * (b / 3);
-  la.cg = beta * beta_content / (3.0f * static_cast<float>(b));
-  la.cs = beta * beta_style * beta_style / static_cast<float>(b);
+  la.row_offset = row_offset;
+  la.k1 = b_total / 3;  // floor(b_total / 3), fused_step.py:251-255, 333
+  la.k2 = 2 * (b_total / 3);
+  la.cg = beta * beta_content / (3.0f * static_cast<float>(b_total));
+  la.cs = beta * beta_style * beta_style / static_cast<float>(b_total);
   const int row_blocks = (b + kRowThreads - 1) / kRowThreads;
   latent_fwd_kernel<<<row_blocks, kRowThreads, 0, stream>>>(la);
   STEP_CHECK(cudaGetLastError());
@@ -376,6 +402,7 @@ int mopoe_step_launch(const float* params, float* grads, float* metrics,
                                 d[e], nullptr, nullptr, nullptr};
     }
     rb.b = b;
+    rb.b_total = b_total;
     rb.learn_scale = learn_scale;
     const int dmax = d1 > d2 ? d1 : d2;
     dim3 grid((dmax + step::kColThreads - 1) / step::kColThreads, 2);
@@ -454,11 +481,25 @@ int mopoe_step_launch(const float* params, float* grads, float* metrics,
     STEP_CHECK(g.launch(stream));
   }
   // 11. metrics
-  MetricArgs ma{w.part, w.nll_col, metrics, b, d1, d2, cd, s1, s2,
+  MetricArgs ma{w.part, w.nll_col, metrics, b, b_total, d1, d2, cd, s1, s2,
                 beta, beta_style, beta_content};
   metrics_kernel<<<1, step::kMetricThreads, 0, stream>>>(ma);
   STEP_CHECK(cudaGetLastError());
   return 0;
+}
+
+// The unsharded step: the slice that is the whole batch.
+int mopoe_step_launch(const float* params, float* grads, float* metrics,
+                      const float* x1, const float* x2, const float* ej,
+                      int ld_ej, const float* es1, int ld_es1,
+                      const float* es2, int ld_es2, float* work, int b,
+                      int d1, int d2, int h, int cd, int s1, int s2,
+                      float beta, float beta_style, float beta_content,
+                      int learn_scale, void* stream_ptr) {
+  return mopoe_step_slice_launch(params, grads, metrics, x1, x2, ej, ld_ej,
+                                 es1, ld_es1, es2, ld_es2, work, b, 0, b, d1,
+                                 d2, h, cd, s1, s2, beta, beta_style,
+                                 beta_content, learn_scale, stream_ptr);
 }
 
 const char* mopoe_step_error_string(int code) {

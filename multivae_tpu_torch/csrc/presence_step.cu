@@ -466,6 +466,7 @@ int presence_step_launch(const float* params, float* grads, float* metrics,
                               poe ? w.nll_col + d : nullptr};
     rb.p[1] = rb.p[0];
     rb.b = b;
+    rb.b_total = b;
     rb.learn_scale = learn_scale;
     dim3 grid((d + step::kColThreads - 1) / step::kColThreads, 1);
     step::dec_colreduce_kernel<<<grid, step::kColThreads, 0, stream>>>(rb);

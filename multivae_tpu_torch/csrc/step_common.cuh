@@ -20,7 +20,9 @@
 // * colsum: bias gradients, one thread per column summing the rows in order
 //   (of one source, or of two passes' sources one after the other).
 // * dec_colreduce: per decoder column, the residual's gradient
-//   g_loc = -r exp(-olv) / b, its column sum (bias gradient), the
+//   g_loc = -r exp(-olv) / b_total (b_total: the rows the loss is a mean
+//   over; more than the rows at hand when they are one shard's slice of a
+//   batch), its column sum (bias gradient), the
 //   output-log-variance gradient and the column's NLL sum; with a second
 //   residual (poe's unimodal decode) the gradients are the two passes' sums.
 // * block_sum: a fixed-order tree reduction inside one block.
@@ -353,20 +355,21 @@ struct DecReduce {
 struct DecReduceBatch {
   DecReduce p[2];
   int b, learn_scale;
+  int b_total;  // the rows the loss is a mean over (b, or a sharded batch's)
 };
 
 __global__ void dec_colreduce_kernel(const DecReduceBatch batch) {
   const DecReduce& P = batch.p[blockIdx.y];
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= P.d) return;
-  const float bf = static_cast<float>(batch.b);
+  const float bf = static_cast<float>(batch.b_total);
   const float olv = P.olv[c];
   const float iv = expf(-olv);
   float acc_g = 0.0f, acc_o = 0.0f, acc_n = 0.0f;
   for (int row = 0; row < batch.b; ++row) {
     const long long i = static_cast<long long>(row) * P.d + c;
     const float rv = P.r[i];
-    const float gl = -rv * iv / bf;        // g_loc = -r iv / b
+    const float gl = -rv * iv / bf;        // g_loc = -r iv / b_total
     const float q = 0.5f * (rv * rv) * iv;  // 0.5 r^2 iv
     P.g_loc[i] = gl;
     acc_g += gl;

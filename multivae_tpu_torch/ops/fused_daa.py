@@ -219,15 +219,11 @@ def rois_posteriors(model, rois):
 
 
 @torch.no_grad()
-def fused_avatar_sweep(model, data, scores_values, sample_latents: bool,
-                       generator: torch.Generator, cfg):
-    """Avatar sweep in the layout of
-    :func:`multivae_tpu_torch.analysis.daa.avatar_sweep`:
-    ``[B, n_scores, n_samples, n_rois]`` (a permuted view).
-
-    ``data``: ``{clinical: [B, d1], rois: [B, d2]}``; ``scores_values``:
-    ``[n_samples, B, n_scores]``; ``generator`` draws the noise on the
-    data's device, and the kernel takes it as an input."""
+def prepare_sweep(model, data, scores_values, generator: torch.Generator,
+                  cfg):
+    """The inputs of :func:`sweep_cells` for a whole sweep: ``(sp,
+    posteriors, cdata, eps, dims)`` with one noise draw ``eps [n_samples *
+    n_scores, B, cd + s2]`` from ``generator`` on the data's device."""
     names = model.mod_names
     clinical, rois = data[names[0]], data[names[1]]
     n_samples, b, n_scores = scores_values.shape
@@ -238,6 +234,29 @@ def fused_avatar_sweep(model, data, scores_values, sample_latents: bool,
     eps = torch.randn((n_samples * n_scores, b, dims.cd + dims.s2),
                       generator=generator, dtype=torch.float32,
                       device=clinical.device)
+    return sp, posteriors, cdata, eps, dims
+
+
+def avatar_layout(out, n_samples: int, n_scores: int):
+    """``[n_samples * n_scores, B, d2]`` cells -> ``[B, n_scores,
+    n_samples, d2]`` (a permuted view)."""
+    return out.reshape(n_samples, n_scores, out.shape[1],
+                       out.shape[2]).permute(2, 1, 0, 3)
+
+
+@torch.no_grad()
+def fused_avatar_sweep(model, data, scores_values, sample_latents: bool,
+                       generator: torch.Generator, cfg):
+    """Avatar sweep in the layout of
+    :func:`multivae_tpu_torch.analysis.daa.avatar_sweep`:
+    ``[B, n_scores, n_samples, n_rois]`` (a permuted view).
+
+    ``data``: ``{clinical: [B, d1], rois: [B, d2]}``; ``scores_values``:
+    ``[n_samples, B, n_scores]``; ``generator`` draws the noise on the
+    data's device, and the kernel takes it as an input."""
+    n_samples, _, n_scores = scores_values.shape
+    sp, posteriors, cdata, eps, dims = prepare_sweep(
+        model, data, scores_values, generator, cfg)
     out = sweep_cells(sp, posteriors, cdata, eps, dims, sample_latents,
                       method=cfg.method)
-    return out.reshape(n_samples, n_scores, b, dims.d2).permute(2, 1, 0, 3)
+    return avatar_layout(out, n_samples, n_scores)

@@ -18,6 +18,12 @@ encoders' ReLU: ``(dm1, dm2)``, for poe ``(dm1, dm2, dm1u, dm2u)``, whose
 unimodal ELBOs re-encode with the fresh masks. On CUDA tensors a step
 launches the kernel, on CPU tensors it runs the plain version; a kernel
 that does not build or launch raises.
+
+With ``row_offset`` and ``b_total`` the step runs on one shard's row slice
+of a batch (the TPU kernel ``fused_sharded._dp_method_kernel``): every row
+partition and normalization is the whole batch's, the outputs are partial
+sums. :func:`slice_method_step_flat` launches the kernel's row-slice entry
+point and counts under ``dp_method_step``.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from .fused_step import (
     FusedConsts,
     _uniform_bounds,
     check_inputs,
+    check_slice,
     split_layout_ok,
     workspace,
 )
@@ -49,7 +56,7 @@ METHODS = ("joint_elbo", "moe", "jsd", "poe")
 PORTED_METHODS = METHODS
 
 # launches of each kernel in this module; a caller resets and reads it
-KERNEL_LAUNCHES: Dict[str, int] = {"method_step": 0}
+KERNEL_LAUNCHES: Dict[str, int] = {"method_step": 0, "dp_method_step": 0}
 
 
 def method_metric_names(model, method: str) -> Tuple[str, ...]:
@@ -216,11 +223,13 @@ def reparam_bwd(g_z, eps, lv):
     return g_z, g_z * eps * 0.5 * torch.exp(0.5 * lv)
 
 
-def row_masks(b: int, k: int, device):
+def row_masks(b: int, k: int, device, row_offset: int = 0, b_total=None):
     """The k-way uniform stratified row partition as float masks
-    ``[b, 1]``."""
-    rows = torch.arange(b, device=device)[:, None]
-    edges = [0] + _uniform_bounds(b, k) + [b]
+    ``[b, 1]``; with ``b_total`` the partition of a batch of ``b_total``
+    rows restricted to its rows ``[row_offset, row_offset + b)``."""
+    total = b if b_total is None else b_total
+    rows = torch.arange(b, device=device)[:, None] + row_offset
+    edges = [0] + _uniform_bounds(total, k) + [total]
     return [((rows >= lo) & (rows < hi)).float()
             for lo, hi in zip(edges[:-1], edges[1:])]
 
@@ -228,17 +237,28 @@ def row_masks(b: int, k: int, device):
 # ------------------------------------------------------------ plain version
 def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
                              consts: FusedConsts, learn_scale: bool = True,
-                             dropout_masks: Optional[Sequence] = None):
+                             dropout_masks: Optional[Sequence] = None,
+                             row_offset: int = 0, b_total=None):
     """Plain PyTorch version of the kernel: ``(loss, metrics[17 | 19],
     grads)`` of ``method_loss_split`` with a hand-derived backward;
-    ``grads`` a dict of the split tensors' gradients."""
+    ``grads`` a dict of the split tensors' gradients. ``row_offset`` /
+    ``b_total`` as there: the inputs (noise and masks too) are rows
+    ``[row_offset, row_offset + dims.b)`` of a batch of ``b_total``; the
+    partitions use global row indices, the sums are divided by ``b_total``
+    and the latent means stay local."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     n_masks = 0 if dropout_masks is None else len(dropout_masks)
     if n_masks not in (0, 4 if method == "poe" else 2):
         raise ValueError(f"{method} takes {4 if method == 'poe' else 2} "
                          f"dropout masks, got {n_masks}")
-    b = float(dims.b)
+    row_offset, bt = check_slice("method_fwd_bwd_reference", dims.b,
+                                 row_offset, b_total)
+    b = float(bt)
+
+    def masks_of(k):
+        return row_masks(dims.b, k, x1.device, row_offset, bt)
+
     cd, s1, s2 = dims.cd, dims.s1, dims.s2
     beta, beta_style, beta_content = consts
     xs = (x1, x2)
@@ -259,7 +279,7 @@ def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
         mu_c = (cmu1 * t1 + cmu2 * t2) / ts_c
         lv_c = -torch.log(ts_c)
     if method == "joint_elbo":
-        m_a, m_b, m_c = row_masks(dims.b, 3, x1.device)
+        m_a, m_b, m_c = masks_of(3)
         lv_a, lv_b = -torch.log(t1), -torch.log(t2)
         joint_mu = m_a * cmu1 + m_b * cmu2 + m_c * mu_c
         joint_lv = m_a * lv_a + m_b * lv_b + m_c * lv_c
@@ -267,17 +287,17 @@ def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
                                kl_sum(mu_c, lv_c, b))
         group_div = (kld_a + kld_b + kld_c) / 3.0
     elif method == "moe":
-        m_a, m_b = row_masks(dims.b, 2, x1.device)
+        m_a, m_b = masks_of(2)
         joint_mu = m_a * cmu1 + m_b * cmu2
         joint_lv = m_a * clv1 + m_b * clv2
         kld_a, kld_b = kl_sum(cmu1, clv1, b), kl_sum(cmu2, clv2, b)
         kld_c = kl_sum(joint_mu, joint_lv, b)  # a metric only
         group_div = (kld_a + kld_b) / 2.0
     elif method == "jsd":
-        m_a, m_b, _ = row_masks(dims.b, 3, x1.device)
+        m_a, m_b, _ = masks_of(3)
         joint_mu = m_a * cmu1 + m_b * cmu2  # unit rows: mu = 0
         joint_lv = m_a * clv1 + m_b * clv2  # unit rows: logvar = 0
-        pm_a, pm_b = row_masks(dims.b, 2, x1.device)
+        pm_a, pm_b = masks_of(2)
         # metrics only
         kld_a, kld_b = kl_sum(cmu1, clv1, b), kl_sum(cmu2, clv2, b)
         kld_c = kl_sum(pm_a * cmu1 + pm_b * cmu2, pm_a * clv1 + pm_b * clv2,
@@ -434,6 +454,10 @@ def _method_library():
             [ptr] * 6 + [i32] + [ptr] * 4 + [i32, ptr] + [i32] * 8
             + [f32] * 3 + [i32, ptr])
         lib.method_step_launch.restype = i32
+        lib.method_step_slice_launch.argtypes = (
+            [ptr] * 6 + [i32] + [ptr] * 4 + [i32, ptr] + [i32] * 10
+            + [f32] * 3 + [i32, ptr])
+        lib.method_step_slice_launch.restype = i32
         lib.method_step_workspace_floats.argtypes = [i32] * 9
         lib.method_step_workspace_floats.restype = ctypes.c_longlong
         lib.method_step_error_string.argtypes = [i32]
@@ -456,7 +480,10 @@ def check_masks(name: str, masks, n_expected: int, b: int, h: int, device):
 
 def _launch_method(method: str, p, x1, x2, noise, dims: FusedDims,
                    consts: FusedConsts, learn_scale: bool, masks, metrics,
-                   grads):
+                   grads, row_slice=None):
+    """Launch the step (``row_slice=None``, counted as ``method_step``) or
+    its row-slice entry point (``row_slice=(row_offset, b_total)``, counted
+    as ``dp_method_step``)."""
     device = p.device
     b = dims.b
     width = dims.cd + dims.s1 + dims.s2
@@ -478,17 +505,41 @@ def _launch_method(method: str, p, x1, x2, noise, dims: FusedDims,
     method_idx = METHODS.index(method)
     work = workspace(lib, "method_step", device, method_idx,
                      int(bool(masks)), b, *widths)
+    launch, counter, rows = lib.method_step_launch, "method_step", (b,)
+    if row_slice is not None:
+        launch, counter = lib.method_step_slice_launch, "dp_method_step"
+        rows = (b,) + tuple(row_slice)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.method_step_launch(
+        rc = launch(
             p.data_ptr(), grads.data_ptr(), metrics.data_ptr(),
             x1.data_ptr(), x2.data_ptr(), noise.data_ptr(), noise.stride(0),
-            *mask_ptrs, ld_mask, work.data_ptr(), method_idx, b, *widths,
+            *mask_ptrs, ld_mask, work.data_ptr(), method_idx, *rows, *widths,
             *(float(c) for c in consts), int(bool(learn_scale)), stream)
     if rc != 0:
-        raise RuntimeError("method_step launch failed: "
+        raise RuntimeError(f"{counter} launch failed: "
                            + lib.method_step_error_string(rc).decode())
-    KERNEL_LAUNCHES["method_step"] += 1
+    KERNEL_LAUNCHES[counter] += 1
+
+
+def _method_step_flat(method, p, x1, x2, noise, dims, consts, learn_scale,
+                      dropout_masks, row_slice):
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    if p.device.type == "cuda":
+        metrics = torch.empty(n_method_metrics(method), dtype=torch.float32,
+                              device=p.device)
+        grads = torch.empty_like(p)
+        _launch_method(method, p, x1, x2, noise, dims, consts, learn_scale,
+                       dropout_masks, metrics, grads, row_slice)
+        return metrics, grads
+    if p.device.type == "cpu":
+        row_offset, b_total = row_slice or (0, None)
+        _, metrics, g = method_fwd_bwd_reference(
+            method, flat_views(p, dims), x1, x2, noise, dims, consts,
+            learn_scale, dropout_masks, row_offset, b_total)
+        return metrics, flatten_split(g)
+    raise ValueError(f"method_step: no kernel for {p.device}")
 
 
 def method_step_flat(method: str, p, x1, x2, noise, dims: FusedDims,
@@ -497,21 +548,22 @@ def method_step_flat(method: str, p, x1, x2, noise, dims: FusedDims,
     """One step on a flat params buffer: ``(metrics[17 | 19], grads)``,
     ``grads`` a new flat buffer of the split layout. The kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    if method not in METHODS:
-        raise ValueError(f"unknown method {method!r}")
-    if p.device.type == "cuda":
-        metrics = torch.empty(n_method_metrics(method), dtype=torch.float32,
-                              device=p.device)
-        grads = torch.empty_like(p)
-        _launch_method(method, p, x1, x2, noise, dims, consts, learn_scale,
-                       dropout_masks, metrics, grads)
-        return metrics, grads
-    if p.device.type == "cpu":
-        _, metrics, g = method_fwd_bwd_reference(
-            method, flat_views(p, dims), x1, x2, noise, dims, consts,
-            learn_scale, dropout_masks)
-        return metrics, flatten_split(g)
-    raise ValueError(f"method_step: no kernel for {p.device}")
+    return _method_step_flat(method, p, x1, x2, noise, dims, consts,
+                             learn_scale, dropout_masks, None)
+
+
+def slice_method_step_flat(method: str, p, x1, x2, noise, dims: FusedDims,
+                           consts: FusedConsts, learn_scale: bool,
+                           dropout_masks, row_offset: int, b_total: int):
+    """:func:`method_step_flat` on rows ``[row_offset, row_offset +
+    dims.b)`` of a batch of ``b_total`` (noise and masks row-sliced
+    alike): partial ``(metrics, grads)`` whose sum over the shards is the
+    whole batch's (the latent means after ``mean_rescale``). The kernel's
+    row-slice entry point for CUDA tensors, the plain version for CPU
+    tensors."""
+    return _method_step_flat(
+        method, p, x1, x2, noise, dims, consts, learn_scale, dropout_masks,
+        check_slice("dp_method_step", dims.b, row_offset, b_total))
 
 
 def method_epoch_flat(method: str, p, mu, nu, count: int, x1s, x2s, noise,

@@ -12,6 +12,13 @@ step launches ``csrc/mopoe_step.cu`` and the update ``csrc/flat_adam.cu``,
 the host looping the epoch on one stream; on CPU tensors they run the plain
 versions. A kernel that does not build or launch raises; nothing falls
 back.
+
+With ``row_offset`` and ``b_total`` the step runs on one shard's row slice
+of a batch (the TPU kernel ``fused_sharded._dp_kernel``): ``dims.b`` is the
+local row count, the mixture partition and every normalization are the whole
+batch's, so the outputs are partial sums (the latent means local means, see
+:func:`..fused_sharded.mean_rescale`). :func:`slice_step_flat` launches the
+kernel's row-slice entry point and counts under ``dp_step``.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ LOG2PI = math.log(2.0 * math.pi)
 POE_EPS = 1e-8
 
 # launches of each kernel in this module; a caller resets and reads it
-KERNEL_LAUNCHES: Dict[str, int] = {"mopoe_step": 0}
+KERNEL_LAUNCHES: Dict[str, int] = {"mopoe_step": 0, "dp_step": 0}
 
 
 class FusedConsts(NamedTuple):
@@ -121,13 +128,38 @@ def mixture_bounds(b: int) -> Tuple[int, int]:
     return k1, k2
 
 
+def check_slice(name: str, b: int, row_offset, b_total) -> Tuple[int, int]:
+    """``(row_offset, b_total)`` of a row slice of ``b`` rows, checked:
+    both ints, the slice inside the batch. ``b_total=None`` is the whole
+    batch (``row_offset`` must then be 0)."""
+    if b_total is None:
+        if row_offset != 0:
+            raise ValueError(f"{name}: row_offset needs b_total")
+        return 0, b
+    for label, v in (("row_offset", row_offset), ("b_total", b_total)):
+        if isinstance(v, bool) or not isinstance(v, int):
+            raise TypeError(f"{name}: {label} is an int, got "
+                            f"{type(v).__name__}")
+    if row_offset < 0 or b_total < row_offset + b:
+        raise ValueError(f"{name}: rows [{row_offset}, {row_offset + b}) "
+                         f"are not inside a batch of {b_total}")
+    return row_offset, b_total
+
+
 # ------------------------------------------------------------ plain version
 def fwd_bwd_reference(sp, x1, x2, ej, es1, es2, dims: FusedDims,
-                      consts: FusedConsts, learn_scale: bool = True):
+                      consts: FusedConsts, learn_scale: bool = True,
+                      row_offset: int = 0, b_total=None):
     """Plain PyTorch version of the kernel: ``(loss, metrics[17], grads)``,
-    ``grads`` a dict of the split tensors' gradients (``_fwd_bwd``)."""
-    k1, k2 = mixture_bounds(dims.b)
-    b = float(dims.b)
+    ``grads`` a dict of the split tensors' gradients (``_fwd_bwd``).
+    ``row_offset``/``b_total`` as there: the inputs are rows ``[row_offset,
+    row_offset + dims.b)`` of a batch of ``b_total``; the partition masks use
+    global row indices, the sums are divided by ``b_total`` and the latent
+    means stay local."""
+    row_offset, bt = check_slice("fwd_bwd_reference", dims.b, row_offset,
+                                 b_total)
+    k1, k2 = mixture_bounds(bt)
+    b = float(bt)
     beta, beta_style, beta_content = consts
 
     h1 = torch.relu(x1 @ sp["enc1_Wh"] + sp["enc1_bh"])
@@ -151,7 +183,7 @@ def fwd_bwd_reference(sp, x1, x2, ej, es1, es2, dims: FusedDims,
     mu_c = (cmu1 * t1 + cmu2 * t2) / ts
     lv_c = -torch.log(ts)
 
-    rows = torch.arange(dims.b, device=x1.device)[:, None]
+    rows = torch.arange(dims.b, device=x1.device)[:, None] + row_offset
     m_a = (rows < k1).float()
     m_b = ((rows >= k1) & (rows < k2)).float()
     m_c = (rows >= k2).float()
@@ -259,6 +291,10 @@ def _step_library():
             [ptr] * 6 + [i32, ptr, i32, ptr, i32, ptr] + [i32] * 7
             + [f32] * 3 + [i32, ptr])
         lib.mopoe_step_launch.restype = i32
+        lib.mopoe_step_slice_launch.argtypes = (
+            [ptr] * 6 + [i32, ptr, i32, ptr, i32, ptr] + [i32] * 9
+            + [f32] * 3 + [i32, ptr])
+        lib.mopoe_step_slice_launch.restype = i32
         lib.mopoe_step_workspace_floats.argtypes = [i32] * 7
         lib.mopoe_step_workspace_floats.restype = ctypes.c_longlong
         lib.mopoe_step_param_floats.argtypes = [i32] * 6
@@ -272,9 +308,11 @@ _WORKSPACES: Dict[tuple, torch.Tensor] = {}
 
 
 def workspace(lib, prefix: str, device, *sizes) -> torch.Tensor:
-    """The kernel's scratch buffer for these sizes on ``device``, allocated
-    once and reused by every later launch on it."""
-    key = (prefix, str(device)) + tuple(sizes)
+    """The kernel's scratch buffer for these sizes on ``device``'s current
+    stream, allocated once and reused by every later launch there (launches
+    of one stream run in order; two streams never share a buffer)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (prefix, str(device), stream) + tuple(sizes)
     buf = _WORKSPACES.get(key)
     if buf is None:
         n = getattr(lib, f"{prefix}_workspace_floats")(*sizes)
@@ -301,7 +339,11 @@ def check_inputs(name: str, device, tensors) -> None:
 
 
 def _launch_step(p, x1, x2, ej, es1, es2, dims: FusedDims,
-                 consts: FusedConsts, learn_scale: bool, metrics, grads):
+                 consts: FusedConsts, learn_scale: bool, metrics, grads,
+                 row_slice=None):
+    """Launch the step (``row_slice=None``, counted as ``mopoe_step``) or
+    its row-slice entry point (``row_slice=(row_offset, b_total)``, counted
+    as ``dp_step``)."""
     device = p.device
     b = dims.b
     check_inputs("mopoe_step", device, [
@@ -318,18 +360,40 @@ def _launch_step(p, x1, x2, ej, es1, es2, dims: FusedDims,
         raise ValueError("mopoe_step: the kernel's split layout disagrees "
                          "with params.split_shapes")
     work = workspace(lib, "mopoe_step", device, b, *widths)
+    launch, counter, rows = lib.mopoe_step_launch, "mopoe_step", (b,)
+    if row_slice is not None:
+        launch, counter = lib.mopoe_step_slice_launch, "dp_step"
+        rows = (b,) + tuple(row_slice)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.mopoe_step_launch(
+        rc = launch(
             p.data_ptr(), grads.data_ptr(), metrics.data_ptr(),
             x1.data_ptr(), x2.data_ptr(), ej.data_ptr(), ej.stride(0),
             es1.data_ptr(), es1.stride(0), es2.data_ptr(), es2.stride(0),
-            work.data_ptr(), b, *widths, *(float(c) for c in consts),
+            work.data_ptr(), *rows, *widths, *(float(c) for c in consts),
             int(bool(learn_scale)), stream)
     if rc != 0:
-        raise RuntimeError("mopoe_step launch failed: "
+        raise RuntimeError(f"{counter} launch failed: "
                            + lib.mopoe_step_error_string(rc).decode())
-    KERNEL_LAUNCHES["mopoe_step"] += 1
+    KERNEL_LAUNCHES[counter] += 1
+
+
+def _step_flat(p, x1, x2, ej, es1, es2, dims, consts, learn_scale,
+               row_slice):
+    if p.device.type == "cuda":
+        metrics = torch.empty(N_METRICS, dtype=torch.float32,
+                              device=p.device)
+        grads = torch.empty_like(p)
+        _launch_step(p, x1, x2, ej, es1, es2, dims, consts, learn_scale,
+                     metrics, grads, row_slice)
+        return metrics, grads
+    if p.device.type == "cpu":
+        row_offset, b_total = row_slice or (0, None)
+        _, metrics, g = fwd_bwd_reference(flat_views(p, dims), x1, x2, ej,
+                                          es1, es2, dims, consts,
+                                          learn_scale, row_offset, b_total)
+        return metrics, flatten_split(g)
+    raise ValueError(f"mopoe_step: no kernel for {p.device}")
 
 
 def step_flat(p, x1, x2, ej, es1, es2, dims: FusedDims,
@@ -337,19 +401,20 @@ def step_flat(p, x1, x2, ej, es1, es2, dims: FusedDims,
     """One step on a flat params buffer: ``(metrics[17], grads)``, ``grads``
     a new flat buffer of the split layout. The kernel for CUDA tensors, the
     plain version for CPU tensors."""
-    if p.device.type == "cuda":
-        metrics = torch.empty(N_METRICS, dtype=torch.float32,
-                              device=p.device)
-        grads = torch.empty_like(p)
-        _launch_step(p, x1, x2, ej, es1, es2, dims, consts, learn_scale,
-                     metrics, grads)
-        return metrics, grads
-    if p.device.type == "cpu":
-        _, metrics, g = fwd_bwd_reference(flat_views(p, dims), x1, x2, ej,
-                                          es1, es2, dims, consts,
-                                          learn_scale)
-        return metrics, flatten_split(g)
-    raise ValueError(f"mopoe_step: no kernel for {p.device}")
+    return _step_flat(p, x1, x2, ej, es1, es2, dims, consts, learn_scale,
+                      None)
+
+
+def slice_step_flat(p, x1, x2, ej, es1, es2, dims: FusedDims,
+                    consts: FusedConsts, learn_scale: bool, row_offset: int,
+                    b_total: int):
+    """:func:`step_flat` on rows ``[row_offset, row_offset + dims.b)`` of a
+    batch of ``b_total``: partial ``(metrics[17], grads)`` whose sum over
+    the shards is the whole batch's (the latent means after
+    ``mean_rescale``). The kernel's row-slice entry point for CUDA tensors,
+    the plain version for CPU tensors."""
+    return _step_flat(p, x1, x2, ej, es1, es2, dims, consts, learn_scale,
+                      check_slice("dp_step", dims.b, row_offset, b_total))
 
 
 def loss_and_grads(sp, x1, x2, ej, es1, es2, dims: FusedDims,

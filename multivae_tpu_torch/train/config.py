@@ -3,9 +3,11 @@
 A copy of ``multivae_tpu/train/config.py`` (which imports no JAX), kept in
 the port so that loading a run needs nothing of the JAX package: the same
 typed dataclass, the same derived fields (:meth:`Config.derive`) and the
-same JSON file, so either package reads the other's runs. Fields that only
-steer the JAX package's TPU training are carried for that compatibility and
-read by nothing here.
+same JSON file, so either package reads the other's runs. Of the JAX
+package's parallelism and TPU-training knobs the port reads
+``data_parallel``, ``ensemble_parallel``, ``fused_training`` (and refuses
+``tensor_parallel > 1`` and a ``precision`` other than float32); the others
+are carried for that compatibility and read by nothing here.
 """
 
 from __future__ import annotations

@@ -16,6 +16,15 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
   step is followed by ``csrc/flat_adam.cu``. Without ``fused_training``
   every batch takes the general autograd step, in the same order with the
   same noise;
+* with ``data_parallel = N > 1`` the full complete batches take the
+  data-parallel epoch (``ops/fused_sharded.py``): each batch's rows split
+  over a data mesh of ``N`` entries, every shard runs the row-slice entry
+  point of the same step kernel, the shards' gradients are summed in shard
+  order and one Adam update follows. Every other group (the partial
+  complete batch, the single-present groups) takes the unsharded kernels
+  as above, on the first device. ``batch_size`` must be a multiple of
+  ``N``. Noise and masks are the unsharded run's, row-sliced, so the two
+  runs agree to the order of the sums;
 * the test split is evaluated with the general forward and
   :func:`~multivae_tpu_torch.train.losses.total_loss`;
 * every 5 epochs and at the end the model and optimizer state are
@@ -38,6 +47,15 @@ a kernel the port does not have yet raise ``NotImplementedError`` naming
 the ROADMAP item; nothing falls back.
 The chunked drivers are not ported: ``epoch_chunk`` is accepted and the
 per-epoch driver runs (ROADMAP Queue 1 item 5).
+
+Ensembles (``trainer.py:199-238, 1011-1105``): :func:`run_epochs` trains
+the members in turn, or, when :func:`resolve_ensemble` says so
+(``ensemble_parallel``), :func:`run_epochs_ensemble` runs epochs outermost
+and the members inside, each member's epoch being the same function on the
+member's mesh device and CUDA stream, with the member's own generators:
+the result is the sequential run's, bit for bit. The JAX package's stacked
+``vmap`` step over the members' common prefix is not ported (ROADMAP Queue
+1 item 4).
 """
 
 from __future__ import annotations
@@ -50,8 +68,9 @@ import numpy as np
 import torch
 
 from ..data import MissingModalitySampler, simple_batches
-from ..ops import fused_methods, fused_presence, fused_step
+from ..ops import fused_methods, fused_presence, fused_sharded, fused_step
 from ..ops.adam import AdamState, adam_hyper
+from ..parallel import data_mesh, make_mesh, spread, visible_cards
 from ..params import dims_from, load_flat_params, model_flat_params
 from ..utils.filehandling import model_checkpoint_dir, model_log_dir
 from .checkpoint import save_checkpoint, save_networks
@@ -75,13 +94,12 @@ def unported_features(cfg, model) -> List[str]:
                    "decoders, per-sample output scale, another likelihood "
                    "or modality count): the generic kernel (ROADMAP Queue 2 "
                    "item 2)")
-    if cfg.data_parallel > 1 or cfg.tensor_parallel > 1:
-        out.append("data_parallel/tensor_parallel > 1: multi-GPU training "
-                   "and the row-sharded step kernels (ROADMAP Queue 1 item "
-                   "4, Queue 2 item 1)")
-    if cfg.ensemble_parallel is True and cfg.num_models > 1:
-        out.append("ensemble_parallel=True: the ensemble driver (ROADMAP "
+    if cfg.tensor_parallel > 1:
+        out.append("tensor_parallel > 1: tensor-parallel training (ROADMAP "
                    "Queue 1 item 4)")
+    if cfg.data_parallel > 1 and not cfg.fused_training:
+        out.append("data_parallel > 1 with fused_training=False: the "
+                   "row-sharded general step (ROADMAP Queue 1 item 4)")
     for flag in ("calc_nll", "calc_prd", "calc_clf", "calc_coherence"):
         if getattr(cfg, flag, False):
             out.append(f"{flag}: the eval cadence (ROADMAP Queue 1 item 3)")
@@ -257,10 +275,43 @@ class _Logs:
                 write(dict(sorted(zip(names, block[j]))))
 
 
+def make_dp_epoch(cfg, model, device):
+    """The data-parallel epoch of the full complete batches for
+    ``cfg.data_parallel > 1`` (``trainer.py:900-908``) over a data mesh that
+    starts at ``device``, or None for ``data_parallel == 1``. A
+    ``batch_size`` the shards do not divide raises."""
+    n = int(cfg.data_parallel)
+    if n <= 1:
+        return None
+    if cfg.batch_size % n:
+        raise ValueError(
+            f"batch_size={cfg.batch_size} is not a multiple of "
+            f"data_parallel={n}: every shard takes batch_size / "
+            f"data_parallel rows of a full batch")
+    example = {m.name: None for m in model.modalities}
+    if not fused_methods.supports_method_fused(cfg, model, example):
+        check_supported(cfg, model)
+        raise NotImplementedError("no data-parallel kernel for this config")
+    return fused_sharded.make_fused_dp_epoch(
+        cfg, model, data_mesh(n, spread(device, n)))
+
+
 def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
                     generator: torch.Generator, epoch: int = 0,
-                    log_every: int = 1) -> int:
-    """One epoch of one member; returns the number of steps."""
+                    log_every: int = 1, dp_epoch=None) -> int:
+    """One epoch of one member; returns the number of steps. ``dp_epoch``
+    (:func:`make_dp_epoch`) takes the full complete batches when given."""
+    n_steps, logs = enqueue_train_epoch(exp, model_idx, generator, epoch,
+                                        log_every, dp_epoch)
+    logs.write(logger, "train")
+    return n_steps
+
+
+def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
+                        epoch: int = 0, log_every: int = 1, dp_epoch=None):
+    """Launch one epoch of one member on its device's current stream
+    without fetching anything; returns ``(number of steps, the epoch's
+    logs)``, the logs still on the device."""
     cfg = exp.cfg
     model = exp.models[model_idx]
     device = exp.params[model_idx].device
@@ -310,10 +361,11 @@ def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
             logs.add(names, torch.stack([metrics[k] for k in names])[None],
                      [0])
 
-    def run_group(key, batches, batch_noise, batch_masks, rows_to_log):
+    def run_group(key, batches, batch_noise, batch_masks, rows_to_log,
+                  epoch_fn=None):
         # one kernel epoch over the group's batches
         nonlocal opt, n_steps
-        epoch_fn = make_group_fused_epoch(cfg, model, key)
+        epoch_fn = epoch_fn or make_group_fused_epoch(cfg, model, key)
         xs = {m: _stack(batches, m, device) for m in key[0]}
         opt, metrics, names = epoch_fn(
             p, opt, xs, torch.stack(batch_noise),
@@ -323,7 +375,8 @@ def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
 
     if fused and full:
         run_group((tuple(sorted(mod_names)), cfg.batch_size), full,
-                  noise_full, masks_full, range(0, len(full), log_every))
+                  noise_full, masks_full, range(0, len(full), log_every),
+                  dp_epoch)
     elif not fused:
         for j, data in enumerate(full):
             run_general(data, noise_full[j], j % log_every == 0)
@@ -344,8 +397,7 @@ def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
 
     exp.opt_states[model_idx] = opt
     load_flat_params(model, p, dims_from(cfg, cfg.batch_size))
-    logs.write(logger, "train")
-    return n_steps
+    return n_steps, logs
 
 
 def test_batches(exp, model_idx: int, epoch: int):
@@ -422,23 +474,144 @@ def resume_from_checkpoints(exp) -> int:
     return latest
 
 
+def resolve_ensemble(cfg, model) -> bool:
+    """Whether the members train through :func:`run_epochs_ensemble`
+    (``trainer.py:199-228``). ``cfg.ensemble_parallel`` is True, False or
+    ``"auto"``: auto takes the ensemble runner when the members can spread
+    over the visible cards (:func:`ensemble_mesh`) and otherwise only when
+    the sequential loop would not run the step kernels anyway."""
+    if cfg.num_models <= 1:
+        return False
+    if getattr(cfg, "tensor_parallel", 1) > 1:
+        return False
+    if cfg.ensemble_parallel is True:
+        return True
+    if cfg.ensemble_parallel is False:
+        return False
+    if ensemble_mesh(cfg) is not None:
+        return True
+    if cfg.fused_training:
+        example = {m.name: None for m in model.modalities}
+        if (fused_step.supports_fused(cfg, model, example)
+                or fused_methods.supports_method_fused(cfg, model, example)):
+            return False
+    return True
+
+
+def ensemble_mesh(cfg):
+    """The ``(model, data)`` mesh of an ensemble over the visible cards, or
+    None with at most one card or a card count the members do not divide
+    (``trainer.py:231-238``)."""
+    n_dev = len(visible_cards())
+    if n_dev <= 1 or n_dev % cfg.num_models != 0:
+        return None
+    return make_mesh(n_model=cfg.num_models,
+                     n_data=n_dev // cfg.num_models)
+
+
+def _checkpoint_member(exp, model_idx: int, epoch: int) -> None:
+    cfg = exp.cfg
+    ckpt_dir = model_checkpoint_dir(cfg, model_idx, epoch)
+    opt = (exp.opt_states[model_idx]
+           if cfg.save_optimizer != "none" else None)
+    save_checkpoint(ckpt_dir, exp.models[model_idx], opt, cfg.model_save,
+                    dims=dims_from(cfg, cfg.batch_size))
+    save_networks(os.path.dirname(ckpt_dir)
+                  if cfg.num_models > 1 else cfg.dir_checkpoints,
+                  exp.models[model_idx])
+
+
+def run_epochs_ensemble(exp, use_tensorboard: bool = True,
+                        log_every: int = 1, progress: bool = True):
+    """Ensemble runner (``trainer.py:1011-1105``): epochs outermost, the
+    members inside. Member ``m`` lives on entry ``m`` of the mesh's model
+    axis (the visible cards when the members divide them, else all on the
+    experiment's device) and works on a CUDA stream of its own: every
+    member's training epoch is launched first, then each member's logs are
+    fetched and its test pass runs. A member's epoch is
+    :func:`enqueue_train_epoch`, the sequential loop's, with the member's
+    own noise and mask generators, so params, moments, logs and checkpoints
+    are the sequential run's, bit for bit. Returns the host-clock seconds
+    per epoch (all members; train, test, logging, ending in a device
+    synchronize)."""
+    cfg = exp.cfg
+    n_models = cfg.num_models
+    mesh = ensemble_mesh(cfg) if exp.device.type == "cuda" else None
+    if mesh is None:
+        mesh = make_mesh(n_models, 1, spread(exp.device, 1) * n_models)
+    members = fused_sharded.MemberStreams(mesh)
+    for m, dev in enumerate(members.devices):
+        if exp.params[m].device != dev:
+            exp.models[m].to(dev)
+            opt = exp.opt_states[m]
+            exp.params[m] = exp.params[m].to(dev)
+            exp.opt_states[m] = AdamState(opt.count, opt.mu.to(dev),
+                                          opt.nu.to(dev))
+    dp_epochs = [make_dp_epoch(cfg, exp.models[m], dev)
+                 for m, dev in enumerate(members.devices)]
+    loggers = [MetricLogger(model_log_dir(cfg, m),
+                            use_tensorboard=use_tensorboard)
+               for m in range(n_models)]
+    for logger in loggers:
+        logger.add_text("FLAGS", cfg.describe())
+    print(f"training epochs progress (ensemble of {n_models}, mesh "
+          f"{[str(d) for d in members.devices]}):")
+    walls: List[float] = []
+    t0 = time.time()
+    for epoch in range(cfg.start_epoch, cfg.end_epoch):
+        start = time.perf_counter()
+        generators = [epoch_generator(cfg, m, epoch)
+                      for m in range(n_models)]
+        pending = []
+        for m in range(n_models):
+            with members.member(m):
+                pending.append(enqueue_train_epoch(
+                    exp, m, generators[m], epoch, log_every, dp_epochs[m]))
+        for m in range(n_models):
+            with members.member(m):
+                # the fetches synchronize the member's stream
+                pending[m][1].write(loggers[m], "train")
+                test_one_epoch(exp, m, loggers[m], generators[m], epoch)
+                if (epoch + 1) % 5 == 0 or (epoch + 1) == cfg.end_epoch:
+                    _checkpoint_member(exp, m, epoch)
+        members.join()
+        if exp.device.type == "cuda":
+            for dev in dict.fromkeys(members.devices):
+                torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - start)
+        if progress:
+            frac = (epoch + 1 - cfg.start_epoch) / max(
+                cfg.end_epoch - cfg.start_epoch, 1)
+            print(f"\r  ensemble: epoch {epoch + 1}/{cfg.end_epoch} "
+                  f"({100 * frac:.1f}%) [{time.time() - t0:.1f}s]", end="",
+                  flush=True)
+    if progress:
+        print()
+    for logger in loggers:
+        logger.close()
+    return walls
+
+
 def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
                progress: bool = True):
-    """Train every ensemble member in turn (``run_epochs``, per-epoch
-    driver). Returns member 0's host-clock seconds per epoch (train, test,
-    logging, ending in a device synchronize)."""
+    """Train every ensemble member (``run_epochs``, per-epoch loop): in
+    turn, or through :func:`run_epochs_ensemble` when
+    :func:`resolve_ensemble` says so. Returns member 0's host-clock seconds
+    per epoch (train, test, logging, ending in a device synchronize)."""
     cfg = exp.cfg
     check_supported(cfg, exp.models[0])
     if cfg.load_saved:
         resume_from_checkpoints(exp)
     cfg.save(os.path.join(cfg.dir_experiment_run, "flags.json"))
-    dims = dims_from(cfg, cfg.batch_size)
+    if resolve_ensemble(cfg, exp.models[0]):
+        return run_epochs_ensemble(exp, use_tensorboard=use_tensorboard,
+                                   log_every=log_every, progress=progress)
+    dp_epoch = make_dp_epoch(cfg, exp.models[0], exp.device)
     sync = (torch.cuda.synchronize if exp.device.type == "cuda"
             else (lambda: None))
     walls: List[float] = []
     print("training epochs progress:")
     for model_idx in range(cfg.num_models):
-        model = exp.models[model_idx]
         logger = MetricLogger(model_log_dir(cfg, model_idx),
                               use_tensorboard=use_tensorboard)
         logger.add_text("FLAGS", cfg.describe())
@@ -447,20 +620,13 @@ def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
             start = time.perf_counter()
             generator = epoch_generator(cfg, model_idx, epoch)
             train_one_epoch(exp, model_idx, logger, generator, epoch,
-                            log_every)
+                            log_every, dp_epoch)
             test_one_epoch(exp, model_idx, logger, generator, epoch)
             sync()
             if model_idx == 0:
                 walls.append(time.perf_counter() - start)
             if (epoch + 1) % 5 == 0 or (epoch + 1) == cfg.end_epoch:
-                ckpt_dir = model_checkpoint_dir(cfg, model_idx, epoch)
-                opt = (exp.opt_states[model_idx]
-                       if cfg.save_optimizer != "none" else None)
-                save_checkpoint(ckpt_dir, model, opt, cfg.model_save,
-                                dims=dims)
-                save_networks(os.path.dirname(ckpt_dir)
-                              if cfg.num_models > 1 else cfg.dir_checkpoints,
-                              model)
+                _checkpoint_member(exp, model_idx, epoch)
             if progress:
                 frac = (epoch + 1 - cfg.start_epoch) / max(
                     cfg.end_epoch - cfg.start_epoch, 1)

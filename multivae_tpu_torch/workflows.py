@@ -159,7 +159,8 @@ def daa_exp(dataset, datasetdir, outdir, run, sampling_strategy="likelihood",
             n_validation=5, n_samples=200, n_subjects=50, M=1000,
             trust_level=0.75, seed=1037, reg_method="hierarchical",
             sample_latents=True, vote_prop=1.0, exact_reconstruction="auto",
-            fetch_dtype="float16", artifact="full", device="cuda"):
+            fetch_dtype="float16", artifact="full", use_sharding="auto",
+            device="cuda"):
     """Digital avatars analysis (``workflow.py:185-539``): perturb one
     clinical score at a time, decode ROI avatars on the avatar-sweep kernel,
     regress avatar on score per ROI and vote Bonferroni-significant
@@ -171,7 +172,8 @@ def daa_exp(dataset, datasetdir, outdir, run, sampling_strategy="likelihood",
     ``fetch_dtype`` is the device->host wire dtype of the avatars (the
     on-disk artifact is float32 either way); ``artifact=stats-only`` skips
     the avatar artifact and reduces each round to device-side regression
-    sufficient statistics."""
+    sufficient statistics; ``use_sharding`` splits each round's cell grid
+    over the visible cards (``auto``: whenever there is more than one)."""
     dev = resolve_device(device)
     print_title(f"DIGITAL AVATARS ANALYSIS: {dataset}")
     expdir = os.path.join(outdir, run)
@@ -191,4 +193,5 @@ def daa_exp(dataset, datasetdir, outdir, run, sampling_strategy="likelihood",
                    seed=seed, reg_method=reg_method,
                    sample_latents=sample_latents, vote_prop=vote_prop,
                    exact_reconstruction=exact_reconstruction,
-                   fetch_dtype=fetch_dtype, artifact=artifact)
+                   fetch_dtype=fetch_dtype, artifact=artifact,
+                   use_sharding=use_sharding)

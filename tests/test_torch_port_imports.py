@@ -62,7 +62,11 @@ def test_slice_modules_exist():
                  "multivae_tpu_torch.train.train_step",
                  "multivae_tpu_torch.train.logging",
                  "multivae_tpu_torch.train.trainer",
-                 "multivae_tpu_torch.utils.filehandling"):
+                 "multivae_tpu_torch.utils.filehandling",
+                 # the data-parallel and ensemble slice
+                 "multivae_tpu_torch.ops.fused_sharded",
+                 "multivae_tpu_torch.parallel",
+                 "multivae_tpu_torch.parallel.mesh"):
         assert name in mods
 
 
@@ -108,6 +112,40 @@ def test_train_and_daa_load_no_jax_at_call_time(tmp_path):
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
     assert list((tmp_path / "out").glob("*/daa/*/significant_rois.tsv"))
+
+
+def test_dp_and_ensemble_train_load_no_jax_at_call_time(tmp_path):
+    """``train --data-parallel 4`` and ``train --num-models 2
+    --ensemble-parallel true`` through the CLI on the CPU."""
+    code = (
+        "import json, sys\n"
+        "from multivae_tpu_torch.cli import main\n"
+        "from multivae_tpu_torch.data import make_synthetic_cohort\n"
+        "d, o = sys.argv[1], sys.argv[2]\n"
+        "make_synthetic_cohort(d, n_subjects=90, n_scores=3, n_rois=12,\n"
+        "                      missing_rate=0.2, seed=0)\n"
+        "common = ['--dataset', 'synthetic', '--datasetdir', d,\n"
+        "          '--device', 'cpu', '--input-dims', '3', '12',\n"
+        "          '--latent-dim', '4', '--style-dim', '2', '3',\n"
+        "          '--batch-size', '16', '--num-epochs', '1',\n"
+        "          '--use-tensorboard', 'false']\n"
+        "main(['train', *common, '--outdir', o + '/dp',\n"
+        "      '--data-parallel', '4'])\n"
+        "main(['train', *common, '--outdir', o + '/ens',\n"
+        "      '--num-models', '2', '--ensemble-parallel', 'true'])\n"
+        f"print(json.dumps(sorted(m for m in {list(NOT_AT_IMPORT)!r} "
+        "if m in sys.modules)))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "data"),
+         str(tmp_path / "out")], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    flags = [json.loads(p.read_text())
+             for p in sorted((tmp_path / "out").glob("*/*/flags.json"))]
+    assert [(f["data_parallel"], f["ensemble_parallel"], f["num_models"])
+            for f in flags] == [(4, "auto", 1), (1, True, 2)]
+    assert "training epochs progress (ensemble of 2" in proc.stdout
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),

@@ -372,8 +372,9 @@ UNPORTED = [
     dict(dropout_rate=0.1, fused_training=False),
     dict(method="poe", dropout_rate=0.1, fused_training=False),
     dict(num_hidden_layer_decoder=1),
-    dict(out_scale_per_subject=True), dict(data_parallel=2),
-    dict(tensor_parallel=2), dict(num_models=2, ensemble_parallel="true"),
+    dict(out_scale_per_subject=True),
+    dict(data_parallel=2, fused_training=False),
+    dict(tensor_parallel=2), dict(num_models=2, tensor_parallel=2),
     dict(calc_nll=True), dict(calc_prd=True), dict(calc_clf=True),
     dict(calc_coherence=True), dict(profile_dir="trace"),
     dict(save_samples=True),
@@ -508,3 +509,171 @@ def test_ensemble_members_train_in_turn(cohort, tmp_path):
         with np.load(ckpt / "model.npz") as fh:
             states.append(fh["enc_rois/heads/kernel"])
     assert not np.array_equal(*states)
+
+
+# ------------------------------------------- data-parallel and ensemble runs
+def run_arrays(rundir, sub=""):
+    out = {}
+    for f in ("model.npz", "opt_state.npz"):
+        with np.load(rundir / "checkpoints" / sub / f) as fh:
+            out.update({f"{f}:{k}": fh[k] for k in fh.files})
+    return out
+
+
+def train_losses(rundir, sub=""):
+    import pandas as pd
+
+    csv = pd.read_csv(rundir / "logs" / sub / "metrics.csv")
+    tr = csv[(csv.phase == "train") & (csv.metric == "loss")]
+    return tr.sort_values("step").value.to_numpy()
+
+
+@pytest.mark.parametrize("method,rate", [("joint_elbo", 0.0), ("poe", 0.2),
+                                         ("jsd", 0.0)])
+def test_data_parallel_matches_single_device(cohort, tmp_path, method, rate):
+    """``data_parallel=4`` against ``data_parallel=1`` from one seed: the
+    same noise and masks, row-sliced, so the runs agree to the order of the
+    sums (the bounds of ``tests/test_fused_sharded.py:81-84``)."""
+    kw = dict(method=method, dropout_rate=rate)
+    one = tmp_path / "one" / train(cohort, tmp_path / "one", 1, **kw)
+    dp = tmp_path / "dp" / train(cohort, tmp_path / "dp", 1,
+                                 data_parallel=4, **kw)
+    assert json.loads((dp / "flags.json").read_text())["data_parallel"] == 4
+    a, b = train_losses(one), train_losses(dp)
+    assert len(a) == len(b) == 8
+    np.testing.assert_allclose(b, a, rtol=2e-5)
+    one_arrays, dp_arrays = run_arrays(one, "0000"), run_arrays(dp, "0000")
+    assert sorted(one_arrays) == sorted(dp_arrays)
+    for k, v in one_arrays.items():
+        assert np.abs(dp_arrays[k] - v).max() < 1e-5, k
+
+
+@pytest.mark.parametrize("method,rate,slice_fn,whole_fn", [
+    ("joint_elbo", 0.0, "slice_step_flat", "step_flat"),
+    ("moe", 0.0, "slice_method_step_flat", "method_step_flat"),
+    ("poe", 0.2, "slice_method_step_flat", "method_step_flat")])
+def test_data_parallel_routes(cohort, tmp_path, monkeypatch, method, rate,
+                              slice_fn, whole_fn):
+    """Per epoch: the 5 full complete batches take 4 row-slice steps each,
+    the partial complete batch the unsharded step, the 2 clinical-only
+    batches the presence step, and every batch one Adam update."""
+    from multivae_tpu_torch.ops import (fused_methods, fused_presence,
+                                        fused_sharded, fused_step)
+
+    calls = {}
+
+    def spy(module, name):
+        fn = getattr(module, name)
+
+        def counted(*args, **kw):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kw)
+        monkeypatch.setattr(module, name, counted)
+
+    whole_mod = fused_step if whole_fn == "step_flat" else fused_methods
+    spy(fused_sharded, slice_fn)
+    spy(whole_mod, whole_fn)
+    spy(fused_presence, "presence_step_flat")
+    for module in (fused_sharded, whole_mod, fused_presence):
+        spy(module, "adam_update")
+    train(cohort, tmp_path, 2, method=method, dropout_rate=rate,
+          data_parallel=4)
+    assert calls == {slice_fn: 2 * 5 * 4, whole_fn: 2 * 1,
+                     "presence_step_flat": 2 * 2, "adam_update": 2 * 8}
+
+
+def test_batch_size_not_a_multiple_of_data_parallel_raises(cohort, tmp_path):
+    with pytest.raises(ValueError, match="multiple of data_parallel"):
+        train(cohort, tmp_path, 1, data_parallel=5)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(method="poe", dropout_rate=0.2),
+                                dict(data_parallel=2)],
+                         ids=["joint_elbo", "poe-dropout", "data_parallel"])
+def test_ensemble_parallel_is_the_sequential_run(cohort, tmp_path, kw):
+    """``ensemble_parallel=True`` (epochs outermost, members inside) gives
+    every member the sequential loop's params, moments and logs, bit for
+    bit."""
+    runs = {}
+    for parallel in (True, False):
+        out = tmp_path / str(parallel)
+        runs[parallel] = out / train(cohort, out, 2, num_models=2,
+                                     ensemble_parallel=parallel, **kw)
+    for m in range(2):
+        a = run_arrays(runs[True], f"model_{m}/0001")
+        b = run_arrays(runs[False], f"model_{m}/0001")
+        assert sorted(a) == sorted(b) and len(a) > 10
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        np.testing.assert_array_equal(
+            train_losses(runs[True], f"model_{m}"),
+            train_losses(runs[False], f"model_{m}"))
+        assert (runs[True] / "checkpoints" / f"model_{m}"
+                / "enc_rois.npz").is_file()
+
+
+RESOLVE = [
+    # num_models, ensemble_parallel, tensor_parallel, cards, fused -> runner
+    (1, True, 1, 4, True, False),      # one member: nothing to drive
+    (2, True, 2, 4, True, False),      # the ensemble runners are not TP-aware
+    (2, True, 1, 1, True, True),
+    (2, False, 1, 4, True, False),
+    (2, "auto", 1, 4, True, True),     # the members spread over the cards
+    (2, "auto", 1, 2, True, True),
+    (3, "auto", 1, 4, True, False),    # 4 cards, 3 members: kernel loop
+    (2, "auto", 1, 1, True, False),    # one card: the kernel loop
+    (2, "auto", 1, 0, True, False),
+    (2, "auto", 1, 1, False, True),    # no kernel route anyway
+]
+
+
+@pytest.mark.parametrize("n,parallel,tp,cards,fused,want", RESOLVE)
+def test_resolve_ensemble(monkeypatch, n, parallel, tp, cards, fused, want):
+    cfg = make_cfg("", num_models=n, ensemble_parallel=parallel,
+                   tensor_parallel=tp, fused_training=fused)
+    monkeypatch.setattr(trainer, "visible_cards",
+                        lambda: [torch.device("cuda", i)
+                                 for i in range(cards)])
+    monkeypatch.setattr(trainer, "make_mesh",
+                        lambda n_model, n_data: (n_model, n_data))
+    model = MultimodalExperiment(cfg, "cpu").models[0]
+    assert trainer.resolve_ensemble(cfg, model) is want
+    mesh = trainer.ensemble_mesh(cfg)
+    if cards > 1 and cards % n == 0:
+        assert mesh == (n, cards // n)
+    else:
+        assert mesh is None
+    # the JAX package's table, with the card count for its device count
+    monkeypatch.setattr(jax_trainer.jax, "devices", lambda: [None] * cards)
+    monkeypatch.setattr(jax_trainer, "ensemble_mesh",
+                        lambda c: mesh if cards > 1 else None)
+    assert jax_trainer.resolve_ensemble(cfg, jax_model(cfg)) is want
+
+
+@pytest.mark.parametrize("n_samples", [6, 5])
+@pytest.mark.parametrize("method", ["joint_elbo", "jsd"])
+def test_avatar_sweep_sharded_equals_avatar_sweep(method, n_samples):
+    """Over a 4-entry mesh: 18 cells need 2 pad cells, 15 cells one."""
+    from multivae_tpu_torch.analysis import daa
+    from multivae_tpu_torch.parallel import data_mesh
+
+    cfg = make_cfg("", method=method)
+    model = MultimodalExperiment(cfg, "cpu").models[0]
+    rng = np.random.default_rng(3)
+    b = 9
+    data = {"clinical": torch.from_numpy(
+        rng.normal(size=(b, DIMS[0])).astype(np.float32)),
+        "rois": torch.from_numpy(
+            rng.normal(size=(b, DIMS[1])).astype(np.float32))}
+    scores = torch.from_numpy(
+        rng.normal(size=(n_samples, b, DIMS[0])).astype(np.float32))
+    mesh = data_mesh(4, [torch.device("cpu")] * 4)
+    assert (n_samples * DIMS[0]) % 4 != 0
+    for sample in (True, False):
+        want = daa.avatar_sweep(model, data, scores, sample,
+                                torch.Generator().manual_seed(5), cfg)
+        got = daa.avatar_sweep_sharded(model, data, scores, sample,
+                                       torch.Generator().manual_seed(5),
+                                       mesh, cfg)
+        assert got.shape == want.shape == (b, DIMS[0], n_samples, DIMS[1])
+        assert torch.equal(got, want)
