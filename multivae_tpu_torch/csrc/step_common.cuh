@@ -1,5 +1,5 @@
 // Shared device code of the train-step kernels (mopoe_step.cu,
-// method_step.cu, presence_step.cu), for Hopper (sm_90a).
+// method_step.cu, presence_step.cu, generic_step.cu), for Hopper (sm_90a).
 //
 // * The split layout: the 28 split tensors of multivae_tpu/ops/fused_step.py
 //   (SPLIT_NAMES) back to back in one flat float32 buffer, in the JAX layout
@@ -273,7 +273,7 @@ struct GemmBuilder {
 };
 
 // ------------------------------------------------------- column reductions
-constexpr int kMaxColSums = 12;
+constexpr int kMaxColSums = 24;
 constexpr int kColThreads = 128;
 
 struct ColSum {

@@ -4,8 +4,11 @@ Counterpart of ``multivae_tpu/models/mmvae.py:84-278``: ``encode``, the
 presence-masked ``inference`` and the forward pass with explicit noise, for
 all four methods. Modalities present in a batch are the batch dict's keys;
 subset posteriors come from one masked PoE over the stacked present experts
-(:func:`multivae_tpu_torch.ops.fusion.masked_poe_all_subsets`). Generation
-(``generate``, ``cond_generation``) comes with the eval port.
+(:func:`multivae_tpu_torch.ops.fusion.masked_poe_all_subsets`). Dropout is
+an explicit input (``masks``: per modality the encoder's and the decoder's
+lists of keep masks, :mod:`.networks`); without it the pass is the
+inference pass. Generation (``generate``, ``cond_generation``) comes with
+the eval port.
 """
 
 from __future__ import annotations
@@ -64,13 +67,15 @@ class MultimodalVAE(nn.Module):
         return powerset_subsets(self.mod_names)
 
     # ---------------------------------------------------------------- encode
-    def encode(self, batch: Dict[str, torch.Tensor]):
-        """Per-modality posteriors; absent modalities map to (None, None)."""
+    def encode(self, batch: Dict[str, torch.Tensor], masks=None):
+        """Per-modality posteriors; absent modalities map to (None, None).
+        ``masks``: ``{modality: (encoder masks, decoder masks)}`` or None."""
         latents = {}
         for mod in self.modalities:
             if mod.name in batch:
                 s_mu, s_lv, c_mu, c_lv = self.encoders[mod.name](
-                    batch[mod.name])
+                    batch[mod.name],
+                    None if masks is None else masks[mod.name][0])
                 latents[mod.name + "_style"] = (s_mu, s_lv)
                 latents[mod.name] = (c_mu, c_lv)
             else:
@@ -129,12 +134,13 @@ class MultimodalVAE(nn.Module):
 
     # -------------------------------------------------------------- inference
     def inference(self, batch: Dict[str, torch.Tensor], *,
-                  sample: bool = True, use_expert: Optional[str] = None):
+                  sample: bool = True, use_expert: Optional[str] = None,
+                  masks=None):
         """Reference ``BaseMMVae.inference`` (``:181-239``)."""
         present = tuple(m.name for m in self.modalities if m.name in batch)
         if not present:
             raise ValueError("empty batch: no known modality present")
-        enc_mods = self.encode(batch)
+        enc_mods = self.encode(batch, masks)
         keys, sub_mus, sub_logvars = self._fuse_available_subsets(
             enc_mods, present)
         distr_subsets = {k: (sub_mus[i], sub_logvars[i])
@@ -197,15 +203,18 @@ class MultimodalVAE(nn.Module):
                 sample_latents: bool = True,
                 use_expert: Optional[str] = None,
                 noise: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                masks=None):
         """Full forward pass (``BaseMMVae.forward``, ``:137-165``).
 
         With ``sample_latents`` the reparameterization noise
         ``[B, noise_width(batch)]`` is ``noise`` when given, else a draw from
-        ``generator``.
+        ``generator``. ``masks`` (``{modality: (encoder masks, decoder
+        masks)}``, one pre-scaled keep mask per hidden layer) applies
+        dropout; None is the inference pass.
         """
         latents = self.inference(batch, sample=sample_latents,
-                                 use_expert=use_expert)
+                                 use_expert=use_expert, masks=masks)
         joint_mu, joint_logvar = latents["joint"]
         eps = None
         if sample_latents:
@@ -235,7 +244,9 @@ class MultimodalVAE(nn.Module):
                 offset += mod.style_dim
             else:
                 style_z = s_mu
-            rec[mod.name] = self.decoders[mod.name](style_z, class_z)
+            rec[mod.name] = self.decoders[mod.name](
+                style_z, class_z,
+                None if masks is None else masks[mod.name][1])
 
         out = {"latents": latents, "group_distr": latents["joint"],
                "rec": rec}

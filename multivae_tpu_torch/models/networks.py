@@ -2,10 +2,11 @@
 
 Counterpart of ``multivae_tpu/models/networks.py``:
 
-* Encoder: ``input -> [Linear(hidden) + ReLU] * num_hidden_layers`` then ONE
-  fused head projection to ``(class_mu, class_logvar, style_mu,
-  style_logvar)`` columns, in that order (the JAX package's ``heads``).
-* Decoder: ``concat(style_z, class_z) -> [Linear(hidden) + ReLU] *
+* Encoder: ``input -> [Linear(hidden) + ReLU + dropout] *
+  num_hidden_layers`` then ONE fused head projection to ``(class_mu,
+  class_logvar, style_mu, style_logvar)`` columns, in that order (the JAX
+  package's ``heads``).
+* Decoder: ``concat(style_z, class_z) -> [Linear(hidden) + ReLU + dropout] *
   num_hidden_layers -> out_mu``; the output log-variance is a per-sample
   head (``out_heads``) or a per-feature parameter ``out_logvar [1, D]``.
   Returns ``(loc, scale = exp(0.5 * logvar))``.
@@ -14,14 +15,19 @@ Submodule and parameter names follow the flax tree (``hidden_0``,
 ``heads``, ``out_mu``, ``out_logvar``), so the weights bridge
 (:mod:`multivae_tpu_torch.params`) is a rename plus a transpose.
 
-The port runs inference only: dropout is the identity at inference and is
-not applied here; training comes with the train-step port.
+Dropout is an explicit input: ``forward`` takes an optional list of
+pre-scaled keep masks (values in ``{0, 1 / (1 - rate)}``, ``[B, hidden]``),
+one per hidden layer, and multiplies each in after its layer's ReLU, where
+flax's ``nn.Dropout`` sits. There is no ``nn.Dropout`` and no global RNG:
+the caller draws the masks (:func:`multivae_tpu_torch.train.trainer.
+mask_generator`), so the kernel routes and the general step take the same
+ones. Without masks (inference, the test pass) dropout is the identity.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 from torch import nn
@@ -44,6 +50,20 @@ def init_linear(layer: nn.Linear, generator: torch.Generator) -> None:
         layer.bias.uniform_(-bound, bound, generator=generator)
 
 
+def hidden_stack(module: nn.Module, h, masks=None):
+    """``relu(hidden_i(h)) [* masks[i]]`` through the module's hidden
+    layers; ``masks`` holds one keep mask per layer, or is None."""
+    n = module.num_hidden_layers
+    if masks is not None and len(masks) != n:
+        raise ValueError(f"{n} hidden layers take {n} dropout masks, got "
+                         f"{len(masks)}")
+    for i in range(n):
+        h = torch.relu(getattr(module, f"hidden_{i}")(h))
+        if masks is not None:
+            h = h * masks[i]
+    return h
+
+
 class Encoder(nn.Module):
     """Shared-trunk encoder with content (class) and optional style heads."""
 
@@ -60,10 +80,8 @@ class Encoder(nn.Module):
             width = hidden_dim
         self.heads = Linear(width, 2 * class_dim + 2 * self.style_dim)
 
-    def forward(self, x):
-        h = x
-        for i in range(self.num_hidden_layers):
-            h = torch.relu(getattr(self, f"hidden_{i}")(h))
+    def forward(self, x, masks: Optional[Sequence[torch.Tensor]] = None):
+        h = hidden_stack(self, x, masks)
         heads = self.heads(h)
         cd, s = self.class_dim, self.style_dim
         class_mu = heads[..., :cd]
@@ -100,11 +118,11 @@ class Decoder(nn.Module):
                 torch.full((1, output_dim), float(initial_out_logvar)),
                 requires_grad=learn_output_scale)
 
-    def forward(self, style_z: Optional[torch.Tensor], class_z: torch.Tensor):
+    def forward(self, style_z: Optional[torch.Tensor], class_z: torch.Tensor,
+                masks: Optional[Sequence[torch.Tensor]] = None):
         h = torch.cat([style_z, class_z], dim=-1) if self.has_style \
             else class_z
-        for i in range(self.num_hidden_layers):
-            h = torch.relu(getattr(self, f"hidden_{i}")(h))
+        h = hidden_stack(self, h, masks)
         if self.learn_output_sample_scale:
             both = self.out_heads(h)
             loc = both[..., :self.output_dim]

@@ -235,38 +235,67 @@ def row_masks(b: int, k: int, device, row_offset: int = 0, b_total=None):
 
 
 # ------------------------------------------------------------ plain version
-def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
-                             consts: FusedConsts, learn_scale: bool = True,
-                             dropout_masks: Optional[Sequence] = None,
-                             row_offset: int = 0, b_total=None):
-    """Plain PyTorch version of the kernel: ``(loss, metrics[17 | 19],
-    grads)`` of ``method_loss_split`` with a hand-derived backward;
-    ``grads`` a dict of the split tensors' gradients. ``row_offset`` /
-    ``b_total`` as there: the inputs (noise and masks too) are rows
-    ``[row_offset, row_offset + dims.b)`` of a batch of ``b_total``; the
-    partitions use global row indices, the sums are divided by ``b_total``
-    and the latent means stay local."""
-    if method not in METHODS:
-        raise ValueError(f"unknown method {method!r}")
-    n_masks = 0 if dropout_masks is None else len(dropout_masks)
-    if n_masks not in (0, 4 if method == "poe" else 2):
-        raise ValueError(f"{method} takes {4 if method == 'poe' else 2} "
-                         f"dropout masks, got {n_masks}")
-    row_offset, bt = check_slice("method_fwd_bwd_reference", dims.b,
-                                 row_offset, b_total)
+class SplitNets:
+    """The split layout's networks as :func:`latent_fwd_bwd` takes them:
+    one hidden layer per encoder (keep masks ``(dm1, dm2)``, for poe
+    ``(dm1, dm2, dm1u, dm2u)``, or none) and linear decoders. ``g`` holds
+    the gradient of every split tensor; the backward pieces add into it."""
+
+    def __init__(self, sp, xs, b: float, learn_scale: bool, masks=None):
+        self.sp, self.xs, self.b = sp, xs, b
+        self.learn_scale = learn_scale
+        self.masks = masks
+        # poe's unimodal pass re-encodes under masks of its own
+        self.reencode = masks is not None
+        self.g = {n: torch.zeros_like(v) for n, v in sp.items()}
+
+    def encode(self, e: int, p: int):
+        """``(cache, (cmu, clv, smu, slv))`` of encoder ``e`` in pass ``p``
+        (0 the main pass, 1 poe's unimodal one)."""
+        dm = None if self.masks is None else self.masks[2 * p + e]
+        h, *heads = encode(self.sp, f"enc{e + 1}", self.xs[e], dm)
+        return (h, dm), tuple(heads)
+
+    def encode_bwd(self, e: int, cache, head_grads) -> None:
+        h, dm = cache
+        encode_bwd(self.sp, self.g, f"enc{e + 1}", self.xs[e], h, dm,
+                   head_grads)
+
+    def decode(self, e: int, p: int, zs, zc):
+        """``(nll, cache)`` of decoder ``e`` in pass ``p``."""
+        nll, r, iv = decode_nll(self.sp, f"dec{e + 1}", self.xs[e], zs, zc,
+                                self.b)
+        return nll, (r, iv, zs, zc)
+
+    def decode_bwd(self, e: int, cache):
+        """``(g_zs, g_zc)``; the decoder's gradients add into ``g``."""
+        r, iv, zs, zc = cache
+        return decode_bwd(self.sp, self.g, f"dec{e + 1}", r, iv, zs, zc,
+                          self.b, self.learn_scale)
+
+
+def latent_fwd_bwd(method: str, nets, noise, rows: int, cd: int, s1: int,
+                   s2: int, consts: FusedConsts, row_offset: int = 0,
+                   b_total=None):
+    """The loss of one complete step around any encoders and decoders:
+    ``(loss, metrics[17 | 19])``, the networks' gradients left in ``nets``.
+
+    ``nets`` gives ``encode(e, p)``, ``encode_bwd(e, cache, head_grads)``,
+    ``decode(e, p, zs, zc)``, ``decode_bwd(e, cache)`` and ``reencode``
+    (:class:`SplitNets`); between them stands the method's latent math,
+    forward and hand-derived backward: the subset posteriors, the joint
+    selection, the reparameterization with ``noise``, the divergence, the
+    style KLs and, for poe, the unimodal ELBOs. The rows at hand are rows
+    ``[row_offset, row_offset + rows)`` of a batch of ``b_total``."""
+    bt = rows if b_total is None else b_total
     b = float(bt)
 
     def masks_of(k):
-        return row_masks(dims.b, k, x1.device, row_offset, bt)
+        return row_masks(rows, k, noise.device, row_offset, bt)
 
-    cd, s1, s2 = dims.cd, dims.s1, dims.s2
     beta, beta_style, beta_content = consts
-    xs = (x1, x2)
-    dm = dropout_masks if n_masks else (None, None)
-    g = {n: torch.zeros_like(v) for n, v in sp.items()}
-
-    (h1, cmu1, clv1, smu1, slv1), (h2, cmu2, clv2, smu2, slv2) = (
-        encode(sp, f"enc{e + 1}", xs[e], dm[e]) for e in range(2))
+    (c1, (cmu1, clv1, smu1, slv1)), (c2, (cmu2, clv2, smu2, slv2)) = (
+        nets.encode(e, 0) for e in range(2))
     ev1, ev2 = torch.exp(clv1), torch.exp(clv2)
     t1, t2 = 1.0 / (ev1 + POE_EPS), 1.0 / (ev2 + POE_EPS)
     tp = 1.0 / (1.0 + POE_EPS)
@@ -318,8 +347,8 @@ def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
     zc = joint_mu + ej * torch.exp(0.5 * joint_lv)
     zs1 = smu1 + es[0] * torch.exp(0.5 * slv1)
     zs2 = smu2 + es[1] * torch.exp(0.5 * slv2)
-    nll1, r1, iv1 = decode_nll(sp, "dec1", x1, zs1, zc, b)
-    nll2, r2, iv2 = decode_nll(sp, "dec2", x2, zs2, zc, b)
+    nll1, d1 = nets.decode(0, 0, zs1, zc)
+    nll2, d2 = nets.decode(1, 0, zs2, zc)
     kld_s1, kld_s2 = kl_sum(smu1, slv1, b), kl_sum(smu2, slv2, b)
     style = beta_style * beta_style * (kld_s1 + kld_s2)
     extra = []
@@ -334,22 +363,21 @@ def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
         # the unimodal passes: the first pass's posteriors, or under
         # dropout a second encoding with fresh masks
         uni = []
-        for e, (first, t, post) in enumerate((
-                ((h1, cmu1, clv1, smu1, slv1), t1, (mu_a, lv_a, ts_a)),
-                ((h2, cmu2, clv2, smu2, slv2), t2, (mu_b, lv_b, ts_b)))):
-            if n_masks:
-                first = encode(sp, f"enc{e + 1}", xs[e], dm[2 + e])
-                t = 1.0 / (torch.exp(first[2]) + POE_EPS)
-                post = poe_with_prior(first[1], t)
-            hu, cmuu, clvu, smuu, slvu = first
+        for e, (heads, t, post) in enumerate((
+                ((cmu1, clv1, smu1, slv1), t1, (mu_a, lv_a, ts_a)),
+                ((cmu2, clv2, smu2, slv2), t2, (mu_b, lv_b, ts_b)))):
+            cache = None
+            if nets.reencode:
+                cache, heads = nets.encode(e, 1)
+                t = 1.0 / (torch.exp(heads[1]) + POE_EPS)
+                post = poe_with_prior(heads[0], t)
+            cmuu, clvu, smuu, slvu = heads
             mu_u, lv_u, ts_u = post
             zcu = mu_u + uj[e] * torch.exp(0.5 * lv_u)
             zsu = smuu + us[e] * torch.exp(0.5 * slvu)
-            nll_u, r_u, iv_u = decode_nll(sp, f"dec{e + 1}", xs[e], zsu, zcu,
-                                          b)
-            uni.append(dict(h=hu, cmu=cmuu, clv=clvu, smu=smuu, slv=slvu,
-                            t=t, mu=mu_u, lv=lv_u, ts=ts_u, zc=zcu, zs=zsu,
-                            nll=nll_u, r=r_u, iv=iv_u))
+            nll_u, dec_u = nets.decode(e, 1, zsu, zcu)
+            uni.append(dict(cache=cache, cmu=cmuu, clv=clvu, slv=slvu, t=t,
+                            mu=mu_u, lv=lv_u, ts=ts_u, nll=nll_u, dec=dec_u))
         loss = (uni[0]["nll"] + uni[1]["nll"] + nll1 + nll2
                 + beta * (beta_content * (kld_a + kld_b + group_div)
                           + 2.0 * style))
@@ -361,10 +389,8 @@ def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
         cmu2.mean(), clv2.mean(), smu2.mean(), slv2.mean()] + extra)
 
     # ---------------- backward ----------------
-    g_zs1, g_zc1 = decode_bwd(sp, g, "dec1", r1, iv1, zs1, zc, b,
-                              learn_scale)
-    g_zs2, g_zc2 = decode_bwd(sp, g, "dec2", r2, iv2, zs2, zc, b,
-                              learn_scale)
+    g_zs1, g_zc1 = nets.decode_bwd(0, d1)
+    g_zs2, g_zc2 = nets.decode_bwd(1, d2)
     g_jmu, g_jlv = reparam_bwd(g_zc1 + g_zc2, ej, joint_lv)
     if method == "joint_elbo":
         cg = beta * beta_content / (3.0 * b)
@@ -400,21 +426,20 @@ def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
         g_style_uni = [None, None]
         first = ((cmu1, t1, mu_a, lv_a, ts_a), (cmu2, t2, mu_b, lv_b, ts_b))
         for e, u in enumerate(uni):
-            d = f"dec{e + 1}"
-            g_zsu, g_zcu = decode_bwd(sp, g, d, u["r"], u["iv"], u["zs"],
-                                      u["zc"], b, learn_scale)
+            g_zsu, g_zcu = nets.decode_bwd(e, u["dec"])
             g_mu_u, g_lv_u = reparam_bwd(g_zcu, uj[e], u["lv"])
             g_smuu, g_slvu = reparam_bwd(g_zsu, us[e], u["slv"])
             cmu, t, mu_s, lv_s, ts_s = first[e]
             # the subset KL is the first pass's, in both cases
             g_mu_s, g_lv_s = kl_grads(mu_s, lv_s, cg)
-            if n_masks:
+            if nets.reencode:
                 # the second pass takes the unimodal NLL's gradient alone
                 gc, gt = poe_with_prior_bwd(u["cmu"], u["t"], u["ts"],
                                             u["mu"], g_mu_u, g_lv_u)
-                encode_bwd(sp, g, f"enc{e + 1}", xs[e], u["h"], dm[2 + e],
-                           (gc, -gt * torch.exp(u["clv"]) * u["t"] * u["t"],
-                            g_smuu, g_slvu))
+                nets.encode_bwd(
+                    e, u["cache"],
+                    (gc, -gt * torch.exp(u["clv"]) * u["t"] * u["t"],
+                     g_smuu, g_slvu))
             else:
                 g_mu_s, g_lv_s = g_mu_s + g_mu_u, g_lv_s + g_lv_u
                 g_style_uni[e] = (g_smuu, g_slvu)
@@ -438,9 +463,35 @@ def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
             g_smu = g_smu + g_style_uni[e][0]
             g_slv = g_slv + g_style_uni[e][1]
         heads.append((g_smu, g_slv))
-    encode_bwd(sp, g, "enc1", x1, h1, dm[0], (g_cmu1, g_clv1) + heads[0])
-    encode_bwd(sp, g, "enc2", x2, h2, dm[1], (g_cmu2, g_clv2) + heads[1])
-    return loss, metrics, {n: g[n] for n in SPLIT_NAMES}
+    nets.encode_bwd(0, c1, (g_cmu1, g_clv1) + heads[0])
+    nets.encode_bwd(1, c2, (g_cmu2, g_clv2) + heads[1])
+    return loss, metrics
+
+
+def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
+                             consts: FusedConsts, learn_scale: bool = True,
+                             dropout_masks: Optional[Sequence] = None,
+                             row_offset: int = 0, b_total=None):
+    """Plain PyTorch version of the kernel: ``(loss, metrics[17 | 19],
+    grads)`` of ``method_loss_split`` with a hand-derived backward;
+    ``grads`` a dict of the split tensors' gradients. ``row_offset`` /
+    ``b_total`` as there: the inputs (noise and masks too) are rows
+    ``[row_offset, row_offset + dims.b)`` of a batch of ``b_total``; the
+    partitions use global row indices, the sums are divided by ``b_total``
+    and the latent means stay local."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    n_masks = 0 if dropout_masks is None else len(dropout_masks)
+    if n_masks not in (0, 4 if method == "poe" else 2):
+        raise ValueError(f"{method} takes {4 if method == 'poe' else 2} "
+                         f"dropout masks, got {n_masks}")
+    row_offset, bt = check_slice("method_fwd_bwd_reference", dims.b,
+                                 row_offset, b_total)
+    nets = SplitNets(sp, (x1, x2), float(bt), learn_scale,
+                     dropout_masks if n_masks else None)
+    loss, metrics = latent_fwd_bwd(method, nets, noise, dims.b, dims.cd,
+                                   dims.s1, dims.s2, consts, row_offset, bt)
+    return loss, metrics, {n: nets.g[n] for n in SPLIT_NAMES}
 
 
 # ------------------------------------------------------------------ kernel

@@ -36,6 +36,7 @@ from ..params import (
     flat_size,
     flat_views,
     flatten_split,
+    split_layout,
 )
 from .adam import AdamHyper, adam_update
 
@@ -83,13 +84,7 @@ def split_layout_ok(cfg, model) -> bool:
     """The architecture the split layout describes: two modalities, one
     encoder hidden layer, linear decoders, factorized styles, normal
     likelihood with a per-feature output scale."""
-    return (len(model.modalities) == 2
-            and cfg.num_hidden_layer_encoder == 1
-            and cfg.num_hidden_layer_decoder == 0
-            and cfg.factorized_representation
-            and all(m.style_dim > 0 for m in model.modalities)
-            and cfg.likelihood == "normal"
-            and not cfg.learn_output_sample_scale)
+    return len(model.modalities) == 2 and split_layout(cfg)
 
 
 def supports_fused(cfg, model, batch) -> bool:

@@ -18,6 +18,15 @@ Training keeps params and the Adam moments as flat buffers in the split
 layout (:func:`flat_views`); :func:`split_flat_to_ravel` and
 :func:`ravel_to_split_flat` convert such a buffer to and from the JAX
 package's raveled ``FlatAdamState`` vectors.
+
+An architecture outside the split layout (any encoder and decoder depth,
+any of the three output-scale modes) trains on the general flat layout
+(:class:`GenericDims`, :func:`generic_shapes`): the leaves of the flax tree
+themselves, each in the JAX layout, back to back in model order.
+:func:`dims_from` picks the layout of a config, and :func:`flat_size`,
+:func:`flat_views`, :func:`model_flat_params`, :func:`load_flat_params`,
+:func:`grads_to_flat`, :func:`split_flat_to_ravel` and
+:func:`ravel_to_split_flat` serve both, by the type of the dims.
 """
 
 from __future__ import annotations
@@ -38,7 +47,44 @@ class FusedDims(NamedTuple):
     s2: int       # rois style dim
 
 
-def dims_from(cfg, batch_size: int) -> FusedDims:
+class GenericDims(NamedTuple):
+    """The sizes of the general flat layout: :class:`FusedDims` plus the
+    depths and the output-scale mode."""
+    b: int
+    d1: int
+    d2: int
+    h: int
+    cd: int
+    s1: int
+    s2: int
+    n_enc: int          # encoder hidden layers (>= 1)
+    n_dec: int          # decoder hidden layers (>= 0)
+    sample_scale: bool  # a per-sample output scale (``out_heads``)
+
+
+def split_layout(cfg) -> bool:
+    """Whether ``cfg`` is the architecture the split layout describes: two
+    modalities, one encoder hidden layer, linear decoders, factorized
+    styles, normal likelihood with a per-feature output scale."""
+    return (len(cfg.input_dim) == 2
+            and cfg.num_hidden_layer_encoder == 1
+            and cfg.num_hidden_layer_decoder == 0
+            and bool(cfg.factorized_representation)
+            and all(s > 0 for s in cfg.style_dim)
+            and cfg.likelihood == "normal"
+            and not cfg.learn_output_sample_scale)
+
+
+def dims_from(cfg, batch_size: int):
+    """The dims of the layout ``cfg`` trains on: :class:`FusedDims` for the
+    split layout, :class:`GenericDims` for any other architecture."""
+    if not split_layout(cfg):
+        return GenericDims(
+            b=batch_size, d1=cfg.input_dim[0], d2=cfg.input_dim[1],
+            h=cfg.hidden_dim, cd=cfg.class_dim, s1=cfg.style_dim[0],
+            s2=cfg.style_dim[1], n_enc=int(cfg.num_hidden_layer_encoder),
+            n_dec=int(cfg.num_hidden_layer_decoder),
+            sample_scale=bool(cfg.learn_output_sample_scale))
     return FusedDims(b=batch_size, d1=cfg.input_dim[0], d2=cfg.input_dim[1],
                      h=cfg.hidden_dim, cd=cfg.class_dim,
                      s1=cfg.style_dim[0], s2=cfg.style_dim[1])
@@ -225,20 +271,64 @@ def split_shapes(dims: FusedDims) -> Dict[str, tuple]:
     return {n: shapes[n] for n in SPLIT_NAMES}
 
 
-def flat_size(dims: FusedDims) -> int:
-    return sum(int(np.prod(s)) for s in split_shapes(dims).values())
+# The general flat layout: the leaves of the flax tree, each in the JAX layout
+# ([in, out] kernels), back to back in this order: encoder 1, encoder 2,
+# decoder 1, decoder 2 (model order); inside an encoder ``hidden_0`` ..
+# ``hidden_{n_enc - 1}`` then ``heads``; inside a decoder ``hidden_0`` ..
+# ``hidden_{n_dec - 1}`` then ``out_mu`` and ``out_logvar``, or ``out_heads``
+# with a per-sample scale; of a layer the kernel, then the bias. Names are
+# ``enc1/hidden_0/kernel``; csrc/generic_step.cu (make_layout) computes the
+# same offsets.
+def generic_shapes(dims: GenericDims) -> Dict[str, tuple]:
+    """Shape of every tensor of the general layout, in its order."""
+    shapes = {}
+    ds, ss = (dims.d1, dims.d2), (dims.s1, dims.s2)
+    for e in range(2):
+        width = ds[e]
+        for i in range(dims.n_enc):
+            shapes[f"enc{e + 1}/hidden_{i}/kernel"] = (width, dims.h)
+            shapes[f"enc{e + 1}/hidden_{i}/bias"] = (dims.h,)
+            width = dims.h
+        n_heads = 2 * dims.cd + 2 * ss[e]
+        shapes[f"enc{e + 1}/heads/kernel"] = (width, n_heads)
+        shapes[f"enc{e + 1}/heads/bias"] = (n_heads,)
+    for e in range(2):
+        width = ss[e] + dims.cd
+        for i in range(dims.n_dec):
+            shapes[f"dec{e + 1}/hidden_{i}/kernel"] = (width, dims.h)
+            shapes[f"dec{e + 1}/hidden_{i}/bias"] = (dims.h,)
+            width = dims.h
+        if dims.sample_scale:
+            shapes[f"dec{e + 1}/out_heads/kernel"] = (width, 2 * ds[e])
+            shapes[f"dec{e + 1}/out_heads/bias"] = (2 * ds[e],)
+        else:
+            shapes[f"dec{e + 1}/out_mu/kernel"] = (width, ds[e])
+            shapes[f"dec{e + 1}/out_mu/bias"] = (ds[e],)
+            shapes[f"dec{e + 1}/out_logvar"] = (1, ds[e])
+    return shapes
 
 
-def flat_views(buf: torch.Tensor, dims: FusedDims) -> Dict[str, torch.Tensor]:
-    """The split tensors as views of a flat buffer."""
+def layout_shapes(dims) -> Dict[str, tuple]:
+    """Name and shape of every tensor of the layout of ``dims``, in order."""
+    if isinstance(dims, GenericDims):
+        return generic_shapes(dims)
+    return split_shapes(dims)
+
+
+def flat_size(dims) -> int:
+    return sum(int(np.prod(s)) for s in layout_shapes(dims).values())
+
+
+def flat_views(buf: torch.Tensor, dims) -> Dict[str, torch.Tensor]:
+    """The layout's tensors as views of a flat buffer."""
     out, off = {}, 0
-    for name, shape in split_shapes(dims).items():
+    for name, shape in layout_shapes(dims).items():
         n = int(np.prod(shape))
         out[name] = buf[off:off + n].view(shape)
         off += n
     if off != buf.numel():
         raise ValueError(f"flat buffer holds {buf.numel()} floats, the "
-                         f"split layout {off}")
+                         f"layout {off}")
     return out
 
 
@@ -247,18 +337,72 @@ def flatten_split(sp: Mapping[str, torch.Tensor]) -> torch.Tensor:
     return torch.cat([sp[n].reshape(-1) for n in SPLIT_NAMES]).contiguous()
 
 
-def model_flat_params(model, dims: FusedDims) -> torch.Tensor:
-    """The model's weights as a flat buffer in the split layout."""
+def flatten_named(tensors: Mapping[str, torch.Tensor], dims) -> torch.Tensor:
+    """The layout's tensors (by name) -> one new flat buffer in its order."""
+    return torch.cat([tensors[n].reshape(-1)
+                      for n in layout_shapes(dims)]).contiguous()
+
+
+def _generic_paths(dims: GenericDims, mod_names) -> Dict[str, str]:
+    """General-layout name -> flax tree path (``enc1/heads/kernel`` ->
+    ``enc_<modality 1>/heads/kernel``)."""
+    out = {}
+    for name in generic_shapes(dims):
+        net, rest = name.split("/", 1)
+        out[name] = f"{net[:3]}_{mod_names[int(net[3:]) - 1]}/{rest}"
+    return out
+
+
+def _flat_tree(flat: torch.Tensor, dims, mod_names) -> Dict[str, torch.Tensor]:
+    """A flat buffer as ``{flax tree path: leaf}`` (views where the layout
+    allows)."""
+    views = flat_views(flat, dims)
+    if isinstance(dims, GenericDims):
+        paths = _generic_paths(dims, mod_names)
+        return {paths[n]: v for n, v in views.items()}
+    return flatten_tree(packed_to_tree(join_params(views, dims), mod_names))
+
+
+def _tree_flat(leaves: Mapping[str, torch.Tensor], dims,
+               mod_names) -> torch.Tensor:
+    """Inverse of :func:`_flat_tree`: a new flat buffer."""
+    if isinstance(dims, GenericDims):
+        paths = _generic_paths(dims, mod_names)
+        shapes = generic_shapes(dims)
+        for n, p in paths.items():
+            if tuple(leaves[p].shape) != shapes[n]:
+                raise ValueError(f"{p}: shape {tuple(leaves[p].shape)}, the "
+                                 f"layout has {shapes[n]}")
+        return torch.cat([leaves[paths[n]].reshape(-1)
+                          for n in shapes]).contiguous()
+    packed = flatten_params(unflatten_tree(leaves), mod_names)
+    return flatten_split(split_params(packed, dims))
+
+
+def model_flat_params(model, dims) -> torch.Tensor:
+    """The model's weights as a flat buffer in the layout of ``dims``."""
+    if isinstance(dims, GenericDims):
+        tree = state_dict_to_tree(model.state_dict(), as_numpy=False)
+        return _tree_flat({k: v.detach() for k, v in
+                           flatten_tree(tree).items()}, dims, model.mod_names)
     return flatten_split(model_split_params(model, dims))
 
 
+def grads_to_flat(model, dims) -> torch.Tensor:
+    """The model's ``.grad`` s as a flat buffer of the layout of ``dims``
+    (zero where a parameter has none, e.g. a frozen output scale)."""
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for k, p in model.named_parameters()}
+    tree = state_dict_to_tree(grads, as_numpy=False)
+    return _tree_flat(flatten_tree(tree), dims, model.mod_names).detach()
+
+
 @torch.no_grad()
-def load_flat_params(model, flat: torch.Tensor, dims: FusedDims) -> None:
-    """Copy a flat split-layout buffer into the model's parameters."""
-    packed = join_params(flat_views(flat, dims), dims)
-    tree = packed_to_tree(packed, model.mod_names)
+def load_flat_params(model, flat: torch.Tensor, dims) -> None:
+    """Copy a flat buffer of the layout of ``dims`` into the model's
+    parameters."""
     sd = {}
-    for path, leaf in flatten_tree(tree).items():
+    for path, leaf in _flat_tree(flat, dims, model.mod_names).items():
         *parents, last = path.split("/")
         if last == "kernel":
             last, leaf = "weight", leaf.T
@@ -272,32 +416,28 @@ def ravel_order(tree: Mapping) -> list:
     return sorted(flatten_tree(tree), key=lambda p: tuple(p.split("/")))
 
 
-def split_flat_to_ravel(flat: torch.Tensor, dims: FusedDims,
-                        mod_names) -> np.ndarray:
-    """The port's flat state (split layout) -> the JAX package's raveled
-    vector (``FlatAdamState.mu``/``nu`` order)."""
+def split_flat_to_ravel(flat: torch.Tensor, dims, mod_names) -> np.ndarray:
+    """The port's flat state (the layout of ``dims``) -> the JAX package's
+    raveled vector (``FlatAdamState.mu``/``nu`` order)."""
     flat = torch.as_tensor(flat).detach().cpu()
-    tree = packed_to_tree(join_params(flat_views(flat, dims), dims),
-                          mod_names)
-    leaves = flatten_tree(tree)
+    leaves = _flat_tree(flat, dims, mod_names)
     return np.concatenate([leaves[p].reshape(-1).numpy()
-                           for p in ravel_order(tree)]).astype(np.float32)
+                           for p in ravel_order(unflatten_tree(leaves))]
+                          ).astype(np.float32)
 
 
-def ravel_to_split_flat(vec, dims: FusedDims, mod_names) -> torch.Tensor:
+def ravel_to_split_flat(vec, dims, mod_names) -> torch.Tensor:
     """Inverse of :func:`split_flat_to_ravel`."""
     vec = torch.as_tensor(np.asarray(vec, dtype=np.float32))
-    zeros = flat_views(torch.zeros(flat_size(dims)), dims)
-    template = packed_to_tree(join_params(zeros, dims), mod_names)
-    shapes = {p: tuple(v.shape) for p, v in flatten_tree(template).items()}
+    template = _flat_tree(torch.zeros(flat_size(dims)), dims, mod_names)
+    shapes = {p: tuple(v.shape) for p, v in template.items()}
     total = sum(int(np.prod(s)) for s in shapes.values())
     if total != vec.numel():
         raise ValueError(f"raveled vector holds {vec.numel()} floats, the "
                          f"param tree {total}")
     leaves, off = {}, 0
-    for path in ravel_order(template):
+    for path in ravel_order(unflatten_tree(template)):
         n = int(np.prod(shapes[path]))
         leaves[path] = vec[off:off + n].reshape(shapes[path])
         off += n
-    packed = flatten_params(unflatten_tree(leaves), mod_names)
-    return flatten_split(split_params(packed, dims))
+    return _tree_flat(leaves, dims, mod_names)

@@ -74,8 +74,9 @@ def save_tree(ckpt_dir: str, tree: Mapping,
 
 
 def save_opt_state(ckpt_dir: str, opt_state, dims, mod_names) -> str:
-    """Write an :class:`~multivae_tpu_torch.ops.adam.AdamState` (split
-    layout) as ``opt_state.npz`` in the JAX package's raveled order."""
+    """Write an :class:`~multivae_tpu_torch.ops.adam.AdamState` (the layout
+    of ``dims``, split or general) as ``opt_state.npz`` in the JAX package's
+    raveled order."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, OPT_STATE_FILE)
     _atomic_write(path, _npz_bytes({
@@ -123,8 +124,8 @@ def restore_checkpoint(path: str, model: torch.nn.Module) -> torch.nn.Module:
 
 def restore_opt_state(ckpt_dir: str, dims, mod_names, device):
     """The :class:`~multivae_tpu_torch.ops.adam.AdamState` saved in
-    ``ckpt_dir`` (split layout, on ``device``), or None when there is
-    none."""
+    ``ckpt_dir`` (the layout of ``dims``, on ``device``), or None when
+    there is none."""
     from ..ops.adam import AdamState
 
     path = os.path.join(ckpt_dir, OPT_STATE_FILE)

@@ -7,8 +7,8 @@ and are loaded on request (:meth:`MultimodalExperiment.set_datasets`).
 Residualization is off, as in the JAX package's default
 (``residualize_by`` is empty there). For
 training, :meth:`MultimodalExperiment.set_optimizers` gives each member a
-flat params buffer and an Adam state in the split layout
-(:mod:`multivae_tpu_torch.params`), on the experiment's device.
+flat params buffer and an Adam state in the layout of the config's dims
+(:func:`multivae_tpu_torch.params.dims_from`), on the experiment's device.
 """
 
 from __future__ import annotations

@@ -4,7 +4,9 @@ Counterpart of ``multivae_tpu/train/losses.py``: ``total_loss`` on the
 port's model output (:meth:`MultimodalVAE.forward`), with the same metric
 families. For poe the unimodal ELBOs re-run the model on each present
 modality alone with fresh noise: ``noise_uni`` gives it explicitly
-(``{mod: [B, cd + s_m]}``), else ``generator`` draws it.
+(``{mod: [B, cd + s_m]}``), else ``generator`` draws it; under dropout each
+re-run takes keep masks of its own (``masks_uni``: per modality the model's
+``masks`` for that modality alone).
 """
 
 from __future__ import annotations
@@ -68,7 +70,8 @@ def _weighted_style_kld(model, cfg, klds_style):
 
 def total_loss(cfg, model, batch, results, *,
                noise_uni: Optional[Dict[str, torch.Tensor]] = None,
-               generator: Optional[torch.Generator] = None):
+               generator: Optional[torch.Generator] = None,
+               masks_uni=None):
     """Method-dispatched total loss; returns ``(loss, metrics)``."""
     log_probs, weighted_log_prob = calc_log_probs(model, batch,
                                                   results["rec"])
@@ -104,7 +107,9 @@ def total_loss(cfg, model, batch, results, *,
             if cfg.poe_unimodal_elbos:
                 uni_batch = {mod.name: batch[mod.name]}
                 noise = None if noise_uni is None else noise_uni[mod.name]
-                r_mod = model(uni_batch, noise=noise, generator=generator)
+                r_mod = model(
+                    uni_batch, noise=noise, generator=generator,
+                    masks=None if masks_uni is None else masks_uni[mod.name])
                 loc, scale = r_mod["rec"][mod.name]
                 b = batch[mod.name].shape[0]
                 rec_mod = -calc_log_prob(mod.likelihood, batch[mod.name],

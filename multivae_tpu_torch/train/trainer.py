@@ -15,7 +15,14 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
   kernel (``ops/fused_presence.py``, ``csrc/presence_step.cu``); every
   step is followed by ``csrc/flat_adam.cu``. Without ``fused_training``
   every batch takes the general autograd step, in the same order with the
-  same noise;
+  same noise and masks;
+* an architecture outside the split layout (more encoder hidden layers,
+  decoder hidden layers, a per-sample output scale) inside the layer-stack
+  step's envelope (``ops/fused_generic.py``) sends its full complete
+  batches to that kernel (``csrc/generic_step.cu``) and every other batch
+  (the partial complete batch, the single-present groups) to the general
+  autograd step, as the JAX package does (``trainer.py:896-899,
+  925-944``);
 * with ``data_parallel = N > 1`` the full complete batches take the
   data-parallel epoch (``ops/fused_sharded.py``): each batch's rows split
   over a data mesh of ``N`` entries, every shard runs the row-slice entry
@@ -41,7 +48,10 @@ masks (``bernoulli(1 - rate) / (1 - rate)``, ``[B, hidden]``, one per
 encoder pass) come from a generator of their own (:func:`mask_generator`,
 the counterpart of ``fold_in(key, 7)``), so the noise of a run does not
 depend on its dropout rate; they are drawn in the same order and copied
-once per epoch. The test pass runs in eval mode and takes no mask. The
+once per epoch; the general step takes the same masks (one per hidden layer
+of every network and pass,
+:func:`~multivae_tpu_torch.train.train_step.general_mask_count`). The test
+pass takes no mask. The
 metrics are fetched once for each pass. Configurations whose TPU route is
 a kernel the port does not have yet raise ``NotImplementedError`` naming
 the ROADMAP item; nothing falls back.
@@ -68,32 +78,41 @@ import numpy as np
 import torch
 
 from ..data import MissingModalitySampler, simple_batches
-from ..ops import fused_methods, fused_presence, fused_sharded, fused_step
+from ..ops import (
+    fused_generic,
+    fused_methods,
+    fused_presence,
+    fused_sharded,
+    fused_step,
+)
 from ..ops.adam import AdamState, adam_hyper
 from ..parallel import data_mesh, make_mesh, spread, visible_cards
 from ..params import dims_from, load_flat_params, model_flat_params
 from ..utils.filehandling import model_checkpoint_dir, model_log_dir
 from .checkpoint import save_checkpoint, save_networks
 from .logging import MetricLogger
-from .train_step import batch_noise_width, eval_step, general_step
+from .train_step import (
+    batch_noise_width,
+    eval_step,
+    general_mask_count,
+    general_step,
+)
 
 
 def unported_features(cfg, model) -> List[str]:
     """Each part of ``cfg`` whose route in the JAX package is a kernel or a
     driver the port does not have yet, with its ROADMAP item."""
     out = []
-    if cfg.dropout_rate > 0.0 and not cfg.fused_training:
-        out.append("dropout_rate > 0 with fused_training=False: dropout in "
-                   "the general step and the port's modules (ROADMAP Queue "
-                   "1 item 7)")
     if getattr(cfg, "precision", "float32") != "float32":
         out.append(f"precision={cfg.precision!r}: bf16 kernel products "
                    f"(ROADMAP Queue 1 item 8)")
     if not fused_step.split_layout_ok(cfg, model):
-        out.append("an architecture outside the split layout (deep "
-                   "decoders, per-sample output scale, another likelihood "
-                   "or modality count): the generic kernel (ROADMAP Queue 2 "
-                   "item 2)")
+        # outside the split layout the layer-stack step's envelope decides
+        out += fused_generic.envelope_gaps(cfg, model)
+        if cfg.data_parallel > 1:
+            out.append("data_parallel > 1 with an architecture outside the "
+                       "split layout: the row-sharded general step (ROADMAP "
+                       "Queue 1 item 4)")
     if cfg.tensor_parallel > 1:
         out.append("tensor_parallel > 1: tensor-parallel training (ROADMAP "
                    "Queue 1 item 4)")
@@ -229,11 +248,34 @@ def make_group_fused_epoch(cfg, model, key):
     return presence
 
 
-def group_mask_count(cfg, n_mods: int, data) -> int:
-    """Keep masks one step of a batch takes on the kernel routes."""
-    if len(data) == n_mods:
-        return fused_methods.n_dropout_masks(cfg.method, cfg.dropout_rate)
-    return fused_presence.n_presence_masks(cfg.method, cfg.dropout_rate)
+def make_generic_epoch(cfg, model):
+    """The kernel epoch of the full complete batches of an architecture
+    outside the split layout (``trainer.py:896-899``): the layer-stack step
+    (``ops/fused_generic.py``), or None when the config is the split
+    layout's or outside that step's envelope. Same contract as
+    :func:`make_group_fused_epoch`'s functions; the metric rows are in the
+    TPU kernel's order."""
+    example = {m.name: None for m in model.modalities}
+    if (fused_step.split_layout_ok(cfg, model)
+            or not fused_generic.supports_generic_fused(cfg, model, example)):
+        return None
+    mod_names = [m.name for m in model.modalities]
+    dims = dims_from(cfg, cfg.batch_size)
+    consts = fused_step.consts_from(cfg)
+    hyper = adam_hyper(cfg)
+    learn_scale = bool(cfg.learn_output_scale)
+    method = cfg.method
+    names = fused_generic.generic_metric_names(model, method)
+    order = fused_generic.metric_permutation(model, method)
+
+    def generic(p, opt, xs, noise, masks=None):
+        metrics = fused_generic.generic_epoch_flat(
+            method, p, opt.mu, opt.nu, opt.count, xs[mod_names[0]],
+            xs[mod_names[1]], noise, dims, consts, hyper, learn_scale, masks,
+            order)
+        return (AdamState(opt.count + len(noise), opt.mu, opt.nu), metrics,
+                names)
+    return generic
 
 
 def _rows(data) -> int:
@@ -335,11 +377,11 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
     noise = draw_noise(generator, shapes, device)
     noise_full, noise_general = noise[:len(full)], noise[len(full):]
     masks = [None] * len(shapes)
-    if fused and cfg.dropout_rate > 0.0:
+    if cfg.dropout_rate > 0.0:
         masks = draw_masks(
             mask_generator(cfg, model_idx, epoch),
-            [(group_mask_count(cfg, len(mod_names), d), _rows(d),
-              cfg.hidden_dim) for d in full + general],
+            [(general_mask_count(cfg, d), _rows(d), cfg.hidden_dim)
+             for d in full + general],
             cfg.dropout_rate, device)
     masks_full, masks_general = masks[:len(full)], masks[len(full):]
 
@@ -349,12 +391,17 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
     logs = _Logs()
     n_steps = 0
 
-    def run_general(data, eps, log: bool):
-        # fused_training=False: autograd of the model, then flat Adam
+    # outside the split layout only the full complete batches have a kernel
+    generic_epoch = make_generic_epoch(cfg, model) if fused else None
+
+    def run_general(data, eps, batch_masks, log: bool):
+        # autograd of the model, then flat Adam: fused_training=False, and
+        # the batches of a deep architecture that are not full and complete
         nonlocal opt, n_steps
         tdata = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
         opt, _, metrics = general_step(cfg, model, p, opt, tdata, eps,
-                                       dims_from(cfg, _rows(data)), hyper)
+                                       dims_from(cfg, _rows(data)), hyper,
+                                       batch_masks)
         n_steps += 1
         if log:
             names = list(metrics)
@@ -376,24 +423,26 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
     if fused and full:
         run_group((tuple(sorted(mod_names)), cfg.batch_size), full,
                   noise_full, masks_full, range(0, len(full), log_every),
-                  dp_epoch)
+                  dp_epoch or generic_epoch)
     elif not fused:
         for j, data in enumerate(full):
-            run_general(data, noise_full[j], j % log_every == 0)
+            run_general(data, noise_full[j], masks_full[j],
+                        j % log_every == 0)
 
     groups: Dict = {}
     for i, data in enumerate(general):
         groups.setdefault((tuple(sorted(data)), _rows(data)), []).append(i)
     for key in canonical_group_order(groups, mod_names, cfg.batch_size):
         idx = groups[key]
-        if fused:
+        if fused and generic_epoch is None:
             run_group(key, [general[i] for i in idx],
                       [noise_general[i] for i in idx],
                       [masks_general[i] for i in idx],
                       [j for j, i in enumerate(idx) if i % log_every == 0])
         else:
             for i in idx:
-                run_general(general[i], noise_general[i], i % log_every == 0)
+                run_general(general[i], noise_general[i], masks_general[i],
+                            i % log_every == 0)
 
     exp.opt_states[model_idx] = opt
     load_flat_params(model, p, dims_from(cfg, cfg.batch_size))
@@ -493,7 +542,9 @@ def resolve_ensemble(cfg, model) -> bool:
     if cfg.fused_training:
         example = {m.name: None for m in model.modalities}
         if (fused_step.supports_fused(cfg, model, example)
-                or fused_methods.supports_method_fused(cfg, model, example)):
+                or fused_methods.supports_method_fused(cfg, model, example)
+                or fused_generic.supports_generic_fused(cfg, model,
+                                                        example)):
             return False
     return True
 

@@ -66,7 +66,9 @@ def test_slice_modules_exist():
                  # the data-parallel and ensemble slice
                  "multivae_tpu_torch.ops.fused_sharded",
                  "multivae_tpu_torch.parallel",
-                 "multivae_tpu_torch.parallel.mesh"):
+                 "multivae_tpu_torch.parallel.mesh",
+                 # the deep-architecture slice
+                 "multivae_tpu_torch.ops.fused_generic"):
         assert name in mods
 
 

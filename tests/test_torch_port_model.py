@@ -294,3 +294,92 @@ def test_group_divergences_match(normalization):
     _assert_tree_close(j, t, tol=1e-5)
     np.testing.assert_allclose(fusion.reweight_weights([1.0, 3.0]),
                                jax_fusion.reweight_weights([1.0, 3.0]))
+
+
+# ------------------------------------------------------------ dropout masks
+def deep_pair(n_enc, n_dec, sample, rate, seed=5):
+    """JAX model + params of a deep architecture with dropout, and the
+    port's model carrying the same weights."""
+    cfg = Config(method="joint_elbo", input_dim=list(DIMS), class_dim=CD,
+                 style_dim=list(STYLE), hidden_dim=HIDDEN,
+                 num_hidden_layer_encoder=n_enc,
+                 num_hidden_layer_decoder=n_dec, dropout_rate=rate,
+                 learn_output_sample_scale=sample).derive()
+    jmodel = jax_build_model(cfg, jax_make_modalities(
+        cfg.input_dim, cfg.style_dim, cfg.likelihood))
+    batch = make_batch(seed)
+    params = jax_init_params(cfg, jmodel,
+                             {k: jnp.asarray(v) for k, v in batch.items()},
+                             seed=seed)
+    tmodel = build_model(cfg, make_modalities(cfg.input_dim, cfg.style_dim,
+                                              cfg.likelihood), "cpu")
+    tmodel.load_state_dict(bridge.tree_to_state_dict(jax.device_get(params)))
+    return cfg, jmodel, params, tmodel
+
+
+@pytest.mark.parametrize("n_enc,n_dec,sample", [(1, 1, True), (2, 1, False),
+                                                (3, 2, False)])
+def test_masked_encoder_and_decoder_forward_match_flax_dropout(n_enc, n_dec,
+                                                               sample):
+    """The port's ``Encoder`` / ``Decoder`` take their dropout as explicit
+    keep masks after each hidden layer's ReLU, where flax's ``nn.Dropout``
+    sits: fed flax's own masks (read off ``capture_intermediates`` as
+    ``dropout_out / relu_out`` where the ReLU is positive, elsewhere the
+    mask does not matter) they give flax's outputs."""
+    rate = 0.3
+    cfg, jmodel, params, tmodel = deep_pair(n_enc, n_dec, sample, rate)
+    jb, tb = sub_batch(("clinical", "rois"))
+    rng = np.random.default_rng(9)
+    noise = rng.normal(size=(B, CD + sum(STYLE))).astype(np.float32)
+    out, state = jmodel.apply(
+        {"params": params}, jb, train=True, noise=jnp.asarray(noise),
+        rngs={"dropout": jax.random.PRNGKey(4)}, capture_intermediates=True,
+        mutable=["intermediates"])
+    masks = {}
+    for mod in ("clinical", "rois"):
+        per_net = []
+        for net, depth in ((f"enc_{mod}", n_enc), (f"dec_{mod}", n_dec)):
+            inter = state["intermediates"][net]
+            layer_masks = []
+            for i in range(depth):
+                act = np.maximum(np.asarray(
+                    inter[f"hidden_{i}"]["__call__"][0]), 0.0)
+                dropped = np.asarray(inter[f"Dropout_{i}"]["__call__"][0])
+                mask = np.where(act > 0, dropped / np.where(act > 0, act, 1),
+                                0.0).astype(np.float32)
+                assert np.isclose(mask[act > 0][:, None],
+                                  [0.0, 1 / (1 - rate)]).any(1).all()
+                layer_masks.append(torch.from_numpy(mask))
+            per_net.append(layer_masks)
+        masks[mod] = tuple(per_net)
+    with torch.no_grad():
+        got = tmodel(tb, noise=torch.from_numpy(noise), masks=masks)
+        plain = tmodel(tb, noise=torch.from_numpy(noise))
+    for mod in ("clinical", "rois"):
+        for k in range(2):
+            assert_close(got["rec"][mod][k], out["rec"][mod][k], rtol=1e-4)
+            assert_close(got["latents"]["modalities"][mod][k],
+                         out["latents"]["modalities"][mod][k], rtol=1e-4)
+        # the masks change the pass
+        assert not torch.allclose(got["rec"][mod][0], plain["rec"][mod][0])
+    # the encoder alone, and the wrong number of masks
+    enc = tmodel.encoders["rois"]
+    heads = enc(tb["rois"], masks["rois"][0])
+    assert_close(heads[2], out["latents"]["modalities"]["rois"][0],
+                 rtol=1e-4)
+    with pytest.raises(ValueError, match="dropout masks"):
+        enc(tb["rois"], masks["rois"][0] + [masks["rois"][0][0]])
+
+
+def test_no_masks_is_the_inference_pass():
+    cfg, jmodel, params, tmodel = deep_pair(2, 1, True, 0.5)
+    jb, tb = sub_batch(("clinical", "rois"))
+    want = jmodel.apply({"params": params}, jb, train=False,
+                        sample_latents=False)
+    with torch.no_grad():
+        got = tmodel(tb, sample_latents=False)
+    for mod in ("clinical", "rois"):
+        for k in range(2):
+            assert_close(got["rec"][mod][k], want["rec"][mod][k], rtol=1e-4)
+    assert not any(isinstance(m, torch.nn.Dropout)
+                   for m in tmodel.modules())

@@ -38,7 +38,7 @@ from multivae_tpu.train.train_step import flat_adam
 from multivae_tpu_torch import params as bridge
 from multivae_tpu_torch import workflows
 from multivae_tpu_torch.data import make_synthetic_cohort
-from multivae_tpu_torch.train import checkpoint, trainer
+from multivae_tpu_torch.train import checkpoint, train_step, trainer
 from multivae_tpu_torch.train.config import Config
 from multivae_tpu_torch.train.experiment import MultimodalExperiment
 
@@ -198,7 +198,7 @@ def test_one_epoch_of_each_route_matches_jax_rebuild(cohort, method, rate):
          for b in emitted], "cpu")
     masks = trainer.draw_masks(
         trainer.mask_generator(cfg, 0, 2),
-        [(trainer.group_mask_count(cfg, 2, b), rows(b), HIDDEN)
+        [(train_step.general_mask_count(cfg, b), rows(b), HIDDEN)
          for b in emitted], rate, "cpu")
     assert all((m is None) == (rate == 0.0) for m in masks)
     groups = {}
@@ -369,10 +369,12 @@ def test_resume_continues_exactly(cohort, tmp_path):
 
 
 UNPORTED = [
-    dict(dropout_rate=0.1, fused_training=False),
-    dict(method="poe", dropout_rate=0.1, fused_training=False),
-    dict(num_hidden_layer_decoder=1),
-    dict(out_scale_per_subject=True),
+    # outside the layer-stack step's envelope, and a deep config's
+    # data-parallel route (the row-sharded general step)
+    dict(likelihood="laplace"),
+    dict(factorized_representation=False),
+    dict(num_hidden_layer_decoder=1, data_parallel=2),
+    dict(out_scale_per_subject=True, num_hidden_layer_encoder=5),
     dict(data_parallel=2, fused_training=False),
     dict(tensor_parallel=2), dict(num_models=2, tensor_parallel=2),
     dict(calc_nll=True), dict(calc_prd=True), dict(calc_clf=True),
@@ -677,3 +679,173 @@ def test_avatar_sweep_sharded_equals_avatar_sweep(method, n_samples):
                                        mesh, cfg)
         assert got.shape == want.shape == (b, DIMS[0], n_samples, DIMS[1])
         assert torch.equal(got, want)
+
+
+# ------------------------------------------------ deep-architecture configs
+DEEP_CASES = {
+    "deep-A": dict(num_hidden_layer_decoder=1,
+                   learn_output_sample_scale=True),
+    "deep-B": dict(num_hidden_layer_encoder=2, num_hidden_layer_decoder=1,
+                   dropout_rate=0.2, method="poe"),
+}
+
+
+@pytest.mark.parametrize("case", list(DEEP_CASES))
+def test_deep_config_routes(cohort, monkeypatch, case):
+    """An architecture outside the split layout sends its full complete
+    batches to the layer-stack step (one epoch call) and every other batch
+    (the partial complete batch, the clinical-only batches) to the general
+    autograd step, with the kernel route's masks; on the CPU no kernel is
+    launched."""
+    from multivae_tpu_torch.ops import (adam, fused_generic, fused_methods,
+                                        fused_presence, fused_step)
+
+    exp = make_exp(cohort, **DEEP_CASES[case])
+    cfg, model = exp.cfg, exp.models[0]
+    example = {m: None for m in exp.mod_names}
+    assert not fused_methods.supports_method_fused(cfg, model, example)
+    assert fused_generic.supports_generic_fused(cfg, model, example)
+    assert isinstance(bridge.dims_from(cfg, BATCH), bridge.GenericDims)
+    assert trainer.make_generic_epoch(cfg, model) is not None
+    assert trainer.make_generic_epoch(make_cfg(cohort),
+                                      make_exp(cohort).models[0]) is None
+
+    calls = {"generic": [], "general": []}
+    step_fn, general_fn = (fused_generic.generic_step_flat,
+                           trainer.general_step)
+
+    def generic_step(method, p, x1, x2, noise, dims, consts, learn_scale,
+                     masks=None):
+        calls["generic"].append((len(x1), None if masks is None
+                                 else tuple(masks.shape)))
+        return step_fn(method, p, x1, x2, noise, dims, consts, learn_scale,
+                       masks)
+
+    def general_step(cfg_, model_, p, opt, batch, noise, dims, hyper,
+                     masks=None):
+        calls["general"].append((tuple(sorted(batch)), rows(batch),
+                                 None if masks is None else len(masks)))
+        return general_fn(cfg_, model_, p, opt, batch, noise, dims, hyper,
+                          masks)
+
+    monkeypatch.setattr(fused_generic, "generic_step_flat", generic_step)
+    monkeypatch.setattr(trainer, "general_step", general_step)
+    counters = (adam.KERNEL_LAUNCHES, fused_generic.KERNEL_LAUNCHES,
+                fused_methods.KERNEL_LAUNCHES,
+                fused_presence.KERNEL_LAUNCHES, fused_step.KERNEL_LAUNCHES)
+    launches = [dict(c) for c in counters]
+    p0 = exp.params[0].clone()
+    steps = trainer.train_one_epoch(exp, 0, None,
+                                    trainer.epoch_generator(cfg, 0, 0), 0)
+    assert [dict(c) for c in counters] == launches
+    n_enc, n_dec = cfg.num_hidden_layer_encoder, cfg.num_hidden_layer_decoder
+    passes = 2 if cfg.method == "poe" else 1
+    per_net = (n_enc + n_dec) * passes if cfg.dropout_rate else None
+    full_masks = None if per_net is None else (2 * per_net, BATCH, HIDDEN)
+    # 64 complete train subjects: 5 full batches of 12 on the kernel route
+    assert calls["generic"] == [(BATCH, full_masks)] * 5
+    # the partial complete batch and the two clinical-only batches
+    assert sorted(calls["general"]) == sorted([
+        (("clinical", "rois"), 4, None if per_net is None else 2 * per_net),
+        (("clinical",), BATCH, per_net), (("clinical",), 8, per_net)])
+    assert steps == 8 and exp.opt_states[0].count == 8
+    assert torch.isfinite(exp.params[0]).all()
+    assert not torch.equal(exp.params[0], p0)
+    # fused_training=False: every batch takes the general step, same update
+    calls["generic"].clear(), calls["general"].clear()
+    general = make_exp(cohort, fused_training=False, **DEEP_CASES[case])
+    trainer.train_one_epoch(general, 0, None,
+                            trainer.epoch_generator(general.cfg, 0, 0), 0)
+    assert not calls["generic"] and len(calls["general"]) == 8
+    np.testing.assert_allclose(general.params[0].numpy(),
+                               exp.params[0].numpy(), rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("method", ["joint_elbo", "poe"])
+def test_general_path_with_dropout_matches_the_fused_path(cohort, method):
+    """Dropout in the general step: ``fused_training=False`` takes the
+    kernel routes' masks, so the two paths make the same updates."""
+    kw = dict(method=method, dropout_rate=0.2)
+    fused, general = make_exp(cohort, **kw), make_exp(
+        cohort, fused_training=False, **kw)
+    for exp in (fused, general):
+        trainer.train_one_epoch(exp, 0, None,
+                                trainer.epoch_generator(exp.cfg, 0, 0), 0)
+    np.testing.assert_allclose(general.params[0].numpy(),
+                               fused.params[0].numpy(), rtol=1e-4,
+                               atol=1e-5)
+    # and the masks matter: the run without dropout ends elsewhere
+    plain = make_exp(cohort, method=method, fused_training=False)
+    trainer.train_one_epoch(plain, 0, None,
+                            trainer.epoch_generator(plain.cfg, 0, 0), 0)
+    assert not np.allclose(plain.params[0].numpy(),
+                           general.params[0].numpy(), atol=1e-4)
+
+
+DEEP_TRAIN = {
+    "deep-A": dict(num_hidden_layer_decoder=1, out_scale_per_subject=True),
+    "deep-B": dict(num_hidden_layer_encoder=2, num_hidden_layer_decoder=1,
+                   dropout_rate=0.2, method="poe"),
+}
+
+
+@pytest.mark.parametrize("case", list(DEEP_TRAIN))
+def test_train_exp_trains_and_resumes_a_deep_config(cohort, tmp_path, case):
+    """``train_exp`` of a deep config on the CPU: a falling loss, the metric
+    families of both routes, checkpoints of the deep tree (``opt_state.npz``
+    in the JAX package's ravel order), and a resumed run that ends where the
+    uninterrupted one does."""
+    import pandas as pd
+
+    from multivae_tpu_torch.ops.fused_generic import generic_metric_names
+    from multivae_tpu_torch.ops.fused_presence import presence_metric_names
+
+    kw = DEEP_TRAIN[case]
+    straight = train(cohort, tmp_path / "a", 4, **kw)
+    rundir = tmp_path / "a" / straight
+    flags = json.loads((rundir / "flags.json").read_text())
+    assert flags["num_hidden_layer_decoder"] == 1
+    csv = pd.read_csv(rundir / "logs" / "metrics.csv")
+    assert np.isfinite(csv.value).all()
+    tr = csv[csv.phase == "train"]
+    losses = tr[tr.metric == "loss"].sort_values("step").value.to_numpy()
+    assert len(losses) == 32 and losses[-8:].mean() < losses[:8].mean()
+    cfg = Config.load(str(rundir / "flags.json"))
+    model = MultimodalExperiment(cfg, "cpu").models[0]
+    per_step = tr.groupby("step").metric.apply(frozenset)
+    complete = frozenset(generic_metric_names(model, cfg.method))
+    clinical = frozenset(presence_metric_names(model, cfg.method, 0))
+    assert ("log_prob_uni/rois" in complete) == (cfg.method == "poe")
+    assert sum(s == complete for s in per_step) == 24
+    assert sum(s == clinical for s in per_step) == 8
+    n_params = sum(p.numel() for p in model.parameters())
+    with np.load(rundir / "checkpoints" / "0003" / "opt_state.npz") as fh:
+        assert int(fh["count"]) == 32
+        assert fh["mu"].shape == fh["nu"].shape == (n_params,)
+    tree = checkpoint.load_tree(str(rundir / "checkpoints" / "0003"
+                                    / "model.npz"))
+    out = "out_heads" if case == "deep-A" else "out_mu"
+    assert set(tree["dec_rois"]) >= {"hidden_0", out}
+
+    split = train(cohort, tmp_path / "b", 2, **kw)
+    workflows.resume_exp("synthetic", cohort, str(tmp_path / "b"), split, 4,
+                         use_tensorboard=False, device="cpu")
+    for f in ("model.npz", "opt_state.npz"):
+        with np.load(rundir / "checkpoints" / "0003" / f) as a, \
+                np.load(tmp_path / "b" / split / "checkpoints" / "0003"
+                        / f) as b:
+            assert sorted(a.files) == sorted(b.files)
+            for k in a.files:
+                np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_resolve_ensemble_counts_the_generic_route(cohort, monkeypatch):
+    """``ensemble_parallel="auto"`` on one card keeps the sequential loop
+    for a config the layer-stack step serves, as the JAX package does."""
+    monkeypatch.setattr(trainer, "visible_cards", lambda: ["cuda:0"])
+    for kw, want in ((dict(num_hidden_layer_decoder=1), False),
+                     (dict(num_hidden_layer_decoder=1,
+                           fused_training=False), True)):
+        cfg = make_cfg(cohort, num_models=2, **kw)
+        model = MultimodalExperiment(cfg, "cpu").models[0]
+        assert trainer.resolve_ensemble(cfg, model) is want
