@@ -21,12 +21,23 @@ Phases, one line or more each:
    and grads rtol 5e-4 / atol 1e-5): the MoPoE step; the method step for
    moe, jsd, poe without masks and for joint_elbo, moe, jsd, poe with
    dropout masks (rate 0.2); the presence step for the four methods,
-   mod_idx 0 and 1, with and without masks; flat Adam on random state at
-   count 0 and 1000 (rtol 1e-6 / atol 1e-8); an 8-step epoch of each
-   route (params, mu, nu rtol 1e-4 / atol 1e-5); and times in turns
-   plain, kernel, kernel, plain: one step of each method, the Adam pass
-   beside ``torch.optim.Adam(fused=True)``, one flagship epoch of device
-   work; each kernel's bound from its bytes and operations;
+   mod_idx 0 and 1, with and without masks (the MoPoE and presence steps
+   are persistent cooperative kernels: these are their one-step
+   launches); flat Adam on random state at count 0 and 1000 (rtol 1e-6 /
+   atol 1e-8); for the MoPoE step and every presence route ONE launch of
+   8 steps with Adam inside against 8 one-step launches with ``flat_adam``
+   between them from the same state (params, both moments and the
+   ``[8, k]`` metrics equal bit for bit, and two runs of the launch equal),
+   with the kernels' grid size and grid barriers per step; an 8-step epoch
+   of each route against the plain versions (params, mu, nu rtol 1e-4 /
+   atol 1e-5); and times in turns plain, kernel, kernel, plain: one step
+   of each method, one launch of 6 steps with Adam of the persistent
+   kernels (device time per step, and each phase's time by the kernel's
+   own clock stamps), ``method_step`` on joint_elbo without
+   masks (the MoPoE step's math on the multi-launch structure, timed
+   only), the Adam pass beside ``torch.optim.Adam(fused=True)``, one
+   flagship epoch of device work (4 launches for its 8 steps); each
+   kernel's bound from its bytes and operations;
 5. slice: ``run_daa`` of a seeded-init flagship model on a numpy cohort
    (n_samples=200, n_validation=2), counting the sweep kernel's launches,
    and a small deterministic DAA on the card against the CPU;
@@ -34,10 +45,13 @@ Phases, one line or more each:
    (20 % without ROIs: 5 full + 1 partial complete batches, 1 full + 1
    partial clinical-only batches per epoch) for 5 epochs of joint_elbo
    and 3 epochs each of moe, jsd, poe and poe with dropout_rate=0.2,
-   counting each kernel's launches and checking losses, metric families
+   counting each kernel's launches (a joint_elbo epoch: 2 ``mopoe_step``
+   and 2 ``presence_step`` launches for its 6 + 2 steps, no ``flat_adam``)
+   and the steps those launches ran, and checking losses, metric families
    and checkpoints; a profiled epoch of each (device busy time);
    ``workflows.daa_exp`` of the trained joint_elbo run; one epoch on the
-   card against one on the CPU;
+   card against one on the CPU (each one-launch group replayed step by
+   step from the state before it, to the launch's bits);
 7. dp-kernel: the row-slice entry points of the MoPoE and method steps
    (``dp_step``, ``dp_method_step``) at B=256 split over 2 and 4 shards,
    for the MoPoE step and the seven method routes, with and without a
@@ -51,9 +65,10 @@ Phases, one line or more each:
    bound;
 8. dp-slice: ``train_exp(data_parallel=4)`` on the train-slice cohort,
    joint_elbo 3 epochs and poe with dropout_rate=0.2 2 epochs: launches
-   (per epoch 5 full complete batches x 4 slice launches, the partial
-   complete batch on the unsharded step, 2 presence steps, 8 Adam
-   updates), losses, metric families, checkpoints; the first epoch
+   (per epoch 5 full complete batches x 4 slice launches and one Adam
+   update each, the partial complete batch and the 2 presence steps one
+   launch each with Adam inside), losses, metric families, checkpoints;
+   the first epoch
    against a ``data_parallel=1`` run from the same seed; a profiled epoch;
 9. ensemble-slice: ``train_exp(num_models=2, ensemble_parallel=True)``
    against ``ensemble_parallel=False`` from the same seed (every param and
@@ -536,6 +551,36 @@ class Route:
                 self.method, masks)
         return m, flatten_split(g)
 
+    def launch_epoch(self, p, mu, nu, count, stacks, dims, consts, hyper,
+                     phase_times=None):
+        """The route's whole group of steps with their Adam updates in ONE
+        launch of its persistent kernel (``mopoe`` and ``presence`` routes;
+        ``stacks``: :meth:`inputs` with a leading steps axis); ``p``,
+        ``mu``, ``nu`` are updated in place; ``phase_times`` takes the
+        kernel's clock stamps. Returns ``metrics [n, k]``."""
+        from multivae_tpu_torch.ops import fused_presence as fp
+        from multivae_tpu_torch.ops import fused_step as fs
+
+        x1s, x2s, noises, masks = stacks
+        if self.kind == "mopoe":
+            return fs.epoch_flat(p, mu, nu, count, x1s, x2s, noises, dims,
+                                 consts, hyper, True, phase_times)
+        xs = x1s if self.mod_idx == 0 else x2s
+        return fp.presence_epoch_flat(p, mu, nu, count, xs, noises, dims,
+                                      consts, hyper, True, self.mod_idx,
+                                      self.method, masks, phase_times)
+
+    def geometry(self, dims, device):
+        """Grid blocks and barriers per step of the route's persistent
+        kernel at these sizes."""
+        from multivae_tpu_torch.ops import fused_presence as fp
+        from multivae_tpu_torch.ops import fused_step as fs
+
+        if self.kind == "mopoe":
+            return fs.launch_geometry(dims, device)
+        return fp.launch_geometry(dims, device, self.mod_idx, self.method,
+                                  self.masked)
+
     def slice_step(self, version, p, inp, local, consts, learn_scale,
                    row_offset, b_total):
         """``(metrics, grads)`` (flat, partial sums) of one step on a row
@@ -626,11 +671,50 @@ def epoch_check(route, p0, dims, consts, hyper, gen, device):
                       grads["kernel"], grads["plain"], dims)
 
 
+def launch_vs_steps(route, p0, dims, consts, hyper, gen, device, n=8,
+                    count=3):
+    """One launch of ``n`` steps with the in-kernel Adam against ``n``
+    launches of one step with ``flat_adam`` between them, from the same
+    state on the same inputs: params, both moments and the ``[n, k]``
+    metrics must be equal bit for bit, and a second run of the one launch
+    must give the first one's bits."""
+    import torch
+
+    from multivae_tpu_torch.ops import adam as adam_ops
+
+    stacks = route.inputs(dims, gen, device, steps=n)
+    runs = []
+    for _ in range(2):
+        st = [p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)]
+        runs.append(st + [route.launch_epoch(*st, count, stacks, dims,
+                                             consts, hyper)])
+    q, mu, nu = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
+    rows = []
+    for i in range(n):
+        inp = tuple(None if t is None else t[i] for t in stacks)
+        m, g = route.step("kernel", q, inp, dims, consts)
+        adam_ops.adam_update(q, mu, nu, g, count + i + 1, hyper)
+        rows.append(m)
+    torch.cuda.synchronize()
+    stepwise = [q, mu, nu, torch.stack(rows)]
+    same = all(torch.equal(a, b) for a, b in zip(runs[0], stepwise))
+    again = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    log("train-kernel", f"{route.name}: one launch of {n} steps with Adam vs "
+        f"{n} launches of 1 step + flat_adam (count {count}): params, mu, "
+        f"nu, metrics equal bits {same}; two runs of the launch equal bits "
+        f"{again}")
+    if not (same and again):
+        raise SystemExit(f"{route.name}: the {n}-step launch is not its "
+                         f"steps one by one, bit for bit")
+
+
 def train_kernel_check(device):
     """Phase train-kernel: every step route and the Adam kernel against
-    their plain versions at the flagship widths, 8-step epochs of each
-    route, and times (CUDA events, in turns plain, kernel, kernel,
-    plain) beside each kernel's bound."""
+    their plain versions at the flagship widths (one-step launches), the
+    persistent kernels' 8-step launch against 8 one-step launches with
+    ``flat_adam`` (equal bits), 8-step epochs of each route, and times
+    (CUDA events, in turns plain, kernel, kernel, plain) beside each
+    kernel's bound."""
     import torch
 
     from multivae_tpu_torch.ops import adam as adam_ops
@@ -689,6 +773,26 @@ def train_kernel_check(device):
     # 8-step epochs of each route, kernels against plain versions
     cfg, dims, p0, _, _, _ = train_setup(device, 256, SEED)
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    # the persistent kernels: a group of steps in one launch is its steps
+    # one by one (which also shows the in-kernel Adam equal to flat_adam)
+    # (a generator of its own: the epochs below keep their inputs)
+    launch_gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    for route in routes:
+        if route.kind != "method":
+            launch_vs_steps(route, p0, dims, consts, hyper, launch_gen,
+                            device)
+    geo = {r.name: r.geometry(dims, device) for r in routes
+           if r.kind != "method" and r.mod_idx in (None, 0)
+           and r.method in ("joint_elbo", "poe")}
+    log("train-kernel", "persistent kernels at B=256, cooperative grid "
+        "blocks and grid barriers per step (with Adam / one step without): "
+        + "; ".join(f"{k} {v['grid_blocks']} blocks, "
+                    f"{v['barriers_per_step_adam']} / "
+                    f"{v['barriers_per_step']} barriers"
+                    for k, v in geo.items()))
+    result["mopoe_step"]["geometry"] = geo["mopoe_step"]
+    result["presence_step"]["geometry"] = geo[
+        "presence_step[joint_elbo, mod_idx=0]"]
     for route in routes:
         err = epoch_check(route, p0, dims, consts, hyper, gen, device)
         worst = result[route.kernel].get("epoch_err", 0.0)
@@ -709,6 +813,10 @@ def train_kernel_check(device):
                 "presence_step[joint_elbo, mod_idx=0]"}
     timed = [r for r in routes if r.kind != "presence"
              or (r.mod_idx == 0 and r.method in ("joint_elbo", "poe"))]
+    # timed only: the MoPoE step's math on the multi-launch structure of
+    # method_step.cu (11 launches), in the same call as the persistent one
+    timed.insert(1, Route("method", "joint_elbo", None, False))
+    group = 6  # steps of the timed one-launch group
     for route in timed:
         inp = route.inputs(dims, gen, device)
         ker_ms, plain_ms, t = time_pair(
@@ -716,6 +824,33 @@ def train_kernel_check(device):
             lambda: route.step("plain", p, inp, dims, consts), iters=30)
         entry = dict(ms=ker_ms, plain_ms=plain_ms, library_ms=None,
                      **route.bound(p, inp, dims))
+        if route.kind != "method":
+            # one launch of `group` steps with Adam: device time, since
+            # nothing but the kernel runs between the two events
+            stacks = route.inputs(dims, gen, device, steps=group)
+            st = [p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)]
+            launch_ms = (cuda_ms(lambda: route.launch_epoch(
+                *st, 0, stacks, dims, consts, hyper), 20)
+                + cuda_ms(lambda: route.launch_epoch(
+                    *st, 0, stacks, dims, consts, hyper), 20)) / 2
+            # the kernel's own clock per phase (steps 2.. of one more
+            # launch: the first step also warms the caches)
+            stamps = torch.zeros(group, len(fs.PHASES) + 1,
+                                 dtype=torch.int64, device=device)
+            route.launch_epoch(*st, 0, stacks, dims, consts, hyper, stamps)
+            phase_us = fs.phase_microseconds(stamps)[1:].mean(0).tolist()
+            entry.update(launch_steps=group, launch_ms=launch_ms,
+                         step_ms_in_launch=launch_ms / group,
+                         phase_us=dict(zip(fs.PHASES, phase_us)))
+            log("train-kernel", f"{route.name} B=256: one launch of {group} "
+                f"steps with Adam {launch_ms:.4f} ms = "
+                f"{launch_ms / group:.4f} ms per step with its Adam (device "
+                f"time) = {100 * entry['bound_ms'] * group / launch_ms:.2f} "
+                f"% of the bound's rate; by the kernel's clock "
+                f"{sum(phase_us):.1f} us per step, phases with their "
+                f"barriers (us): "
+                + ", ".join(f"{k} {v:.1f}" for k, v in
+                            zip(fs.PHASES, phase_us)))
         result[route.kernel]["variants"][route.name] = entry
         if headline[route.kernel] == route.name:
             result[route.kernel].update(entry, timed_variant=route.name)
@@ -754,25 +889,36 @@ def train_kernel_check(device):
     # one flagship epoch of device work: 6 complete + 2 clinical-only steps
     mopoe, presence = routes[0], next(
         r for r in routes if r.name == headline["presence_step"])
-    batches = []
+    # the trainer's groups: (route, rows) -> the group's stacked inputs
+    groups = []
     for route, sizes in ((mopoe, EPOCH_COMPLETE), (presence, EPOCH_PRESENCE)):
-        for b in sizes:
+        for b in dict.fromkeys(sizes):
             bdims = dims_from(cfg, b)
-            batches.append((route, bdims, route.inputs(bdims, gen, device)))
+            groups.append((route, bdims, route.inputs(
+                bdims, gen, device, steps=sizes.count(b))))
 
     def epoch(version):
         q, m_, v_ = p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)
-        update = (adam_ops.adam_update if version == "kernel"
-                  else adam_ops.adam_update_reference)
-        for i, (route, bdims, inp) in enumerate(batches):
-            _, gg = route.step(version, q, inp, bdims, consts)
-            update(q, m_, v_, gg, i + 1, hyper)
+        t = 0
+        for route, bdims, stacks in groups:
+            n = stacks[0].shape[0]
+            if version == "kernel":  # one launch per group
+                route.launch_epoch(q, m_, v_, t, stacks, bdims, consts,
+                                   hyper)
+            else:
+                for i in range(n):
+                    inp = tuple(None if s is None else s[i] for s in stacks)
+                    _, gg = route.step("plain", q, inp, bdims, consts)
+                    adam_ops.adam_update_reference(q, m_, v_, gg, t + i + 1,
+                                                   hyper)
+            t += n
 
     ker_ms, plain_ms, t = time_pair(lambda: epoch("kernel"),
                                     lambda: epoch("plain"), iters=10)
-    n_steps = len(batches)
+    n_steps = len(EPOCH_COMPLETE) + len(EPOCH_PRESENCE)
     result["epoch"] = dict(ms=ker_ms, plain_ms=plain_ms, steps=n_steps)
-    log("train-kernel", f"flagship epoch ({n_steps} steps: complete B="
+    log("train-kernel", f"flagship epoch ({n_steps} steps in {len(groups)} "
+        f"launches: complete B="
         f"{list(EPOCH_COMPLETE)}, clinical-only B={list(EPOCH_PRESENCE)}): "
         f"kernels {t[1]:.4f}/{t[2]:.4f} ms = "
         f"{n_steps / (ker_ms * 1e-3):.1f} steps/s, plain {t[0]:.4f}/"
@@ -1576,7 +1722,12 @@ def recording_train_loop():
     each step's inputs, its (metrics, grads), and each update's state
     before and after. A data-parallel step is recorded as one step of its
     whole batch: the unsharded step's inputs, the rescaled metrics and the
-    summed gradient."""
+    summed gradient. On the card a group of MoPoE or presence steps is one
+    launch with Adam inside: the state before it is kept, the launch runs,
+    and the group is replayed from the kept state with one-step launches
+    and ``flat_adam``, which are recorded step by step; the replay must end
+    in the launch's state, bit for bit. The replay's launches are taken out
+    of the launch and step counts."""
     from multivae_tpu_torch.ops import (adam, fused_methods, fused_presence,
                                         fused_sharded, fused_step)
 
@@ -1640,8 +1791,58 @@ def recording_train_loop():
                                           orig["presence_step_flat"]),
            "dp_step_flat": dp_mopoe_recorder,
            "dp_method_step_flat": dp_method_recorder}
+
+    def replayed(module, epoch_fn, one_step):
+        """``epoch_fn`` (a one-launch group on the card) followed by its
+        recorded replay; ``one_step(q, i, ...)`` runs step ``i`` of the
+        group on state ``q`` through the recording step wrapper."""
+        import torch
+
+        counts = (adam.KERNEL_LAUNCHES, module.KERNEL_LAUNCHES,
+                  module.KERNEL_STEPS)
+
+        def epoch(p, mu, nu, count, *rest):
+            if p.device.type != "cuda":
+                # the CPU loops the recorded step and update itself
+                return epoch_fn(p, mu, nu, count, *rest)
+            q, qm, qv = (x.clone() for x in (p, mu, nu))
+            metrics = epoch_fn(p, mu, nu, count, *rest)
+            hyper = next(a for a in rest if isinstance(a, adam.AdamHyper))
+            saved = [dict(c) for c in counts]
+            rows = []
+            for i in range(metrics.shape[0]):
+                m, g = one_step(q, i, *rest)
+                update(q, qm, qv, g, count + i + 1, hyper)
+                rows.append(m)
+            for c, old in zip(counts, saved):
+                c.update(old)
+            same = all(torch.equal(a, b) for a, b in (
+                (q, p), (qm, mu), (qv, nu), (torch.stack(rows), metrics)))
+            if not same:
+                raise SystemExit("a group's one launch and its replay by "
+                                 "one-step launches differ")
+            rec["state"] = (p, mu, nu)
+            return metrics
+        return epoch
+
+    def mopoe_one(q, i, x1s, x2s, noise, dims, consts, hyper,
+                  learn_scale=True):
+        return new["step_flat"](q, x1s[i], x2s[i], *fused_step.split_noise(
+            noise[i], dims), dims, consts, learn_scale)
+
+    def presence_one(q, i, xs, noise, dims, consts, hyper, learn_scale,
+                     mod_idx, method="joint_elbo", masks=None):
+        return new["presence_step_flat"](
+            q, xs[i], noise[i], dims, consts, learn_scale, mod_idx, method,
+            None if masks is None else masks[i])
+
+    epochs = {"epoch_flat": (fused_step, mopoe_one),
+              "presence_epoch_flat": (fused_presence, presence_one)}
+    orig_epochs = {name: getattr(m, name) for name, (m, _) in epochs.items()}
     for name, m in owner.items():
         setattr(m, name, new[name])
+    for name, (m, one) in epochs.items():
+        setattr(m, name, replayed(m, orig_epochs[name], one))
     for m in modules:
         m.adam_update = update
     try:
@@ -1649,6 +1850,8 @@ def recording_train_loop():
     finally:
         for name, m in owner.items():
             setattr(m, name, orig[name])
+        for name, (m, _) in epochs.items():
+            setattr(m, name, orig_epochs[name])
         for m in modules:
             m.adam_update = adam.adam_update
 
@@ -1826,6 +2029,16 @@ def hold_slice_epoch(card, host, dims, phase="train-slice",
                downstream_ok=referee64)
 
 
+def step_counters():
+    """The counts of train steps run by the persistent kernels' launches
+    (one launch may run a group of steps)."""
+    from multivae_tpu_torch.ops import fused_presence, fused_step
+
+    return {"mopoe_step": fused_step.KERNEL_STEPS,
+            "dp_step": fused_step.KERNEL_STEPS,
+            "presence_step": fused_presence.KERNEL_STEPS}
+
+
 def slice_counters():
     from multivae_tpu_torch.ops import (adam, fused_generic, fused_methods,
                                         fused_presence, fused_step)
@@ -1843,11 +2056,13 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
                     complete, clinical, batching_s, data_parallel=1,
                     phase="train-slice"):
     """``train_exp`` of one method on the card with every count set to 0
-    just before and read just after; checks the launches of its routes, the
-    losses, the metric families and the checkpoints. ``outdir`` is the
-    run's own (run names have the resolution of a minute). With
-    ``data_parallel > 1`` the full complete batches take ``data_parallel``
-    row-slice launches each. Returns ``(run, launches)``."""
+    just before and read just after; checks the launches of its routes (the
+    MoPoE and presence routes: one launch per ``(presence pattern, rows)``
+    group, Adam inside, and the steps those launches ran), the losses, the
+    metric families and the checkpoints. ``outdir`` is the run's own (run
+    names have the resolution of a minute). With ``data_parallel > 1`` the
+    full complete batches take ``data_parallel`` row-slice launches each.
+    Returns ``(run, launches)``."""
     import types
 
     import pandas as pd
@@ -1862,7 +2077,10 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
     # the complete batches that split over the shards, and the others
     n_dp = sum(b == 256 for b in complete) if data_parallel > 1 else 0
     n_whole = len(complete) - n_dp
-    for c in counters.values():
+    # one launch per group of equal rows (the sharded batches apart)
+    whole_groups = len(set(complete)) - (1 if n_dp else 0)
+    ran = step_counters()
+    for c in list(counters.values()) + list(ran.values()):
         for k in c:
             c[k] = 0
     torch.cuda.synchronize()
@@ -1871,6 +2089,7 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
                            dropout_rate=rate, data_parallel=data_parallel)
     total = time.perf_counter() - start
     launches = {k: c[k] for k, c in counters.items()}
+    steps_run = {k: c[k] for k, c in ran.items()}
     rundir = os.path.join(outdir, run)
     csv = pd.read_csv(os.path.join(rundir, "logs", "metrics.csv"))
     tr = csv[csv.phase == "train"]
@@ -1893,6 +2112,8 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
     mopoe = method == "joint_elbo" and not rate
     checks = {
         "mopoe_step launches": launches["mopoe_step"]
+        == (whole_groups * epochs if mopoe else 0),
+        "mopoe_step steps": steps_run["mopoe_step"]
         == (n_whole * epochs if mopoe else 0),
         "method_step launches": launches["method_step"]
         == (0 if mopoe else n_whole * epochs),
@@ -1901,9 +2122,13 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
         "dp_method_step launches": launches["dp_method_step"]
         == (0 if mopoe else n_dp * data_parallel * epochs),
         "presence_step launches": launches["presence_step"]
+        == len(set(clinical)) * epochs,
+        "presence_step steps": steps_run["presence_step"]
         == len(clinical) * epochs,
-        "flat_adam launches = steps": launches["flat_adam"]
-        == steps * epochs,
+        # Adam runs inside the MoPoE and presence launches; flat_adam
+        # follows every method step and every data-parallel step
+        "flat_adam launches": launches["flat_adam"]
+        == (n_dp if mopoe else len(complete)) * epochs,
         "losses finite": bool(np.isfinite(csv.value).all()),
         "last epoch loss < first": bool(last < first),
         "complete-route families": n_complete == len(complete) * epochs,
@@ -1917,7 +2142,8 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
     }
     wall = float(np.median(walls[1:])) if len(walls) > 1 else walls[0]
     log(phase, f"[{tag}] train_exp {epochs} epochs x {steps} steps"
-        f" in {total:.3f} s (set-up included); launches {launches}; "
+        f" in {total:.3f} s (set-up included); launches {launches}; steps "
+        f"run by the persistent kernels' launches {steps_run}; "
         f"mean train loss epoch 1 {first:.3f} -> epoch {epochs} "
         f"{last:.3f}; checks "
         + ", ".join(f"{k}={v}" for k, v in checks.items()))
@@ -1935,7 +2161,7 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
         ours = {k: v for k, v in by_name.items()
                 if any(s in k for s in ("gemm", "latent", "colsum",
                                         "colreduce", "metrics_kernel",
-                                        "flat_adam"))}
+                                        "flat_adam", "steps_kernel"))}
         log(phase, f"[{tag}] profiled training epoch: wall "
             f"{ep_wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
             f"(idle share {100 * (1 - busy / (ep_wall * 1e3)):.1f} %) ="

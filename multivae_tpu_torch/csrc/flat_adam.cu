@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "adam_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -30,30 +32,14 @@ struct AdamArgs {
   float* nu;
   const float* g;
   long long n;
-  float t, lr, b1, b2, one_minus_b1, one_minus_b2, log_b1, log_b2, eps;
+  float t;
+  adam::Hyper h;
 };
 
+// the element update is adam_common.cuh's, shared with the persistent steps
 __global__ void __launch_bounds__(kThreads) flat_adam_kernel(const AdamArgs a) {
-  const float bc1 = 1.0f - expf(a.t * a.log_b1);
-  const float bc2 = 1.0f - expf(a.t * a.log_b2);
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < a.n; i += stride) {
-    // every product and sum rounded on its own (no fused multiply-add),
-    // as the plain version and the TPU body round them: b1 mu and
-    // (1 - b1) g nearly cancel where the gradient turns
-    const float g = a.g[i];
-    const float mu = __fadd_rn(__fmul_rn(a.b1, a.mu[i]),
-                               __fmul_rn(a.one_minus_b1, g));
-    const float nu = __fadd_rn(__fmul_rn(a.b2, a.nu[i]),
-                               __fmul_rn(a.one_minus_b2, __fmul_rn(g, g)));
-    a.mu[i] = mu;
-    a.nu[i] = nu;
-    const float step = __fmul_rn(a.lr, mu / bc1) /
-                       __fadd_rn(sqrtf(nu / bc2), a.eps);
-    a.p[i] = __fsub_rn(a.p[i], step);
-  }
+  adam::update_range(a.p, a.mu, a.nu, a.g, 0, a.n, a.h,
+                     adam::correction(a.t, a.h));
 }
 
 }  // namespace
@@ -69,8 +55,9 @@ int flat_adam_launch(float* p, float* mu, float* nu, const float* g,
                      float one_minus_b1, float one_minus_b2, float log_b1,
                      float log_b2, float eps, void* stream) {
   if (n <= 0) return 0;
-  AdamArgs a{p, mu, nu, g, n, static_cast<float>(t), lr, b1, b2,
-             one_minus_b1, one_minus_b2, log_b1, log_b2, eps};
+  AdamArgs a{p, mu, nu, g, n, static_cast<float>(t),
+             adam::Hyper{lr, b1, b2, one_minus_b1, one_minus_b2, log_b1,
+                         log_b2, eps}};
   long long blocks = (n + kThreads - 1) / kThreads;
   if (blocks > 4096) blocks = 4096;
   flat_adam_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,

@@ -5,21 +5,37 @@
 //   (SPLIT_NAMES) back to back in one flat float32 buffer, in the JAX layout
 //   [in, out]. make_layout gives their offsets; the Python side computes the
 //   same ones (multivae_tpu_torch/params.py, split_shapes).
-// * grouped_gemm: one launch runs up to kMaxProblems independent products
-//   C = epilogue(sum_s op(A_s) op(B_s)), each the sum of up to kMaxSeg
-//   products that share M and N (the decoders' zs.Wds + zc.Wdc, the
-//   encoders' four head products in the backward). Tiles of 32 x 32 outputs,
-//   a 32-deep slice of each operand staged in shared memory, 4 outputs per
-//   thread, every sum over k in one fixed order. dW = A^T G is the same
-//   product with transposed A: the reduction over the batch rows runs in a
-//   fixed order inside one block, never across blocks, so there is no float
-//   atomicAdd anywhere and two runs give the same bits. A problem may carry
-//   a dropout keep mask (pre-scaled, [M, N]): the forward epilogue
-//   multiplies it in after the ReLU, the backward one where the ReLU let
-//   the unit through.
-// * colsum: bias gradients, one thread per column summing the rows in order
-//   (of one source, or of two passes' sources one after the other).
-// * dec_colreduce: per decoder column, the residual's gradient
+// * gemm_tile: one 32 x 32 tile of C = epilogue(sum_s op(A_s) op(B_s)), the
+//   sum of up to kMaxSeg products that share M and N (the decoders'
+//   zs.Wds + zc.Wdc, the encoders' four head products in the backward), by
+//   one block of 256 threads. The block is four k-groups of 64 threads: the
+//   16-deep k-slices are dealt to the groups in turn (in-block split-K), a
+//   thread keeps 4 x 4 outputs in registers and reads its operands from
+//   shared memory 16 bytes at a time, and a group's next slices are on their
+//   way while it multiplies the current one (a ring of stages filled by
+//   cp.async: 16 bytes a copy where the slice lies in memory as it is staged
+//   and its rows are 16-byte aligned, 4 bytes a copy where k runs along
+//   memory and the slice is transposed on its way, at ragged edges and for
+//   rows such as 7 or 3 floats; zeros past the edge).
+//   The groups' partials are added in group order: the order of every sum
+//   depends on the tile alone, never on the grid or on which block took the
+//   tile, so there is no float atomicAdd anywhere and two runs, two cards
+//   and a row slice against the whole batch give the same bits. dW = A^T G
+//   is the same product with transposed A. A problem may carry a dropout
+//   keep mask (pre-scaled, [M, N]): the forward epilogue multiplies it in
+//   after the ReLU, the backward one where the ReLU let the unit through.
+//   The kDecLoss epilogue turns the decoder's product straight into g_loc
+//   and per-row-tile column partials of the bias gradient, the
+//   output-log-variance gradient and the NLL, which a later phase adds in
+//   row-tile order. GemmTable holds the problems of a launch or a phase,
+//   built on the host (grouped_gemm_kernel, one block per tile, for the
+//   multi-launch steps) or by the kernel itself in shared memory (the
+//   persistent steps, whose blocks stride over the tiles).
+// * colsum_chunk: bias gradients, 32 columns by one block: the rows dealt to
+//   the 8 warps, neighbouring lanes on neighbouring columns, the warps'
+//   partials added in warp order (of one source, or of two passes' sources
+//   one after the other).
+// * dec_colreduce (the multi-launch steps): per decoder column, the residual's gradient
 //   g_loc = -r exp(-olv) / b_total (b_total: the rows the loss is a mean
 //   over; more than the rows at hand when they are one shard's slice of a
 //   batch), its column sum (bias gradient), the
@@ -31,6 +47,12 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <array>
+#include <map>
+#include <mutex>
+
+#include "adam_common.cuh"
 
 namespace step {
 
@@ -52,7 +74,7 @@ struct Layout {
 // Offsets of the split tensors in SPLIT_NAMES order: enc1_*, enc2_* (Wh, bh,
 // Wcmu, bcmu, Wclv, bclv, Wsmu, bsmu, Wslv, bslv), then dec1_*, dec2_* (Wds,
 // Wdc, bd, olv). dec Wds [s, d] and Wdc [cd, d] are adjacent.
-inline Layout make_layout(int d1, int d2, int h, int cd, int s1, int s2) {
+__host__ __device__ inline Layout make_layout(int d1, int d2, int h, int cd, int s1, int s2) {
   Layout L;
   long long off = 0;
   const int d[2] = {d1, d2};
@@ -82,10 +104,16 @@ inline Layout make_layout(int d1, int d2, int h, int cd, int s1, int s2) {
 }
 
 // ------------------------------------------------------------ grouped GEMM
-constexpr int kTile = 32;
-constexpr int kGemmThreads = 256;
+constexpr int kTile = 32;         // output tile: kTile x kTile
+constexpr int kSlice = 16;        // depth of one staged k-slice
+constexpr int kGroups = 4;        // k-groups of a block (in-block split-K)
+constexpr int kGroupThreads = 64; // 8 x 8 threads, 4 x 4 outputs each
+constexpr int kGemmThreads = kGroups * kGroupThreads;
+constexpr int kWarps = kGemmThreads / 32;
+constexpr int kLd = kTile + 4;    // padded row of a staged slice (16-byte rows)
 constexpr int kMaxSeg = 4;
 constexpr int kMaxProblems = 12;
+constexpr int kMaxColOut = 3;     // column partials an epilogue may emit
 
 enum Epilogue {
   kStore = 0,     // C = acc
@@ -94,6 +122,10 @@ enum Epilogue {
   kReluMask = 3,  // C = aux[m, n] > 0 ? acc [* mask[m, n]] : 0 (ReLU backward;
                   // aux is the masked activation: it is 0 where the mask is)
   kResidual = 4,  // C = aux[m, n] - (acc + bias[n])   (r = x - loc)
+  kDecLoss = 5,   // r = aux - (acc + bias), C = g_loc = -r exp(-olv[n]) / scale
+                  // and, per row tile, the column sums of g_loc, of
+                  // 0.5 - 0.5 r^2 exp(-olv) and of the per-element NLL into
+                  // colp[j][row_tile][n] (j = 0, 1, 2)
 };
 
 struct Segment {
@@ -113,6 +145,30 @@ struct Problem {
   const float* aux;
   const float* mask;  // optional pre-scaled keep mask, nullptr for none
   int ld_aux, ld_mask, tiles_n, tile_begin;
+  // floats added to every segment's A, to aux and to mask per step of a
+  // launch that runs several steps (the stacked batches); 0 otherwise
+  int step_A, step_aux, step_mask;
+  // kDecLoss: the output log-variance [N], the divisor (rows the loss is a
+  // mean over) and the column partials [kMaxColOut][row tiles][ld_colp]
+  int ld_colp;
+  const float* olv;
+  float* colp;
+  long long colp_stride;
+  float scale;
+};
+
+// Adam applied where a gradient element is produced (the persistent steps'
+// last phase): the element at offset i of the flat gradient buffer `g`
+// updates p[i], mu[i], nu[i] right after it is stored.
+struct AdamAt {
+  float *p, *mu, *nu;
+  const float* g;
+  adam::Hyper hyper;
+  adam::Correction correction;
+
+  __device__ __forceinline__ void update(const float* at, float value) const {
+    adam::update_element(p, mu, nu, value, at - g, hyper, correction);
+  }
 };
 
 struct GemmBatch {
@@ -120,122 +176,32 @@ struct GemmBatch {
   int count, total_tiles;
 };
 
-__global__ void __launch_bounds__(kGemmThreads)
-grouped_gemm_kernel(const GemmBatch batch) {
-  __shared__ float As[kTile][kTile + 1];  // As[k][m]
-  __shared__ float Bs[kTile][kTile + 1];  // Bs[k][n]
-  int tile = blockIdx.x;
-  int pi = 0;
-  while (pi + 1 < batch.count && tile >= batch.p[pi + 1].tile_begin) ++pi;
-  const Problem& P = batch.p[pi];
-  tile -= P.tile_begin;
-  const int m0 = (tile / P.tiles_n) * kTile;
-  const int n0 = (tile % P.tiles_n) * kTile;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-  float acc[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+// A table of problems under construction, on the host or (in shared memory)
+// on the device: the problems of one launch or of one phase of a launch.
+struct GemmTable {
+  Problem* p;
+  int cap, count, total_tiles, overflow;
 
-  for (int s = 0; s < P.nseg; ++s) {
-    const Segment S = P.seg[s];
-    for (int k0 = 0; k0 < S.K; k0 += kTile) {
-      for (int i = threadIdx.x; i < kTile * kTile; i += kGemmThreads) {
-        // neighbouring threads read neighbouring addresses
-        const int major = i / kTile, minor = i % kTile;
-        const int mm = P.transA ? minor : major;
-        const int kk = P.transA ? major : minor;
-        const int gm = m0 + mm, gk = k0 + kk;
-        float v = 0.0f;
-        if (gm < P.M && gk < S.K) {
-          v = P.transA ? S.A[static_cast<long long>(gk) * S.lda + gm]
-                       : S.A[static_cast<long long>(gm) * S.lda + gk];
-        }
-        As[kk][mm] = v;
-      }
-      for (int i = threadIdx.x; i < kTile * kTile; i += kGemmThreads) {
-        const int major = i / kTile, minor = i % kTile;
-        const int nn = P.transB ? major : minor;
-        const int kk = P.transB ? minor : major;
-        const int gn = n0 + nn, gk = k0 + kk;
-        float v = 0.0f;
-        if (gn < P.N && gk < S.K) {
-          v = P.transB ? S.B[static_cast<long long>(gn) * S.ldb + gk]
-                       : S.B[static_cast<long long>(gk) * S.ldb + gn];
-        }
-        Bs[kk][nn] = v;
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int kk = 0; kk < kTile; ++kk) {
-        const float a0 = As[kk][ty], a1 = As[kk][ty + 16];
-        const float b0 = Bs[kk][tx], b1 = Bs[kk][tx + 16];
-        acc[0][0] = fmaf(a0, b0, acc[0][0]);
-        acc[0][1] = fmaf(a0, b1, acc[0][1]);
-        acc[1][0] = fmaf(a1, b0, acc[1][0]);
-        acc[1][1] = fmaf(a1, b1, acc[1][1]);
-      }
-      __syncthreads();
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int m = m0 + ty + 16 * i;
-      const int n = n0 + tx + 16 * j;
-      if (m >= P.M || n >= P.N) continue;
-      float v = acc[i][j];
-      switch (P.epilogue) {
-        case kBias:
-          v += P.bias[n];
-          break;
-        case kBiasRelu:
-          v = fmaxf(v + P.bias[n], 0.0f);
-          if (P.mask != nullptr) {
-            v *= P.mask[static_cast<long long>(m) * P.ld_mask + n];
-          }
-          break;
-        case kReluMask:
-          if (P.aux[static_cast<long long>(m) * P.ld_aux + n] > 0.0f) {
-            if (P.mask != nullptr) {
-              v *= P.mask[static_cast<long long>(m) * P.ld_mask + n];
-            }
-          } else {
-            v = 0.0f;
-          }
-          break;
-        case kResidual:
-          v = P.aux[static_cast<long long>(m) * P.ld_aux + n] -
-              (v + P.bias[n]);
-          break;
-        default:
-          break;
-      }
-      P.C[static_cast<long long>(m) * P.ldc + n] = v;
-    }
-  }
-}
-
-// Host-side builder of one grouped launch.
-struct GemmBuilder {
-  GemmBatch batch;
-  bool overflow = false;
-
-  GemmBuilder() {
-    batch.count = 0;
-    batch.total_tiles = 0;
+  __host__ __device__ void reset(Problem* storage, int capacity) {
+    p = storage;
+    cap = capacity;
+    count = 0;
+    total_tiles = 0;
+    overflow = 0;
   }
 
   // C[M, N] = epilogue(sum over the segments added by add_segment)
-  Problem* add(int M, int N, int transA, int transB, float* C, int ldc,
-               int epilogue = kStore, const float* bias = nullptr,
-               const float* aux = nullptr, int ld_aux = 0,
-               const float* mask = nullptr, int ld_mask = 0) {
-    if (batch.count >= kMaxProblems) {
-      overflow = true;
+  __host__ __device__ Problem* add(int M, int N, int transA, int transB,
+                                   float* C, int ldc, int epilogue = kStore,
+                                   const float* bias = nullptr,
+                                   const float* aux = nullptr, int ld_aux = 0,
+                                   const float* mask = nullptr,
+                                   int ld_mask = 0) {
+    if (count >= cap) {
+      overflow = 1;
       return nullptr;
     }
-    Problem& P = batch.p[batch.count++];
+    Problem& P = p[count++];
     P.nseg = 0;
     P.M = M;
     P.N = N;
@@ -249,24 +215,384 @@ struct GemmBuilder {
     P.ld_aux = ld_aux;
     P.mask = mask;
     P.ld_mask = ld_mask;
+    P.step_A = 0;
+    P.step_aux = 0;
+    P.step_mask = 0;
+    P.olv = nullptr;
+    P.colp = nullptr;
+    P.colp_stride = 0;
+    P.ld_colp = 0;
+    P.scale = 1.0f;
     P.tiles_n = (N + kTile - 1) / kTile;
-    P.tile_begin = batch.total_tiles;
-    batch.total_tiles += ((M + kTile - 1) / kTile) * P.tiles_n;
+    P.tile_begin = total_tiles;
+    total_tiles += ((M + kTile - 1) / kTile) * P.tiles_n;
     return &P;
+  }
+
+  __host__ __device__ void add_segment(Problem* P, const float* A, int lda,
+                                       const float* B, int ldb, int K) {
+    if (P == nullptr || P->nseg >= kMaxSeg) {
+      overflow = 1;
+      return;
+    }
+    Segment& S = P->seg[P->nseg++];
+    S.A = A;
+    S.B = B;
+    S.K = K;
+    S.lda = lda;
+    S.ldb = ldb;
+  }
+
+  // the problem that owns `tile`, which becomes the tile's index inside it
+  __device__ const Problem& find(int& tile) const {
+    int pi = 0;
+    while (pi + 1 < count && tile >= p[pi + 1].tile_begin) ++pi;
+    tile -= p[pi].tile_begin;
+    return p[pi];
+  }
+};
+
+// Shared memory of one block's product tile: a ring of kStages stages of
+// every k-group's slices, the split-K partials (over the `a` stages, once
+// the k loop is done) and the epilogue's column partials.
+template <int kStages>
+struct __align__(16) GemmSmem {
+  float a[kStages][kGroups][kSlice][kLd];  // a[stage][group][k][m]
+  float b[kStages][kGroups][kSlice][kLd];  // b[stage][group][k][n]
+  float colred[kMaxColOut][kWarps][kTile];
+};
+static_assert(2 * kSlice * kLd >= kTile * kTile,
+              "the split-K partials reuse the a stages");
+
+// Asynchronous copies from global to shared memory. 16 bytes go through L2
+// only (.cg); 4 bytes exist only as .ca. Either way what another block wrote
+// before the last grid barrier is what arrives: the barrier's fences order
+// it, as for an ordinary load.
+__device__ __forceinline__ void cp_async16(float* smem_dst,
+                                           const float* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(gmem_src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(float* smem_dst,
+                                          const float* gmem_src) {
+  const unsigned dst =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(gmem_src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's committed groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// One operand's view of a tile: element (i, k), i the tile's m (A) or n (B).
+// contig_i: i runs along memory (A^T products' A, row-major B) and the slice
+// is copied as it lies, 16 bytes at a time where `vec`; else k runs along
+// memory and the slice is transposed on its way, 4 bytes at a time.
+struct Operand {
+  const float* base;
+  int ld, extent_i, K, i0;
+  bool contig_i, vec;
+};
+
+__device__ __forceinline__ Operand make_operand(const float* base, int ld,
+                                                int extent_i, int K, int i0,
+                                                bool contig_i) {
+  Operand X;
+  X.base = base;
+  X.ld = ld;
+  X.extent_i = extent_i;
+  X.K = K;
+  X.i0 = i0;
+  X.contig_i = contig_i;
+  X.vec = contig_i && (reinterpret_cast<uintptr_t>(base) & 15) == 0 &&
+          (ld & 3) == 0;
+  return X;
+}
+
+// Start the asynchronous copies of slice k0 of X into dst[k][i] by thread j
+// of a k-group; what lies past a ragged edge is stored as zero.
+__device__ __forceinline__ void load_slice(const Operand& X, int k0,
+                                           float (*dst)[kLd], int j) {
+  if (X.vec) {
+#pragma unroll
+    for (int r = 0; r < kSlice * kTile / 4 / kGroupThreads; ++r) {
+      const int idx = j + kGroupThreads * r;
+      const int k = idx / (kTile / 4), i = (idx % (kTile / 4)) * 4;
+      const int gk = k0 + k, gi = X.i0 + i;
+      const float* src = X.base + static_cast<long long>(gk) * X.ld + gi;
+      if (gk < X.K && gi + 3 < X.extent_i) {
+        cp_async16(&dst[k][i], src);
+      } else {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          if (gk < X.K && gi + t < X.extent_i) {
+            cp_async4(&dst[k][i + t], src + t);
+          } else {
+            dst[k][i + t] = 0.0f;
+          }
+        }
+      }
+    }
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < kSlice * kTile / kGroupThreads; ++r) {
+    const int idx = j + kGroupThreads * r;
+    // neighbouring threads on neighbouring addresses
+    const int i = X.contig_i ? idx % kTile : idx / kSlice;
+    const int k = X.contig_i ? idx / kTile : idx % kSlice;
+    const int gk = k0 + k, gi = X.i0 + i;
+    if (gk < X.K && gi < X.extent_i) {
+      const long long at = X.contig_i
+                               ? static_cast<long long>(gk) * X.ld + gi
+                               : static_cast<long long>(gi) * X.ld + gk;
+      cp_async4(&dst[k][i], X.base + at);
+    } else {
+      dst[k][i] = 0.0f;
+    }
+  }
+}
+
+// One kTile x kTile output tile of P by one block of kGemmThreads threads;
+// every thread of the block calls it (it holds block barriers). The k-slices
+// of all segments, in order, are dealt round-robin to the kGroups k-groups;
+// a group sums its slices in order into 4 x 4 outputs a thread, the groups'
+// partials are added in group order, so the order of every sum is a
+// function of the tile alone. While a group multiplies one slice its next
+// kStages - 1 are on the way (a ring of stages filled by cp.async). `step`
+// picks the batch of a launch that runs several steps; with `adam` every
+// output element (a gradient) also takes its Adam update.
+template <int kStages>
+__device__ void gemm_tile(const Problem& P, int tile, int step,
+                          GemmSmem<kStages>& sm,
+                          const AdamAt* adam = nullptr) {
+  const int tid = threadIdx.x;
+  const int g = tid / kGroupThreads, j = tid % kGroupThreads;
+  const int tx = j % 8, ty = j / 8;
+  const int M = P.M, N = P.N, nseg = P.nseg;
+  const int m0 = (tile / P.tiles_n) * kTile;
+  const int n0 = (tile % P.tiles_n) * kTile;
+  const long long a_off = static_cast<long long>(P.step_A) * step;
+  // what the epilogue needs of its column, asked for before the k loop
+  const int nl = tid % kTile, warp = tid / kTile;
+  const int n = n0 + nl;
+  const int epilogue = P.epilogue;
+  const float* aux =
+      P.aux == nullptr ? nullptr
+                       : P.aux + static_cast<long long>(P.step_aux) * step;
+  const float* mask =
+      P.mask == nullptr ? nullptr
+                        : P.mask + static_cast<long long>(P.step_mask) * step;
+  float bias = 0.0f, olv = 0.0f;
+  float aux4[4] = {0.0f, 0.0f, 0.0f, 0.0f};   // aux[m, n] of the 4 rows
+  float mask4[4] = {1.0f, 1.0f, 1.0f, 1.0f};  // mask[m, n], 1 without one
+  if (n < N) {
+    if (P.bias != nullptr) bias = P.bias[n];
+    if (epilogue == kDecLoss) olv = P.olv[n];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int m = m0 + 4 * warp + r;
+      if (m >= M) continue;
+      if (aux != nullptr) {
+        aux4[r] = aux[static_cast<long long>(m) * P.ld_aux + n];
+      }
+      if (mask != nullptr) {
+        mask4[r] = mask[static_cast<long long>(m) * P.ld_mask + n];
+      }
+    }
+  }
+
+  int nsl = 0;
+  for (int s = 0; s < nseg; ++s) nsl += (P.seg[s].K + kSlice - 1) / kSlice;
+  const int iters = (nsl + kGroups - 1) / kGroups;
+
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+  }
+
+  // start the copies of this group's slice of iteration `it` (none past
+  // the end) into the ring
+  auto start_copies = [&](int it) {
+    int q = it * kGroups + g;
+    for (int s = 0; s < nseg; ++s) {
+      const int ns = (P.seg[s].K + kSlice - 1) / kSlice;
+      if (q < ns) {
+        const Segment& S = P.seg[s];
+        const int stage = it % kStages;
+        load_slice(make_operand(S.A + a_off, S.lda, M, S.K, m0,
+                                P.transA != 0),
+                   q * kSlice, sm.a[stage][g], j);
+        load_slice(make_operand(S.B, S.ldb, N, S.K, n0, P.transB == 0),
+                   q * kSlice, sm.b[stage][g], j);
+        return;
+      }
+      q -= ns;
+    }
+  };
+
+  // one commit per stage and iteration, empty or not, so that the count of
+  // groups in flight says which slice has landed
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < iters) start_copies(it);
+    cp_async_commit();
+  }
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice `it` has landed; the stage of `it - 1` is free
+    if (it + kStages - 1 < iters) start_copies(it + kStages - 1);
+    cp_async_commit();
+    if (it * kGroups + g < nsl) {
+      float (*As)[kLd] = sm.a[it % kStages][g];
+      float (*Bs)[kLd] = sm.b[it % kStages][g];
+#pragma unroll
+      for (int k = 0; k < kSlice; ++k) {
+        const float4 av = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
+        const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
+        const float a4[4] = {av.x, av.y, av.z, av.w};
+        const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            acc[r][c] = fmaf(a4[r], b4[c], acc[r][c]);
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // every group is done with the stages
+
+  // the groups' partials, then each thread finishes 4 rows of one column
+  float (*red)[kTile][kTile] =
+      reinterpret_cast<float (*)[kTile][kTile]>(&sm.a[0][0][0][0]);
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    *reinterpret_cast<float4*>(&red[g][4 * ty + r][4 * tx]) =
+        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+  }
+  __syncthreads();
+  const float iv = expf(-olv);  // used by kDecLoss alone
+  float col[kMaxColOut] = {0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int ml = 4 * warp + r, m = m0 + ml;
+    if (m >= M || n >= N) continue;
+    float v = ((red[0][ml][nl] + red[1][ml][nl]) + red[2][ml][nl]) +
+              red[3][ml][nl];
+    switch (epilogue) {
+      case kBias:
+        v += bias;
+        break;
+      case kBiasRelu:
+        v = fmaxf(v + bias, 0.0f);
+        if (mask != nullptr) v *= mask4[r];
+        break;
+      case kReluMask:
+        if (aux4[r] > 0.0f) {
+          if (mask != nullptr) v *= mask4[r];
+        } else {
+          v = 0.0f;
+        }
+        break;
+      case kResidual:
+        v = aux4[r] - (v + bias);
+        break;
+      case kDecLoss: {
+        const float rv = aux4[r] - (v + bias);
+        const float q = 0.5f * (rv * rv) * iv;  // 0.5 r^2 iv
+        v = -rv * iv / P.scale;                 // g_loc = -r iv / b_total
+        col[0] += v;
+        col[1] += 0.5f - q;
+        col[2] += 0.5f * kLog2Pi + 0.5f * olv + q;
+        break;
+      }
+      default:
+        break;
+    }
+    float* out = P.C + static_cast<long long>(m) * P.ldc + n;
+    *out = v;
+    if (adam != nullptr) adam->update(out, v);
+  }
+  if (epilogue == kDecLoss) {  // uniform over the block
+#pragma unroll
+    for (int q = 0; q < kMaxColOut; ++q) sm.colred[q][warp][nl] = col[q];
+    __syncthreads();
+    if (tid < kMaxColOut * kTile && n0 + tid % kTile < N) {
+      const int q = tid / kTile;
+      float total = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) total += sm.colred[q][w][nl];
+      P.colp[q * P.colp_stride +
+             static_cast<long long>(tile / P.tiles_n) * P.ld_colp + n] = total;
+    }
+  }
+  __syncthreads();  // the next tile's loads reuse the stages
+}
+
+// One launch of independent products, one block per tile. The multi-launch
+// steps (method_step.cu, generic_step.cu) call it; the persistent kernels
+// walk their tables themselves.
+__global__ void __launch_bounds__(kGemmThreads)
+grouped_gemm_kernel(const __grid_constant__ GemmBatch batch) {
+  __shared__ GemmSmem<2> sm;
+  __shared__ Problem prob;
+  int tile = blockIdx.x;
+  int pi = 0;
+  while (pi + 1 < batch.count && tile >= batch.p[pi + 1].tile_begin) ++pi;
+  tile -= batch.p[pi].tile_begin;
+  {
+    static_assert(sizeof(Problem) % sizeof(int) == 0, "copied by words");
+    const int* src = reinterpret_cast<const int*>(&batch.p[pi]);
+    int* dst = reinterpret_cast<int*>(&prob);
+    for (int i = threadIdx.x; i < static_cast<int>(sizeof(Problem) / sizeof(int));
+         i += kGemmThreads) {
+      dst[i] = src[i];
+    }
+  }
+  __syncthreads();
+  gemm_tile(prob, tile, 0, sm);
+}
+
+// Host-side builder of one grouped launch.
+struct GemmBuilder {
+  GemmBatch batch;
+  GemmTable table;
+
+  GemmBuilder() { table.reset(batch.p, kMaxProblems); }
+
+  Problem* add(int M, int N, int transA, int transB, float* C, int ldc,
+               int epilogue = kStore, const float* bias = nullptr,
+               const float* aux = nullptr, int ld_aux = 0,
+               const float* mask = nullptr, int ld_mask = 0) {
+    return table.add(M, N, transA, transB, C, ldc, epilogue, bias, aux,
+                     ld_aux, mask, ld_mask);
   }
 
   void add_segment(Problem* P, const float* A, int lda, const float* B,
                    int ldb, int K) {
-    if (P == nullptr || P->nseg >= kMaxSeg) {
-      overflow = true;
-      return;
-    }
-    P->seg[P->nseg++] = Segment{A, B, K, lda, ldb};
+    table.add_segment(P, A, lda, B, ldb, K);
   }
 
   cudaError_t launch(cudaStream_t stream) {
-    if (overflow) return cudaErrorInvalidValue;
-    if (batch.total_tiles == 0) return cudaSuccess;
+    if (table.overflow) return cudaErrorInvalidValue;
+    if (table.total_tiles == 0) return cudaSuccess;
+    batch.count = table.count;
+    batch.total_tiles = table.total_tiles;
     grouped_gemm_kernel<<<batch.total_tiles, kGemmThreads, 0, stream>>>(batch);
     return cudaGetLastError();
   }
@@ -274,67 +600,126 @@ struct GemmBuilder {
 
 // ------------------------------------------------------- column reductions
 constexpr int kMaxColSums = 24;
-constexpr int kColThreads = 128;
 
 struct ColSum {
   const float* src;   // [rows, ld]
   const float* src2;  // a second pass's [rows, ld] summed in, or nullptr
   float* dst;         // [cols]
-  int rows, cols, ld, col_begin;
+  int rows, cols, ld, chunk_begin;
 };
 
 struct ColSumBatch {
   ColSum p[kMaxColSums];
-  int count, total_cols;
+  int count, total_chunks;
 };
 
-__global__ void colsum_kernel(const ColSumBatch batch) {
-  int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= batch.total_cols) return;
-  int pi = 0;
-  while (pi + 1 < batch.count && c >= batch.p[pi + 1].col_begin) ++pi;
-  const ColSum& P = batch.p[pi];
-  c -= P.col_begin;
-  float acc = 0.0f;
-  for (int r = 0; r < P.rows; ++r) {
-    acc += P.src[static_cast<long long>(r) * P.ld + c];
+// A table of column sums under construction (see GemmTable); one task is a
+// chunk of kTile neighbouring columns.
+struct ColSumTable {
+  ColSum* p;
+  int cap, count, total_chunks, overflow;
+
+  __host__ __device__ void reset(ColSum* storage, int capacity) {
+    p = storage;
+    cap = capacity;
+    count = 0;
+    total_chunks = 0;
+    overflow = 0;
   }
-  if (P.src2 != nullptr) {
-    for (int r = 0; r < P.rows; ++r) {
-      acc += P.src2[static_cast<long long>(r) * P.ld + c];
+
+  __host__ __device__ void add(const float* src, int rows, int cols,
+                               float* dst, const float* src2 = nullptr) {
+    if (count >= cap) {
+      overflow = 1;
+      return;
+    }
+    ColSum& P = p[count++];
+    P.src = src;
+    P.src2 = src2;
+    P.dst = dst;
+    P.rows = rows;
+    P.cols = cols;
+    P.ld = cols;
+    P.chunk_begin = total_chunks;
+    total_chunks += (cols + kTile - 1) / kTile;
+  }
+
+  __device__ const ColSum& find(int& chunk) const {
+    int pi = 0;
+    while (pi + 1 < count && chunk >= p[pi + 1].chunk_begin) ++pi;
+    chunk -= p[pi].chunk_begin;
+    return p[pi];
+  }
+};
+
+// Bias gradients: kTile columns of P by one block. Warp w sums rows w,
+// w + kWarps, ... (of src, then of src2) with neighbouring lanes on
+// neighbouring columns; the warps' partials are added in warp order.
+// scratch: [kWarps][kTile]. Every thread of the block calls it. With `adam`
+// every sum (a gradient) also takes its Adam update.
+__device__ void colsum_chunk(const ColSum& P, int chunk,
+                             float (*scratch)[kTile],
+                             const AdamAt* adam = nullptr) {
+  const int lane = threadIdx.x % kTile, warp = threadIdx.x / kTile;
+  const int c = chunk * kTile + lane;
+  float acc = 0.0f;
+  if (c < P.cols) {
+    for (int r = warp; r < P.rows; r += kWarps) {
+      acc += P.src[static_cast<long long>(r) * P.ld + c];
+    }
+    if (P.src2 != nullptr) {
+      for (int r = warp; r < P.rows; r += kWarps) {
+        acc += P.src2[static_cast<long long>(r) * P.ld + c];
+      }
     }
   }
-  P.dst[c] = acc;
+  scratch[warp][lane] = acc;
+  __syncthreads();
+  if (warp == 0 && c < P.cols) {
+    float total = 0.0f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) total += scratch[w][lane];
+    P.dst[c] = total;
+    if (adam != nullptr) adam->update(P.dst + c, total);
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kGemmThreads)
+colsum_kernel(const __grid_constant__ ColSumBatch batch) {
+  __shared__ float scratch[kWarps][kTile];
+  __shared__ ColSum prob;
+  int chunk = blockIdx.x;
+  int pi = 0;
+  while (pi + 1 < batch.count && chunk >= batch.p[pi + 1].chunk_begin) ++pi;
+  chunk -= batch.p[pi].chunk_begin;
+  if (threadIdx.x == 0) prob = batch.p[pi];
+  __syncthreads();
+  colsum_chunk(prob, chunk, scratch);
 }
 
 struct ColSumBuilder {
   ColSumBatch batch;
-  bool overflow = false;
+  ColSumTable table;
 
-  ColSumBuilder() {
-    batch.count = 0;
-    batch.total_cols = 0;
-  }
+  ColSumBuilder() { table.reset(batch.p, kMaxColSums); }
 
   void add(const float* src, int rows, int cols, float* dst,
            const float* src2 = nullptr) {
-    if (batch.count >= kMaxColSums) {
-      overflow = true;
-      return;
-    }
-    batch.p[batch.count++] = ColSum{src, src2, dst, rows, cols, cols,
-                                    batch.total_cols};
-    batch.total_cols += cols;
+    table.add(src, rows, cols, dst, src2);
   }
 
   cudaError_t launch(cudaStream_t stream) {
-    if (overflow) return cudaErrorInvalidValue;
-    if (batch.total_cols == 0) return cudaSuccess;
-    const int blocks = (batch.total_cols + kColThreads - 1) / kColThreads;
-    colsum_kernel<<<blocks, kColThreads, 0, stream>>>(batch);
+    if (table.overflow) return cudaErrorInvalidValue;
+    if (table.total_chunks == 0) return cudaSuccess;
+    batch.count = table.count;
+    batch.total_chunks = table.total_chunks;
+    colsum_kernel<<<batch.total_chunks, kGemmThreads, 0, stream>>>(batch);
     return cudaGetLastError();
   }
 };
+
+constexpr int kColThreads = 128;  // dec_colreduce_kernel's block
 
 // One decoder's column pass (blockIdx.y picks the decoder).
 struct DecReduce {
@@ -393,6 +778,71 @@ __global__ void dec_colreduce_kernel(const DecReduceBatch batch) {
   }
   P.g_bd[c] = acc_g;
   P.g_olv[c] = batch.learn_scale ? acc_o / bf : 0.0f;
+}
+
+// Tracing: block 0 writes the device's nanosecond clock into times[slot]
+// (nothing when times is null).
+__device__ __forceinline__ void stamp(unsigned long long* times, int slot) {
+  if (times == nullptr || blockIdx.x != 0 || threadIdx.x != 0) return;
+  unsigned long long now;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+  times[slot] = now;
+}
+
+// The sum of v over a warp's lanes (a fixed butterfly); every lane of the
+// warp calls it and gets the total.
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// The grid of a persistent cooperative `kernel` (kGemmThreads threads a
+// block, smem_bytes of dynamic shared memory) on the current device: what is
+// co-resident (SM count x the occupancy query), at most a block per task of
+// its largest phase (`tasks()`; more would only wait at the barriers) or per
+// SM, whichever is more.
+// Remembered per device and `sizes`, so a later launch asks the runtime
+// nothing. Returns a CUDA error code (0 on success).
+template <typename Kernel, typename Tasks>
+int cooperative_grid(Kernel kernel, int smem_bytes,
+                     const std::array<int, 10>& sizes, Tasks tasks,
+                     int* blocks) {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static std::mutex mutex;
+  static std::map<std::pair<int, std::array<int, 10>>, int> known;
+  std::lock_guard<std::mutex> lock(mutex);
+  const auto key = std::make_pair(device, sizes);
+  const auto found = known.find(key);
+  if (found != known.end()) {
+    *blocks = found->second;
+    return 0;
+  }
+  int sms = 0, cooperative = 0, per_sm = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch,
+                               device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!cooperative) return static_cast<int>(cudaErrorNotSupported);
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, kernel, kGemmThreads, smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  const int most = tasks();
+  if (most < 1) return static_cast<int>(cudaErrorInvalidValue);
+  // at least a block per SM: the elementwise phases use every thread
+  const int useful = most > sms ? most : sms;
+  *blocks = sms * per_sm < useful ? sms * per_sm : useful;
+  known[key] = *blocks;
+  return 0;
 }
 
 // Fixed-order tree sum of `n` values read by `get(i)` across one block of

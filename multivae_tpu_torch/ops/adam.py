@@ -10,7 +10,11 @@ flat params buffer of the same layout. :func:`adam_update` updates params,
 ``mu`` and ``nu`` in place (the JAX package returns new arrays; the port
 keeps one set of buffers). On a CUDA tensor it launches
 ``csrc/flat_adam.cu``, on a CPU tensor it runs :func:`adam_update_reference`;
-a kernel that does not build or launch raises.
+a kernel that does not build or launch raises. The element update itself is
+``csrc/adam_common.cuh``: the persistent step kernels (``mopoe_step.cu``,
+``presence_step.cu``) run the same body as the last phase of every step of
+a launch, so an epoch through them launches no ``flat_adam`` and ends with
+the same bits.
 
 The bias correction is the TPU kernels' ``1 - exp(t log b)``, for the
 general step too (``flat_adam`` writes ``1 - b ** t``, the same number to a
@@ -69,6 +73,14 @@ def adam_update_reference(p, mu, nu, g, t: int, hyper: AdamHyper) -> None:
     p.copy_(p - lr * (mu / bc1) / (torch.sqrt(nu / bc2) + eps))
 
 
+def adam_scalars(hyper: AdamHyper):
+    """The eight scalars the kernels take, in their argument order: ``lr,
+    b1, b2, 1 - b1, 1 - b2, log b1, log b2, eps`` (Python floats; ctypes
+    rounds each to float32 once, as the TPU kernels' constants are)."""
+    lr, b1, b2, eps = hyper
+    return (lr, b1, b2, 1.0 - b1, 1.0 - b2, math.log(b1), math.log(b2), eps)
+
+
 def _adam_library():
     from ._build import load_kernel
 
@@ -96,14 +108,12 @@ def _launch_adam(p, mu, nu, g, t: int, hyper: AdamHyper) -> None:
                              f"{p.numel()} floats, got {tuple(x.shape)}")
         if not x.is_contiguous():
             raise ValueError("flat_adam takes contiguous buffers")
-    lr, b1, b2, eps = hyper
     lib = _adam_library()
     with torch.cuda.device(p.device):
         stream = torch.cuda.current_stream(p.device).cuda_stream
         rc = lib.flat_adam_launch(
             p.data_ptr(), mu.data_ptr(), nu.data_ptr(), g.data_ptr(),
-            p.numel(), int(t), lr, b1, b2, 1.0 - b1, 1.0 - b2,
-            math.log(b1), math.log(b2), eps, stream)
+            p.numel(), int(t), *adam_scalars(hyper), stream)
     if rc != 0:
         raise RuntimeError("flat_adam launch failed: "
                            + lib.flat_adam_error_string(rc).decode())

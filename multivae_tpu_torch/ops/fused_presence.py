@@ -8,7 +8,9 @@ block, so every epoch has clinical-only batches. The TPU kernel
 the kernel for the four methods, with optional streamed dropout masks; the
 port derives the backward by hand: :func:`presence_fwd_bwd_reference`
 (plain) and ``csrc/presence_step.cu`` (kernel), for ``mod_idx`` 0 or 1 and
-any row count. Noise ``[B, presence_noise_width]``: ``cd | s_i``, twice
+any row count; on CUDA tensors a whole group of steps with their Adam
+updates is ONE persistent cooperative launch
+(:func:`presence_epoch_flat`). Noise ``[B, presence_noise_width]``: ``cd | s_i``, twice
 for poe (the unimodal re-run's draw); masks ``(dm,)``, for poe
 ``(dm, dm_uni)``. The absent modality's parameters get zero gradients and
 still take the Adam update (their moments decay and a nonzero ``mu`` still
@@ -23,7 +25,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from ..params import FusedDims, flat_size, flat_views, flatten_split
-from .adam import AdamHyper, adam_update
+from .adam import AdamHyper, adam_scalars, adam_update
 from .fused_methods import (
     METHODS,
     check_masks,
@@ -42,13 +44,18 @@ from .fused_methods import (
 from .fused_step import (
     POE_EPS,
     FusedConsts,
+    argtypes_of,
     check_inputs,
+    check_phase_times,
+    check_stack,
     split_layout_ok,
     workspace,
 )
 
 # launches of each kernel in this module; a caller resets and reads it
 KERNEL_LAUNCHES: Dict[str, int] = {"presence_step": 0}
+# train steps those launches ran (one launch may run a group of steps)
+KERNEL_STEPS: Dict[str, int] = {"presence_step": 0}
 
 PORTED_METHODS = METHODS
 
@@ -218,6 +225,42 @@ def presence_fwd_bwd_reference(sp, x, noise, dims: FusedDims,
     return loss, metrics, g
 
 
+# The C arguments of ``presence_epoch_launch`` in order: (name, kind), kinds
+# as in ``fused_step.EPOCH_ARGS``.
+EPOCH_ARGS = (
+    ("params", "ptr"), ("mu", "ptr"), ("nu", "ptr"), ("grads", "ptr"),
+    ("metrics", "ptr"), ("xs", "ptr"), ("noise", "ptr"), ("masks", "ptr"),
+    ("work", "ptr"),
+    ("n", "i32"), ("method", "i32"), ("mod_idx", "i32"), ("b", "i32"),
+    ("d1", "i32"), ("d2", "i32"), ("h", "i32"), ("cd", "i32"),
+    ("s1", "i32"), ("s2", "i32"),
+    ("beta", "f32"), ("beta_style", "f32"), ("beta_content", "f32"),
+    ("learn_scale", "i32"), ("count", "i64"),
+    ("lr", "f32"), ("b1", "f32"), ("b2", "f32"), ("one_minus_b1", "f32"),
+    ("one_minus_b2", "f32"), ("log_b1", "f32"), ("log_b2", "f32"),
+    ("eps", "f32"),
+    ("phase_times", "ptr"), ("stream", "ptr"),
+)
+
+
+def pack_epoch_args(p, mu, nu, grads, metrics, xs, noise, masks, work,
+                    dims: FusedDims, consts: FusedConsts, learn_scale: bool,
+                    mod_idx: int, method: str, count: int, hyper: AdamHyper,
+                    stream: int, phase_times=None) -> tuple:
+    """The arguments of ``presence_epoch_launch`` in :data:`EPOCH_ARGS`
+    order (``masks`` None becomes a null pointer). Pure: it reads only
+    addresses and shapes."""
+    return (
+        p.data_ptr(), mu.data_ptr(), nu.data_ptr(), grads.data_ptr(),
+        metrics.data_ptr(), xs.data_ptr(), noise.data_ptr(),
+        None if masks is None else masks.data_ptr(), work.data_ptr(),
+        int(xs.shape[0]), METHODS.index(method), int(mod_idx), dims.b,
+        dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2,
+        *(float(c) for c in consts), int(bool(learn_scale)), int(count),
+        *adam_scalars(hyper),
+        None if phase_times is None else phase_times.data_ptr(), int(stream))
+
+
 def _presence_library():
     from ._build import load_kernel
 
@@ -228,6 +271,12 @@ def _presence_library():
             [ptr] * 5 + [i32, ptr, ptr, i32, ptr] + [i32] * 9 + [f32] * 3
             + [i32, ptr])
         lib.presence_step_launch.restype = i32
+        lib.presence_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS)
+        lib.presence_epoch_launch.restype = i32
+        lib.presence_step_grid_blocks.argtypes = [i32] * 10
+        lib.presence_step_grid_blocks.restype = i32
+        lib.presence_step_barriers.argtypes = [i32]
+        lib.presence_step_barriers.restype = i32
         lib.presence_step_workspace_floats.argtypes = [i32] * 7
         lib.presence_step_workspace_floats.restype = ctypes.c_longlong
         lib.presence_step_error_string.argtypes = [i32]
@@ -269,6 +318,77 @@ def _launch_presence(p, x, noise, dims: FusedDims, consts: FusedConsts,
         raise RuntimeError("presence_step launch failed: "
                            + lib.presence_step_error_string(rc).decode())
     KERNEL_LAUNCHES["presence_step"] += 1
+    KERNEL_STEPS["presence_step"] += 1
+
+
+def launch_geometry(dims: FusedDims, device, mod_idx: int,
+                    method: str = "joint_elbo",
+                    has_masks: bool = False) -> Dict[str, int]:
+    """Of the persistent kernel at these sizes on ``device``: the blocks of
+    its cooperative grid and the grid barriers of one step with and without
+    the in-kernel Adam update."""
+    lib = _presence_library()
+    with torch.cuda.device(device):
+        blocks = lib.presence_step_grid_blocks(
+            METHODS.index(method), int(has_masks), int(mod_idx), dims.b,
+            dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2)
+    if blocks < 0:
+        raise RuntimeError("presence_step: "
+                           + lib.presence_step_error_string(-blocks).decode())
+    return {"grid_blocks": blocks,
+            "barriers_per_step_adam": lib.presence_step_barriers(1),
+            "barriers_per_step": lib.presence_step_barriers(0)}
+
+
+def _check_epoch_stacks(p, xs, noise, masks, dims: FusedDims, mod_idx: int,
+                        method: str) -> None:
+    """The stacked inputs of a group of steps: contiguous float32 on the
+    params' device, ``xs [n, B, d_i]``, ``noise [n, B, w]``, ``masks [n,
+    1 | 2, B, hidden]`` or None."""
+    n, b = int(xs.shape[0]), dims.b
+    d = dims.d1 if mod_idx == 0 else dims.d2
+    s = dims.s1 if mod_idx == 0 else dims.s2
+    poe = method == "poe"
+    check_stack("presence_step", p.device, xs, (n, b, d))
+    check_stack("presence_step", p.device, noise,
+                (n, b, (dims.cd + s) * (2 if poe else 1)))
+    if masks is not None:
+        check_stack("presence_step", p.device, masks,
+                    (n, 2 if poe else 1, b, dims.h))
+
+
+def _launch_presence_epoch(p, mu, nu, count, xs, noise, dims: FusedDims,
+                           consts: FusedConsts, hyper: AdamHyper,
+                           learn_scale: bool, mod_idx: int, method: str,
+                           masks, phase_times=None):
+    """ONE launch for the whole group of steps; returns ``metrics [n,
+    9 | 10]``."""
+    device = p.device
+    n, b = int(xs.shape[0]), dims.b
+    check_inputs("presence_step", device, [
+        (t, (flat_size(dims),)) for t in (p, mu, nu)])
+    check_phase_times("presence_step", device, phase_times, n)
+    metrics = torch.empty(n, n_presence_metrics(method),
+                          dtype=torch.float32, device=device)
+    if n == 0:
+        return metrics
+    grads = torch.empty_like(p)
+    d = dims.d1 if mod_idx == 0 else dims.d2
+    s = dims.s1 if mod_idx == 0 else dims.s2
+    lib = _presence_library()
+    work = workspace(lib, "presence_step", device, METHODS.index(method),
+                     int(masks is not None), b, d, dims.h, dims.cd, s)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.presence_epoch_launch(*pack_epoch_args(
+            p, mu, nu, grads, metrics, xs, noise, masks, work, dims, consts,
+            learn_scale, mod_idx, method, count, hyper, stream, phase_times))
+    if rc != 0:
+        raise RuntimeError("presence_step epoch launch failed: "
+                           + lib.presence_step_error_string(rc).decode())
+    KERNEL_LAUNCHES["presence_step"] += 1
+    KERNEL_STEPS["presence_step"] += n
+    return metrics
 
 
 def presence_step_flat(p, x, noise, dims: FusedDims, consts: FusedConsts,
@@ -299,10 +419,30 @@ def presence_step_flat(p, x, noise, dims: FusedDims, consts: FusedConsts,
 def presence_epoch_flat(p, mu, nu, count: int, xs, noise, dims: FusedDims,
                         consts: FusedConsts, hyper: AdamHyper,
                         learn_scale: bool, mod_idx: int,
-                        method: str = "joint_elbo", masks=None):
+                        method: str = "joint_elbo", masks=None,
+                        phase_times=None):
     """``n`` presence steps on flat buffers, each followed by Adam over all
     28 tensors; ``noise [n, B, presence_noise_width]``, ``masks [n, 1 | 2,
-    B, hidden]`` or None. Returns ``metrics [n, 9 | 10]``."""
+    B, hidden]`` or None. Returns ``metrics [n, 9 | 10]``. On CUDA tensors
+    the whole group is ONE launch of the persistent kernel (stacks
+    contiguous float32 on the params' device, else it raises); on CPU
+    tensors the host loops the plain step and the plain Adam.
+    ``phase_times``: tracing, as in ``fused_step.epoch_flat`` (the kernel
+    has the same eight phases)."""
+    if mod_idx not in (0, 1):
+        raise ValueError(f"mod_idx must be 0 or 1, got {mod_idx}")
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    if p.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"presence_step: no kernel for {p.device}")
+    _check_epoch_stacks(p, xs, noise, masks, dims, mod_idx, method)
+    if p.device.type == "cuda":
+        return _launch_presence_epoch(p, mu, nu, count, xs, noise, dims,
+                                      consts, hyper, learn_scale, mod_idx,
+                                      method, masks, phase_times)
+    if phase_times is not None:
+        raise ValueError("presence_step: phase_times traces the kernel; "
+                         "the plain version has no phases")
     steps = []
     for i in range(xs.shape[0]):
         metrics, grads = presence_step_flat(

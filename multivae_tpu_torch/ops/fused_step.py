@@ -7,11 +7,11 @@ is a torch transcription of ``_fwd_bwd`` (``:319-499``): the 2-modality
 scalars and its hand-derived gradients, at any row count ``B``.
 :func:`loss_and_grads` has the contract of ``fused_loss_and_grads`` (the TPU
 kernel ``_fused_kernel``) and :func:`fused_epoch` that of ``fused_epoch``
-(``_epoch_kernel``): ``n`` steps, each followed by Adam. On CUDA tensors a
-step launches ``csrc/mopoe_step.cu`` and the update ``csrc/flat_adam.cu``,
-the host looping the epoch on one stream; on CPU tensors they run the plain
-versions. A kernel that does not build or launch raises; nothing falls
-back.
+(``_epoch_kernel``): ``n`` steps, each followed by Adam. On CUDA tensors
+``csrc/mopoe_step.cu`` runs a step, or a whole group of steps with their
+Adam updates, in ONE persistent cooperative launch (:func:`epoch_flat`); on
+CPU tensors the plain versions run, the host looping the steps. A kernel
+that does not build or launch raises; nothing falls back.
 
 With ``row_offset`` and ``b_total`` the step runs on one shard's row slice
 of a batch (the TPU kernel ``fused_sharded._dp_kernel``): ``dims.b`` is the
@@ -38,13 +38,15 @@ from ..params import (
     flatten_split,
     split_layout,
 )
-from .adam import AdamHyper, adam_update
+from .adam import AdamHyper, adam_scalars, adam_update
 
 LOG2PI = math.log(2.0 * math.pi)
 POE_EPS = 1e-8
 
 # launches of each kernel in this module; a caller resets and reads it
 KERNEL_LAUNCHES: Dict[str, int] = {"mopoe_step": 0, "dp_step": 0}
+# train steps those launches ran (one launch may run a group of steps)
+KERNEL_STEPS: Dict[str, int] = {"mopoe_step": 0, "dp_step": 0}
 
 
 class FusedConsts(NamedTuple):
@@ -276,6 +278,71 @@ def fwd_bwd_reference(sp, x1, x2, ej, es1, es2, dims: FusedDims,
 
 
 # ------------------------------------------------------------------ kernel
+# The C arguments of ``mopoe_epoch_launch`` in order: (name, kind), kind one
+# of "ptr" (a device pointer or the stream), "i32", "i64", "f32".
+EPOCH_ARGS = (
+    ("params", "ptr"), ("mu", "ptr"), ("nu", "ptr"), ("grads", "ptr"),
+    ("metrics", "ptr"), ("x1s", "ptr"), ("x2s", "ptr"), ("noise", "ptr"),
+    ("work", "ptr"),
+    ("n", "i32"), ("b", "i32"), ("d1", "i32"), ("d2", "i32"), ("h", "i32"),
+    ("cd", "i32"), ("s1", "i32"), ("s2", "i32"),
+    ("beta", "f32"), ("beta_style", "f32"), ("beta_content", "f32"),
+    ("learn_scale", "i32"), ("count", "i64"),
+    ("lr", "f32"), ("b1", "f32"), ("b2", "f32"), ("one_minus_b1", "f32"),
+    ("one_minus_b2", "f32"), ("log_b1", "f32"), ("log_b2", "f32"),
+    ("eps", "f32"),
+    ("phase_times", "ptr"), ("stream", "ptr"),
+)
+# tracing: the phases of one step inside the persistent kernels, in order;
+# a launch given ``phase_times`` stamps the device's clock at the start of
+# every step and after every phase's barrier
+PHASES = ("hidden", "heads", "latents", "decode", "decoder grads",
+          "latents backward", "hidden grad", "weight grads + Adam")
+_CTYPES = {"ptr": ctypes.c_void_p, "i32": ctypes.c_int,
+           "i64": ctypes.c_longlong, "f32": ctypes.c_float}
+
+
+def argtypes_of(table) -> list:
+    """The ctypes ``argtypes`` of a ``(name, kind)`` argument table."""
+    return [_CTYPES[kind] for _, kind in table]
+
+
+def pack_epoch_args(p, mu, nu, grads, metrics, x1s, x2s, noise, work,
+                    dims: FusedDims, consts: FusedConsts, learn_scale: bool,
+                    count: int, hyper: AdamHyper, stream: int,
+                    phase_times=None) -> tuple:
+    """The arguments of ``mopoe_epoch_launch`` in :data:`EPOCH_ARGS` order:
+    Python ints for pointers and integers (None for a null pointer), floats
+    for the scalars. Pure: it reads only addresses and shapes."""
+    return (
+        p.data_ptr(), mu.data_ptr(), nu.data_ptr(), grads.data_ptr(),
+        metrics.data_ptr(), x1s.data_ptr(), x2s.data_ptr(),
+        noise.data_ptr(), work.data_ptr(),
+        int(x1s.shape[0]), dims.b, dims.d1, dims.d2, dims.h, dims.cd,
+        dims.s1, dims.s2, *(float(c) for c in consts),
+        int(bool(learn_scale)), int(count), *adam_scalars(hyper),
+        None if phase_times is None else phase_times.data_ptr(), int(stream))
+
+
+def check_phase_times(name: str, device, phase_times, n: int) -> None:
+    """A launch's optional tracing buffer: int64 ``[n, len(PHASES) + 1]``,
+    contiguous, on the launch's device."""
+    if phase_times is None:
+        return
+    if (phase_times.device != device or phase_times.dtype != torch.int64
+            or tuple(phase_times.shape) != (n, len(PHASES) + 1)
+            or not phase_times.is_contiguous()):
+        raise ValueError(f"{name}: phase_times is a contiguous int64 "
+                         f"[{n}, {len(PHASES) + 1}] tensor on {device}")
+
+
+def phase_microseconds(phase_times) -> torch.Tensor:
+    """``[n, len(PHASES)]`` microseconds per phase and step from a launch's
+    ``phase_times`` stamps (on the CPU; fetching synchronizes)."""
+    t = phase_times.cpu().double()
+    return (t[:, 1:] - t[:, :-1]) / 1e3
+
+
 def _step_library():
     from ._build import load_kernel
 
@@ -290,13 +357,35 @@ def _step_library():
             [ptr] * 6 + [i32, ptr, i32, ptr, i32, ptr] + [i32] * 9
             + [f32] * 3 + [i32, ptr])
         lib.mopoe_step_slice_launch.restype = i32
+        lib.mopoe_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS)
+        lib.mopoe_epoch_launch.restype = i32
         lib.mopoe_step_workspace_floats.argtypes = [i32] * 7
         lib.mopoe_step_workspace_floats.restype = ctypes.c_longlong
         lib.mopoe_step_param_floats.argtypes = [i32] * 6
         lib.mopoe_step_param_floats.restype = ctypes.c_longlong
+        lib.mopoe_step_grid_blocks.argtypes = [i32] * 7
+        lib.mopoe_step_grid_blocks.restype = i32
+        lib.mopoe_step_barriers.argtypes = [i32]
+        lib.mopoe_step_barriers.restype = i32
         lib.mopoe_step_error_string.argtypes = [i32]
         lib.mopoe_step_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch_geometry(dims: FusedDims, device) -> Dict[str, int]:
+    """Of the persistent kernel at these sizes on ``device``: the blocks of
+    its cooperative grid and the grid barriers of one step with and without
+    the in-kernel Adam update."""
+    lib = _step_library()
+    with torch.cuda.device(device):
+        blocks = lib.mopoe_step_grid_blocks(dims.b, dims.d1, dims.d2, dims.h,
+                                            dims.cd, dims.s1, dims.s2)
+    if blocks < 0:
+        raise RuntimeError("mopoe_step: "
+                           + lib.mopoe_step_error_string(-blocks).decode())
+    return {"grid_blocks": blocks,
+            "barriers_per_step_adam": lib.mopoe_step_barriers(1),
+            "barriers_per_step": lib.mopoe_step_barriers(0)}
 
 
 _WORKSPACES: Dict[tuple, torch.Tensor] = {}
@@ -371,6 +460,55 @@ def _launch_step(p, x1, x2, ej, es1, es2, dims: FusedDims,
         raise RuntimeError(f"{counter} launch failed: "
                            + lib.mopoe_step_error_string(rc).decode())
     KERNEL_LAUNCHES[counter] += 1
+    KERNEL_STEPS[counter] += 1
+
+
+def check_stack(name: str, device, t, shape) -> None:
+    """Device, dtype, shape and contiguity checks of a launch's stacked
+    per-step input ``[n, B, width]``."""
+    if t.device != device:
+        raise ValueError(f"{name}: a stack is on {t.device}, expected "
+                         f"{device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} takes float32 stacks, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: stack of shape {tuple(t.shape)}, "
+                         f"expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} takes contiguous stacks")
+
+
+def _launch_epoch(p, mu, nu, count, x1s, x2s, noise, dims: FusedDims,
+                  consts: FusedConsts, hyper: AdamHyper, learn_scale: bool,
+                  phase_times=None):
+    """ONE launch for the whole group of steps (its stacks checked by the
+    caller); returns ``metrics [n, 17]``."""
+    device = p.device
+    n, b = int(x1s.shape[0]), dims.b
+    check_inputs("mopoe_step", device, [
+        (t, (flat_size(dims),)) for t in (p, mu, nu)])
+    check_phase_times("mopoe_step", device, phase_times, n)
+    metrics = torch.empty(n, N_METRICS, dtype=torch.float32, device=device)
+    if n == 0:
+        return metrics
+    grads = torch.empty_like(p)
+    lib = _step_library()
+    widths = (dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2)
+    if lib.mopoe_step_param_floats(*widths) != p.numel():
+        raise ValueError("mopoe_step: the kernel's split layout disagrees "
+                         "with params.split_shapes")
+    work = workspace(lib, "mopoe_step", device, b, *widths)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.mopoe_epoch_launch(*pack_epoch_args(
+            p, mu, nu, grads, metrics, x1s, x2s, noise, work, dims, consts,
+            learn_scale, count, hyper, stream, phase_times))
+    if rc != 0:
+        raise RuntimeError("mopoe_step epoch launch failed: "
+                           + lib.mopoe_step_error_string(rc).decode())
+    KERNEL_LAUNCHES["mopoe_step"] += 1
+    KERNEL_STEPS["mopoe_step"] += n
+    return metrics
 
 
 def _step_flat(p, x1, x2, ej, es1, es2, dims, consts, learn_scale,
@@ -431,13 +569,32 @@ def split_noise(noise, dims: FusedDims):
 
 def epoch_flat(p, mu, nu, count: int, x1s, x2s, noise, dims: FusedDims,
                consts: FusedConsts, hyper: AdamHyper,
-               learn_scale: bool = True):
+               learn_scale: bool = True, phase_times=None):
     """``n`` steps on flat buffers, each followed by Adam at
     ``t = count + step + 1``; ``p``, ``mu`` and ``nu`` are updated in place.
     ``noise [n, B, cd + s1 + s2]``. Returns ``metrics [n, 17]`` (on the
-    buffers' device; nothing is fetched)."""
+    buffers' device; nothing is fetched). On CUDA tensors the whole group
+    is ONE launch of the persistent kernel (stacks contiguous float32 on
+    the params' device, else it raises); on CPU tensors the host loops the
+    plain step and the plain Adam. ``phase_times`` (tracing, the kernel
+    only): an int64 ``[n, len(PHASES) + 1]`` tensor that takes the device's
+    clock at the start of each step and after each phase
+    (:func:`phase_microseconds`)."""
+    if p.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"mopoe_step: no kernel for {p.device}")
+    n = int(x1s.shape[0])
+    check_stack("mopoe_step", p.device, x1s, (n, dims.b, dims.d1))
+    check_stack("mopoe_step", p.device, x2s, (n, dims.b, dims.d2))
+    check_stack("mopoe_step", p.device, noise,
+                (n, dims.b, dims.cd + dims.s1 + dims.s2))
+    if p.device.type == "cuda":
+        return _launch_epoch(p, mu, nu, count, x1s, x2s, noise, dims,
+                             consts, hyper, learn_scale, phase_times)
+    if phase_times is not None:
+        raise ValueError("mopoe_step: phase_times traces the kernel; the "
+                         "plain version has no phases")
     steps = []
-    for i in range(x1s.shape[0]):
+    for i in range(n):
         ej, es1, es2 = split_noise(noise[i], dims)
         metrics, grads = step_flat(p, x1s[i], x2s[i], ej, es1, es2, dims,
                                    consts, learn_scale)

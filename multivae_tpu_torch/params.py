@@ -31,6 +31,8 @@ themselves, each in the JAX layout, back to back in model order.
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Dict, Mapping, NamedTuple
 
 import numpy as np
@@ -315,15 +317,18 @@ def layout_shapes(dims) -> Dict[str, tuple]:
     return split_shapes(dims)
 
 
+@functools.lru_cache(maxsize=None)
 def flat_size(dims) -> int:
-    return sum(int(np.prod(s)) for s in layout_shapes(dims).values())
+    """Floats of the layout's flat buffer (remembered per ``dims``: every
+    kernel launch checks its buffers against it)."""
+    return sum(math.prod(s) for s in layout_shapes(dims).values())
 
 
 def flat_views(buf: torch.Tensor, dims) -> Dict[str, torch.Tensor]:
     """The layout's tensors as views of a flat buffer."""
     out, off = {}, 0
     for name, shape in layout_shapes(dims).items():
-        n = int(np.prod(shape))
+        n = math.prod(shape)
         out[name] = buf[off:off + n].view(shape)
         off += n
     if off != buf.numel():
@@ -431,13 +436,13 @@ def ravel_to_split_flat(vec, dims, mod_names) -> torch.Tensor:
     vec = torch.as_tensor(np.asarray(vec, dtype=np.float32))
     template = _flat_tree(torch.zeros(flat_size(dims)), dims, mod_names)
     shapes = {p: tuple(v.shape) for p, v in template.items()}
-    total = sum(int(np.prod(s)) for s in shapes.values())
+    total = sum(math.prod(s) for s in shapes.values())
     if total != vec.numel():
         raise ValueError(f"raveled vector holds {vec.numel()} floats, the "
                          f"param tree {total}")
     leaves, off = {}, 0
     for path in ravel_order(unflatten_tree(template)):
-        n = int(np.prod(shapes[path]))
+        n = math.prod(shapes[path])
         leaves[path] = vec[off:off + n].reshape(shapes[path])
         off += n
     return _tree_flat(leaves, dims, mod_names)

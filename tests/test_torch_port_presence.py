@@ -167,6 +167,35 @@ def test_epoch_matches_jax_pallas_body(mod_idx):
             close(got[k][name], want[name], rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("count", [0, 5])
+@pytest.mark.parametrize("n", [1, 3])
+@pytest.mark.parametrize("mod_idx", [0, 1])
+def test_epoch_flat_matches_jax_pallas_body(mod_idx, n, count):
+    """``presence_epoch_flat`` (flat buffers updated in place: the
+    one-launch entry point's contract) against the JAX package's epoch body
+    on the same numpy-seeded batches and noise."""
+    sp = split_np(40 + mod_idx)
+    rng = np.random.default_rng(41)
+    mu = {k: (0.01 * rng.normal(size=v.shape)).astype(np.float32)
+          for k, v in sp.items()}
+    nu = {k: (1e-4 * rng.random(size=v.shape)).astype(np.float32)
+          for k, v in sp.items()}
+    xs, noise = present_np(mod_idx, B, 42, steps=n)
+    want, jmet = jax_presence_epoch(sp, mu, nu, count, xs, noise, mod_idx)
+    p, m, v = (bridge.flatten_split(t(d)) for d in (sp, mu, nu))
+    metrics = fused_presence.presence_epoch_flat(
+        p, m, v, count, torch.from_numpy(xs), torch.from_numpy(noise),
+        dims(), fused_step.FusedConsts(*CONSTS), HYPER, True, mod_idx)
+    assert metrics.shape == (n, fused_presence.n_presence_metrics(
+        "joint_elbo"))
+    close(metrics[:, 0], jmet[:, 0], rtol=LOSS_RTOL, atol=0)
+    close(metrics, jmet)
+    for got, ref in zip((p, m, v), want):
+        views = bridge.flat_views(got, dims())
+        for name in bridge.SPLIT_NAMES:
+            close(views[name], ref[name], rtol=1e-5, atol=1e-6)
+
+
 # ------------------------------------------------- the four methods, masks
 METHOD_CONSTS = (1.3, 0.7, 1.2)  # beta, beta_style, beta_content
 RATE = 0.2

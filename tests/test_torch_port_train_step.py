@@ -174,6 +174,39 @@ def test_fused_epoch_matches_jax(count):
             close(got[k][name], want[k][name], rtol=1e-4, atol=1e-6)
 
 
+@pytest.mark.parametrize("count", [0, 5])
+@pytest.mark.parametrize("n", [1, 3])
+def test_epoch_flat_matches_jax_fused_epoch(n, count):
+    """``epoch_flat`` (flat buffers updated in place, the stacked noise as
+    one ``[n, B, cd + s1 + s2]`` input: the one-launch entry point's
+    contract) against ``fused_epoch(interpret=True)`` on the same
+    numpy-seeded batches and noise."""
+    sp = split_np(31)
+    rng = np.random.default_rng(32)
+    mu = {k: (0.01 * rng.normal(size=v.shape)).astype(np.float32)
+          for k, v in sp.items()}
+    nu = {k: (1e-4 * rng.random(size=v.shape)).astype(np.float32)
+          for k, v in sp.items()}
+    x1s, x2s, ejs, es1s, es2s = batch_np(B, 33, steps=n)
+    want = jax_fs.fused_epoch(
+        j(sp), j(mu), j(nu), count, *map(jnp.asarray,
+                                         (x1s, x2s, ejs, es1s, es2s)),
+        jax_fs.FusedDims(*dims()), jax_fs.FusedConsts(*CONSTS), tuple(HYPER),
+        learn_scale=True, interpret=True, matmul_bf16=False)
+    p, m, v = (bridge.flatten_split(t(d)) for d in (sp, mu, nu))
+    noise = torch.from_numpy(np.concatenate([ejs, es1s, es2s], axis=-1))
+    metrics = fused_step.epoch_flat(
+        p, m, v, count, torch.from_numpy(x1s), torch.from_numpy(x2s), noise,
+        dims(), fused_step.FusedConsts(*CONSTS), HYPER, True)
+    assert metrics.shape == (n, fused_step.N_METRICS)
+    close(metrics[:, 0], want[3][:, 0], rtol=LOSS_RTOL, atol=0)
+    close(metrics, want[3])
+    for got, ref in zip((p, m, v), want[:3]):
+        views = bridge.flat_views(got, dims())
+        for name in bridge.SPLIT_NAMES:
+            close(views[name], ref[name], rtol=1e-5, atol=1e-6)
+
+
 def test_fused_epoch_leaves_inputs_and_counts_no_launch():
     sp = t(split_np())
     before = {k: v.clone() for k, v in sp.items()}

@@ -584,6 +584,55 @@ def test_data_parallel_routes(cohort, tmp_path, monkeypatch, method, rate,
                      "presence_step_flat": 2 * 2, "adam_update": 2 * 8}
 
 
+@pytest.mark.parametrize("kw,members", [
+    (dict(), 1), (dict(data_parallel=4), 1),
+    (dict(num_models=2, ensemble_parallel=True), 2)],
+    ids=["flagship", "data_parallel", "ensemble"])
+def test_groups_per_epoch_take_one_epoch_call_each(cohort, tmp_path,
+                                                   monkeypatch, kw, members):
+    """Per ``joint_elbo`` epoch the trainer hands each ``(presence pattern,
+    rows)`` group to ONE call of its epoch entry point (on a card: one
+    launch of the persistent kernel, Adam inside): the 5 full complete
+    batches and the partial one to ``epoch_flat`` (2 calls for 6 steps), the
+    clinical-only groups to ``presence_epoch_flat`` (2 calls for 2 steps).
+    Under ``data_parallel`` the full batches take the sharded step instead,
+    one call a batch (4 row-slice steps and one Adam update each). On the
+    CPU those calls loop the plain step; no launch is counted."""
+    from multivae_tpu_torch.ops import (adam, fused_presence, fused_sharded,
+                                        fused_step)
+
+    calls = {"epoch_flat": [], "presence_epoch_flat": [], "dp_step_flat": 0}
+
+    def spy_epoch(module, name):
+        fn = getattr(module, name)
+
+        def counted(p, mu, nu, count, xs, *args, **kwargs):
+            calls[name].append(int(xs.shape[0]))
+            return fn(p, mu, nu, count, xs, *args, **kwargs)
+        monkeypatch.setattr(module, name, counted)
+
+    spy_epoch(fused_step, "epoch_flat")
+    spy_epoch(fused_presence, "presence_epoch_flat")
+    dp_fn = fused_sharded.dp_step_flat
+
+    def dp_counted(*args, **kwargs):
+        calls["dp_step_flat"] += 1
+        return dp_fn(*args, **kwargs)
+    monkeypatch.setattr(fused_sharded, "dp_step_flat", dp_counted)
+    counters = (adam.KERNEL_LAUNCHES, fused_presence.KERNEL_LAUNCHES,
+                fused_presence.KERNEL_STEPS, fused_step.KERNEL_LAUNCHES,
+                fused_step.KERNEL_STEPS)
+    before = [dict(c) for c in counters]
+    epochs = 2
+    train(cohort, tmp_path, epochs, **kw)
+    dp = kw.get("data_parallel", 1) > 1
+    per_epoch = [1] if dp else [5, 1]
+    assert calls["epoch_flat"] == per_epoch * (epochs * members)
+    assert calls["presence_epoch_flat"] == [1, 1] * (epochs * members)
+    assert calls["dp_step_flat"] == (5 * epochs if dp else 0)
+    assert [dict(c) for c in counters] == before
+
+
 def test_batch_size_not_a_multiple_of_data_parallel_raises(cohort, tmp_path):
     with pytest.raises(ValueError, match="multiple of data_parallel"):
         train(cohort, tmp_path, 1, data_parallel=5)
