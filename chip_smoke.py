@@ -21,23 +21,23 @@ Phases, one line or more each:
    and grads rtol 5e-4 / atol 1e-5): the MoPoE step; the method step for
    moe, jsd, poe without masks and for joint_elbo, moe, jsd, poe with
    dropout masks (rate 0.2); the presence step for the four methods,
-   mod_idx 0 and 1, with and without masks (the MoPoE and presence steps
-   are persistent cooperative kernels: these are their one-step
-   launches); flat Adam on random state at count 0 and 1000 (rtol 1e-6 /
-   atol 1e-8); for the MoPoE step and every presence route ONE launch of
-   8 steps with Adam inside against 8 one-step launches with ``flat_adam``
-   between them from the same state (params, both moments and the
-   ``[8, k]`` metrics equal bit for bit, and two runs of the launch equal),
-   with the kernels' grid size and grid barriers per step; an 8-step epoch
-   of each route against the plain versions (params, mu, nu rtol 1e-4 /
-   atol 1e-5); and times in turns plain, kernel, kernel, plain: one step
-   of each method, one launch of 6 steps with Adam of the persistent
-   kernels (device time per step, and each phase's time by the kernel's
-   own clock stamps), ``method_step`` on joint_elbo without
-   masks (the MoPoE step's math on the multi-launch structure, timed
-   only), the Adam pass beside ``torch.optim.Adam(fused=True)``, one
-   flagship epoch of device work (4 launches for its 8 steps); each
-   kernel's bound from its bytes and operations;
+   mod_idx 0 and 1, with and without masks (the three are persistent
+   cooperative kernels: these are their one-step launches); flat Adam on
+   random state at count 0 and 1000 (rtol 1e-6 / atol 1e-8); for the MoPoE
+   step, every presence route and the method step of all four methods with
+   and without masks (at B=256 and 64) ONE launch of 8 steps with Adam
+   inside against 8 one-step launches with ``flat_adam`` between them from
+   the same state (params, both moments and the ``[8, k]`` metrics equal
+   bit for bit, and two runs of the launch equal), with the kernels' grid
+   size and grid barriers per step; an 8-step epoch of each route against
+   the plain versions (params, mu, nu rtol 1e-4 / atol 1e-5); and times in
+   turns plain, kernel, kernel, plain: one step of each method, one launch
+   of 6 steps with Adam (device time per step, and each phase's time by the
+   kernel's own clock stamps), ``method_step`` on joint_elbo without masks
+   (the MoPoE step's math on the method kernel, timed only), the Adam pass
+   beside ``torch.optim.Adam(fused=True)``, one flagship epoch of device
+   work (4 launches for its 8 steps); each kernel's bound from its bytes
+   and operations;
 5. slice: ``run_daa`` of a seeded-init flagship model on a numpy cohort
    (n_samples=200, n_validation=2), counting the sweep kernel's launches,
    and a small deterministic DAA on the card against the CPU;
@@ -45,13 +45,13 @@ Phases, one line or more each:
    (20 % without ROIs: 5 full + 1 partial complete batches, 1 full + 1
    partial clinical-only batches per epoch) for 5 epochs of joint_elbo
    and 3 epochs each of moe, jsd, poe and poe with dropout_rate=0.2,
-   counting each kernel's launches (a joint_elbo epoch: 2 ``mopoe_step``
-   and 2 ``presence_step`` launches for its 6 + 2 steps, no ``flat_adam``)
-   and the steps those launches ran, and checking losses, metric families
-   and checkpoints; a profiled epoch of each (device busy time);
-   ``workflows.daa_exp`` of the trained joint_elbo run; one epoch on the
-   card against one on the CPU (each one-launch group replayed step by
-   step from the state before it, to the launch's bits);
+   counting each kernel's launches (an epoch: 2 ``mopoe_step`` or
+   ``method_step`` and 2 ``presence_step`` launches for its 6 + 2 steps,
+   no ``flat_adam``) and the steps those launches ran, and checking
+   losses, metric families and checkpoints; a profiled epoch of each
+   (device busy time); ``workflows.daa_exp`` of the trained joint_elbo run;
+   one epoch on the card against one on the CPU (each one-launch group
+   replayed step by step from the state before it, to the launch's bits);
 7. dp-kernel: the row-slice entry points of the MoPoE and method steps
    (``dp_step``, ``dp_method_step``) at B=256 split over 2 and 4 shards,
    for the MoPoE step and the seven method routes, with and without a
@@ -67,31 +67,36 @@ Phases, one line or more each:
    joint_elbo 3 epochs and poe with dropout_rate=0.2 2 epochs: launches
    (per epoch 5 full complete batches x 4 slice launches and one Adam
    update each, the partial complete batch and the 2 presence steps one
-   launch each with Adam inside), losses, metric families, checkpoints;
-   the first epoch
-   against a ``data_parallel=1`` run from the same seed; a profiled epoch;
+   launch per group with Adam inside), losses, metric families,
+   checkpoints; the first epoch against a ``data_parallel=1`` run from the
+   same seed; a profiled epoch;
 9. ensemble-slice: ``train_exp(num_models=2, ensemble_parallel=True)``
    against ``ensemble_parallel=False`` from the same seed (every param and
    moment of both members bit-identical), and ``avatar_sweep_sharded``
    over a 4-entry mesh against the unsharded sweep (identical);
-10. generic-kernel: the layer-stack step (``generic_step``, architectures
-   outside the split layout) against its plain version at the flagship
-   widths: deep-A (1 encoder + 1 decoder hidden layer, per-sample output
-   scale), deep-B (2 + 1, per-feature scale), a 3 + 2 stack and a deep
-   encoder before a linear decoder, each for the four methods, with and
-   without dropout masks, with and without a learned scale, at B=256 and
-   137 (the train-kernel bounds); 8-step epochs of seven routes, every
-   step recomputed by the plain version from the kernels' state; times of
-   one deep-A joint_elbo step and one deep-B poe step with masks, each with
-   its bound. A gradient element outside the bound is excused only behind a
+10. generic-kernel: the layer-stack step (``generic_step``, a persistent
+   cooperative kernel for architectures outside the split layout) against
+   its plain version at the flagship widths: deep-A (1 encoder + 1 decoder
+   hidden layer, per-sample output scale), deep-B (2 + 1, per-feature
+   scale), a 3 + 2 stack and a deep encoder before a linear decoder, each
+   for the four methods, with and without dropout masks, with and without a
+   learned scale, at B=256 and 137 (the train-kernel bounds); for every one
+   of those 32 routes ONE launch of 8 steps with Adam against 8 one-step
+   launches with ``flat_adam`` (equal bits, two runs equal); the grid,
+   phases and barriers; 8-step epochs of seven routes, every step
+   recomputed by the plain version from the kernels' state; times of one
+   deep-A joint_elbo step and one deep-B poe step with masks (a one-step
+   launch and a 6-step launch with each phase's stamps), each with its
+   bound. A gradient element outside the bound is excused only behind a
    hidden unit that the plain version in float64 puts within 1e-6 of its
    ReLU's edge (two float32 sums may land on either side), and is printed;
 11. generic-slice: ``train_exp`` of deep-A with joint_elbo and of deep-B
    with poe and dropout_rate=0.2 on the train-slice cohort, 3 epochs each:
-   launches (per epoch the 5 full complete batches on ``generic_step``, the
-   partial complete batch and the clinical-only batches on the general
-   autograd step, 8 Adam updates), losses, metric families, checkpoints, a
-   resumed fourth epoch, a profiled epoch, and the first epoch's kernel
+   launches (per epoch one ``generic_step`` launch for the 5 full complete
+   batches, Adam inside; the partial complete batch and the clinical-only
+   batches on the general autograd step, 3 ``flat_adam`` updates), losses,
+   metric families, checkpoints, a resumed fourth epoch, a profiled epoch,
+   and the first epoch's launch replayed step by step (equal bits) and its
    steps recomputed by the plain version from the card's own state.
 
 The meshes of phases 7-9 start at card 0 and wrap at the card count, so one
@@ -554,10 +559,11 @@ class Route:
     def launch_epoch(self, p, mu, nu, count, stacks, dims, consts, hyper,
                      phase_times=None):
         """The route's whole group of steps with their Adam updates in ONE
-        launch of its persistent kernel (``mopoe`` and ``presence`` routes;
-        ``stacks``: :meth:`inputs` with a leading steps axis); ``p``,
-        ``mu``, ``nu`` are updated in place; ``phase_times`` takes the
-        kernel's clock stamps. Returns ``metrics [n, k]``."""
+        launch of its persistent kernel (``stacks``: :meth:`inputs` with a
+        leading steps axis); ``p``, ``mu``, ``nu`` are updated in place;
+        ``phase_times`` takes the kernel's clock stamps. Returns ``metrics
+        [n, k]``."""
+        from multivae_tpu_torch.ops import fused_methods as fm
         from multivae_tpu_torch.ops import fused_presence as fp
         from multivae_tpu_torch.ops import fused_step as fs
 
@@ -565,19 +571,32 @@ class Route:
         if self.kind == "mopoe":
             return fs.epoch_flat(p, mu, nu, count, x1s, x2s, noises, dims,
                                  consts, hyper, True, phase_times)
+        if self.kind == "method":
+            return fm.method_epoch_flat(self.method, p, mu, nu, count, x1s,
+                                        x2s, noises, dims, consts, hyper,
+                                        True, masks, phase_times)
         xs = x1s if self.mod_idx == 0 else x2s
         return fp.presence_epoch_flat(p, mu, nu, count, xs, noises, dims,
                                       consts, hyper, True, self.mod_idx,
                                       self.method, masks, phase_times)
 
+    def phases(self, dims):
+        """The persistent kernel's phases, in order."""
+        from multivae_tpu_torch.ops import fused_step as fs
+
+        return fs.PHASES
+
     def geometry(self, dims, device):
         """Grid blocks and barriers per step of the route's persistent
         kernel at these sizes."""
+        from multivae_tpu_torch.ops import fused_methods as fm
         from multivae_tpu_torch.ops import fused_presence as fp
         from multivae_tpu_torch.ops import fused_step as fs
 
         if self.kind == "mopoe":
             return fs.launch_geometry(dims, device)
+        if self.kind == "method":
+            return fm.launch_geometry(dims, device, self.method, self.masked)
         return fp.launch_geometry(dims, device, self.mod_idx, self.method,
                                   self.masked)
 
@@ -672,7 +691,7 @@ def epoch_check(route, p0, dims, consts, hyper, gen, device):
 
 
 def launch_vs_steps(route, p0, dims, consts, hyper, gen, device, n=8,
-                    count=3):
+                    count=3, phase="train-kernel"):
     """One launch of ``n`` steps with the in-kernel Adam against ``n``
     launches of one step with ``flat_adam`` between them, from the same
     state on the same inputs: params, both moments and the ``[n, k]``
@@ -699,13 +718,46 @@ def launch_vs_steps(route, p0, dims, consts, hyper, gen, device, n=8,
     stepwise = [q, mu, nu, torch.stack(rows)]
     same = all(torch.equal(a, b) for a, b in zip(runs[0], stepwise))
     again = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
-    log("train-kernel", f"{route.name}: one launch of {n} steps with Adam vs "
-        f"{n} launches of 1 step + flat_adam (count {count}): params, mu, "
+    log(phase, f"{route.name} B={dims.b}: one launch of {n} steps with Adam "
+        f"vs {n} launches of 1 step + flat_adam (count {count}): params, mu, "
         f"nu, metrics equal bits {same}; two runs of the launch equal bits "
         f"{again}")
     if not (same and again):
         raise SystemExit(f"{route.name}: the {n}-step launch is not its "
                          f"steps one by one, bit for bit")
+
+
+def time_launch(route, p0, dims, consts, hyper, gen, device, phase, group=6):
+    """One launch of ``group`` steps with Adam by CUDA events (device time:
+    nothing but the kernel runs between the two events) and, from one more
+    launch, each phase's time by the kernel's own clock (steps 2..: the
+    first step also warms the caches). Returns the record entries."""
+    import torch
+
+    from multivae_tpu_torch.ops import fused_step as fs
+
+    stacks = route.inputs(dims, gen, device, steps=group)
+    st = [p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)]
+    launch_ms = (cuda_ms(lambda: route.launch_epoch(
+        *st, 0, stacks, dims, consts, hyper), 20)
+        + cuda_ms(lambda: route.launch_epoch(
+            *st, 0, stacks, dims, consts, hyper), 20)) / 2
+    names = route.phases(dims)
+    stamps = torch.zeros(group, len(names) + 1, dtype=torch.int64,
+                         device=device)
+    route.launch_epoch(*st, 0, stacks, dims, consts, hyper, stamps)
+    phase_us = fs.phase_microseconds(stamps)[1:].mean(0).tolist()
+    bound_ms = route.bound(p0, tuple(None if t is None else t[0]
+                                     for t in stacks), dims)["bound_ms"]
+    log(phase, f"{route.name} B={dims.b}: one launch of {group} steps with "
+        f"Adam {launch_ms:.4f} ms = {launch_ms / group:.4f} ms per step with "
+        f"its Adam (device time) = {100 * bound_ms * group / launch_ms:.2f} "
+        f"% of the bound's rate; by the kernel's clock {sum(phase_us):.1f} "
+        f"us per step, phases with their barriers (us): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in zip(names, phase_us)))
+    return dict(launch_steps=group, launch_ms=launch_ms,
+                step_ms_in_launch=launch_ms / group,
+                phase_us=dict(zip(names, phase_us)))
 
 
 def train_kernel_check(device):
@@ -775,15 +827,25 @@ def train_kernel_check(device):
     gen = torch.Generator(device=device).manual_seed(SEED + 1)
     # the persistent kernels: a group of steps in one launch is its steps
     # one by one (which also shows the in-kernel Adam equal to flat_adam)
-    # (a generator of its own: the epochs below keep their inputs)
+    # (a generator of its own: the epochs below keep their inputs); the
+    # method step for all four methods with and without masks, at the full
+    # and the partial batch of an epoch
     launch_gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    method_routes = [Route("method", m, None, masked)
+                     for m in ("joint_elbo", "moe", "jsd", "poe")
+                     for masked in (False, True)]
     for route in routes:
         if route.kind != "method":
             launch_vs_steps(route, p0, dims, consts, hyper, launch_gen,
                             device)
-    geo = {r.name: r.geometry(dims, device) for r in routes
-           if r.kind != "method" and r.mod_idx in (None, 0)
-           and r.method in ("joint_elbo", "poe")}
+    for b in (256, 64):
+        for route in method_routes:
+            launch_vs_steps(route, p0, dims._replace(b=b), consts, hyper,
+                            launch_gen, device)
+    geo_routes = [r for r in routes if r.mod_idx in (None, 0) and (
+        r.method in ("joint_elbo", "poe")
+        or r.name == "method_step[moe]")]
+    geo = {r.name: r.geometry(dims, device) for r in geo_routes}
     log("train-kernel", "persistent kernels at B=256, cooperative grid "
         "blocks and grid barriers per step (with Adam / one step without): "
         + "; ".join(f"{k} {v['grid_blocks']} blocks, "
@@ -791,6 +853,7 @@ def train_kernel_check(device):
                     f"{v['barriers_per_step']} barriers"
                     for k, v in geo.items()))
     result["mopoe_step"]["geometry"] = geo["mopoe_step"]
+    result["method_step"]["geometry"] = geo["method_step[poe, masks]"]
     result["presence_step"]["geometry"] = geo[
         "presence_step[joint_elbo, mod_idx=0]"]
     for route in routes:
@@ -813,10 +876,9 @@ def train_kernel_check(device):
                 "presence_step[joint_elbo, mod_idx=0]"}
     timed = [r for r in routes if r.kind != "presence"
              or (r.mod_idx == 0 and r.method in ("joint_elbo", "poe"))]
-    # timed only: the MoPoE step's math on the multi-launch structure of
-    # method_step.cu (11 launches), in the same call as the persistent one
+    # timed only: the MoPoE step's math on the method kernel, in the same
+    # call as the MoPoE kernel
     timed.insert(1, Route("method", "joint_elbo", None, False))
-    group = 6  # steps of the timed one-launch group
     for route in timed:
         inp = route.inputs(dims, gen, device)
         ker_ms, plain_ms, t = time_pair(
@@ -824,40 +886,15 @@ def train_kernel_check(device):
             lambda: route.step("plain", p, inp, dims, consts), iters=30)
         entry = dict(ms=ker_ms, plain_ms=plain_ms, library_ms=None,
                      **route.bound(p, inp, dims))
-        if route.kind != "method":
-            # one launch of `group` steps with Adam: device time, since
-            # nothing but the kernel runs between the two events
-            stacks = route.inputs(dims, gen, device, steps=group)
-            st = [p0.clone(), torch.zeros_like(p0), torch.zeros_like(p0)]
-            launch_ms = (cuda_ms(lambda: route.launch_epoch(
-                *st, 0, stacks, dims, consts, hyper), 20)
-                + cuda_ms(lambda: route.launch_epoch(
-                    *st, 0, stacks, dims, consts, hyper), 20)) / 2
-            # the kernel's own clock per phase (steps 2.. of one more
-            # launch: the first step also warms the caches)
-            stamps = torch.zeros(group, len(fs.PHASES) + 1,
-                                 dtype=torch.int64, device=device)
-            route.launch_epoch(*st, 0, stacks, dims, consts, hyper, stamps)
-            phase_us = fs.phase_microseconds(stamps)[1:].mean(0).tolist()
-            entry.update(launch_steps=group, launch_ms=launch_ms,
-                         step_ms_in_launch=launch_ms / group,
-                         phase_us=dict(zip(fs.PHASES, phase_us)))
-            log("train-kernel", f"{route.name} B=256: one launch of {group} "
-                f"steps with Adam {launch_ms:.4f} ms = "
-                f"{launch_ms / group:.4f} ms per step with its Adam (device "
-                f"time) = {100 * entry['bound_ms'] * group / launch_ms:.2f} "
-                f"% of the bound's rate; by the kernel's clock "
-                f"{sum(phase_us):.1f} us per step, phases with their "
-                f"barriers (us): "
-                + ", ".join(f"{k} {v:.1f}" for k, v in
-                            zip(fs.PHASES, phase_us)))
+        entry.update(time_launch(route, p0, dims, consts, hyper, gen, device,
+                                 "train-kernel"))
         result[route.kernel]["variants"][route.name] = entry
         if headline[route.kernel] == route.name:
             result[route.kernel].update(entry, timed_variant=route.name)
         fl = step_flops(256, route.enc_passes, route.dec_passes)
         log("train-kernel", f"{route.name} B=256: kernel {t[1]:.4f}/"
-            f"{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms per step; "
-            f"bound {entry['bound_ms']:.5f} ms by {entry['bound_by']} "
+            f"{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms per one-step "
+            f"launch; bound {entry['bound_ms']:.5f} ms by {entry['bound_by']} "
             f"({fl / 1e6:.1f} MFLOP); kernel "
             f"{fl / (ker_ms * 1e-3) / 1e12:.3f} TFLOP/s = "
             f"{100 * entry['bound_ms'] / ker_ms:.2f} % of the bound's rate")
@@ -1332,6 +1369,27 @@ class GenericRoute:
             learn_scale, masks)
         return m, flatten_named(g, dims)
 
+    def launch_epoch(self, p, mu, nu, count, stacks, dims, consts, hyper,
+                     phase_times=None):
+        """A group of steps with their Adam updates in ONE launch of the
+        persistent kernel, as :meth:`Route.launch_epoch`."""
+        from multivae_tpu_torch.ops import fused_generic as fg
+
+        x1s, x2s, noises, masks = stacks
+        return fg.generic_epoch_flat(self.method, p, mu, nu, count, x1s, x2s,
+                                     noises, dims, consts, hyper, True, masks,
+                                     None, phase_times)
+
+    def phases(self, dims):
+        from multivae_tpu_torch.ops import fused_generic as fg
+
+        return fg.phases(dims)
+
+    def geometry(self, dims, device):
+        from multivae_tpu_torch.ops import fused_generic as fg
+
+        return fg.launch_geometry(dims, device, self.method, self.masked)
+
     def bound(self, p, inp, dims) -> dict:
         """Params, batch, noise and masks read once, every gradient and the
         metrics written once; the operations of its passes."""
@@ -1386,6 +1444,28 @@ def generic_kernel_check(device):
     log("generic-kernel", f"{n_cases} steps held to the plain version (loss "
         f"rtol {LOSS_RTOL}; metrics and grads rtol {STEP_RTOL} / atol "
         f"{STEP_ATOL})")
+
+    # a group of steps in one launch is its steps one by one, bit for bit,
+    # for every architecture x method x masks
+    launch_gen = torch.Generator(device=device).manual_seed(SEED + 10)
+    geo = {}
+    for arch in DEEP_ARCHS:
+        for method in fg.PORTED_METHODS:
+            for masked in (False, True):
+                route = GenericRoute(arch, method, masked)
+                dims, p0 = route.setup(device, 256, SEED)
+                launch_vs_steps(route, p0, dims, consts, hyper, launch_gen,
+                                device, phase="generic-kernel")
+                if method == "poe" and masked or method == "joint_elbo" \
+                        and not masked:
+                    geo[route.name] = route.geometry(dims, device)
+    log("generic-kernel", "persistent kernel at B=256, cooperative grid "
+        "blocks, phases and grid barriers per step (with Adam / one step "
+        "without): " + "; ".join(
+            f"{k} {v['grid_blocks']} blocks, {v['phases']} phases, "
+            f"{v['barriers_per_step_adam']} / {v['barriers_per_step']} "
+            f"barriers" for k, v in geo.items()))
+    entry["geometry"] = geo["generic_step[deep-A, joint_elbo]"]
 
     # 8-step epochs. Along the kernels' own trajectory every step is
     # recomputed by the plain version from the same state (the step bound),
@@ -1445,13 +1525,15 @@ def generic_kernel_check(device):
              cuda_ms(ref, 30)]
         timed = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
                      library_ms=None, **route.bound(p, inp, dims))
+        timed.update(time_launch(route, p, dims, consts, hyper, gen, device,
+                                 "generic-kernel"))
         entry["variants"][route.name] = timed
         if route.name == headline:
             entry.update(timed, timed_variant=route.name)
         fl = generic_flops(dims, route.enc_passes, route.dec_passes)
         log("generic-kernel", f"{route.name} B=256: kernel {t[1]:.4f}/"
-            f"{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms per step; "
-            f"bound {timed['bound_ms']:.5f} ms by {timed['bound_by']} "
+            f"{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms per one-step "
+            f"launch; bound {timed['bound_ms']:.5f} ms by {timed['bound_by']} "
             f"({fl / 1e6:.1f} MFLOP, {p.numel()} params); kernel "
             f"{fl / (timed['ms'] * 1e-3) / 1e12:.3f} TFLOP/s = "
             f"{100 * timed['bound_ms'] / timed['ms']:.2f} % of the bound's "
@@ -1722,8 +1804,8 @@ def recording_train_loop():
     each step's inputs, its (metrics, grads), and each update's state
     before and after. A data-parallel step is recorded as one step of its
     whole batch: the unsharded step's inputs, the rescaled metrics and the
-    summed gradient. On the card a group of MoPoE or presence steps is one
-    launch with Adam inside: the state before it is kept, the launch runs,
+    summed gradient. On the card a group of MoPoE, method or presence steps
+    is one launch with Adam inside: the state before it is kept, the launch runs,
     and the group is replayed from the kept state with one-step launches
     and ``flat_adam``, which are recorded step by step; the replay must end
     in the launch's state, bit for bit. The replay's launches are taken out
@@ -1792,26 +1874,30 @@ def recording_train_loop():
            "dp_step_flat": dp_mopoe_recorder,
            "dp_method_step_flat": dp_method_recorder}
 
-    def replayed(module, epoch_fn, one_step):
+    def replayed(module, epoch_fn, one_step, lead=0):
         """``epoch_fn`` (a one-launch group on the card) followed by its
         recorded replay; ``one_step(q, i, ...)`` runs step ``i`` of the
-        group on state ``q`` through the recording step wrapper."""
+        group on state ``q`` through the recording step wrapper. ``lead``
+        arguments (the method) come before the state."""
         import torch
 
         counts = (adam.KERNEL_LAUNCHES, module.KERNEL_LAUNCHES,
                   module.KERNEL_STEPS)
 
-        def epoch(p, mu, nu, count, *rest):
+        def epoch(*args):
+            head, (p, mu, nu, count), rest = (args[:lead],
+                                              args[lead:lead + 4],
+                                              args[lead + 4:])
             if p.device.type != "cuda":
                 # the CPU loops the recorded step and update itself
-                return epoch_fn(p, mu, nu, count, *rest)
+                return epoch_fn(*args)
             q, qm, qv = (x.clone() for x in (p, mu, nu))
-            metrics = epoch_fn(p, mu, nu, count, *rest)
+            metrics = epoch_fn(*args)
             hyper = next(a for a in rest if isinstance(a, adam.AdamHyper))
             saved = [dict(c) for c in counts]
             rows = []
             for i in range(metrics.shape[0]):
-                m, g = one_step(q, i, *rest)
+                m, g = one_step(q, i, *head, *rest)
                 update(q, qm, qv, g, count + i + 1, hyper)
                 rows.append(m)
             for c, old in zip(counts, saved):
@@ -1836,13 +1922,21 @@ def recording_train_loop():
             q, xs[i], noise[i], dims, consts, learn_scale, mod_idx, method,
             None if masks is None else masks[i])
 
-    epochs = {"epoch_flat": (fused_step, mopoe_one),
-              "presence_epoch_flat": (fused_presence, presence_one)}
-    orig_epochs = {name: getattr(m, name) for name, (m, _) in epochs.items()}
+    def method_one(q, i, method, x1s, x2s, noise, dims, consts, hyper,
+                   learn_scale=True, masks=None):
+        return new["method_step_flat"](
+            method, q, x1s[i], x2s[i], noise[i], dims, consts, learn_scale,
+            None if masks is None else masks[i])
+
+    epochs = {"epoch_flat": (fused_step, mopoe_one, 0),
+              "presence_epoch_flat": (fused_presence, presence_one, 0),
+              "method_epoch_flat": (fused_methods, method_one, 1)}
+    orig_epochs = {name: getattr(m, name)
+                   for name, (m, _, _) in epochs.items()}
     for name, m in owner.items():
         setattr(m, name, new[name])
-    for name, (m, one) in epochs.items():
-        setattr(m, name, replayed(m, orig_epochs[name], one))
+    for name, (m, one, lead) in epochs.items():
+        setattr(m, name, replayed(m, orig_epochs[name], one, lead))
     for m in modules:
         m.adam_update = update
     try:
@@ -1850,7 +1944,7 @@ def recording_train_loop():
     finally:
         for name, m in owner.items():
             setattr(m, name, orig[name])
-        for name, (m, _) in epochs.items():
+        for name, (m, _, _) in epochs.items():
             setattr(m, name, orig_epochs[name])
         for m in modules:
             m.adam_update = adam.adam_update
@@ -2032,11 +2126,15 @@ def hold_slice_epoch(card, host, dims, phase="train-slice",
 def step_counters():
     """The counts of train steps run by the persistent kernels' launches
     (one launch may run a group of steps)."""
-    from multivae_tpu_torch.ops import fused_presence, fused_step
+    from multivae_tpu_torch.ops import (fused_generic, fused_methods,
+                                        fused_presence, fused_step)
 
     return {"mopoe_step": fused_step.KERNEL_STEPS,
             "dp_step": fused_step.KERNEL_STEPS,
-            "presence_step": fused_presence.KERNEL_STEPS}
+            "method_step": fused_methods.KERNEL_STEPS,
+            "dp_method_step": fused_methods.KERNEL_STEPS,
+            "presence_step": fused_presence.KERNEL_STEPS,
+            "generic_step": fused_generic.KERNEL_STEPS}
 
 
 def slice_counters():
@@ -2057,12 +2155,12 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
                     phase="train-slice"):
     """``train_exp`` of one method on the card with every count set to 0
     just before and read just after; checks the launches of its routes (the
-    MoPoE and presence routes: one launch per ``(presence pattern, rows)``
-    group, Adam inside, and the steps those launches ran), the losses, the
-    metric families and the checkpoints. ``outdir`` is the run's own (run
-    names have the resolution of a minute). With ``data_parallel > 1`` the
-    full complete batches take ``data_parallel`` row-slice launches each.
-    Returns ``(run, launches)``."""
+    MoPoE, method and presence routes: one launch per ``(presence pattern,
+    rows)`` group, Adam inside, and the steps those launches ran), the
+    losses, the metric families and the checkpoints. ``outdir`` is the
+    run's own (run names have the resolution of a minute). With
+    ``data_parallel > 1`` the full complete batches take ``data_parallel``
+    row-slice launches each. Returns ``(run, launches)``."""
     import types
 
     import pandas as pd
@@ -2116,6 +2214,8 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
         "mopoe_step steps": steps_run["mopoe_step"]
         == (n_whole * epochs if mopoe else 0),
         "method_step launches": launches["method_step"]
+        == (0 if mopoe else whole_groups * epochs),
+        "method_step steps": steps_run["method_step"]
         == (0 if mopoe else n_whole * epochs),
         "dp_step launches": launches["dp_step"]
         == (n_dp * data_parallel * epochs if mopoe else 0),
@@ -2125,10 +2225,9 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
         == len(set(clinical)) * epochs,
         "presence_step steps": steps_run["presence_step"]
         == len(clinical) * epochs,
-        # Adam runs inside the MoPoE and presence launches; flat_adam
-        # follows every method step and every data-parallel step
-        "flat_adam launches": launches["flat_adam"]
-        == (n_dp if mopoe else len(complete)) * epochs,
+        # Adam runs inside the MoPoE, method and presence launches;
+        # flat_adam follows every data-parallel step
+        "flat_adam launches": launches["flat_adam"] == n_dp * epochs,
         "losses finite": bool(np.isfinite(csv.value).all()),
         "last epoch loss < first": bool(last < first),
         "complete-route families": n_complete == len(complete) * epochs,
@@ -2159,9 +2258,7 @@ def train_and_check(outdir, datadir, device, card, method, rate, epochs,
     busy = sum(by_name.values())
     if busy > 0:
         ours = {k: v for k, v in by_name.items()
-                if any(s in k for s in ("gemm", "latent", "colsum",
-                                        "colreduce", "metrics_kernel",
-                                        "flat_adam", "steps_kernel"))}
+                if any(s in k for s in ("steps_kernel", "flat_adam"))}
         log(phase, f"[{tag}] profiled training epoch: wall "
             f"{ep_wall * 1e3:.3f} ms, device busy {busy:.3f} ms "
             f"(idle share {100 * (1 - busy / (ep_wall * 1e3)):.1f} %) ="
@@ -2258,32 +2355,57 @@ GENERIC_SLICE_EPOCHS = 3
 
 @contextlib.contextmanager
 def recording_generic_epoch():
-    """Record every layer-stack step and its Adam update of the train loop
-    on the host: each step's arguments and its (metrics, grads), each
-    update's state before and after."""
+    """Record the layer-stack steps of the train loop on the host: a group
+    of steps is one launch with Adam inside on the card, so the state
+    before it is kept, the launch runs, and the group is replayed from the
+    kept state with one-step launches and ``flat_adam``, each step's
+    arguments and (metrics, grads) and each update's state before and after
+    recorded; the replay must end in the launch's state and metrics, bit for
+    bit. The replay's launches are taken out of the launch and step
+    counts."""
+    import torch
+
     from multivae_tpu_torch.ops import adam, fused_generic
 
     rec = {"steps": [], "updates": []}
-    step_fn = fused_generic.generic_step_flat
+    epoch_fn = fused_generic.generic_epoch_flat
 
-    def step(*args):
-        out = step_fn(*args)
-        rec["steps"].append(([cpu(a) for a in args], [cpu(o) for o in out]))
-        return out
+    def epoch(method, p, mu, nu, count, x1s, x2s, noise, dims, consts, hyper,
+              learn_scale=True, masks=None, order=None):
+        q, qm, qv = (x.clone() for x in (p, mu, nu))
+        metrics = epoch_fn(method, p, mu, nu, count, x1s, x2s, noise, dims,
+                           consts, hyper, learn_scale, masks, order)
+        counts = (adam.KERNEL_LAUNCHES, fused_generic.KERNEL_LAUNCHES,
+                  fused_generic.KERNEL_STEPS)
+        saved = [dict(c) for c in counts]
+        rows = []
+        for i in range(x1s.shape[0]):
+            args = (method, q, x1s[i], x2s[i], noise[i], dims, consts,
+                    learn_scale, None if masks is None else masks[i])
+            out = fused_generic.generic_step_flat(*args)
+            rec["steps"].append(([cpu(a) for a in args],
+                                 [cpu(o) for o in out]))
+            before = [cpu(x) for x in (q, qm, qv)]
+            adam.adam_update(q, qm, qv, out[1], count + i + 1, hyper)
+            rec["updates"].append((before, cpu(out[1]), count + i + 1, hyper,
+                                   [cpu(x) for x in (q, qm, qv)]))
+            rows.append(out[0])
+        for c, old in zip(counts, saved):
+            c.update(old)
+        rows = torch.stack(rows)
+        if order is not None:
+            rows = rows[:, torch.as_tensor(order, device=rows.device)]
+        if not all(torch.equal(a, b) for a, b in (
+                (q, p), (qm, mu), (qv, nu), (rows, metrics))):
+            raise SystemExit("the generic_step launch and its replay by "
+                             "one-step launches differ")
+        return metrics
 
-    def update(p, mu, nu, g, t, hyper):
-        before = [cpu(x) for x in (p, mu, nu)]
-        adam.adam_update(p, mu, nu, g, t, hyper)
-        rec["updates"].append((before, cpu(g), t, hyper,
-                               [cpu(x) for x in (p, mu, nu)]))
-
-    fused_generic.generic_step_flat = step
-    fused_generic.adam_update = update
+    fused_generic.generic_epoch_flat = epoch
     try:
         yield rec
     finally:
-        fused_generic.generic_step_flat = step_fn
-        fused_generic.adam_update = adam.adam_update
+        fused_generic.generic_epoch_flat = epoch_fn
 
 
 def generic_train_and_check(root, path, kw, datadir, device, card, complete,
@@ -2308,10 +2430,11 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
     phase, epochs = "generic-slice", GENERIC_SLICE_EPOCHS
     tag = path[len("train "):]
     counters = slice_counters()
+    ran = step_counters()
     steps = len(complete) + len(clinical)
     n_full = sum(b == 256 for b in complete)
     outdir = os.path.join(root, path.replace(" ", "_"))
-    for c in counters.values():
+    for c in list(counters.values()) + list(ran.values()):
         for k in c:
             c[k] = 0
     torch.cuda.synchronize()
@@ -2319,6 +2442,7 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
     run, walls = train_run(datadir, outdir, epochs, "cuda", **kw)
     total = time.perf_counter() - start
     launches = {k: c[k] for k, c in counters.items()}
+    steps_run = ran["generic_step"]["generic_step"]
     rundir = os.path.join(outdir, run)
 
     def train_losses():
@@ -2340,10 +2464,13 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
     first, last = losses[:steps].mean(), losses[-steps:].mean()
     ckpt = os.path.join(rundir, "checkpoints", f"{epochs - 1:04d}")
     checks = {
-        "generic_step launches = full complete batches":
-        launches["generic_step"] == n_full * epochs,
-        "flat_adam launches = steps": launches["flat_adam"]
-        == steps * epochs,
+        # one launch per epoch for the full complete batches, Adam inside;
+        # flat_adam after every general (autograd) step
+        "generic_step launches = epochs": launches["generic_step"] == epochs,
+        "generic_step steps = full complete batches": steps_run
+        == n_full * epochs,
+        "flat_adam launches = the other batches": launches["flat_adam"]
+        == (steps - n_full) * epochs,
         "no other step kernel": all(
             launches[k] == 0 for k in ("mopoe_step", "method_step",
                                        "presence_step", "dp_step",
@@ -2362,7 +2489,8 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
     }
     wall = float(np.median(walls[1:]))
     log(phase, f"[{tag}] train_exp {epochs} epochs x {steps} steps in "
-        f"{total:.3f} s (set-up included); launches {launches}; mean train "
+        f"{total:.3f} s (set-up included); launches {launches}; steps run "
+        f"by the generic_step launches {steps_run}; mean train "
         f"loss epoch 1 {first:.3f} -> epoch {epochs} {last:.3f}; checks "
         + ", ".join(f"{k}={v}" for k, v in checks.items()))
     log(phase, f"[{tag}] train wall per epoch (train + test + logs, host "
@@ -2402,8 +2530,7 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
     busy = sum(by_name.values())
     if busy > 0:
         ours = sum(v for k, v in by_name.items() if any(
-            s in k for s in ("gemm", "latent", "colsum", "colreduce",
-                             "metrics_kernel", "flat_adam")))
+            s in k for s in ("steps_kernel", "flat_adam")))
         log(phase, f"[{tag}] profiled training epoch: wall "
             f"{ep_wall * 1e3:.3f} ms, device busy {busy:.3f} ms (idle share "
             f"{100 * (1 - busy / (ep_wall * 1e3)):.1f} %) = "
@@ -2418,8 +2545,9 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
             f"{ep_wall * 1e3:.3f} ms; device time not measured (the "
             f"profiler recorded no device events)")
 
-    # the first epoch's kernel steps and their Adam updates, recomputed by
-    # the plain versions on the host from the card's own state
+    # the first epoch's kernel steps (the launch replayed step by step) and
+    # their Adam updates, recomputed by the plain versions on the host from
+    # the card's own state
     with recording_generic_epoch() as rec:
         train_run(datadir, os.path.join(root, path.replace(" ", "_")
                                         + "_one"), 1, "cuda", **kw)
@@ -2434,10 +2562,12 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
                 method_, p, (x1, x2, noise, masks), dims, consts)))
     worst_adam = hold_adam_updates(rec["updates"], phase, tag)
     ok = len(rec["steps"]) == len(rec["updates"]) == n_full
-    log(phase, f"[{tag}] first epoch: {len(rec['steps'])} generic_step "
-        f"launches recomputed by the plain version on the host from the "
-        f"card's own state max_abs_err {worst:.3e}, their "
-        f"{len(rec['updates'])} Adam updates {worst_adam:.3e}")
+    log(phase, f"[{tag}] first epoch: the generic_step launch equals its "
+        f"{len(rec['steps'])} steps replayed by one-step launches and "
+        f"flat_adam, bit for bit; those steps recomputed by the plain "
+        f"version on the host from the card's own state max_abs_err "
+        f"{worst:.3e}, their {len(rec['updates'])} Adam updates "
+        f"{worst_adam:.3e}")
     if not ok:
         raise SystemExit(f"generic slice ({tag}): expected {n_full} kernel "
                          f"steps in the first epoch")

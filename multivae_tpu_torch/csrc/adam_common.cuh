@@ -1,7 +1,7 @@
 // Adam's per-element update, shared by flat_adam.cu (one launch per update)
-// and the persistent step kernels (mopoe_step.cu, presence_step.cu: in the
-// last phase of every step of a launch, each gradient element where it is
-// produced), for Hopper (sm_90a). One body, so the two give the same bits:
+// and the persistent step kernels (mopoe_step.cu, method_step.cu,
+// presence_step.cu, generic_step.cu: in the last phase of every step of a
+// launch, each gradient element where it is produced), for Hopper (sm_90a). One body, so the two give the same bits:
 //   bc1 = 1 - exp(t log b1);  bc2 = 1 - exp(t log b2)
 //   mu = b1 mu + (1 - b1) g;  nu = b2 nu + (1 - b2) g^2
 //   p -= lr (mu / bc1) / (sqrt(nu / bc2) + eps)

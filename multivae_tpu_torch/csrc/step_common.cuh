@@ -1,4 +1,4 @@
-// Shared device code of the train-step kernels (mopoe_step.cu,
+// Shared device code of the persistent train-step kernels (mopoe_step.cu,
 // method_step.cu, presence_step.cu, generic_step.cu), for Hopper (sm_90a).
 //
 // * The split layout: the 28 split tensors of multivae_tpu/ops/fused_step.py
@@ -24,24 +24,19 @@
 //   is the same product with transposed A. A problem may carry a dropout
 //   keep mask (pre-scaled, [M, N]): the forward epilogue multiplies it in
 //   after the ReLU, the backward one where the ReLU let the unit through.
-//   The kDecLoss epilogue turns the decoder's product straight into g_loc
-//   and per-row-tile column partials of the bias gradient, the
-//   output-log-variance gradient and the NLL, which a later phase adds in
-//   row-tile order. GemmTable holds the problems of a launch or a phase,
-//   built on the host (grouped_gemm_kernel, one block per tile, for the
-//   multi-launch steps) or by the kernel itself in shared memory (the
-//   persistent steps, whose blocks stride over the tiles).
+//   Two epilogues turn a decoder's output product straight into the loss
+//   gradient and per-row-tile column partials, which a later phase adds in
+//   row-tile order: kDecLoss under a per-feature output log-variance
+//   (g_loc; partials of the bias gradient, the log-variance gradient and
+//   the NLL), kSampleLoss under a per-sample one (g_loc and g_lv; partials
+//   of both halves of the bias gradient and of the NLL). GemmTable holds
+//   the problems of one phase of a launch, built by the kernel itself in
+//   shared memory; the blocks stride over its tiles.
 // * colsum_chunk: bias gradients, 32 columns by one block: the rows dealt to
 //   the 8 warps, neighbouring lanes on neighbouring columns, the warps'
 //   partials added in warp order (of one source, or of two passes' sources
 //   one after the other).
-// * dec_colreduce (the multi-launch steps): per decoder column, the residual's gradient
-//   g_loc = -r exp(-olv) / b_total (b_total: the rows the loss is a mean
-//   over; more than the rows at hand when they are one shard's slice of a
-//   batch), its column sum (bias gradient), the
-//   output-log-variance gradient and the column's NLL sum; with a second
-//   residual (poe's unimodal decode) the gradients are the two passes' sums.
-// * block_sum: a fixed-order tree reduction inside one block.
+// * cooperative_grid: the grid of a persistent cooperative launch.
 
 #pragma once
 
@@ -112,7 +107,6 @@ constexpr int kGemmThreads = kGroups * kGroupThreads;
 constexpr int kWarps = kGemmThreads / 32;
 constexpr int kLd = kTile + 4;    // padded row of a staged slice (16-byte rows)
 constexpr int kMaxSeg = 4;
-constexpr int kMaxProblems = 12;
 constexpr int kMaxColOut = 3;     // column partials an epilogue may emit
 
 enum Epilogue {
@@ -121,11 +115,15 @@ enum Epilogue {
   kBiasRelu = 2,  // C = max(acc + bias[n], 0) [* mask[m, n]]
   kReluMask = 3,  // C = aux[m, n] > 0 ? acc [* mask[m, n]] : 0 (ReLU backward;
                   // aux is the masked activation: it is 0 where the mask is)
-  kResidual = 4,  // C = aux[m, n] - (acc + bias[n])   (r = x - loc)
-  kDecLoss = 5,   // r = aux - (acc + bias), C = g_loc = -r exp(-olv[n]) / scale
+  kDecLoss = 4,   // r = aux - (acc + bias), C = g_loc = -r exp(-olv[n]) / scale
                   // and, per row tile, the column sums of g_loc, of
                   // 0.5 - 0.5 r^2 exp(-olv) and of the per-element NLL into
                   // colp[j][row_tile][n] (j = 0, 1, 2)
+  kSampleLoss = 5,  // loc = acc + bias, r = aux - loc, lv = lv[m, n] (the
+                    // per-sample log-variance, already stored by this block),
+                    // C[m, n] = g_loc = -r exp(-lv) / scale, C[m, N + n] =
+                    // g_lv = (0.5 - 0.5 r^2 exp(-lv)) / scale and, per row
+                    // tile, the column sums of g_loc, g_lv and the NLL
 };
 
 struct Segment {
@@ -155,6 +153,9 @@ struct Problem {
   float* colp;
   long long colp_stride;
   float scale;
+  // kSampleLoss: the per-sample log-variance [M, N] with row stride ld_lv
+  int ld_lv;
+  const float* lv;
 };
 
 // Adam applied where a gradient element is produced (the persistent steps'
@@ -171,13 +172,8 @@ struct AdamAt {
   }
 };
 
-struct GemmBatch {
-  Problem p[kMaxProblems];
-  int count, total_tiles;
-};
-
-// A table of problems under construction, on the host or (in shared memory)
-// on the device: the problems of one launch or of one phase of a launch.
+// A table of problems under construction, on the host (to count a launch's
+// tasks) or in shared memory on the device: the problems of one phase.
 struct GemmTable {
   Problem* p;
   int cap, count, total_tiles, overflow;
@@ -223,6 +219,8 @@ struct GemmTable {
     P.colp_stride = 0;
     P.ld_colp = 0;
     P.scale = 1.0f;
+    P.ld_lv = 0;
+    P.lv = nullptr;
     P.tiles_n = (N + kTile - 1) / kTile;
     P.tile_begin = total_tiles;
     total_tiles += ((M + kTile - 1) / kTile) * P.tiles_n;
@@ -509,9 +507,6 @@ __device__ void gemm_tile(const Problem& P, int tile, int step,
           v = 0.0f;
         }
         break;
-      case kResidual:
-        v = aux4[r] - (v + bias);
-        break;
       case kDecLoss: {
         const float rv = aux4[r] - (v + bias);
         const float q = 0.5f * (rv * rv) * iv;  // 0.5 r^2 iv
@@ -521,6 +516,19 @@ __device__ void gemm_tile(const Problem& P, int tile, int step,
         col[2] += 0.5f * kLog2Pi + 0.5f * olv + q;
         break;
       }
+      case kSampleLoss: {
+        const float lv = P.lv[static_cast<long long>(m) * P.ld_lv + n];
+        const float ivs = expf(-lv);
+        const float rv = aux4[r] - (v + bias);
+        const float q = 0.5f * (rv * rv) * ivs;
+        v = -rv * ivs / P.scale;
+        const float gv = (0.5f - q) / P.scale;
+        P.C[static_cast<long long>(m) * P.ldc + N + n] = gv;
+        col[0] += v;
+        col[1] += gv;
+        col[2] += 0.5f * kLog2Pi + 0.5f * lv + q;
+        break;
+      }
       default:
         break;
     }
@@ -528,7 +536,7 @@ __device__ void gemm_tile(const Problem& P, int tile, int step,
     *out = v;
     if (adam != nullptr) adam->update(out, v);
   }
-  if (epilogue == kDecLoss) {  // uniform over the block
+  if (epilogue == kDecLoss || epilogue == kSampleLoss) {  // uniform
 #pragma unroll
     for (int q = 0; q < kMaxColOut; ++q) sm.colred[q][warp][nl] = col[q];
     __syncthreads();
@@ -544,73 +552,12 @@ __device__ void gemm_tile(const Problem& P, int tile, int step,
   __syncthreads();  // the next tile's loads reuse the stages
 }
 
-// One launch of independent products, one block per tile. The multi-launch
-// steps (method_step.cu, generic_step.cu) call it; the persistent kernels
-// walk their tables themselves.
-__global__ void __launch_bounds__(kGemmThreads)
-grouped_gemm_kernel(const __grid_constant__ GemmBatch batch) {
-  __shared__ GemmSmem<2> sm;
-  __shared__ Problem prob;
-  int tile = blockIdx.x;
-  int pi = 0;
-  while (pi + 1 < batch.count && tile >= batch.p[pi + 1].tile_begin) ++pi;
-  tile -= batch.p[pi].tile_begin;
-  {
-    static_assert(sizeof(Problem) % sizeof(int) == 0, "copied by words");
-    const int* src = reinterpret_cast<const int*>(&batch.p[pi]);
-    int* dst = reinterpret_cast<int*>(&prob);
-    for (int i = threadIdx.x; i < static_cast<int>(sizeof(Problem) / sizeof(int));
-         i += kGemmThreads) {
-      dst[i] = src[i];
-    }
-  }
-  __syncthreads();
-  gemm_tile(prob, tile, 0, sm);
-}
-
-// Host-side builder of one grouped launch.
-struct GemmBuilder {
-  GemmBatch batch;
-  GemmTable table;
-
-  GemmBuilder() { table.reset(batch.p, kMaxProblems); }
-
-  Problem* add(int M, int N, int transA, int transB, float* C, int ldc,
-               int epilogue = kStore, const float* bias = nullptr,
-               const float* aux = nullptr, int ld_aux = 0,
-               const float* mask = nullptr, int ld_mask = 0) {
-    return table.add(M, N, transA, transB, C, ldc, epilogue, bias, aux,
-                     ld_aux, mask, ld_mask);
-  }
-
-  void add_segment(Problem* P, const float* A, int lda, const float* B,
-                   int ldb, int K) {
-    table.add_segment(P, A, lda, B, ldb, K);
-  }
-
-  cudaError_t launch(cudaStream_t stream) {
-    if (table.overflow) return cudaErrorInvalidValue;
-    if (table.total_tiles == 0) return cudaSuccess;
-    batch.count = table.count;
-    batch.total_tiles = table.total_tiles;
-    grouped_gemm_kernel<<<batch.total_tiles, kGemmThreads, 0, stream>>>(batch);
-    return cudaGetLastError();
-  }
-};
-
 // ------------------------------------------------------- column reductions
-constexpr int kMaxColSums = 24;
-
 struct ColSum {
   const float* src;   // [rows, ld]
   const float* src2;  // a second pass's [rows, ld] summed in, or nullptr
   float* dst;         // [cols]
   int rows, cols, ld, chunk_begin;
-};
-
-struct ColSumBatch {
-  ColSum p[kMaxColSums];
-  int count, total_chunks;
 };
 
 // A table of column sums under construction (see GemmTable); one task is a
@@ -685,101 +632,6 @@ __device__ void colsum_chunk(const ColSum& P, int chunk,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kGemmThreads)
-colsum_kernel(const __grid_constant__ ColSumBatch batch) {
-  __shared__ float scratch[kWarps][kTile];
-  __shared__ ColSum prob;
-  int chunk = blockIdx.x;
-  int pi = 0;
-  while (pi + 1 < batch.count && chunk >= batch.p[pi + 1].chunk_begin) ++pi;
-  chunk -= batch.p[pi].chunk_begin;
-  if (threadIdx.x == 0) prob = batch.p[pi];
-  __syncthreads();
-  colsum_chunk(prob, chunk, scratch);
-}
-
-struct ColSumBuilder {
-  ColSumBatch batch;
-  ColSumTable table;
-
-  ColSumBuilder() { table.reset(batch.p, kMaxColSums); }
-
-  void add(const float* src, int rows, int cols, float* dst,
-           const float* src2 = nullptr) {
-    table.add(src, rows, cols, dst, src2);
-  }
-
-  cudaError_t launch(cudaStream_t stream) {
-    if (table.overflow) return cudaErrorInvalidValue;
-    if (table.total_chunks == 0) return cudaSuccess;
-    batch.count = table.count;
-    batch.total_chunks = table.total_chunks;
-    colsum_kernel<<<batch.total_chunks, kGemmThreads, 0, stream>>>(batch);
-    return cudaGetLastError();
-  }
-};
-
-constexpr int kColThreads = 128;  // dec_colreduce_kernel's block
-
-// One decoder's column pass (blockIdx.y picks the decoder).
-struct DecReduce {
-  const float* r;    // [b, d] residual x - loc
-  const float* olv;  // [d] output log-variance
-  float* g_loc;      // [b, d]
-  float* g_bd;       // [d]
-  float* g_olv;      // [d]
-  float* nll_col;    // [d] column sums of the per-element NLL
-  int d;
-  // a second decode of the same modality (poe's unimodal pass), or nullptr:
-  // g_bd and g_olv are then the sums over both passes
-  const float* r2;
-  float* g_loc2;
-  float* nll_col2;
-};
-
-struct DecReduceBatch {
-  DecReduce p[2];
-  int b, learn_scale;
-  int b_total;  // the rows the loss is a mean over (b, or a sharded batch's)
-};
-
-__global__ void dec_colreduce_kernel(const DecReduceBatch batch) {
-  const DecReduce& P = batch.p[blockIdx.y];
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= P.d) return;
-  const float bf = static_cast<float>(batch.b_total);
-  const float olv = P.olv[c];
-  const float iv = expf(-olv);
-  float acc_g = 0.0f, acc_o = 0.0f, acc_n = 0.0f;
-  for (int row = 0; row < batch.b; ++row) {
-    const long long i = static_cast<long long>(row) * P.d + c;
-    const float rv = P.r[i];
-    const float gl = -rv * iv / bf;        // g_loc = -r iv / b_total
-    const float q = 0.5f * (rv * rv) * iv;  // 0.5 r^2 iv
-    P.g_loc[i] = gl;
-    acc_g += gl;
-    acc_o += 0.5f - q;
-    acc_n += 0.5f * kLog2Pi + 0.5f * olv + q;
-  }
-  P.nll_col[c] = acc_n;
-  if (P.r2 != nullptr) {
-    acc_n = 0.0f;
-    for (int row = 0; row < batch.b; ++row) {
-      const long long i = static_cast<long long>(row) * P.d + c;
-      const float rv = P.r2[i];
-      const float gl = -rv * iv / bf;
-      const float q = 0.5f * (rv * rv) * iv;
-      P.g_loc2[i] = gl;
-      acc_g += gl;
-      acc_o += 0.5f - q;
-      acc_n += 0.5f * kLog2Pi + 0.5f * olv + q;
-    }
-    P.nll_col2[c] = acc_n;
-  }
-  P.g_bd[c] = acc_g;
-  P.g_olv[c] = batch.learn_scale ? acc_o / bf : 0.0f;
-}
-
 // Tracing: block 0 writes the device's nanosecond clock into times[slot]
 // (nothing when times is null).
 __device__ __forceinline__ void stamp(unsigned long long* times, int slot) {
@@ -808,13 +660,13 @@ __device__ __forceinline__ float warp_sum(float v) {
 // nothing. Returns a CUDA error code (0 on success).
 template <typename Kernel, typename Tasks>
 int cooperative_grid(Kernel kernel, int smem_bytes,
-                     const std::array<int, 10>& sizes, Tasks tasks,
+                     const std::array<int, 12>& sizes, Tasks tasks,
                      int* blocks) {
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
   static std::mutex mutex;
-  static std::map<std::pair<int, std::array<int, 10>>, int> known;
+  static std::map<std::pair<int, std::array<int, 12>>, int> known;
   std::lock_guard<std::mutex> lock(mutex);
   const auto key = std::make_pair(device, sizes);
   const auto found = known.find(key);
@@ -843,27 +695,6 @@ int cooperative_grid(Kernel kernel, int smem_bytes,
   *blocks = sms * per_sm < useful ? sms * per_sm : useful;
   known[key] = *blocks;
   return 0;
-}
-
-// Fixed-order tree sum of `n` values read by `get(i)` across one block of
-// kMetricThreads threads; every thread returns the total.
-constexpr int kMetricThreads = 256;
-
-template <typename Get>
-__device__ float block_sum(int n, Get get, float* scratch) {
-  float acc = 0.0f;
-  for (int i = threadIdx.x; i < n; i += kMetricThreads) acc += get(i);
-  scratch[threadIdx.x] = acc;
-  __syncthreads();
-  for (int stride = kMetricThreads / 2; stride > 0; stride >>= 1) {
-    if (threadIdx.x < stride) {
-      scratch[threadIdx.x] += scratch[threadIdx.x + stride];
-    }
-    __syncthreads();
-  }
-  const float total = scratch[0];
-  __syncthreads();
-  return total;
 }
 
 }  // namespace step

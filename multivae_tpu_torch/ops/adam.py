@@ -12,9 +12,9 @@ keeps one set of buffers). On a CUDA tensor it launches
 ``csrc/flat_adam.cu``, on a CPU tensor it runs :func:`adam_update_reference`;
 a kernel that does not build or launch raises. The element update itself is
 ``csrc/adam_common.cuh``: the persistent step kernels (``mopoe_step.cu``,
-``presence_step.cu``) run the same body as the last phase of every step of
-a launch, so an epoch through them launches no ``flat_adam`` and ends with
-the same bits.
+``method_step.cu``, ``presence_step.cu``, ``generic_step.cu``) run the same
+body as the last phase of every step of a launch, so an epoch through them
+launches no ``flat_adam`` and ends with the same bits.
 
 The bias correction is the TPU kernels' ``1 - exp(t log b)``, for the
 general step too (``flat_adam`` writes ``1 - b ** t``, the same number to a

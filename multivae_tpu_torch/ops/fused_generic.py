@@ -13,8 +13,10 @@ layers and each output-scale mode (a learned or a frozen per-feature
 ``out_logvar``, or the per-sample ``out_heads`` projection to
 ``loc | logvar``). Between the stacks stands the method's latent math, which
 is the method step's (:func:`.fused_methods.latent_fwd_bwd`,
-``csrc/latent_common.cuh``). The epoch loop stays on the host: one step
-launch chain and one ``csrc/flat_adam.cu`` launch per step.
+``csrc/latent_common.cuh``). The kernel is persistent: on CUDA tensors
+:func:`generic_epoch_flat` runs a whole group of steps with Adam inside in
+ONE cooperative launch (the TPU kernel's epoch contract), and one step is
+the same kernel with ``n = 1`` and Adam off.
 
 The envelope (:func:`supports_generic_fused`): two modalities, a factorized
 representation with both style dims > 0, the normal likelihood, every
@@ -53,20 +55,31 @@ from typing import Dict, Tuple
 import torch
 
 from ..params import GenericDims, flat_size, flat_views, flatten_named
-from .adam import AdamHyper, adam_update
+from .adam import AdamHyper, adam_scalars, adam_update
 from .fused_methods import (
     METHODS,
     latent_fwd_bwd,
     method_metric_names,
     n_method_metrics,
+    step_noise_width,
 )
-from .fused_step import LOG2PI, FusedConsts, check_inputs, workspace
+from .fused_step import (
+    LOG2PI,
+    FusedConsts,
+    argtypes_of,
+    check_inputs,
+    check_phase_times,
+    check_stack,
+    workspace,
+)
 
 PORTED_METHODS = METHODS
 MAX_DEPTH = 4  # hidden layers per network (kMaxDepth of generic_step.cu)
 
 # launches of each kernel in this module; a caller resets and reads it
 KERNEL_LAUNCHES: Dict[str, int] = {"generic_step": 0}
+# train steps run by those launches (one launch may run a group of steps)
+KERNEL_STEPS: Dict[str, int] = {"generic_step": 0}
 
 
 def envelope_gaps(cfg, model) -> list:
@@ -263,6 +276,58 @@ def generic_fwd_bwd_reference(method: str, sp, x1, x2, noise,
 
 
 # ------------------------------------------------------------------ kernel
+# The C arguments of ``generic_epoch_launch`` in order: (name, kind), kinds
+# as in ``fused_step.EPOCH_ARGS``.
+EPOCH_ARGS = (
+    ("params", "ptr"), ("mu", "ptr"), ("nu", "ptr"), ("grads", "ptr"),
+    ("metrics", "ptr"), ("x1s", "ptr"), ("x2s", "ptr"), ("noise", "ptr"),
+    ("masks", "ptr"), ("work", "ptr"),
+    ("n", "i32"), ("method", "i32"), ("b", "i32"), ("d1", "i32"),
+    ("d2", "i32"), ("h", "i32"), ("cd", "i32"), ("s1", "i32"), ("s2", "i32"),
+    ("n_enc", "i32"), ("n_dec", "i32"), ("sample_scale", "i32"),
+    ("beta", "f32"), ("beta_style", "f32"), ("beta_content", "f32"),
+    ("learn_scale", "i32"), ("count", "i64"),
+    ("lr", "f32"), ("b1", "f32"), ("b2", "f32"), ("one_minus_b1", "f32"),
+    ("one_minus_b2", "f32"), ("log_b1", "f32"), ("log_b2", "f32"),
+    ("eps", "f32"),
+    ("phase_times", "ptr"), ("stream", "ptr"),
+)
+
+
+def phases(dims: GenericDims) -> Tuple[str, ...]:
+    """The phases of one step of the persistent kernel at these depths, in
+    order (``2 (n_enc + n_dec) + 6``); a launch given ``phase_times`` stamps
+    the device's clock at the start of every step and after every phase's
+    barrier."""
+    n_enc, n_dec = dims.n_enc, dims.n_dec
+    names = [f"enc {i}" for i in range(n_enc)] + ["heads", "latents"]
+    names += [f"dec {j}" for j in range(n_dec)] + ["output", "output grads"]
+    names += [f"dec {j} grads" for j in range(n_dec - 1, 0, -1)]
+    if n_dec > 0:
+        names.append("z grads")
+    names += ["latents backward", "heads grads"]
+    names += [f"enc {i} grads" for i in range(n_enc - 1, 0, -1)]
+    return tuple(names + ["enc 0 grads, biases + Adam"])
+
+
+def pack_epoch_args(p, mu, nu, grads, metrics, x1s, x2s, noise, masks, work,
+                    method: str, dims: GenericDims, consts: FusedConsts,
+                    learn_scale: bool, count: int, hyper: AdamHyper,
+                    stream: int, phase_times=None) -> tuple:
+    """The arguments of ``generic_epoch_launch`` in :data:`EPOCH_ARGS`
+    order (``masks`` None becomes a null pointer). Pure: it reads only
+    addresses and shapes."""
+    return (
+        p.data_ptr(), mu.data_ptr(), nu.data_ptr(), grads.data_ptr(),
+        metrics.data_ptr(), x1s.data_ptr(), x2s.data_ptr(),
+        noise.data_ptr(), None if masks is None else masks.data_ptr(),
+        work.data_ptr(), int(x1s.shape[0]), METHODS.index(method), dims.b,
+        dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2, dims.n_enc,
+        dims.n_dec, int(dims.sample_scale), *(float(c) for c in consts),
+        int(bool(learn_scale)), int(count), *adam_scalars(hyper),
+        None if phase_times is None else phase_times.data_ptr(), int(stream))
+
+
 def _generic_library():
     from ._build import load_kernel
 
@@ -274,15 +339,64 @@ def _generic_library():
             [ptr] * 6 + [i32, ptr, i64, i32, ptr] + [i32] * 11 + [f32] * 3
             + [i32, ptr])
         lib.generic_step_launch.restype = i32
+        lib.generic_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS)
+        lib.generic_epoch_launch.restype = i32
         lib.generic_step_workspace_floats.argtypes = [i32] * 12
         lib.generic_step_workspace_floats.restype = i64
         lib.generic_step_param_floats.argtypes = [i32] * 9
         lib.generic_step_param_floats.restype = i64
         lib.generic_step_max_depth.argtypes = []
         lib.generic_step_max_depth.restype = i32
+        lib.generic_step_phases.argtypes = [i32] * 2
+        lib.generic_step_phases.restype = i32
+        lib.generic_step_barriers.argtypes = [i32] * 3
+        lib.generic_step_barriers.restype = i32
+        lib.generic_step_grid_blocks.argtypes = [i32] * 12
+        lib.generic_step_grid_blocks.restype = i32
         lib.generic_step_error_string.argtypes = [i32]
         lib.generic_step_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _shape(dims: GenericDims) -> tuple:
+    return (dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2,
+            dims.n_enc, dims.n_dec, int(dims.sample_scale))
+
+
+def _checked_library(p, dims: GenericDims):
+    """The library, once the kernel's depth limit and layout agree with
+    ``dims`` and ``p``."""
+    lib = _generic_library()
+    if max(dims.n_enc, dims.n_dec) > lib.generic_step_max_depth():
+        raise ValueError(f"generic_step takes at most "
+                         f"{lib.generic_step_max_depth()} hidden layers")
+    if lib.generic_step_param_floats(*_shape(dims)) != p.numel():
+        raise ValueError("generic_step: the kernel's layout disagrees with "
+                         "params.generic_shapes")
+    if lib.generic_step_phases(dims.n_enc, dims.n_dec) != len(phases(dims)):
+        raise ValueError("generic_step: the kernel's phase list disagrees "
+                         "with fused_generic.phases")
+    return lib
+
+
+def launch_geometry(dims: GenericDims, device, method: str,
+                    has_masks: bool = False) -> Dict[str, int]:
+    """Of the persistent kernel at these sizes on ``device``: the blocks of
+    its cooperative grid, its phases and the grid barriers of one step with
+    and without the in-kernel Adam update."""
+    lib = _generic_library()
+    with torch.cuda.device(device):
+        blocks = lib.generic_step_grid_blocks(
+            METHODS.index(method), int(has_masks), dims.b, *_shape(dims))
+    if blocks < 0:
+        raise RuntimeError("generic_step: "
+                           + lib.generic_step_error_string(-blocks).decode())
+    return {"grid_blocks": blocks,
+            "phases": lib.generic_step_phases(dims.n_enc, dims.n_dec),
+            "barriers_per_step_adam": lib.generic_step_barriers(
+                dims.n_enc, dims.n_dec, 1),
+            "barriers_per_step": lib.generic_step_barriers(
+                dims.n_enc, dims.n_dec, 0)}
 
 
 def _launch_generic(method: str, p, x1, x2, noise, dims: GenericDims,
@@ -290,13 +404,11 @@ def _launch_generic(method: str, p, x1, x2, noise, dims: GenericDims,
                     grads) -> None:
     device = p.device
     b = dims.b
-    width = dims.cd + dims.s1 + dims.s2
-    if method == "poe":
-        width += 2 * dims.cd + dims.s1 + dims.s2
     check_inputs("generic_step", device, [
         (p, (flat_size(dims),)), (grads, (flat_size(dims),)),
         (metrics, (n_method_metrics(method),)),
-        (x1, (b, dims.d1)), (x2, (b, dims.d2)), (noise, (b, width))])
+        (x1, (b, dims.d1)), (x2, (b, dims.d2)),
+        (noise, (b, step_noise_width(method, dims)))])
     for t in (x1, x2):
         if not t.is_contiguous():
             raise ValueError("generic_step takes contiguous batches")
@@ -309,15 +421,8 @@ def _launch_generic(method: str, p, x1, x2, noise, dims: GenericDims,
                              "contiguous rows on the params' device")
         mask_ptr, mask_stride, ld_mask = (masks.data_ptr(), masks.stride(0),
                                           masks.stride(1))
-    lib = _generic_library()
-    shape = (dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2,
-             dims.n_enc, dims.n_dec, int(dims.sample_scale))
-    if max(dims.n_enc, dims.n_dec) > lib.generic_step_max_depth():
-        raise ValueError(f"generic_step takes at most "
-                         f"{lib.generic_step_max_depth()} hidden layers")
-    if lib.generic_step_param_floats(*shape) != p.numel():
-        raise ValueError("generic_step: the kernel's layout disagrees with "
-                         "params.generic_shapes")
+    lib = _checked_library(p, dims)
+    shape = _shape(dims)
     method_idx = METHODS.index(method)
     work = workspace(lib, "generic_step", device, method_idx,
                      int(masks is not None), b, *shape)
@@ -333,6 +438,56 @@ def _launch_generic(method: str, p, x1, x2, noise, dims: GenericDims,
         raise RuntimeError("generic_step launch failed: "
                            + lib.generic_step_error_string(rc).decode())
     KERNEL_LAUNCHES["generic_step"] += 1
+    KERNEL_STEPS["generic_step"] += 1
+
+
+def _check_epoch_stacks(p, x1s, x2s, noise, masks, dims: GenericDims,
+                        method: str) -> None:
+    """The stacked inputs of a group of steps: contiguous float32 on the
+    params' device, ``x1s [n, B, d1]``, ``x2s [n, B, d2]``, ``noise [n, B,
+    w]``, ``masks [n, n_masks, B, hidden]`` or None."""
+    n, b = int(x1s.shape[0]), dims.b
+    check_stack("generic_step", p.device, x1s, (n, b, dims.d1))
+    check_stack("generic_step", p.device, x2s, (n, b, dims.d2))
+    check_stack("generic_step", p.device, noise,
+                (n, b, step_noise_width(method, dims)))
+    if masks is not None:
+        check_stack("generic_step", p.device, masks, (
+            n, n_dropout_masks(method, 1.0, dims.n_enc, dims.n_dec), b,
+            dims.h))
+
+
+def _launch_generic_epoch(method: str, p, mu, nu, count, x1s, x2s, noise,
+                          dims: GenericDims, consts: FusedConsts,
+                          hyper: AdamHyper, learn_scale: bool, masks,
+                          phase_times=None):
+    """ONE launch for the whole group of steps (its stacks checked by the
+    caller); returns ``metrics [n, 17 | 19]`` in the step's order."""
+    device = p.device
+    n, b = int(x1s.shape[0]), dims.b
+    check_inputs("generic_step", device, [
+        (t, (flat_size(dims),)) for t in (p, mu, nu)])
+    check_phase_times("generic_step", device, phase_times, n,
+                      len(phases(dims)))
+    metrics = torch.empty(n, n_method_metrics(method), dtype=torch.float32,
+                          device=device)
+    if n == 0:
+        return metrics
+    grads = torch.empty_like(p)
+    lib = _checked_library(p, dims)
+    work = workspace(lib, "generic_step", device, METHODS.index(method),
+                     int(masks is not None), b, *_shape(dims))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.generic_epoch_launch(*pack_epoch_args(
+            p, mu, nu, grads, metrics, x1s, x2s, noise, masks, work, method,
+            dims, consts, learn_scale, count, hyper, stream, phase_times))
+    if rc != 0:
+        raise RuntimeError("generic_step epoch launch failed: "
+                           + lib.generic_step_error_string(rc).decode())
+    KERNEL_LAUNCHES["generic_step"] += 1
+    KERNEL_STEPS["generic_step"] += n
+    return metrics
 
 
 def generic_step_flat(method: str, p, x1, x2, noise, dims: GenericDims,
@@ -368,21 +523,39 @@ def metric_permutation(model, method: str):
 def generic_epoch_flat(method: str, p, mu, nu, count: int, x1s, x2s, noise,
                        dims: GenericDims, consts: FusedConsts,
                        hyper: AdamHyper, learn_scale: bool = True,
-                       masks=None, order=None):
+                       masks=None, order=None, phase_times=None):
     """``n`` steps on flat buffers, each followed by Adam at
     ``t = count + step + 1``; ``p``, ``mu`` and ``nu`` are updated in place.
     ``noise [n, B, noise_width]``, ``masks [n, n_masks, B, hidden]`` or
     None. Returns ``metrics [n, 17 | 19]`` on the buffers' device, the
-    columns permuted by ``order`` (:func:`metric_permutation`) when
-    given."""
-    steps = []
-    for i in range(x1s.shape[0]):
-        metrics, grads = generic_step_flat(
-            method, p, x1s[i], x2s[i], noise[i], dims, consts, learn_scale,
-            None if masks is None else masks[i])
-        adam_update(p, mu, nu, grads, count + i + 1, hyper)
-        steps.append(metrics)
-    out = torch.stack(steps)
+    columns permuted by ``order`` (:func:`metric_permutation`) when given.
+    On CUDA tensors the whole group is ONE launch of the persistent kernel
+    (stacks contiguous float32 on the params' device, else it raises); on
+    CPU tensors the host loops the plain step and the plain Adam.
+    ``phase_times`` (tracing, the kernel only): an int64 ``[n,
+    len(phases(dims)) + 1]`` tensor that takes the device's clock at the
+    start of each step and after each phase."""
+    if method not in PORTED_METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    if p.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"generic_step: no kernel for {p.device}")
+    _check_epoch_stacks(p, x1s, x2s, noise, masks, dims, method)
+    if p.device.type == "cuda":
+        out = _launch_generic_epoch(method, p, mu, nu, count, x1s, x2s,
+                                    noise, dims, consts, hyper, learn_scale,
+                                    masks, phase_times)
+    else:
+        if phase_times is not None:
+            raise ValueError("generic_step: phase_times traces the kernel; "
+                             "the plain version has no phases")
+        steps = []
+        for i in range(x1s.shape[0]):
+            metrics, grads = generic_step_flat(
+                method, p, x1s[i], x2s[i], noise[i], dims, consts,
+                learn_scale, None if masks is None else masks[i])
+            adam_update(p, mu, nu, grads, count + i + 1, hyper)
+            steps.append(metrics)
+        out = torch.stack(steps)
     if order is not None:
         out = out[:, torch.as_tensor(order, device=out.device)]
     return out

@@ -9,7 +9,10 @@ The port derives the backward by hand: :func:`method_fwd_bwd_reference`
 (plain) and ``csrc/method_step.cu`` (kernel), for moe, jsd, poe and
 ``joint_elbo``. ``joint_elbo`` without dropout keeps its route to the MoPoE
 step of :mod:`.fused_step` (the trainer decides, as the JAX package keeps
-``fused_step`` for it); with dropout it takes this step.
+``fused_step`` for it); with dropout it takes this step. The kernel is
+persistent: on CUDA tensors :func:`method_epoch_flat` runs a whole group of
+steps with Adam inside in ONE cooperative launch (the TPU kernel's epoch
+contract), and one step is the same kernel with ``n = 1`` and Adam off.
 
 Noise ``[B, noise_width]``: ``cd | s1 | s2``; poe appends the unimodal
 draws ``cd | s1`` and ``cd | s2``. Dropout masks are pre-scaled keep masks
@@ -40,14 +43,17 @@ from ..params import (
     flat_views,
     flatten_split,
 )
-from .adam import AdamHyper, adam_update
+from .adam import AdamHyper, adam_scalars, adam_update
 from .fused_step import (
     LOG2PI,
     POE_EPS,
     FusedConsts,
     _uniform_bounds,
+    argtypes_of,
     check_inputs,
+    check_phase_times,
     check_slice,
+    check_stack,
     split_layout_ok,
     workspace,
 )
@@ -57,6 +63,8 @@ PORTED_METHODS = METHODS
 
 # launches of each kernel in this module; a caller resets and reads it
 KERNEL_LAUNCHES: Dict[str, int] = {"method_step": 0, "dp_method_step": 0}
+# train steps run by those launches (one launch may run a group of steps)
+KERNEL_STEPS: Dict[str, int] = {"method_step": 0, "dp_method_step": 0}
 
 
 def method_metric_names(model, method: str) -> Tuple[str, ...]:
@@ -495,6 +503,41 @@ def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
 
 
 # ------------------------------------------------------------------ kernel
+# The C arguments of ``method_epoch_launch`` in order: (name, kind), kinds
+# as in ``fused_step.EPOCH_ARGS``.
+EPOCH_ARGS = (
+    ("params", "ptr"), ("mu", "ptr"), ("nu", "ptr"), ("grads", "ptr"),
+    ("metrics", "ptr"), ("x1s", "ptr"), ("x2s", "ptr"), ("noise", "ptr"),
+    ("masks", "ptr"), ("work", "ptr"),
+    ("n", "i32"), ("method", "i32"), ("b", "i32"), ("d1", "i32"),
+    ("d2", "i32"), ("h", "i32"), ("cd", "i32"), ("s1", "i32"), ("s2", "i32"),
+    ("beta", "f32"), ("beta_style", "f32"), ("beta_content", "f32"),
+    ("learn_scale", "i32"), ("count", "i64"),
+    ("lr", "f32"), ("b1", "f32"), ("b2", "f32"), ("one_minus_b1", "f32"),
+    ("one_minus_b2", "f32"), ("log_b1", "f32"), ("log_b2", "f32"),
+    ("eps", "f32"),
+    ("phase_times", "ptr"), ("stream", "ptr"),
+)
+
+
+def pack_epoch_args(p, mu, nu, grads, metrics, x1s, x2s, noise, masks, work,
+                    method: str, dims: FusedDims, consts: FusedConsts,
+                    learn_scale: bool, count: int, hyper: AdamHyper,
+                    stream: int, phase_times=None) -> tuple:
+    """The arguments of ``method_epoch_launch`` in :data:`EPOCH_ARGS` order
+    (``masks`` None becomes a null pointer). Pure: it reads only addresses
+    and shapes."""
+    return (
+        p.data_ptr(), mu.data_ptr(), nu.data_ptr(), grads.data_ptr(),
+        metrics.data_ptr(), x1s.data_ptr(), x2s.data_ptr(),
+        noise.data_ptr(), None if masks is None else masks.data_ptr(),
+        work.data_ptr(), int(x1s.shape[0]), METHODS.index(method), dims.b,
+        dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2,
+        *(float(c) for c in consts), int(bool(learn_scale)), int(count),
+        *adam_scalars(hyper),
+        None if phase_times is None else phase_times.data_ptr(), int(stream))
+
+
 def _method_library():
     from ._build import load_kernel
 
@@ -509,11 +552,44 @@ def _method_library():
             [ptr] * 6 + [i32] + [ptr] * 4 + [i32, ptr] + [i32] * 10
             + [f32] * 3 + [i32, ptr])
         lib.method_step_slice_launch.restype = i32
+        lib.method_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS)
+        lib.method_epoch_launch.restype = i32
         lib.method_step_workspace_floats.argtypes = [i32] * 9
         lib.method_step_workspace_floats.restype = ctypes.c_longlong
+        lib.method_step_grid_blocks.argtypes = [i32] * 9
+        lib.method_step_grid_blocks.restype = i32
+        lib.method_step_barriers.argtypes = [i32]
+        lib.method_step_barriers.restype = i32
         lib.method_step_error_string.argtypes = [i32]
         lib.method_step_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def launch_geometry(dims: FusedDims, device, method: str,
+                    has_masks: bool = False) -> Dict[str, int]:
+    """Of the persistent kernel at these sizes on ``device``: the blocks of
+    its cooperative grid and the grid barriers of one step with and without
+    the in-kernel Adam update."""
+    lib = _method_library()
+    with torch.cuda.device(device):
+        blocks = lib.method_step_grid_blocks(
+            METHODS.index(method), int(has_masks), dims.b, dims.d1, dims.d2,
+            dims.h, dims.cd, dims.s1, dims.s2)
+    if blocks < 0:
+        raise RuntimeError("method_step: "
+                           + lib.method_step_error_string(-blocks).decode())
+    return {"grid_blocks": blocks,
+            "barriers_per_step_adam": lib.method_step_barriers(1),
+            "barriers_per_step": lib.method_step_barriers(0)}
+
+
+def step_noise_width(method: str, dims: FusedDims) -> int:
+    """Noise columns of one step: ``cd | s1 | s2``, poe's unimodal draws
+    after them."""
+    width = dims.cd + dims.s1 + dims.s2
+    if method == "poe":
+        width += 2 * dims.cd + dims.s1 + dims.s2
+    return width
 
 
 def check_masks(name: str, masks, n_expected: int, b: int, h: int, device):
@@ -537,13 +613,11 @@ def _launch_method(method: str, p, x1, x2, noise, dims: FusedDims,
     as ``dp_method_step``)."""
     device = p.device
     b = dims.b
-    width = dims.cd + dims.s1 + dims.s2
-    if method == "poe":
-        width += 2 * dims.cd + dims.s1 + dims.s2
     check_inputs("method_step", device, [
         (p, (flat_size(dims),)), (grads, (flat_size(dims),)),
         (metrics, (n_method_metrics(method),)),
-        (x1, (b, dims.d1)), (x2, (b, dims.d2)), (noise, (b, width))])
+        (x1, (b, dims.d1)), (x2, (b, dims.d2)),
+        (noise, (b, step_noise_width(method, dims)))])
     for t in (x1, x2):
         if not t.is_contiguous():
             raise ValueError("method_step takes contiguous batches")
@@ -571,6 +645,55 @@ def _launch_method(method: str, p, x1, x2, noise, dims: FusedDims,
         raise RuntimeError(f"{counter} launch failed: "
                            + lib.method_step_error_string(rc).decode())
     KERNEL_LAUNCHES[counter] += 1
+    KERNEL_STEPS[counter] += 1
+
+
+def _check_epoch_stacks(p, x1s, x2s, noise, masks, dims: FusedDims,
+                        method: str) -> None:
+    """The stacked inputs of a group of steps: contiguous float32 on the
+    params' device, ``x1s [n, B, d1]``, ``x2s [n, B, d2]``, ``noise [n, B,
+    w]``, ``masks [n, 2 | 4, B, hidden]`` or None."""
+    n, b = int(x1s.shape[0]), dims.b
+    check_stack("method_step", p.device, x1s, (n, b, dims.d1))
+    check_stack("method_step", p.device, x2s, (n, b, dims.d2))
+    check_stack("method_step", p.device, noise,
+                (n, b, step_noise_width(method, dims)))
+    if masks is not None:
+        check_stack("method_step", p.device, masks,
+                    (n, 4 if method == "poe" else 2, b, dims.h))
+
+
+def _launch_method_epoch(method: str, p, mu, nu, count, x1s, x2s, noise,
+                         dims: FusedDims, consts: FusedConsts,
+                         hyper: AdamHyper, learn_scale: bool, masks,
+                         phase_times=None):
+    """ONE launch for the whole group of steps (its stacks checked by the
+    caller); returns ``metrics [n, 17 | 19]``."""
+    device = p.device
+    n, b = int(x1s.shape[0]), dims.b
+    check_inputs("method_step", device, [
+        (t, (flat_size(dims),)) for t in (p, mu, nu)])
+    check_phase_times("method_step", device, phase_times, n)
+    metrics = torch.empty(n, n_method_metrics(method), dtype=torch.float32,
+                          device=device)
+    if n == 0:
+        return metrics
+    grads = torch.empty_like(p)
+    lib = _method_library()
+    work = workspace(lib, "method_step", device, METHODS.index(method),
+                     int(masks is not None), b, dims.d1, dims.d2, dims.h,
+                     dims.cd, dims.s1, dims.s2)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.method_epoch_launch(*pack_epoch_args(
+            p, mu, nu, grads, metrics, x1s, x2s, noise, masks, work, method,
+            dims, consts, learn_scale, count, hyper, stream, phase_times))
+    if rc != 0:
+        raise RuntimeError("method_step epoch launch failed: "
+                           + lib.method_step_error_string(rc).decode())
+    KERNEL_LAUNCHES["method_step"] += 1
+    KERNEL_STEPS["method_step"] += n
+    return metrics
 
 
 def _method_step_flat(method, p, x1, x2, noise, dims, consts, learn_scale,
@@ -619,11 +742,28 @@ def slice_method_step_flat(method: str, p, x1, x2, noise, dims: FusedDims,
 
 def method_epoch_flat(method: str, p, mu, nu, count: int, x1s, x2s, noise,
                       dims: FusedDims, consts: FusedConsts, hyper: AdamHyper,
-                      learn_scale: bool = True, masks=None):
+                      learn_scale: bool = True, masks=None, phase_times=None):
     """``n`` steps on flat buffers, each followed by Adam at
     ``t = count + step + 1``; ``p``, ``mu`` and ``nu`` are updated in place.
     ``noise [n, B, noise_width]``, ``masks [n, 2 | 4, B, hidden]`` or None.
-    Returns ``metrics [n, 17 | 19]`` (on the buffers' device)."""
+    Returns ``metrics [n, 17 | 19]`` (on the buffers' device; nothing is
+    fetched). On CUDA tensors the whole group is ONE launch of the
+    persistent kernel (stacks contiguous float32 on the params' device,
+    else it raises); on CPU tensors the host loops the plain step and the
+    plain Adam. ``phase_times``: tracing, as in ``fused_step.epoch_flat``
+    (the kernel has the same eight phases)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}")
+    if p.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"method_step: no kernel for {p.device}")
+    _check_epoch_stacks(p, x1s, x2s, noise, masks, dims, method)
+    if p.device.type == "cuda":
+        return _launch_method_epoch(method, p, mu, nu, count, x1s, x2s,
+                                    noise, dims, consts, hyper, learn_scale,
+                                    masks, phase_times)
+    if phase_times is not None:
+        raise ValueError("method_step: phase_times traces the kernel; the "
+                         "plain version has no phases")
     steps = []
     for i in range(x1s.shape[0]):
         metrics, grads = method_step_flat(

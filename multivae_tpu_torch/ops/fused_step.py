@@ -324,16 +324,17 @@ def pack_epoch_args(p, mu, nu, grads, metrics, x1s, x2s, noise, work,
         None if phase_times is None else phase_times.data_ptr(), int(stream))
 
 
-def check_phase_times(name: str, device, phase_times, n: int) -> None:
-    """A launch's optional tracing buffer: int64 ``[n, len(PHASES) + 1]``,
+def check_phase_times(name: str, device, phase_times, n: int,
+                      n_phases: int = len(PHASES)) -> None:
+    """A launch's optional tracing buffer: int64 ``[n, n_phases + 1]``,
     contiguous, on the launch's device."""
     if phase_times is None:
         return
     if (phase_times.device != device or phase_times.dtype != torch.int64
-            or tuple(phase_times.shape) != (n, len(PHASES) + 1)
+            or tuple(phase_times.shape) != (n, n_phases + 1)
             or not phase_times.is_contiguous()):
         raise ValueError(f"{name}: phase_times is a contiguous int64 "
-                         f"[{n}, {len(PHASES) + 1}] tensor on {device}")
+                         f"[{n}, {n_phases + 1}] tensor on {device}")
 
 
 def phase_microseconds(phase_times) -> torch.Tensor:

@@ -12,16 +12,16 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
   ``csrc/mopoe_step.cu``), those of moe, jsd, poe and of any method with
   dropout the method step kernel (``ops/fused_methods.py``,
   ``csrc/method_step.cu``); a single-present group takes the presence
-  kernel (``ops/fused_presence.py``, ``csrc/presence_step.cu``). The MoPoE
-  and presence kernels are persistent: on a card a group's epoch call is
-  ONE launch that runs all its steps with Adam inside; every method step
-  is followed by ``csrc/flat_adam.cu``. Without ``fused_training``
+  kernel (``ops/fused_presence.py``, ``csrc/presence_step.cu``). The three
+  kernels are persistent: on a card a group's epoch call is ONE launch
+  that runs all its steps with Adam inside. Without ``fused_training``
   every batch takes the general autograd step, in the same order with the
   same noise and masks;
 * an architecture outside the split layout (more encoder hidden layers,
   decoder hidden layers, a per-sample output scale) inside the layer-stack
   step's envelope (``ops/fused_generic.py``) sends its full complete
-  batches to that kernel (``csrc/generic_step.cu``) and every other batch
+  batches to that kernel (``csrc/generic_step.cu``, persistent as well:
+  one launch with Adam inside) and every other batch
   (the partial complete batch, the single-present groups) to the general
   autograd step, as the JAX package does (``trainer.py:896-899,
   925-944``);
