@@ -87,17 +87,31 @@ Phases, one line or more each:
    recomputed by the plain version from the kernels' state; times of one
    deep-A joint_elbo step and one deep-B poe step with masks (a one-step
    launch and a 6-step launch with each phase's stamps), each with its
-   bound. A gradient element outside the bound is excused only behind a
-   hidden unit that the plain version in float64 puts within 1e-6 of its
-   ReLU's edge (two float32 sums may land on either side), and is printed;
-11. generic-slice: ``train_exp`` of deep-A with joint_elbo and of deep-B
-   with poe and dropout_rate=0.2 on the train-slice cohort, 3 epochs each:
-   launches (per epoch one ``generic_step`` launch for the 5 full complete
-   batches, Adam inside; the partial complete batch and the clinical-only
-   batches on the general autograd step, 3 ``flat_adam`` updates), losses,
-   metric families, checkpoints, a resumed fourth epoch, a profiled epoch,
-   and the first epoch's launch replayed step by step (equal bits) and its
-   steps recomputed by the plain version from the card's own state.
+   bound; then the other likelihoods (laplace; bernoulli on the data
+   thresholded at 0; categorical on one-hot rows, whose loss has a phase
+   of its own) and the unfactorized latent, at 1 + 0 and deep-A, the four
+   methods, B=256, learned scale on and off: each step against the plain
+   version, each 8-step launch against its one-step launches (equal bits),
+   a laplace column tied in every row (the bias gradient of d|r|/dr = +1
+   at r = 0), and per variant a one-step and a 6-step launch timed with
+   each phase's stamps and the bound. A gradient element outside the bound
+   is excused only behind a hidden unit that the plain version in float64
+   puts within 1e-6 of its ReLU's edge, or a laplace residual that it puts
+   within 1e-6 of 0 (two float32 sums may land on either side), and is
+   printed;
+11. generic-slice: ``train_exp`` on the train-slice cohort, 3 epochs each,
+   of deep-A with joint_elbo, deep-B with poe and dropout_rate=0.2, the
+   flagship architecture with likelihood laplace (joint_elbo) and an
+   unfactorized latent with 1 + 1 hidden layers (moe): launches (per epoch
+   one ``generic_step`` launch for the 5 full complete batches, Adam
+   inside; the partial complete batch and the clinical-only batches on the
+   general autograd step, 3 ``flat_adam`` updates), losses, metric
+   families, checkpoints, a resumed fourth epoch, a profiled epoch, and the
+   first epoch's launch replayed step by step (equal bits) and its steps
+   recomputed by the plain version from the card's own state; then
+   ``workflows.daa_exp`` of the deep-A and the laplace runs through the
+   general sweep (wall per round), one round's sweep on the card held to
+   the same function on the CPU from the same noise.
 
 The meshes of phases 7-9 start at card 0 and wrap at the card count, so one
 card holds every shard and member (on a machine with several cards they
@@ -1226,6 +1240,16 @@ DEEP_D = dict(num_hidden_layer_encoder=2, num_hidden_layer_decoder=0,
 DEEP_ARCHS = {"deep-A": DEEP_A, "deep-B": DEEP_B, "3+2": DEEP_C,
               "2+0 per-sample": DEEP_D}
 GENERIC_ROWS = (256, 137)
+# the other likelihoods and the unfactorized latent take the layer-stack
+# step at the flagship architecture (1 + 0, per-feature scale) too
+FLAT_ARCH = dict(num_hidden_layer_encoder=1, num_hidden_layer_decoder=0,
+                 learn_output_sample_scale=False)
+ALL_ARCHS = {**DEEP_ARCHS, "1+0": FLAT_ARCH}
+VARIANTS = {"laplace": dict(likelihood="laplace"),
+            "bernoulli": dict(likelihood="bernoulli"),
+            "categorical": dict(likelihood="categorical"),
+            "unfactorized": dict(factorized_representation=False)}
+VARIANT_ARCHS = ("1+0", "deep-A")
 
 
 def generic_flops(dims, enc_passes: int, dec_passes: int) -> float:
@@ -1283,6 +1307,24 @@ def rounding_level_units(method, p, inp, dims, consts):
                     below = below * mask_of(i)
             return super()._stack(net, depth, h, mask_of)
 
+        def decode(self, e, p, zs, zc):
+            # laplace: |r| has a kink at 0, so a residual within rounding
+            # of 0 may take either sign of its gradient
+            nll, cache = super().decode(e, p, zs, zc)
+            if self.dims.likelihood == "laplace":
+                net, x = f"dec{e + 1}", self.xs[e]
+                d, h = x.shape[1], cache[1]
+                out = "out_heads" if self.dims.sample_scale else "out_mu"
+                w = self.sp[f"{net}/{out}/kernel"][:, :d]
+                b = self.sp[f"{net}/{out}/bias"][:d]
+                r = x - (h @ w + b)
+                size = x.abs() + h.abs() @ w.abs() + b.abs()
+                near = (r.abs() <= ROUNDING * size).any(0)
+                if bool(near.any()):
+                    ties.append((net, out, torch.nonzero(near).flatten()))
+            return nll, cache
+
+    ties = []
     nets = Recording(flat_views(p.double(), dims), (x1, x2), dims, True,
                      masks)
     latent_fwd_bwd(method, nets, noise, dims.b, dims.cd, dims.s1, dims.s2,
@@ -1300,9 +1342,21 @@ def rounding_level_units(method, p, inp, dims, consts):
             if (name.startswith(net + "/hidden_") and layer_of(name) < i) or (
                     net.startswith("dec") and name.startswith("enc")):
                 v[...] = True
+    for net, out, cols in ties:
+        # the output columns, the decoder's hidden layers and the encoders
+        # (through the latents' gradients)
+        views[f"{net}/{out}/kernel"][:, cols] = True
+        views[f"{net}/{out}/bias"][cols] = True
+        for name, v in views.items():
+            if name.startswith(net + "/hidden_") or name.startswith("enc"):
+                v[...] = True
     text = ("hidden units within " + str(ROUNDING) + " of a ReLU's edge: "
             + ", ".join(f"{net} layer {i} units {u.tolist()}"
                         for net, i, u in found))
+    if ties:
+        text += ("; laplace residuals within " + str(ROUNDING) + " of 0: "
+                 + ", ".join(f"{net} columns {c.tolist()}"
+                             for net, _, c in ties))
     return mask, text
 
 
@@ -1312,10 +1366,14 @@ class GenericRoute:
 
     kernel = "generic_step"
 
-    def __init__(self, arch: str, method="joint_elbo", masked=False):
+    def __init__(self, arch: str, method="joint_elbo", masked=False,
+                 variant=None):
         self.arch, self.method, self.masked = arch, method, masked
-        self.cfg_kw = DEEP_ARCHS[arch]
-        self.name = (f"generic_step[{arch}, {method}"
+        self.variant = variant
+        self.cfg_kw = {**ALL_ARCHS[arch], **VARIANTS.get(variant, {})}
+        self.likelihood = self.cfg_kw.get("likelihood", "normal")
+        self.name = (f"generic_step[{arch}, "
+                     + (f"{variant}, " if variant else "") + method
                      + (", masks" if masked else "") + "]")
         poe = method == "poe"
         self.dec_passes = 2 if poe else 1
@@ -1347,6 +1405,12 @@ class GenericRoute:
         if self.method == "poe":
             w += 2 * dims.cd + dims.s1 + dims.s2
         x1, x2, noise = randn(b, dims.d1), randn(b, dims.d2), randn(b, w)
+        if self.likelihood == "bernoulli":  # the cohort thresholded at 0
+            x1, x2 = (x1 > 0).float(), (x2 > 0).float()
+        elif self.likelihood == "categorical":  # one-hot rows
+            x1, x2 = (torch.nn.functional.one_hot(torch.randint(
+                0, d, lead + (b,), generator=gen, device=device), d).float()
+                for d in (dims.d1, dims.d2))
         masks = None
         if self.masked:
             n = fg.n_dropout_masks(self.method, MASK_RATE, dims.n_enc,
@@ -1392,10 +1456,13 @@ class GenericRoute:
 
     def bound(self, p, inp, dims) -> dict:
         """Params, batch, noise and masks read once, every gradient and the
-        metrics written once; the operations of its passes."""
+        metrics written once; the operations of its passes (categorical's
+        row pass: ~10 per output element and decode)."""
         moved = 2 * nbytes(p) + nbytes(*inp) + 4 * 19
-        return bound(moved, generic_flops(dims, self.enc_passes,
-                                          self.dec_passes))
+        flops = generic_flops(dims, self.enc_passes, self.dec_passes)
+        if self.likelihood == "categorical":
+            flops += 10.0 * dims.b * (dims.d1 + dims.d2) * self.dec_passes
+        return bound(moved, flops)
 
 
 def generic_kernel_check(device):
@@ -1538,7 +1605,108 @@ def generic_kernel_check(device):
             f"{fl / (timed['ms'] * 1e-3) / 1e12:.3f} TFLOP/s = "
             f"{100 * timed['bound_ms'] / timed['ms']:.2f} % of the bound's "
             f"rate")
+    variant_kernel_check(device, entry, consts, hyper)
     return entry
+
+
+def variant_kernel_check(device, entry, consts, hyper):
+    """The layer-stack step's other likelihoods (laplace, bernoulli on the
+    cohort thresholded at 0, categorical on one-hot rows) and the
+    unfactorized latent at the flagship widths, B=256, architectures 1 + 0
+    (per-feature scale) and deep-A, the four methods: each step held to the
+    plain version with and without a learned scale (the train-kernel
+    bounds), ONE launch of 8 steps with Adam against 8 one-step launches
+    and ``flat_adam`` (equal bits, two runs equal), laplace ties at the
+    kernel, and per variant a 6-step launch timed with its phases beside
+    the one-step times and the bound. Adds to ``entry``."""
+    import torch
+
+    from multivae_tpu_torch.ops import fused_generic as fg
+    from multivae_tpu_torch.params import flat_views
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    launch_gen = torch.Generator(device=device).manual_seed(SEED + 12)
+    n_cases, geo = 0, {}
+    for variant in VARIANTS:
+        for arch in VARIANT_ARCHS:
+            for method in fg.PORTED_METHODS:
+                route = GenericRoute(arch, method, variant=variant)
+                dims, p = route.setup(device, 256, SEED + 3)
+                worst = 0.0
+                for learn_scale in (True, False):
+                    inp = route.inputs(dims, gen, device)
+                    worst = max(worst, check_step(
+                        route.name,
+                        route.step("kernel", p, inp, dims, consts,
+                                   learn_scale),
+                        route.step("plain", p, inp, dims, consts,
+                                   learn_scale),
+                        split_pairs(dims), f"B=256 learn_scale={learn_scale}",
+                        "generic-kernel", quiet=True,
+                        excuse=lambda: rounding_level_units(
+                            route.method, p, inp, dims, consts)))
+                    n_cases += 1
+                entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+                launch_vs_steps(route, p, dims, consts, hyper, launch_gen,
+                                device, phase="generic-kernel")
+                if method == "joint_elbo":
+                    geo[route.name] = route.geometry(dims, device)
+                log("generic-kernel", f"{route.name} B=256 learn_scale "
+                    f"on/off: metrics+grads max_abs_err {worst:.3e} ok")
+    log("generic-kernel", f"{n_cases} steps of the likelihood and "
+        f"unfactorized routes held to the plain version (loss rtol "
+        f"{LOSS_RTOL}; metrics and grads rtol {STEP_RTOL} / atol "
+        f"{STEP_ATOL})")
+    log("generic-kernel", "B=256, cooperative grid blocks, phases and grid "
+        "barriers per step (with Adam / one step without): " + "; ".join(
+            f"{k} {v['grid_blocks']} blocks, {v['phases']} phases, "
+            f"{v['barriers_per_step_adam']} / {v['barriers_per_step']} "
+            f"barriers" for k, v in geo.items()))
+
+    # laplace ties: ROI output column 0 is 0 (zero weights and bias) and so
+    # is the data's: x - loc is +0.0 in every row, whose d|r|/dr is +1 (the
+    # JAX convention), so that column's bias gradient is -exp(-olv / 2)
+    route = GenericRoute("1+0", "joint_elbo", variant="laplace")
+    dims, p = route.setup(device, 256, SEED + 4)
+    views = flat_views(p, dims)
+    views["dec2/out_mu/kernel"][:, 0] = 0.0
+    views["dec2/out_mu/bias"][0] = 0.0
+    x1, x2, noise, masks = route.inputs(dims, gen, device)
+    x2[:, 0] = 0.0
+    inp = (x1, x2, noise, masks)
+    ker = route.step("kernel", p, inp, dims, consts)
+    check_step(route.name + " tied column", ker,
+               route.step("plain", p, inp, dims, consts), split_pairs(dims),
+               "B=256", "generic-kernel", quiet=True)
+    got = float(flat_views(ker[1], dims)["dec2/out_mu/bias"][0])
+    want = -float(torch.exp(-0.5 * views["dec2/out_logvar"][0, 0]))
+    ok = abs(got - want) <= 1e-5 * abs(want)
+    log("generic-kernel", f"{route.name}: every row tied in ROI column 0: "
+        f"its bias gradient {got:.7f}, -exp(-olv / 2) = {want:.7f} "
+        f"(d|r|/dr = +1 at r = 0) {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise SystemExit("laplace ties: the kernel's sign at r = 0 is not "
+                         "the JAX convention")
+
+    # timing, in turns: plain, kernel, kernel, plain; a 6-step launch
+    for variant in VARIANTS:
+        for arch in VARIANT_ARCHS:
+            route = GenericRoute(arch, "joint_elbo", variant=variant)
+            dims, p = route.setup(device, 256, SEED)
+            inp = route.inputs(dims, gen, device)
+            ker = lambda: route.step("kernel", p, inp, dims, consts)
+            ref = lambda: route.step("plain", p, inp, dims, consts)
+            t = [cuda_ms(ref, 30), cuda_ms(ker, 30), cuda_ms(ker, 30),
+                 cuda_ms(ref, 30)]
+            timed = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                         library_ms=None, **route.bound(p, inp, dims))
+            timed.update(time_launch(route, p, dims, consts, hyper, gen,
+                                     device, "generic-kernel"))
+            entry["variants"][route.name] = timed
+            log("generic-kernel", f"{route.name} B=256: kernel "
+                f"{t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms "
+                f"per one-step launch; bound {timed['bound_ms']:.5f} ms by "
+                f"{timed['bound_by']} ({p.numel()} params)")
 
 
 def numpy_cohort(rng, cfg, n_train: int, n_test: int):
@@ -2349,8 +2517,19 @@ GENERIC_SLICES = (
     ("train deep-B poe dropout 0.2", dict(
         num_hidden_layer_encoder=2, num_hidden_layer_decoder=1,
         method="poe", dropout_rate=MASK_RATE)),
+    ("train laplace joint_elbo", dict(
+        likelihood="laplace", method="joint_elbo", dropout_rate=0.0)),
+    ("train unfactorized moe", dict(
+        factorized_representation=False, num_hidden_layer_encoder=1,
+        num_hidden_layer_decoder=1, method="moe", dropout_rate=0.0)),
 )
 GENERIC_SLICE_EPOCHS = 3
+# the runs that `daa` analyses next, through the general sweep
+GENERAL_DAA_RUNS = ("train deep-A joint_elbo", "train laplace joint_elbo")
+GENERAL_DAA = dict(sampling_strategy="likelihood", n_validation=2,
+                   n_samples=N_SAMPLES, n_subjects=B, M=100, seed=SEED,
+                   sample_latents=True, artifact="full",
+                   fetch_dtype="float16", chunk=16)
 
 
 @contextlib.contextmanager
@@ -2453,14 +2632,19 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
 
     csv, tr, losses = train_losses()
     per_step = tr.groupby("step").metric.apply(frozenset)
-    names = types.SimpleNamespace(modalities=[
-        types.SimpleNamespace(name="clinical"),
-        types.SimpleNamespace(name="rois")])
+    styled = kw.get("factorized_representation", True)
+    names = types.SimpleNamespace(
+        factorized_representation=styled, modalities=[
+            types.SimpleNamespace(name=n, style_dim=s) for n, s in zip(
+                ("clinical", "rois"), SLICE_TRAIN["style_dim"])])
     method = kw["method"]
     complete_fam = frozenset(fused_generic.generic_metric_names(names,
                                                                 method))
-    clinical_fam = frozenset(fused_presence.presence_metric_names(
-        names, method, 0))
+    # the general step's families: total_loss's, no style family without
+    # style latents
+    clinical_fam = frozenset(
+        n for n in fused_presence.presence_metric_names(names, method, 0)
+        if styled or "_style" not in n)
     first, last = losses[:steps].mean(), losses[-steps:].mean()
     ckpt = os.path.join(rundir, "checkpoints", f"{epochs - 1:04d}")
     checks = {
@@ -2479,6 +2663,8 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
         "last epoch loss < first": bool(last < first),
         "complete-batch families": sum(s == complete_fam for s in per_step)
         == len(complete) * epochs,
+        "style families only with style latents": any(
+            "_style" in n for n in complete_fam) == styled,
         "log_prob_uni only for poe": ("log_prob_uni/rois" in complete_fam)
         == (method == "poe"),
         "clinical-only families": sum(s == clinical_fam for s in per_step)
@@ -2489,7 +2675,10 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
     }
     wall = float(np.median(walls[1:]))
     log(phase, f"[{tag}] train_exp {epochs} epochs x {steps} steps in "
-        f"{total:.3f} s (set-up included); launches {launches}; steps run "
+        f"{total:.3f} s (set-up included); launches {launches}; per epoch "
+        f"{launches['generic_step'] / epochs:g} generic_step launch for "
+        f"{steps_run / epochs:g} full complete batches and "
+        f"{launches['flat_adam'] / epochs:g} flat_adam; steps run "
         f"by the generic_step launches {steps_run}; mean train "
         f"loss epoch 1 {first:.3f} -> epoch {epochs} {last:.3f}; checks "
         + ", ".join(f"{k}={v}" for k, v in checks.items()))
@@ -2571,7 +2760,87 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
     if not ok:
         raise SystemExit(f"generic slice ({tag}): expected {n_full} kernel "
                          f"steps in the first epoch")
+    if path in GENERAL_DAA_RUNS:
+        general_daa(root, outdir, run, datadir, device, card, tag)
     return launches
+
+
+def general_daa(root, outdir, run, datadir, device, card, tag):
+    """``workflows.daa_exp`` of a trained run that the sweep kernel does
+    not take, on the card through the general sweep (one model forward
+    per cell, vmapped over chunks): wall per round and the outputs'
+    checks; then one round's sweep on the card held to the same function
+    on the CPU from the same noise."""
+    import torch
+
+    from multivae_tpu_torch import workflows
+    from multivae_tpu_torch.analysis import daa
+    from multivae_tpu_torch.ops import fused_daa
+    from multivae_tpu_torch.train.experiment import load_run
+
+    phase = "generic-slice"
+    kw = GENERAL_DAA
+    fused_daa.KERNEL_LAUNCHES["avatar_sweep"] = 0
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        resdir = workflows.daa_exp("synthetic", datadir, outdir, run,
+                                   device="cuda", **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    n_val, n_scores, n_rois = kw["n_validation"], 7, 444
+    avatars = np.load(os.path.join(resdir, "rois_digital_avatars.npy"),
+                      mmap_mode="r")
+    pvalues = np.load(os.path.join(resdir, "pvalues.npy"))
+    checks = {
+        "avatars shape": avatars.shape == (n_val, kw["n_subjects"],
+                                           n_scores, kw["n_samples"],
+                                           n_rois),
+        "avatars finite": bool(np.isfinite(avatars).all()),
+        "pvalues in [0, 1]": bool(np.isfinite(pvalues).all()
+                                  and (pvalues >= 0).all()
+                                  and (pvalues <= 1).all()),
+        "significant_rois.tsv": os.path.isfile(
+            os.path.join(resdir, "significant_rois.tsv")),
+        "no sweep kernel launch": fused_daa.KERNEL_LAUNCHES[
+            "avatar_sweep"] == 0,
+    }
+
+    # one round's sweep: the card against the CPU, same inputs and noise
+    card_exp, cfg = load_run(outdir, run, device)
+    host_exp, _ = load_run(outdir, run, "cpu")
+    model = card_exp.models[0]
+    rng = np.random.default_rng(SEED)
+    data = {n: torch.from_numpy(rng.normal(size=(kw["n_subjects"], d))
+                                .astype(np.float32)).to(device)
+            for n, d in zip(model.mod_names, (n_scores, n_rois))}
+    scores = torch.randn((kw["n_samples"], kw["n_subjects"], n_scores),
+                         generator=torch.Generator(device=device)
+                         .manual_seed(SEED), device=device)
+    cdata, eps = daa.general_sweep_inputs(
+        model, data, scores, torch.Generator(device=device).manual_seed(1))
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    on_card = daa.general_sweep_cells(model, cdata, data["rois"], eps, True,
+                                      kw["chunk"])
+    torch.cuda.synchronize()
+    sweep_s = time.perf_counter() - start
+    on_host = daa.general_sweep_cells(host_exp.models[0], cdata.cpu(),
+                                      data["rois"].cpu(), eps.cpu(), True,
+                                      kw["chunk"])
+    err, bad = close(on_card.cpu(), on_host, RTOL, ATOL)
+    checks["card sweep = CPU sweep"] = not bool(bad.any())
+    log(phase, f"[{tag}] daa_exp through the general sweep: "
+        f"{n_val} rounds in {wall:.3f} s = {wall / n_val:.3f} s per round "
+        f"(M={kw['M']} Monte-Carlo reconstruction passes, "
+        f"{kw['n_samples']} x {n_scores} cells of {kw['n_subjects']} rows, "
+        f"chunk {kw['chunk']}); one round's general sweep on the card "
+        f"{sweep_s * 1e3:.2f} ms by the host's clock, against the same "
+        f"sweep on the CPU from the same noise max_abs_err {err:.3e} "
+        f"(rtol {RTOL} / atol {ATOL}); checks "
+        + ", ".join(f"{k}={v}" for k, v in checks.items()) + f" ({card})")
+    if not all(checks.values()):
+        raise SystemExit(f"general daa wrong ({tag}): {checks}")
 
 
 def generic_slice(device, card: str):
@@ -2775,19 +3044,31 @@ def main() -> int:
 
     # the plain versions' products in full float32 while kernels are held
     # to them; the process-wide flag is restored afterwards
+    start = time.perf_counter()
+
+    def timed(name, result):
+        nonlocal start
+        now = time.perf_counter()
+        log("time", f"{name} {now - start:.1f} s")
+        start = now
+        return result
+
     with full_f32_products():
-        max_err, timing = kernel_check(device)
+        max_err, timing = timed("kernel", kernel_check(device))
         entries = {"avatar_sweep": dict(max_abs_err=max_err, **timing)}
-        for kname, res in train_kernel_check(device).items():
+        for kname, res in timed("train-kernel",
+                                train_kernel_check(device)).items():
             if kname in KERNELS:
                 entries[kname] = res
-        by_path = {"daa": {"avatar_sweep": slice_run(device, smi)[0]}}
-        by_path.update(train_slice(device, smi))
-        entries.update(dp_kernel_check(device))
-        by_path.update(dp_slice(device, smi))
-        by_path.update(ensemble_slice(device, smi))
-        entries["generic_step"] = generic_kernel_check(device)
-        by_path.update(generic_slice(device, smi))
+        by_path = {"daa": {"avatar_sweep": timed(
+            "slice", slice_run(device, smi))[0]}}
+        by_path.update(timed("train-slice", train_slice(device, smi)))
+        entries.update(timed("dp-kernel", dp_kernel_check(device)))
+        by_path.update(timed("dp-slice", dp_slice(device, smi)))
+        by_path.update(timed("ensemble-slice", ensemble_slice(device, smi)))
+        entries["generic_step"] = timed("generic-kernel",
+                                        generic_kernel_check(device))
+        by_path.update(timed("generic-slice", generic_slice(device, smi)))
     for k in KERNELS:
         # each path's own count (set to 0 just before it, read just after)
         # and their sum

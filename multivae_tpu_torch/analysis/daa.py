@@ -8,20 +8,23 @@ across rounds (and ensemble members).
 
 The avatar sweep runs on the hand-written kernel
 (:func:`multivae_tpu_torch.ops.fused_daa.fused_avatar_sweep`) for every
-configuration the kernel takes; the regressions run on the host in float64
+configuration the kernel takes, and for every other one (deeper networks,
+other likelihoods, the unfactorized latent) on the general sweep
+(:func:`general_sweep_cells`): one forward of the whole model per (sample,
+score) cell, as the JAX package's general branch, which is XLA there and
+plain torch here. The regressions run on the host in float64
 (:mod:`multivae_tpu_torch.analysis.stats`). With a data mesh
 (:func:`avatar_sweep_sharded`, ``use_sharding``) the (sample, score) cells
-are split over the mesh's entries, each slice through the same kernel with
-the unsharded sweep's noise, cell for cell.
+are split over the mesh's entries, each slice through the same kernel or
+general sweep with the unsharded sweep's noise, cell for cell.
 
-Not ported yet (ROADMAP Queue 1): the general per-cell sweep for
-configurations the kernel does not take, sharded or not, and the
-``sampled`` artifact mode.
+Not ported yet (ROADMAP Queue 1 item 10): the ``sampled`` artifact mode.
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import csv
 import os
 from dataclasses import dataclass
@@ -34,6 +37,7 @@ from numpy.lib.format import open_memmap
 
 from ..ops.fused_daa import (
     avatar_layout,
+    build_cell_grid,
     fused_avatar_sweep,
     prepare_sweep,
     supports_fused_sweep,
@@ -176,43 +180,88 @@ def reconstruction_stats(model, data, M: int, generator: torch.Generator,
     return tuple(s / M for s in sums)
 
 
-def avatar_sweep(model, data, scores_values, sample_latents: bool,
-                 generator: torch.Generator, cfg):
-    """ROI avatars ``[B, n_scores, n_samples, n_rois]`` for every (sample,
-    score) perturbation of ``scores_values [n_samples, B, n_scores]``.
+@torch.no_grad()
+def general_sweep_inputs(model, data, scores_values,
+                         generator: torch.Generator):
+    """The general sweep's cells and noise: ``(cdata [n_cells, B, d1], eps
+    [n_cells, B, noise_width])``, cell ``p * n_scores + s`` perturbing score
+    ``s`` with sample ``p``; the noise is one draw from ``generator`` on
+    the data's device, so the result depends neither on the chunk nor on
+    the mesh."""
+    names = model.mod_names
+    clinical = data[names[0]]
+    n_samples, b, n_scores = scores_values.shape
+    eps = torch.randn((n_samples * n_scores, b, model.noise_width(names)),
+                      generator=generator, dtype=torch.float32,
+                      device=clinical.device)
+    return build_cell_grid(clinical, scores_values), eps
 
-    Runs on the avatar-sweep kernel; the general per-cell sweep for other
-    configurations is not ported yet."""
-    if not supports_fused_sweep(cfg, model, data):
-        raise NotImplementedError(
-            "the avatar sweep for configurations outside the kernel's "
-            "(flagship architecture) is not ported yet: see ROADMAP.md, "
-            "Queue 1, the general DAA sweep")
-    return fused_avatar_sweep(model, data, scores_values, sample_latents,
-                              generator, cfg)
+
+@torch.no_grad()
+def general_sweep_cells(model, cdata, rois, eps, sample_latents: bool,
+                        chunk: int = 16):
+    """ROI locs ``[n_cells, B, n_rois]``: per cell one forward of the whole
+    model on the ``B``-row batch (the cell's clinical block, the round's ROI
+    block), so every row partition is the batch's own (``daa.py:210-265``,
+    the general branch); with ``sample_latents`` cell ``i`` takes the noise
+    ``eps[i]``. ``chunk`` cells at a time go through one ``torch.func.vmap``
+    of the forward."""
+    names = model.mod_names
+
+    def one(clinical, noise):
+        out = model({names[0]: clinical, names[1]: rois},
+                    sample_latents=sample_latents,
+                    noise=noise if sample_latents else None)
+        return out["rec"][names[1]][0]
+
+    batched = torch.func.vmap(one)
+    step = max(int(chunk), 1)
+    return torch.cat([batched(cdata[i:i + step], eps[i:i + step])
+                      for i in range(0, cdata.shape[0], step)])
+
+
+def avatar_sweep(model, data, scores_values, sample_latents: bool,
+                 generator: torch.Generator, cfg, chunk: int = 16):
+    """ROI avatars ``[B, n_scores, n_samples, n_rois]`` for every (sample,
+    score) perturbation of ``scores_values [n_samples, B, n_scores]``: on
+    the avatar-sweep kernel where it takes the configuration, else on the
+    general sweep (:func:`general_sweep_cells`, ``chunk`` cells at a
+    time)."""
+    if supports_fused_sweep(cfg, model, data):
+        return fused_avatar_sweep(model, data, scores_values, sample_latents,
+                                  generator, cfg)
+    n_samples, _, n_scores = scores_values.shape
+    cdata, eps = general_sweep_inputs(model, data, scores_values, generator)
+    out = general_sweep_cells(model, cdata, data[model.mod_names[1]], eps,
+                              sample_latents, chunk)
+    return avatar_layout(out, n_samples, n_scores)
 
 
 @torch.no_grad()
 def avatar_sweep_sharded(model, data, scores_values, sample_latents: bool,
-                         generator: torch.Generator, mesh, cfg):
+                         generator: torch.Generator, mesh, cfg,
+                         chunk: int = 16):
     """:func:`avatar_sweep` with the (sample, score) cells split over the
-    mesh's ``data`` axis (``daa.py:268-336``, the fused branch): every
-    entry decodes an equal slice of the cell grid on the avatar-sweep
-    kernel. The noise is the unsharded sweep's one draw, so the result does
-    not depend on the mesh; a cell count the mesh does not divide is padded
-    with repeated cells (zero noise) that are dropped. The data and the
-    result live on the first entry's device; a slice whose entry is another
-    device takes copies of the params, the posteriors and its cells."""
-    if not supports_fused_sweep(cfg, model, data):
-        raise NotImplementedError(
-            "the sharded avatar sweep for configurations outside the "
-            "kernel's (flagship architecture) is not ported yet: see "
-            "ROADMAP.md, Queue 1, the general DAA sweep")
+    mesh's ``data`` axis (``daa.py:268-360``): every entry decodes an equal
+    slice of the cell grid, on the avatar-sweep kernel where it takes the
+    configuration, else on the general sweep (a copy of the model on each
+    entry's device). The noise is the unsharded sweep's one draw, so the
+    result does not depend on the mesh; a cell count the mesh does not
+    divide is padded with repeated cells (zero noise) that are dropped. The
+    data and the result live on the first entry's device; a slice whose
+    entry is another device takes copies of what it reads."""
     devices = mesh.axis_devices("data")
     n_samples, _, n_scores = scores_values.shape
     n_cells = n_samples * n_scores
-    sp, posteriors, cdata, eps, dims = prepare_sweep(
-        model, data, scores_values, generator, cfg)
+    fused = supports_fused_sweep(cfg, model, data)
+    if fused:
+        sp, posteriors, cdata, eps, dims = prepare_sweep(
+            model, data, scores_values, generator, cfg)
+    else:
+        cdata, eps = general_sweep_inputs(model, data, scores_values,
+                                          generator)
+        rois = data[model.mod_names[1]]
+        models = {}
     first = cdata.device
     if devices[0] != first:
         raise ValueError(f"the data is on {first}, the mesh's first data "
@@ -225,10 +274,18 @@ def avatar_sweep_sharded(model, data, scores_values, sample_latents: bool,
     parts = []
     for k, dev in enumerate(devices):
         cells = slice(k * per, (k + 1) * per)
-        out = sweep_cells({n: t.to(dev) for n, t in sp.items()},
-                          tuple(t.to(dev) for t in posteriors),
-                          cdata[cells].to(dev), eps[cells].to(dev), dims,
-                          sample_latents, method=cfg.method)
+        if fused:
+            out = sweep_cells({n: t.to(dev) for n, t in sp.items()},
+                              tuple(t.to(dev) for t in posteriors),
+                              cdata[cells].to(dev), eps[cells].to(dev),
+                              dims, sample_latents, method=cfg.method)
+        else:
+            if dev not in models:
+                models[dev] = (model if dev == first
+                               else copy.deepcopy(model).to(dev))
+            out = general_sweep_cells(models[dev], cdata[cells].to(dev),
+                                      rois.to(dev), eps[cells].to(dev),
+                                      sample_latents, chunk)
         parts.append(out.to(first))
     return avatar_layout(torch.cat(parts)[:n_cells], n_samples, n_scores)
 
@@ -270,7 +327,7 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
             reg_method: str = "hierarchical", sample_latents: bool = True,
             vote_prop: float = 1.0, exact_reconstruction="auto",
             fetch_dtype: str = "float16", artifact: str = "full",
-            use_sharding="auto") -> str:
+            use_sharding="auto", chunk: int = 16) -> str:
     """Full DAA pipeline; returns the result directory.
 
     ``models`` and ``cohorts`` hold one entry per ensemble member
@@ -289,14 +346,17 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
     fetches the avatars (same regression outputs to float tolerance).
     ``use_sharding``: split each round's cell grid over the visible cards
     (:func:`avatar_sweep_sharded`); ``"auto"`` does so whenever the models
-    are on a card and more than one is visible.
+    are on a card and more than one is visible. ``chunk``: cells per
+    batched forward of the general sweep (configurations the sweep kernel
+    does not take).
     """
     if sampling_strategy not in SAMPLING_STRATEGIES:
         raise ValueError("sampling_strategy must be either linear, uniform"
                          "gaussian or likelihood")
     if artifact == "sampled":
         raise NotImplementedError(
-            "artifact='sampled' is not ported yet: see ROADMAP.md, Queue 1")
+            "artifact='sampled' is not ported yet: see ROADMAP.md, Queue 1 "
+            "item 10")
     if artifact not in ARTIFACT_MODES:
         raise ValueError(f"artifact must be one of {ARTIFACT_MODES}, "
                          f"got: {artifact}")
@@ -396,10 +456,10 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
             if mesh is not None:
                 avatars = avatar_sweep_sharded(model, data, scores_values,
                                                sample_latents, generator,
-                                               mesh, cfg)
+                                               mesh, cfg, chunk)
             else:
                 avatars = avatar_sweep(model, data, scores_values,
-                                       sample_latents, generator, cfg)
+                                       sample_latents, generator, cfg, chunk)
             if stats_only:
                 rt = None if wire == torch.float32 else wire
                 suffstats_rounds.append(tuple(

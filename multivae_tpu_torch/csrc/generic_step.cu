@@ -15,7 +15,12 @@
 // modes: a learned or a frozen per-feature out_logvar, or (sample_scale) the
 // out_heads projection to loc | logvar per sample, whose weight gradient
 // takes [g_loc | g_lv] as one right-hand side. Methods: joint_elbo, moe,
-// jsd, poe (latent_common.cuh).
+// jsd, poe (latent_common.cuh). Likelihoods (step::Likelihood): normal,
+// laplace and bernoulli in the output layer's epilogue (gemm_tile's kLik),
+// categorical in a phase of its own (see below); bernoulli and categorical
+// read the location as logits and give the log-variance an exact zero
+// gradient. A style width of 0 is a modality without style latents (the
+// unfactorized latent): no style heads, noise or KL, the decoder reads zc.
 //
 // In: the params as one flat buffer in the general layout (make_layout: the
 // flax leaves in the JAX layout [in, out]: encoder 1, encoder 2, decoder 1,
@@ -51,7 +56,13 @@
 //                       per-row-tile column partials; under a per-sample
 //                       scale a task computes the log-variance tile, then
 //                       the loc tile whose kSampleLoss epilogue writes g_loc,
-//                       g_lv and the partials of both bias halves and the NLL
+//                       g_lv and the partials of both bias halves and the NLL;
+//                       categorical: the logits alone (kBias)
+//   output rows         categorical only: a row's log-sum-exp spans every
+//                       column tile, so a task takes a row tile, a warp per
+//                       row (max, log-sum-exp, g_loc = (softmax sum_j x_j -
+//                       x) / b), then a thread per column adds the tile's
+//                       rows in order into the partials of g_loc and the NLL
 //   output grads        dWout and g of the last decoder layer (or, without
 //                       decoder layers, the latents' grads); beside them the
 //                       partials added in row-tile order: bout (and olv)
@@ -65,8 +76,9 @@
 //   enc i grads         dW_i and g of layer i - 1 (i = n_enc - 1 .. 1)
 //   last                dW_0 = x^T g_0, every bias grad (rows over warps),
 //                       Adam
-// 2 (n_enc + n_dec) + 6 phases: 10 at n_enc = n_dec = 1 (13 launches in the
-// multi-launch structure), 12 at n_enc = 2. With Adam on, the last phase's
+// 2 (n_enc + n_dec) + 6 phases (one more for categorical): 10 at n_enc =
+// n_dec = 1 (13 launches in the multi-launch structure), 12 at n_enc = 2.
+// With Adam on, the last phase's
 // gradients take their update where they are produced and every older
 // phase's tensors beside them (adam_common.cuh, flat_adam's arithmetic bit
 // for bit). Every product is step_common.cuh's gemm_tile (float32 FMA, no
@@ -88,7 +100,7 @@ using step::kTile;
 using step::kWarps;
 
 constexpr int kMaxDepth = 4;  // hidden layers per network
-constexpr int kMaxPhases = 4 * kMaxDepth + 6;
+constexpr int kMaxPhases = 4 * kMaxDepth + 7;
 constexpr int kPoolProblems = 128;  // every phase's problems of one launch
 constexpr int kColSums = 2 * (4 + 2 * kMaxDepth);
 constexpr int kMaxRanges = 2 * kMaxDepth + 2 * (kMaxDepth + 1);
@@ -164,7 +176,8 @@ struct Work {
   float* hd[2][2][kMaxDepth];
   float* g_hd[2][2][kMaxDepth];
   // the output layer's gradient [B, n_out]; under a per-sample scale the
-  // log-variance [B, d] and the loss gradient [g_loc | g_lv]
+  // log-variance [B, d] and the loss gradient [g_loc | g_lv]; categorical:
+  // the logits [B, d] in lv
   float* g_out[2][2];
   float* lv[2][2];
   float* colp[2][2];  // [3, row tiles, d]: the output's column partials
@@ -175,7 +188,7 @@ struct Work {
 
 // Carves the workspace (or, with base == nullptr, only counts its floats).
 __host__ __device__ Work carve(float* base, const Shape& S, int enc_passes,
-                               int dec_passes) {
+                               int dec_passes, int likelihood) {
   Work w;
   long long off = 0;
   auto take = [&](long long n) {
@@ -223,7 +236,8 @@ __host__ __device__ Work carve(float* base, const Shape& S, int enc_passes,
       }
       const long long n_out = S.sample ? 2 * S.d[e] : S.d[e];
       w.g_out[q][e] = take(on * bl * n_out);
-      w.lv[q][e] = take((S.sample ? on : 0) * bl * S.d[e]);
+      const bool lv = S.sample || likelihood == step::kCategorical;
+      w.lv[q][e] = take((lv ? on : 0) * bl * S.d[e]);
       w.colp[q][e] = take(on * step::kMaxColOut * row_tiles * S.d[e]);
     }
   }
@@ -247,6 +261,7 @@ struct StepParams {
   long long x1_step, x2_step, noise_step, mask_step;
   int ld_noise, ld_mask;
   int n_steps, adam, method, enc_passes, dec_passes, learn_scale;
+  int likelihood;  // step::Likelihood
   Shape S;
   float beta, beta_style, beta_content;
   long long count;  // Adam updates taken before this launch
@@ -269,21 +284,24 @@ __host__ __device__ inline const float* mask_at(const StepParams& a, int p,
 
 enum PhaseKind {
   kEncFwd = 0, kHeadsFwd, kLatentFwd, kDecFwd, kOutFwd, kOutBwd, kDecBwd,
-  kZBwd, kLatentBwd, kHeadsBwd, kEncBwd, kLast
+  kZBwd, kLatentBwd, kHeadsBwd, kEncBwd, kLast, kRowLoss
 };
 
 struct PhaseDesc {
   int kind, layer;
 };
 
-// The phase list of a step at these depths; returns its length.
-__host__ __device__ int phase_list(int n_enc, int n_dec, PhaseDesc* out) {
+// The phase list of a step at these depths and likelihood; returns its
+// length.
+__host__ __device__ int phase_list(int n_enc, int n_dec, int likelihood,
+                                   PhaseDesc* out) {
   int n = 0;
   for (int i = 0; i < n_enc; ++i) out[n++] = PhaseDesc{kEncFwd, i};
   out[n++] = PhaseDesc{kHeadsFwd, 0};
   out[n++] = PhaseDesc{kLatentFwd, 0};
   for (int j = 0; j < n_dec; ++j) out[n++] = PhaseDesc{kDecFwd, j};
   out[n++] = PhaseDesc{kOutFwd, 0};
+  if (likelihood == step::kCategorical) out[n++] = PhaseDesc{kRowLoss, 0};
   // without decoder layers the output layer's input is zs | zc: its
   // backward is the z grads' phase
   out[n++] = PhaseDesc{kOutBwd, 0};
@@ -294,6 +312,12 @@ __host__ __device__ int phase_list(int n_enc, int n_dec, PhaseDesc* out) {
   for (int i = n_enc - 1; i >= 1; --i) out[n++] = PhaseDesc{kEncBwd, i};
   out[n++] = PhaseDesc{kLast, 0};
   return n;
+}
+
+// Under a per-sample scale the output phase's tasks are (log-variance, loc)
+// tile pairs; categorical needs no log-variance (its gradient is 0).
+__host__ __device__ inline bool output_pairs(const StepParams& a) {
+  return a.S.sample && a.likelihood != step::kCategorical;
 }
 
 // The most problems a phase of this kind may add at these passes.
@@ -448,15 +472,17 @@ __host__ __device__ void build_phase(const PhaseDesc& ph, const StepParams& a,
     case kOutFwd:
       // per-feature scale: g_out from kDecLoss; per-sample: a pair per
       // (pass, decoder), the log-variance tile (kBias) then the loc tile
-      // (kSampleLoss), taken by one task
+      // (kSampleLoss), taken by one task; categorical: the logits into lv
+      // (kBias), whose loss is the next phase's
       for (int q = 0; q < Q; ++q) {
         for (int e = 0; e < 2; ++e) {
           const NetLayout& D = L.dec[e];
           const int ldb = D.n_out;
-          for (int half = S.sample ? 1 : 0; half >= 0; --half) {
+          const bool logits = a.likelihood == step::kCategorical;
+          for (int half = output_pairs(a) ? 1 : 0; half >= 0; --half) {
             const long long col = half ? d[e] : 0;  // lv columns, loc columns
             step::Problem* pr;
-            if (half) {
+            if (half || logits) {
               pr = T.add(b, d[e], 0, 0, w.lv[q][e], d[e], step::kBias,
                          P + D.bout + col);
             } else {
@@ -475,7 +501,7 @@ __host__ __device__ void build_phase(const PhaseDesc& ph, const StepParams& a,
               T.add_segment(pr, w.hd[q][e][nD - 1], h, P + D.Wout + col, ldb,
                             h);
             }
-            if (pr != nullptr && !half) {
+            if (pr != nullptr && !half && !logits) {
               pr->step_aux = x_step[e];
               pr->olv = S.sample ? nullptr : P + D.olv;
               pr->lv = S.sample ? w.lv[q][e] : nullptr;
@@ -629,6 +655,7 @@ __host__ __device__ int extra_tasks(const PhaseDesc& ph, const StepParams& a,
     case kLatentFwd: return latent_fwd_tasks(S.b);
     case kLatentBwd: return latent_bwd_tasks(S.b, S.cd, S.s[0], S.s[1]);
     case kOutBwd: return (S.d[0] + S.d[1] + kCombineCols - 1) / kCombineCols;
+    case kRowLoss: return a.dec_passes * 2 * ((S.b + kTile - 1) / kTile);
     case kHeadsBwd: return 1;
     case kLast: return C.total_chunks;
     default: return 0;
@@ -640,8 +667,8 @@ __host__ __device__ int extra_tasks(const PhaseDesc& ph, const StepParams& a,
 __host__ __device__ inline int product_tasks(const PhaseDesc& ph,
                                              const StepParams& a,
                                              const step::GemmTable& T) {
-  return ph.kind == kOutFwd && a.S.sample ? T.total_tiles / 2
-                                          : T.total_tiles;
+  return ph.kind == kOutFwd && output_pairs(a) ? T.total_tiles / 2
+                                               : T.total_tiles;
 }
 
 // The tensors of the older phases, whose Adam update rides on the last
@@ -759,9 +786,84 @@ __device__ void combine_task(const StepParams& a, const Layout& L,
   }
 }
 
+// The largest of v over a warp's lanes; every lane of the warp calls it and
+// gets the result (a max does not depend on the order of its operands).
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
+  }
+  return v;
+}
+
+// Categorical, one task of the output-rows phase: row tile `rt` (kTile rows)
+// of decoder e in decode pass q. A warp per row reads the row's logits (lv,
+// stored by the output phase across every column tile) and data: its max,
+// its log-sum-exp lse and sum_j x_j (fixed butterflies), then g_loc =
+// (exp(l - lse) sum_j x_j - x) / b into g_out (under a per-sample scale an
+// exact 0 into the log-variance half). Then a thread per column adds the
+// tile's rows in row order: the column partials of g_loc, of the
+// log-variance gradient (0) and of the NLL x (lse - l), as kDecLoss writes
+// them for the combine. `lse_rows`: kTile floats of shared memory. Every
+// thread of the block calls it.
+__device__ void row_loss_task(const StepParams& a, const Work& w, int task,
+                              int step, float* lse_rows) {
+  const Shape& S = a.S;
+  const int row_tiles = (S.b + kTile - 1) / kTile;
+  const int q = task / (2 * row_tiles);
+  const int e = task / row_tiles % 2;
+  const int rt = task % row_tiles;
+  const int d = S.d[e];
+  const int n_out = S.sample ? 2 * d : d;
+  const float* x = e == 0 ? a.x1 + a.x1_step * step : a.x2 + a.x2_step * step;
+  const float* logits = w.lv[q][e];
+  float* g = w.g_out[q][e];
+  const float bf = static_cast<float>(S.b);
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int rows = min(kTile, S.b - rt * kTile);
+  for (int r = warp; r < rows; r += kWarps) {  // uniform across the warp
+    const long long m = static_cast<long long>(rt) * kTile + r;
+    const float* lr = logits + m * d;
+    const float* xr = x + m * d;
+    float top = -3.402823466e38f;  // -FLT_MAX
+    for (int c = lane; c < d; c += 32) top = fmaxf(top, lr[c]);
+    top = warp_max(top);
+    float se = 0.0f, sx = 0.0f;
+    for (int c = lane; c < d; c += 32) {
+      se += expf(lr[c] - top);
+      sx += xr[c];
+    }
+    se = step::warp_sum(se);
+    sx = step::warp_sum(sx);
+    const float lse = top + logf(se);
+    if (lane == 0) lse_rows[r] = lse;
+    float* gr = g + m * n_out;
+    for (int c = lane; c < d; c += 32) {
+      gr[c] = (expf(lr[c] - lse) * sx - xr[c]) / bf;
+      if (S.sample) gr[d + c] = 0.0f;
+    }
+  }
+  __syncthreads();  // the tile's g_loc and lse are visible to the block
+  const long long stride = static_cast<long long>(row_tiles) * d;
+  float* colp = w.colp[q][e] + static_cast<long long>(rt) * d;
+  for (int c = threadIdx.x; c < d; c += blockDim.x) {
+    float acc_g = 0.0f, acc_n = 0.0f;
+    for (int r = 0; r < rows; ++r) {
+      const long long m = static_cast<long long>(rt) * kTile + r;
+      acc_g += g[m * n_out + c];
+      acc_n += x[m * d + c] * (lse_rows[r] - logits[m * d + c]);
+    }
+    colp[c] = acc_g;
+    colp[stride + c] = 0.0f;
+    colp[2 * stride + c] = acc_n;
+  }
+  __syncthreads();  // lse_rows is the next task's
+}
+
 // Under a per-sample scale, one output task: the log-variance tile, then
 // the loc tile, whose kSampleLoss epilogue reads what this block just stored
 // (the block barrier at the end of gemm_tile makes it visible).
+template <int kLik>
 __device__ void output_pair(const step::GemmTable& T, int task, int step,
                             Smem& sm) {
   int pi = 0, tile = task;
@@ -773,11 +875,26 @@ __device__ void output_pair(const step::GemmTable& T, int task, int step,
     pi += 2;
   }
   step::gemm_tile(T.p[pi], tile, step, sm);
-  step::gemm_tile(T.p[pi + 1], tile, step, sm);
+  step::gemm_tile<kStages, kLik>(T.p[pi + 1], tile, step, sm);
 }
 
-__host__ __device__ constexpr int n_phases_of(int n_enc, int n_dec) {
-  return 2 * (n_enc + n_dec) + 6;
+// One task of the output phase: a pair, or one tile (the loss epilogue's
+// likelihood kLik; categorical stores logits under kBias).
+template <int kLik>
+__device__ void output_task(const StepParams& a, const step::GemmTable& T,
+                            int task, int step, Smem& sm) {
+  if (output_pairs(a)) {
+    output_pair<kLik>(T, task, step, sm);
+    return;
+  }
+  int tile = task;
+  const step::Problem& P = T.find(tile);
+  step::gemm_tile<kStages, kLik>(P, tile, step, sm);
+}
+
+__host__ __device__ constexpr int n_phases_of(int n_enc, int n_dec,
+                                              int likelihood) {
+  return 2 * (n_enc + n_dec) + 6 + (likelihood == step::kCategorical);
 }
 
 __global__ void __launch_bounds__(step::kGemmThreads)
@@ -788,11 +905,11 @@ generic_steps_kernel(const __grid_constant__ StepParams a) {
   Tables& tb = *reinterpret_cast<Tables*>(dynamic_smem + sizeof(Smem));
   if (threadIdx.x == 0) {
     tb.layout = make_layout(a.S);
-    tb.work = carve(a.work, a.S, a.enc_passes, a.dec_passes);
+    tb.work = carve(a.work, a.S, a.enc_passes, a.dec_passes, a.likelihood);
     tb.cst.reset(tb.cs, kColSums);
     tb.lat = latent_args(a, tb.work);
     tb.older = older_ranges(a.S, tb.layout);
-    tb.n_phases = phase_list(a.S.n_enc, a.S.n_dec, tb.phases);
+    tb.n_phases = phase_list(a.S.n_enc, a.S.n_dec, a.likelihood, tb.phases);
     int first = 0;
     for (int ph = 0; ph < tb.n_phases; ++ph) {
       const int cap = phase_cap(tb.phases[ph], a);
@@ -827,20 +944,31 @@ generic_steps_kernel(const __grid_constant__ StepParams a) {
       const step::GemmTable& T = tb.tab[ph];
       const int tiles = product_tasks(desc, a, T);
       const int tasks = tiles + extra_tasks(desc, a, tb.cst);
-      const bool pairs = desc.kind == kOutFwd && a.S.sample;
       // the last phase's gradients take their Adam update where they are
       // produced: every reader of the params in this step is done
       const step::AdamAt* adam =
           a.adam && desc.kind == kLast ? &adam_at : nullptr;
       for (int task = blockIdx.x; task < tasks; task += gridDim.x) {
         if (task < tiles) {
-          if (pairs) {
-            output_pair(T, task, step, sm);
+          if (desc.kind == kOutFwd) {
+            switch (a.likelihood) {
+              case step::kLaplace:
+                output_task<step::kLaplace>(a, T, task, step, sm);
+                break;
+              case step::kBernoulli:
+                output_task<step::kBernoulli>(a, T, task, step, sm);
+                break;
+              default:  // normal; categorical's tiles store logits
+                output_task<step::kNormal>(a, T, task, step, sm);
+                break;
+            }
           } else {
             int tile = task;
             const step::Problem& P = T.find(tile);
             step::gemm_tile(P, tile, step, sm, adam);
           }
+        } else if (desc.kind == kRowLoss) {
+          row_loss_task(a, tb.work, task - tiles, step, &sm.colred[0][0][0]);
         } else if (desc.kind == kLatentFwd) {
           latent_fwd_task(tb.lat, noise, task - tiles);
         } else if (desc.kind == kLatentBwd) {
@@ -869,19 +997,21 @@ generic_steps_kernel(const __grid_constant__ StepParams a) {
   }
 }
 
-bool valid_shape(const Shape& S) {
+bool valid_shape(const Shape& S, int likelihood) {
   return S.b >= 1 && S.d[0] >= 1 && S.d[1] >= 1 && S.h >= 1 && S.cd >= 1 &&
-         S.s[0] >= 1 && S.s[1] >= 1 && S.n_enc >= 1 && S.n_enc <= kMaxDepth &&
-         S.n_dec >= 0 && S.n_dec <= kMaxDepth;
+         S.s[0] >= 0 && S.s[1] >= 0 && S.n_enc >= 1 && S.n_enc <= kMaxDepth &&
+         S.n_dec >= 0 && S.n_dec <= kMaxDepth &&
+         likelihood >= step::kNormal && likelihood <= step::kCategorical;
 }
 
 // The largest task count of any phase (more blocks than that only wait),
 // or -1 when a table overflows.
 int max_phase_tasks(const StepParams& a) {
   const Layout L = make_layout(a.S);
-  const Work w = carve(a.work, a.S, a.enc_passes, a.dec_passes);
+  const Work w = carve(a.work, a.S, a.enc_passes, a.dec_passes,
+                       a.likelihood);
   PhaseDesc phases[kMaxPhases];
-  const int n = phase_list(a.S.n_enc, a.S.n_dec, phases);
+  const int n = phase_list(a.S.n_enc, a.S.n_dec, a.likelihood, phases);
   step::Problem prob[kPoolProblems];
   step::ColSum cs[kColSums];
   step::ColSumTable C;
@@ -903,15 +1033,17 @@ int max_phase_tasks(const StepParams& a) {
 
 int grid_blocks(const StepParams& a, int* blocks) {
   const Shape& S = a.S;
+  // the likelihood shares the scale mode's slot of the 12 sizes
   return step::cooperative_grid(
       generic_steps_kernel, kSmemBytes,
       {S.b, S.d[0], S.d[1], S.h, S.cd, S.s[0], S.s[1], S.n_enc, S.n_dec,
-       S.sample, a.method, a.enc_passes},
+       S.sample + 2 * a.likelihood, a.method, a.enc_passes},
       [&] { return max_phase_tasks(a); }, blocks);
 }
 
 int launch_steps(const StepParams& a, cudaStream_t stream) {
-  if (a.method < kJointElbo || a.method > kPoe || !valid_shape(a.S) ||
+  if (a.method < kJointElbo || a.method > kPoe ||
+      !valid_shape(a.S, a.likelihood) ||
       a.n_steps < 1 || (!a.adam && a.n_steps != 1)) {
     return cudaErrorInvalidValue;
   }
@@ -925,10 +1057,12 @@ int launch_steps(const StepParams& a, cudaStream_t stream) {
       dim3(step::kGemmThreads), args, kSmemBytes, stream));
 }
 
-StepParams sizes_only(int method, int has_masks, const Shape& S) {
+StepParams sizes_only(int method, int has_masks, const Shape& S,
+                      int likelihood) {
   StepParams a = {};
   a.n_steps = 1;
   a.method = method;
+  a.likelihood = likelihood;
   a.S = S;
   a.dec_passes = method == kPoe ? 2 : 1;
   a.enc_passes = (method == kPoe && has_masks) ? 2 : 1;
@@ -941,44 +1075,51 @@ extern "C" {
 
 int generic_step_max_depth() { return kMaxDepth; }
 
+// The sizes are (d1, d2, h, cd, s1, s2, n_enc, n_dec, sample_scale,
+// likelihood) throughout; likelihood is step::Likelihood (0 normal, 1
+// laplace, 2 bernoulli, 3 categorical). The layout does not depend on it.
 long long generic_step_param_floats(int d1, int d2, int h, int cd, int s1,
                                     int s2, int n_enc, int n_dec,
-                                    int sample_scale) {
+                                    int sample_scale, int likelihood) {
   const Shape S{1, {d1, d2}, h, cd, {s1, s2}, n_enc, n_dec, sample_scale};
-  if (!valid_shape(S)) return -1;
+  if (!valid_shape(S, likelihood)) return -1;
   return make_layout(S).total;
 }
 
 long long generic_step_workspace_floats(int method, int has_masks, int b,
                                         int d1, int d2, int h, int cd, int s1,
                                         int s2, int n_enc, int n_dec,
-                                        int sample_scale) {
+                                        int sample_scale, int likelihood) {
   const Shape S{b, {d1, d2}, h, cd, {s1, s2}, n_enc, n_dec, sample_scale};
-  if (!valid_shape(S)) return -1;
-  const StepParams a = sizes_only(method, has_masks, S);
-  return carve(nullptr, S, a.enc_passes, a.dec_passes).total;
+  if (!valid_shape(S, likelihood)) return -1;
+  const StepParams a = sizes_only(method, has_masks, S, likelihood);
+  return carve(nullptr, S, a.enc_passes, a.dec_passes, likelihood).total;
 }
 
-// Phases of one step at these depths (a launch given phase_times stamps
-// the start of each step and the end of each phase).
-int generic_step_phases(int n_enc, int n_dec) {
-  return n_phases_of(n_enc, n_dec);
+// Phases of one step at these depths and likelihood (a launch given
+// phase_times stamps the start of each step and the end of each phase).
+int generic_step_phases(int n_enc, int n_dec, int likelihood) {
+  return n_phases_of(n_enc, n_dec, likelihood);
 }
 
 // Grid barriers per step of a launch (adam: with the in-kernel update).
-int generic_step_barriers(int n_enc, int n_dec, int adam) {
-  return n_phases_of(n_enc, n_dec) - (adam ? 0 : 1);
+int generic_step_barriers(int n_enc, int n_dec, int likelihood, int adam) {
+  return n_phases_of(n_enc, n_dec, likelihood) - (adam ? 0 : 1);
 }
 
 // Blocks of the cooperative grid at these sizes on the current device
 // (negative: minus a CUDA error code).
 int generic_step_grid_blocks(int method, int has_masks, int b, int d1,
                              int d2, int h, int cd, int s1, int s2,
-                             int n_enc, int n_dec, int sample_scale) {
+                             int n_enc, int n_dec, int sample_scale,
+                             int likelihood) {
   const Shape S{b, {d1, d2}, h, cd, {s1, s2}, n_enc, n_dec, sample_scale};
-  if (!valid_shape(S)) return -static_cast<int>(cudaErrorInvalidValue);
+  if (!valid_shape(S, likelihood)) {
+    return -static_cast<int>(cudaErrorInvalidValue);
+  }
   int blocks = 0;
-  const int rc = grid_blocks(sizes_only(method, has_masks, S), &blocks);
+  const int rc =
+      grid_blocks(sizes_only(method, has_masks, S, likelihood), &blocks);
   return rc != 0 ? -rc : blocks;
 }
 
@@ -997,11 +1138,11 @@ int generic_step_launch(const float* params, float* grads, float* metrics,
                         long long mask_stride, int ld_mask, float* work,
                         int method, int b, int d1, int d2, int h, int cd,
                         int s1, int s2, int n_enc, int n_dec,
-                        int sample_scale, float beta, float beta_style,
-                        float beta_content, int learn_scale,
+                        int sample_scale, int likelihood, float beta,
+                        float beta_style, float beta_content, int learn_scale,
                         void* stream_ptr) {
   const Shape S{b, {d1, d2}, h, cd, {s1, s2}, n_enc, n_dec, sample_scale};
-  StepParams a = sizes_only(method, masks != nullptr, S);
+  StepParams a = sizes_only(method, masks != nullptr, S, likelihood);
   // n = 1 and Adam off: the params are only read
   a.params = const_cast<float*>(params);
   a.grads = grads;
@@ -1035,14 +1176,14 @@ int generic_epoch_launch(float* params, float* mu, float* nu, float* grads,
                          const float* noise, const float* masks, float* work,
                          int n, int method, int b, int d1, int d2, int h,
                          int cd, int s1, int s2, int n_enc, int n_dec,
-                         int sample_scale, float beta, float beta_style,
-                         float beta_content, int learn_scale,
-                         long long count, float lr, float b1, float b2,
-                         float one_minus_b1, float one_minus_b2, float log_b1,
-                         float log_b2, float eps,
+                         int sample_scale, int likelihood, float beta,
+                         float beta_style, float beta_content,
+                         int learn_scale, long long count, float lr, float b1,
+                         float b2, float one_minus_b1, float one_minus_b2,
+                         float log_b1, float log_b2, float eps,
                          unsigned long long* phase_times, void* stream_ptr) {
   const Shape S{b, {d1, d2}, h, cd, {s1, s2}, n_enc, n_dec, sample_scale};
-  StepParams a = sizes_only(method, masks != nullptr, S);
+  StepParams a = sizes_only(method, masks != nullptr, S, likelihood);
   const int width = (cd + s1 + s2) + (method == kPoe ? 2 * cd + s1 + s2 : 0);
   const long long mask_floats = static_cast<long long>(b) * h;
   a.params = params;

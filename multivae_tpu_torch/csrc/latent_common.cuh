@@ -64,8 +64,9 @@ struct LatentArgs {
 
 // The parts of LatentArgs that depend only on the step's sizes and weights:
 // the noise's row stride and its column offsets (cd | s1 | s2, poe appends
-// cd | s1 and cd | s2), the row partitions of a batch of b_total rows, and
-// the KL coefficients.
+// cd | s1 and cd | s2; a style width may be 0: the unfactorized latent has
+// no style columns, heads or KL), the row partitions of a batch of b_total
+// rows, and the KL coefficients.
 __host__ __device__ inline void set_latent_consts(
     LatentArgs& la, int method, int b, int row_offset, int b_total, int d1,
     int d2, int cd, int s1, int s2, int ld_noise, float beta,
@@ -440,12 +441,17 @@ __device__ void metrics_task(const LatentArgs& a, float* metrics,
     }
     const float bl = static_cast<float>(a.b);
     const float n_c = bl * a.cd, n_s1 = bl * a.s[0], n_s2 = bl * a.s[1];
+    // a style latent of width 0 (the unfactorized latent) has mean 0
+    const float m_s1 = n_s1 > 0.0f ? sums[7] / n_s1 : 0.0f;
+    const float l_s1 = n_s1 > 0.0f ? sums[8] / n_s1 : 0.0f;
+    const float m_s2 = n_s2 > 0.0f ? sums[11] / n_s2 : 0.0f;
+    const float l_s2 = n_s2 > 0.0f ? sums[12] / n_s2 : 0.0f;
     const float head[17] = {loss,  group_div, nll1, nll2, kld_a, kld_b,
                             kld_c, kld_s1,    kld_s2,
                             sums[5] / n_c,  sums[6] / n_c,
-                            sums[7] / n_s1, sums[8] / n_s1,
+                            m_s1,           l_s1,
                             sums[9] / n_c,  sums[10] / n_c,
-                            sums[11] / n_s2, sums[12] / n_s2};
+                            m_s2,           l_s2};
     for (int q = 0; q < 17; ++q) metrics[q] = head[q];
   }
   __syncthreads();

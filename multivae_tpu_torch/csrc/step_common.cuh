@@ -53,6 +53,13 @@ namespace step {
 
 constexpr float kPoeEps = 1e-8f;
 constexpr float kLog2Pi = 1.8378770664093453f;  // log(2 pi)
+constexpr float kLog2 = 0.6931471805599453f;    // log(2)
+
+// The decoders' output likelihoods, in the order of LIKELIHOODS in
+// multivae_tpu_torch/ops/likelihoods.py.
+enum Likelihood {
+  kNormal = 0, kLaplace = 1, kBernoulli = 2, kCategorical = 3
+};
 
 struct EncLayout {
   long long Wh, bh, Wcmu, bcmu, Wclv, bclv, Wsmu, bsmu, Wslv, bslv;
@@ -118,12 +125,17 @@ enum Epilogue {
   kDecLoss = 4,   // r = aux - (acc + bias), C = g_loc = -r exp(-olv[n]) / scale
                   // and, per row tile, the column sums of g_loc, of
                   // 0.5 - 0.5 r^2 exp(-olv) and of the per-element NLL into
-                  // colp[j][row_tile][n] (j = 0, 1, 2)
+                  // colp[j][row_tile][n] (j = 0, 1, 2); laplace: g_loc =
+                  // -sign(r) exp(-olv / 2) / scale (sign +1 at r = 0), the
+                  // log-variance term 0.5 - 0.5 |r| exp(-olv / 2);
+                  // bernoulli (acc + bias the logits l): g_loc = (sigmoid(l)
+                  // - aux) / scale, the log-variance term 0
   kSampleLoss = 5,  // loc = acc + bias, r = aux - loc, lv = lv[m, n] (the
                     // per-sample log-variance, already stored by this block),
                     // C[m, n] = g_loc = -r exp(-lv) / scale, C[m, N + n] =
                     // g_lv = (0.5 - 0.5 r^2 exp(-lv)) / scale and, per row
-                    // tile, the column sums of g_loc, g_lv and the NLL
+                    // tile, the column sums of g_loc, g_lv and the NLL;
+                    // laplace and bernoulli as kDecLoss with lv per element
 };
 
 struct Segment {
@@ -371,8 +383,9 @@ __device__ __forceinline__ void load_slice(const Operand& X, int k0,
 // function of the tile alone. While a group multiplies one slice its next
 // kStages - 1 are on the way (a ring of stages filled by cp.async). `step`
 // picks the batch of a launch that runs several steps; with `adam` every
-// output element (a gradient) also takes its Adam update.
-template <int kStages>
+// output element (a gradient) also takes its Adam update. kLik is the
+// likelihood of the kDecLoss and kSampleLoss epilogues.
+template <int kStages, int kLik = kNormal>
 __device__ void gemm_tile(const Problem& P, int tile, int step,
                           GemmSmem<kStages>& sm,
                           const AdamAt* adam = nullptr) {
@@ -484,7 +497,8 @@ __device__ void gemm_tile(const Problem& P, int tile, int step,
         make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
   }
   __syncthreads();
-  const float iv = expf(-olv);  // used by kDecLoss alone
+  // used by kDecLoss alone: 1 / variance, laplace 1 / scale
+  const float iv = kLik == kLaplace ? expf(-0.5f * olv) : expf(-olv);
   float col[kMaxColOut] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
@@ -508,25 +522,57 @@ __device__ void gemm_tile(const Problem& P, int tile, int step,
         }
         break;
       case kDecLoss: {
-        const float rv = aux4[r] - (v + bias);
-        const float q = 0.5f * (rv * rv) * iv;  // 0.5 r^2 iv
-        v = -rv * iv / P.scale;                 // g_loc = -r iv / b_total
-        col[0] += v;
-        col[1] += 0.5f - q;
-        col[2] += 0.5f * kLog2Pi + 0.5f * olv + q;
+        if constexpr (kLik == kNormal) {
+          const float rv = aux4[r] - (v + bias);
+          const float q = 0.5f * (rv * rv) * iv;  // 0.5 r^2 iv
+          v = -rv * iv / P.scale;                 // g_loc = -r iv / b_total
+          col[0] += v;
+          col[1] += 0.5f - q;
+          col[2] += 0.5f * kLog2Pi + 0.5f * olv + q;
+        } else if constexpr (kLik == kLaplace) {
+          const float rv = aux4[r] - (v + bias);
+          const float a = fabsf(rv) * iv;  // |r| / scale
+          v = (rv >= 0.0f ? -iv : iv) / P.scale;
+          col[0] += v;
+          col[1] += 0.5f - 0.5f * a;
+          col[2] += kLog2 + 0.5f * olv + a;
+        } else if constexpr (kLik == kBernoulli) {
+          const float l = v + bias;
+          v = (1.0f / (1.0f + expf(-l)) - aux4[r]) / P.scale;
+          col[0] += v;
+          col[2] += fmaxf(l, 0.0f) + log1pf(expf(-fabsf(l))) - aux4[r] * l;
+        }
         break;
       }
       case kSampleLoss: {
         const float lv = P.lv[static_cast<long long>(m) * P.ld_lv + n];
-        const float ivs = expf(-lv);
-        const float rv = aux4[r] - (v + bias);
-        const float q = 0.5f * (rv * rv) * ivs;
-        v = -rv * ivs / P.scale;
-        const float gv = (0.5f - q) / P.scale;
-        P.C[static_cast<long long>(m) * P.ldc + N + n] = gv;
-        col[0] += v;
-        col[1] += gv;
-        col[2] += 0.5f * kLog2Pi + 0.5f * lv + q;
+        if constexpr (kLik == kNormal) {
+          const float ivs = expf(-lv);
+          const float rv = aux4[r] - (v + bias);
+          const float q = 0.5f * (rv * rv) * ivs;
+          v = -rv * ivs / P.scale;
+          const float gv = (0.5f - q) / P.scale;
+          P.C[static_cast<long long>(m) * P.ldc + N + n] = gv;
+          col[0] += v;
+          col[1] += gv;
+          col[2] += 0.5f * kLog2Pi + 0.5f * lv + q;
+        } else if constexpr (kLik == kLaplace) {
+          const float isc = expf(-0.5f * lv);
+          const float rv = aux4[r] - (v + bias);
+          const float a = fabsf(rv) * isc;
+          v = (rv >= 0.0f ? -isc : isc) / P.scale;
+          const float gv = (0.5f - 0.5f * a) / P.scale;
+          P.C[static_cast<long long>(m) * P.ldc + N + n] = gv;
+          col[0] += v;
+          col[1] += gv;
+          col[2] += kLog2 + 0.5f * lv + a;
+        } else if constexpr (kLik == kBernoulli) {
+          const float l = v + bias;
+          v = (1.0f / (1.0f + expf(-l)) - aux4[r]) / P.scale;
+          P.C[static_cast<long long>(m) * P.ldc + N + n] = 0.0f;
+          col[0] += v;
+          col[2] += fmaxf(l, 0.0f) + log1pf(expf(-fabsf(l))) - aux4[r] * l;
+        }
         break;
       }
       default:

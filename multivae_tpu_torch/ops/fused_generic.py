@@ -9,47 +9,53 @@ with the depths as arguments: :func:`generic_fwd_bwd_reference` (plain) and
 ``csrc/generic_step.cu`` (kernel) compute the loss of one full complete
 batch, its metric families and the gradient of every parameter, for
 encoders of ``n_enc >= 1`` hidden layers, decoders of ``n_dec >= 0`` hidden
-layers and each output-scale mode (a learned or a frozen per-feature
+layers, each output-scale mode (a learned or a frozen per-feature
 ``out_logvar``, or the per-sample ``out_heads`` projection to
-``loc | logvar``). Between the stacks stands the method's latent math, which
-is the method step's (:func:`.fused_methods.latent_fwd_bwd`,
-``csrc/latent_common.cuh``). The kernel is persistent: on CUDA tensors
-:func:`generic_epoch_flat` runs a whole group of steps with Adam inside in
-ONE cooperative launch (the TPU kernel's epoch contract), and one step is
-the same kernel with ``n = 1`` and Adam off.
+``loc | logvar``) and each likelihood of ``LIKELIHOODS`` (:func:`output_nll`;
+bernoulli and categorical read the location as logits and leave the
+log-variance an exact zero gradient). A style width of 0 is a modality
+without style latents: the unfactorized latent has no style heads, noise or
+KL, and its decoders read the content latent alone. Between the stacks
+stands the method's latent math, which is the method step's
+(:func:`.fused_methods.latent_fwd_bwd`, ``csrc/latent_common.cuh``). The
+kernel is persistent: on CUDA tensors :func:`generic_epoch_flat` runs a
+whole group of steps with Adam inside in ONE cooperative launch (the TPU
+kernel's epoch contract), and one step is the same kernel with ``n = 1``
+and Adam off.
 
-The envelope (:func:`supports_generic_fused`): two modalities, a factorized
-representation with both style dims > 0, the normal likelihood, every
-modality present, and the methods of ``PORTED_METHODS``. The TPU kernel
-also serves the other likelihoods, an unfactorized latent and other
-modality counts; those raise ``NotImplementedError`` in the trainer.
+The envelope (:func:`supports_generic_fused`): two modalities, every
+modality present, the methods of ``PORTED_METHODS`` (poe with its unimodal
+ELBOs) and 1-4 / 0-4 hidden layers. The TPU kernel also serves other
+modality counts and deeper stacks; those raise ``NotImplementedError`` in
+the trainer.
 
 Params, gradients and the Adam moments are flat buffers in the general
 layout (:func:`multivae_tpu_torch.params.generic_shapes`).
 
 Noise ``[B, noise_width]``: ``cd | s1 | s2``; poe appends the unimodal draws
-``cd | s1`` and ``cd | s2``. Dropout masks are pre-scaled keep masks
-``[n_masks, B, hidden]`` (values in ``{0, 1 / (1 - rate)}``), one per hidden
-layer and pass, multiplied in after the ReLU, in this order: the main pass's
-encoder 1 layers ``0 .. n_enc - 1``, encoder 2 layers, decoder 1 layers
-``0 .. n_dec - 1``, decoder 2 layers; then for poe the unimodal re-runs'
-masks in the same order (``2 (n_enc + n_dec)`` masks per pass). Under
-dropout poe's unimodal ELBOs re-encode and decode with their own masks;
-without it they reuse the main pass's encodings and decode their own
+``cd | s1`` and ``cd | s2`` (a style width of 0 has no columns). Dropout masks
+are pre-scaled keep masks ``[n_masks, B, hidden]`` (values in
+``{0, 1 / (1 - rate)}``), one per hidden layer and pass, multiplied in after
+the ReLU, in this order: the main pass's encoder 1 layers ``0 .. n_enc - 1``, encoder 2 layers,
+decoder 1 layers ``0 .. n_dec - 1``, decoder 2 layers; then for poe the
+unimodal re-runs' masks in the same order (``2 (n_enc + n_dec)`` masks per
+pass). Under dropout poe's unimodal ELBOs re-encode and decode with their own
+masks; without it they reuse the main pass's encodings and decode their own
 latents.
 
 A step's metric vector is in the order of
-:func:`.fused_methods.method_metric_names` (the shared metrics kernel's);
-:func:`generic_epoch_flat` returns the rows in the order of
-:func:`generic_metric_names`, the TPU kernel's (``loss``, then the other
-families sorted by name). On CUDA tensors a step launches the kernel, on CPU
-tensors it runs the plain version; a kernel that does not build or launch
-raises.
+:func:`.fused_methods.method_metric_names` (the shared metrics kernel's; a
+style family without style latents holds 0); :func:`generic_epoch_flat`
+returns the rows of :func:`generic_metric_names`, the TPU kernel's
+(``loss``, then the other families ``total_loss`` emits, sorted by name).
+On CUDA tensors a step launches the kernel, on CPU tensors it runs the
+plain version; a kernel that does not build or launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -72,8 +78,10 @@ from .fused_step import (
     check_stack,
     workspace,
 )
+from .likelihoods import LIKELIHOODS, tie_sign
 
 PORTED_METHODS = METHODS
+LOG2 = math.log(2.0)
 MAX_DEPTH = 4  # hidden layers per network (kMaxDepth of generic_step.cu)
 
 # launches of each kernel in this module; a caller resets and reads it
@@ -90,13 +98,6 @@ def envelope_gaps(cfg, model) -> list:
     if len(model.modalities) != 2:
         out.append(f"{len(model.modalities)} modalities: the generic step "
                    f"for a modality count other than 2 {item}")
-    if cfg.likelihood != "normal":
-        out.append(f"likelihood={cfg.likelihood!r}: the generic step's "
-                   f"other likelihoods {item}")
-    if not (cfg.factorized_representation
-            and all(m.style_dim > 0 for m in model.modalities)):
-        out.append(f"an unfactorized latent: the generic step without "
-                   f"style latents {item}")
     if cfg.method not in PORTED_METHODS:
         out.append(f"method={cfg.method!r}: not finished in the generic "
                    f"step {item}")
@@ -122,10 +123,24 @@ def supports_generic_fused(cfg, model, batch) -> bool:
     return all(n in batch for n in names) and not envelope_gaps(cfg, model)
 
 
+def styled(model) -> Tuple[bool, ...]:
+    """Per modality, whether it has style latents: a factorized
+    representation and a style width > 0 (a stand-in that names its
+    modalities alone has them)."""
+    factorized = getattr(model, "factorized_representation", True)
+    return tuple(bool(factorized) and getattr(m, "style_dim", 1) > 0
+                 for m in model.modalities)
+
+
 def generic_metric_names(model, method: str) -> Tuple[str, ...]:
     """Scalar families per step in the TPU kernel's order: ``loss``, then
-    the other keys of ``total_loss`` sorted."""
-    names = method_metric_names(model, method)
+    the other keys of ``total_loss`` sorted. A modality without style
+    latents has no style families, as there."""
+    absent = {f"{k}/{m.name}_style"
+              for m, has in zip(model.modalities, styled(model)) if not has
+              for k in ("kld_style", "latent_mu", "latent_logvar")}
+    names = [n for n in method_metric_names(model, method)
+             if n not in absent]
     return ("loss",) + tuple(sorted(n for n in names if n != "loss"))
 
 
@@ -224,17 +239,13 @@ class StackNets:
             loc = h @ self.sp[f"{net}/out_mu/kernel"] + self.sp[
                 f"{net}/out_mu/bias"]
             lv = self.sp[f"{net}/out_logvar"]
-        r = x - loc
-        iv = torch.exp(-lv)
-        nll = torch.sum(0.5 * LOG2PI + 0.5 * lv
-                        + 0.5 * torch.square(r) * iv) / self.b
-        return nll, (z, h, acts, r, iv)
+        nll, g_out, g_lv = output_nll(self.dims.likelihood, x, loc, lv,
+                                      self.b)
+        return nll, (z, h, acts, g_out, g_lv)
 
     def decode_bwd(self, e: int, cache):
         net = f"dec{e + 1}"
-        z, h, acts, r, iv = cache
-        g_out = -r * iv / self.b
-        g_lv = (0.5 - 0.5 * torch.square(r) * iv) / self.b
+        z, h, acts, g_out, g_lv = cache
         if self.dims.sample_scale:
             # one right-hand side [g_loc | g_lv] for the fused projection
             out, g_out = "out_heads", torch.cat([g_out, g_lv], dim=1)
@@ -248,6 +259,43 @@ class StackNets:
                               g_out @ self.sp[f"{net}/{out}/kernel"].T)
         s = (self.dims.s1, self.dims.s2)[e]
         return g_z[:, :s], g_z[:, s:]
+
+
+def softplus(v):
+    """``log(1 + exp(v))`` in the form the kernel computes."""
+    return torch.clamp_min(v, 0.0) + torch.log1p(torch.exp(-v.abs()))
+
+
+def output_nll(likelihood: str, x, loc, lv, b: float):
+    """``(nll, g_loc, g_lv)`` of a decoder's output: the NLL of ``x`` summed
+    over rows and features and divided by ``b``, and its gradients with
+    respect to the location (the logits for bernoulli and categorical) and
+    the log-variance ``lv`` (``[B, d]`` per sample or ``[1, d]`` per
+    feature; ``g_lv`` is ``[B, d]`` either way). bernoulli and categorical
+    have no scale: their ``g_lv`` is an exact zero."""
+    if likelihood == "normal":
+        r = x - loc
+        iv = torch.exp(-lv)
+        nll = torch.sum(0.5 * LOG2PI + 0.5 * lv
+                        + 0.5 * torch.square(r) * iv) / b
+        return nll, -r * iv / b, (0.5 - 0.5 * torch.square(r) * iv) / b
+    zero = torch.zeros_like(x)
+    if likelihood == "laplace":
+        # log(2 scale) + |r| / scale with scale = exp(lv / 2); d|r|/dr is
+        # +1 at r = 0, as jax.grad(jnp.abs) takes it
+        r = x - loc
+        isc = torch.exp(-0.5 * lv)
+        a = r.abs() * isc
+        nll = torch.sum(LOG2 + 0.5 * lv + a) / b
+        return nll, -tie_sign(r) * isc / b, (0.5 - 0.5 * a) / b
+    if likelihood == "bernoulli":
+        nll = torch.sum(softplus(loc) - x * loc) / b
+        return nll, (torch.sigmoid(loc) - x) / b, zero
+    if likelihood == "categorical":
+        ls = torch.log_softmax(loc, dim=1)
+        nll = -torch.sum(x * ls) / b
+        return nll, (torch.exp(ls) * x.sum(1, keepdim=True) - x) / b, zero
+    raise ValueError(f"likelihood not implemented: {likelihood}")
 
 
 def _check_masks(name: str, method: str, dims: GenericDims, masks):
@@ -285,7 +333,8 @@ EPOCH_ARGS = (
     ("n", "i32"), ("method", "i32"), ("b", "i32"), ("d1", "i32"),
     ("d2", "i32"), ("h", "i32"), ("cd", "i32"), ("s1", "i32"), ("s2", "i32"),
     ("n_enc", "i32"), ("n_dec", "i32"), ("sample_scale", "i32"),
-    ("beta", "f32"), ("beta_style", "f32"), ("beta_content", "f32"),
+    ("likelihood", "i32"), ("beta", "f32"), ("beta_style", "f32"),
+    ("beta_content", "f32"),
     ("learn_scale", "i32"), ("count", "i64"),
     ("lr", "f32"), ("b1", "f32"), ("b2", "f32"), ("one_minus_b1", "f32"),
     ("one_minus_b2", "f32"), ("log_b1", "f32"), ("log_b2", "f32"),
@@ -295,13 +344,17 @@ EPOCH_ARGS = (
 
 
 def phases(dims: GenericDims) -> Tuple[str, ...]:
-    """The phases of one step of the persistent kernel at these depths, in
-    order (``2 (n_enc + n_dec) + 6``); a launch given ``phase_times`` stamps
-    the device's clock at the start of every step and after every phase's
-    barrier."""
+    """The phases of one step of the persistent kernel at these depths and
+    likelihood, in order (``2 (n_enc + n_dec) + 6``, one more for
+    categorical: its loss needs whole rows of logits); a launch given
+    ``phase_times`` stamps the device's clock at the start of every step
+    and after every phase's barrier."""
     n_enc, n_dec = dims.n_enc, dims.n_dec
     names = [f"enc {i}" for i in range(n_enc)] + ["heads", "latents"]
-    names += [f"dec {j}" for j in range(n_dec)] + ["output", "output grads"]
+    names += [f"dec {j}" for j in range(n_dec)] + ["output"]
+    if dims.likelihood == "categorical":
+        names.append("output rows")
+    names.append("output grads")
     names += [f"dec {j} grads" for j in range(n_dec - 1, 0, -1)]
     if n_dec > 0:
         names.append("z grads")
@@ -323,7 +376,8 @@ def pack_epoch_args(p, mu, nu, grads, metrics, x1s, x2s, noise, masks, work,
         noise.data_ptr(), None if masks is None else masks.data_ptr(),
         work.data_ptr(), int(x1s.shape[0]), METHODS.index(method), dims.b,
         dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2, dims.n_enc,
-        dims.n_dec, int(dims.sample_scale), *(float(c) for c in consts),
+        dims.n_dec, int(dims.sample_scale),
+        LIKELIHOODS.index(dims.likelihood), *(float(c) for c in consts),
         int(bool(learn_scale)), int(count), *adam_scalars(hyper),
         None if phase_times is None else phase_times.data_ptr(), int(stream))
 
@@ -336,22 +390,22 @@ def _generic_library():
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         i64 = ctypes.c_longlong
         lib.generic_step_launch.argtypes = (
-            [ptr] * 6 + [i32, ptr, i64, i32, ptr] + [i32] * 11 + [f32] * 3
+            [ptr] * 6 + [i32, ptr, i64, i32, ptr] + [i32] * 12 + [f32] * 3
             + [i32, ptr])
         lib.generic_step_launch.restype = i32
         lib.generic_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS)
         lib.generic_epoch_launch.restype = i32
-        lib.generic_step_workspace_floats.argtypes = [i32] * 12
+        lib.generic_step_workspace_floats.argtypes = [i32] * 13
         lib.generic_step_workspace_floats.restype = i64
-        lib.generic_step_param_floats.argtypes = [i32] * 9
+        lib.generic_step_param_floats.argtypes = [i32] * 10
         lib.generic_step_param_floats.restype = i64
         lib.generic_step_max_depth.argtypes = []
         lib.generic_step_max_depth.restype = i32
-        lib.generic_step_phases.argtypes = [i32] * 2
+        lib.generic_step_phases.argtypes = [i32] * 3
         lib.generic_step_phases.restype = i32
-        lib.generic_step_barriers.argtypes = [i32] * 3
+        lib.generic_step_barriers.argtypes = [i32] * 4
         lib.generic_step_barriers.restype = i32
-        lib.generic_step_grid_blocks.argtypes = [i32] * 12
+        lib.generic_step_grid_blocks.argtypes = [i32] * 13
         lib.generic_step_grid_blocks.restype = i32
         lib.generic_step_error_string.argtypes = [i32]
         lib.generic_step_error_string.restype = ctypes.c_char_p
@@ -359,8 +413,14 @@ def _generic_library():
 
 
 def _shape(dims: GenericDims) -> tuple:
+    """The kernel's sizes: widths, depths, scale mode, likelihood index."""
     return (dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2,
-            dims.n_enc, dims.n_dec, int(dims.sample_scale))
+            dims.n_enc, dims.n_dec, int(dims.sample_scale),
+            LIKELIHOODS.index(dims.likelihood))
+
+
+def _phase_sizes(dims: GenericDims) -> tuple:
+    return dims.n_enc, dims.n_dec, LIKELIHOODS.index(dims.likelihood)
 
 
 def _checked_library(p, dims: GenericDims):
@@ -373,7 +433,7 @@ def _checked_library(p, dims: GenericDims):
     if lib.generic_step_param_floats(*_shape(dims)) != p.numel():
         raise ValueError("generic_step: the kernel's layout disagrees with "
                          "params.generic_shapes")
-    if lib.generic_step_phases(dims.n_enc, dims.n_dec) != len(phases(dims)):
+    if lib.generic_step_phases(*_phase_sizes(dims)) != len(phases(dims)):
         raise ValueError("generic_step: the kernel's phase list disagrees "
                          "with fused_generic.phases")
     return lib
@@ -391,12 +451,11 @@ def launch_geometry(dims: GenericDims, device, method: str,
     if blocks < 0:
         raise RuntimeError("generic_step: "
                            + lib.generic_step_error_string(-blocks).decode())
+    sizes = _phase_sizes(dims)
     return {"grid_blocks": blocks,
-            "phases": lib.generic_step_phases(dims.n_enc, dims.n_dec),
-            "barriers_per_step_adam": lib.generic_step_barriers(
-                dims.n_enc, dims.n_dec, 1),
-            "barriers_per_step": lib.generic_step_barriers(
-                dims.n_enc, dims.n_dec, 0)}
+            "phases": lib.generic_step_phases(*sizes),
+            "barriers_per_step_adam": lib.generic_step_barriers(*sizes, 1),
+            "barriers_per_step": lib.generic_step_barriers(*sizes, 0)}
 
 
 def _launch_generic(method: str, p, x1, x2, noise, dims: GenericDims,

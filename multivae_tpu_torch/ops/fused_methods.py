@@ -173,6 +173,12 @@ def decode_bwd(sp, g, d: str, r, iv, zs, zc, b: float, learn_scale: bool):
     return g_loc @ sp[f"{d}_Wds"].T, g_loc @ sp[f"{d}_Wdc"].T
 
 
+def mean_or_zero(t):
+    """The mean of ``t``, 0 for an empty tensor (a style latent of width
+    0, whose metric the step still carries)."""
+    return t.mean() if t.numel() else t.new_zeros(())
+
+
 def kl_sum(mu, lv, b: float):
     return -0.5 * torch.sum(1.0 - torch.exp(lv) - torch.square(mu) + lv) / b
 
@@ -392,9 +398,9 @@ def latent_fwd_bwd(method: str, nets, noise, rows: int, cd: int, s1: int,
         extra = [uni[0]["nll"], uni[1]["nll"]]
 
     metrics = torch.stack([
-        loss, group_div, nll1, nll2, kld_a, kld_b, kld_c, kld_s1, kld_s2,
-        cmu1.mean(), clv1.mean(), smu1.mean(), slv1.mean(),
-        cmu2.mean(), clv2.mean(), smu2.mean(), slv2.mean()] + extra)
+        loss, group_div, nll1, nll2, kld_a, kld_b, kld_c, kld_s1, kld_s2]
+        + [mean_or_zero(t) for t in (cmu1, clv1, smu1, slv1,
+                                     cmu2, clv2, smu2, slv2)] + extra)
 
     # ---------------- backward ----------------
     g_zs1, g_zc1 = nets.decode_bwd(0, d1)

@@ -16,6 +16,18 @@ LOG2PI = math.log(2.0 * math.pi)
 LIKELIHOODS = ("normal", "laplace", "bernoulli", "categorical")
 
 
+def tie_sign(r):
+    """``sign(r)`` with ``+1`` at ``r == 0`` (``-0.0`` too): the derivative
+    of ``|r|`` that ``jax.grad(jnp.abs)`` takes everywhere, ties included."""
+    return torch.where(r >= 0, 1.0, -1.0).to(r.dtype)
+
+
+def abs_jax_grad(r):
+    """``|r|`` whose autograd gradient is :func:`tie_sign` (torch's
+    ``abs`` has gradient 0 at 0)."""
+    return r * tie_sign(r).detach()
+
+
 def log_prob(name: str, x, loc, scale):
     """Elementwise log-probabilities (categorical: class-reduced)."""
     if name == "normal":
@@ -23,7 +35,7 @@ def log_prob(name: str, x, loc, scale):
         return -0.5 * (LOG2PI + torch.log(var)) - torch.square(x - loc) / (
             2.0 * var)
     if name == "laplace":
-        return -torch.log(2.0 * scale) - torch.abs(x - loc) / scale
+        return -torch.log(2.0 * scale) - abs_jax_grad(x - loc) / scale
     if name == "bernoulli":
         return x * F.logsigmoid(loc) + (1.0 - x) * F.logsigmoid(-loc)
     if name == "categorical":

@@ -51,7 +51,8 @@ class FusedDims(NamedTuple):
 
 class GenericDims(NamedTuple):
     """The sizes of the general flat layout: :class:`FusedDims` plus the
-    depths and the output-scale mode."""
+    depths, the output-scale mode and the likelihood. A style width of 0 is
+    a modality without style latents (the unfactorized latent)."""
     b: int
     d1: int
     d2: int
@@ -62,6 +63,8 @@ class GenericDims(NamedTuple):
     n_enc: int          # encoder hidden layers (>= 1)
     n_dec: int          # decoder hidden layers (>= 0)
     sample_scale: bool  # a per-sample output scale (``out_heads``)
+    # one of ``ops.likelihoods.LIKELIHOODS`` (the kernels take its index)
+    likelihood: str = "normal"
 
 
 def split_layout(cfg) -> bool:
@@ -79,14 +82,18 @@ def split_layout(cfg) -> bool:
 
 def dims_from(cfg, batch_size: int):
     """The dims of the layout ``cfg`` trains on: :class:`FusedDims` for the
-    split layout, :class:`GenericDims` for any other architecture."""
+    split layout, :class:`GenericDims` for any other architecture or
+    likelihood (``Config.derive`` gives an unfactorized latent style widths
+    0)."""
     if not split_layout(cfg):
         return GenericDims(
             b=batch_size, d1=cfg.input_dim[0], d2=cfg.input_dim[1],
             h=cfg.hidden_dim, cd=cfg.class_dim, s1=cfg.style_dim[0],
-            s2=cfg.style_dim[1], n_enc=int(cfg.num_hidden_layer_encoder),
+            s2=cfg.style_dim[1],
+            n_enc=int(cfg.num_hidden_layer_encoder),
             n_dec=int(cfg.num_hidden_layer_decoder),
-            sample_scale=bool(cfg.learn_output_sample_scale))
+            sample_scale=bool(cfg.learn_output_sample_scale),
+            likelihood=cfg.likelihood)
     return FusedDims(b=batch_size, d1=cfg.input_dim[0], d2=cfg.input_dim[1],
                      h=cfg.hidden_dim, cd=cfg.class_dim,
                      s1=cfg.style_dim[0], s2=cfg.style_dim[1])

@@ -17,8 +17,9 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
   that runs all its steps with Adam inside. Without ``fused_training``
   every batch takes the general autograd step, in the same order with the
   same noise and masks;
-* an architecture outside the split layout (more encoder hidden layers,
-  decoder hidden layers, a per-sample output scale) inside the layer-stack
+* a config outside the split layout (more encoder hidden layers, decoder
+  hidden layers, a per-sample output scale, the laplace, bernoulli or
+  categorical likelihood, an unfactorized latent) inside the layer-stack
   step's envelope (``ops/fused_generic.py``) sends its full complete
   batches to that kernel (``csrc/generic_step.cu``, persistent as well:
   one launch with Adam inside) and every other batch

@@ -160,11 +160,11 @@ def daa_exp(dataset, datasetdir, outdir, run, sampling_strategy="likelihood",
             trust_level=0.75, seed=1037, reg_method="hierarchical",
             sample_latents=True, vote_prop=1.0, exact_reconstruction="auto",
             fetch_dtype="float16", artifact="full", use_sharding="auto",
-            device="cuda"):
+            chunk=16, device="cuda"):
     """Digital avatars analysis (``workflow.py:185-539``): perturb one
-    clinical score at a time, decode ROI avatars on the avatar-sweep kernel,
-    regress avatar on score per ROI and vote Bonferroni-significant
-    associations.
+    clinical score at a time, decode ROI avatars (on the avatar-sweep kernel
+    where it takes the configuration), regress avatar on score per ROI and
+    vote Bonferroni-significant associations.
 
     ``device`` runs the model and the sweep (``cuda`` by default; ``cpu``
     runs the kernel's plain PyTorch version). ``exact_reconstruction=False``
@@ -173,7 +173,11 @@ def daa_exp(dataset, datasetdir, outdir, run, sampling_strategy="likelihood",
     on-disk artifact is float32 either way); ``artifact=stats-only`` skips
     the avatar artifact and reduces each round to device-side regression
     sufficient statistics; ``use_sharding`` splits each round's cell grid
-    over the visible cards (``auto``: whenever there is more than one)."""
+    over the visible cards (``auto``: whenever there is more than one);
+    ``chunk`` is the number of cells per batched forward of the general
+    sweep, which serves the configurations the avatar-sweep kernel does
+    not take (deeper networks, other likelihoods, the unfactorized
+    latent)."""
     dev = resolve_device(device)
     print_title(f"DIGITAL AVATARS ANALYSIS: {dataset}")
     expdir = os.path.join(outdir, run)
@@ -194,4 +198,4 @@ def daa_exp(dataset, datasetdir, outdir, run, sampling_strategy="likelihood",
                    sample_latents=sample_latents, vote_prop=vote_prop,
                    exact_reconstruction=exact_reconstruction,
                    fetch_dtype=fetch_dtype, artifact=artifact,
-                   use_sharding=use_sharding)
+                   use_sharding=use_sharding, chunk=chunk)

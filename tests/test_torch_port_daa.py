@@ -243,3 +243,139 @@ def test_regressions_match_jax_stats(name):
                                jax_stats.one_sample_ttest(x[0]))
     np.testing.assert_allclose(stats.per_group_slopes(x, y),
                                jax_stats.per_group_slopes(x, y))
+
+
+# ------------------------------------------------------ the general sweep
+# configurations the sweep kernel does not take (their sweep is the JAX
+# package's general branch, one model.apply per cell): sizes of
+# tests/test_torch_port_generic.py
+GEN_DIMS, GEN_B, GEN_SAMPLES = (5, 16), 7, 3
+GENERAL_CONFIGS = {
+    "deep-A-like": dict(num_hidden_layer_decoder=1,
+                        learn_output_sample_scale=True),
+    "deep-B-like": dict(num_hidden_layer_encoder=2,
+                        num_hidden_layer_decoder=1, method="poe"),
+    "laplace": dict(likelihood="laplace", method="moe"),
+    "unfactorized": dict(factorized_representation=False, method="jsd"),
+}
+
+
+def general_models(name):
+    """The JAX and the port's model of one configuration, the same seeded
+    weights in both: ``(jcfg, jmodel, jax params, cfg, port model)``."""
+    from test_torch_port_generic import both_models, seeded_tree
+
+    from multivae_tpu_torch.params import tree_to_state_dict
+
+    kw = dict(method="joint_elbo", input_dim=list(GEN_DIMS), class_dim=4,
+              style_dim=[2, 3], hidden_dim=16)
+    kw.update(GENERAL_CONFIGS[name])
+    jcfg, jmodel, cfg, model = both_models(kw)
+    tree = seeded_tree(model, 8)
+    model.load_state_dict(tree_to_state_dict(tree))
+    assert not daa.supports_fused_sweep(cfg, model, model.mod_names)
+    return (jcfg, jmodel, jax.tree_util.tree_map(jnp.asarray, tree), cfg,
+            model)
+
+
+def general_data(seed):
+    rng = np.random.default_rng(seed)
+    data = {n: rng.normal(size=(GEN_B, d)).astype(np.float32)
+            for n, d in zip(("clinical", "rois"), GEN_DIMS)}
+    scores = rng.normal(size=(GEN_SAMPLES, GEN_B, GEN_DIMS[0])).astype(
+        np.float32)
+    return data, scores
+
+
+@pytest.mark.parametrize("name", list(GENERAL_CONFIGS))
+def test_general_sweep_matches_jax_general_branch(name):
+    """Without latent sampling the sweep is deterministic: the port's
+    general sweep against the JAX ``avatar_sweep``'s general branch."""
+    jcfg, jmodel, params, cfg, model = general_models(name)
+    data, scores = general_data(9)
+    want = jax_daa.avatar_sweep(
+        jmodel, params, {k: jnp.asarray(v) for k, v in data.items()},
+        jnp.asarray(scores), False, jax.random.PRNGKey(0), chunk=4, cfg=jcfg)
+    got = daa.avatar_sweep(model, {k: torch.from_numpy(v)
+                                   for k, v in data.items()},
+                           torch.from_numpy(scores), False,
+                           torch.Generator().manual_seed(1), cfg, chunk=4)
+    assert tuple(got.shape) == (GEN_B, GEN_DIMS[0], GEN_SAMPLES, GEN_DIMS[1])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(GENERAL_CONFIGS))
+def test_general_sweep_with_latent_samples_matches_jax_per_cell(name):
+    """With latent sampling: every cell against JAX ``model.apply`` on the
+    cell's batch fed the port's noise for that cell; the chunk does not
+    change the result."""
+    jcfg, jmodel, params, cfg, model = general_models(name)
+    data, scores = general_data(10)
+    tdata = {k: torch.from_numpy(v) for k, v in data.items()}
+    tscores = torch.from_numpy(scores)
+    got = daa.avatar_sweep(model, tdata, tscores, True,
+                           torch.Generator().manual_seed(2), cfg, chunk=5)
+    cdata, eps = daa.general_sweep_inputs(model, tdata, tscores,
+                                          torch.Generator().manual_seed(2))
+    assert eps.shape[-1] == model.noise_width(model.mod_names)
+    cells = []
+    for i in range(cdata.shape[0]):
+        out = jmodel.apply({"params": params},
+                           {"clinical": jnp.asarray(cdata[i].numpy()),
+                            "rois": jnp.asarray(data["rois"])},
+                           sample_latents=True,
+                           noise=jnp.asarray(eps[i].numpy()))
+        cells.append(np.asarray(out["rec"]["rois"][0]))
+    want = np.stack(cells).reshape(GEN_SAMPLES, GEN_DIMS[0], GEN_B, -1)
+    np.testing.assert_allclose(got.numpy(), want.transpose(2, 1, 0, 3),
+                               rtol=0, atol=1e-5)
+    other = daa.avatar_sweep(model, tdata, tscores, True,
+                             torch.Generator().manual_seed(2), cfg, chunk=64)
+    assert torch.equal(other, got)
+
+
+@pytest.mark.parametrize("name", ["deep-B-like", "unfactorized"])
+def test_general_sweep_sharded_equals_unsharded(name):
+    """Over a 4-entry CPU mesh, 15 cells and one pad cell."""
+    from multivae_tpu_torch.parallel import data_mesh
+
+    _, _, _, cfg, model = general_models(name)
+    data, scores = general_data(11)
+    tdata = {k: torch.from_numpy(v) for k, v in data.items()}
+    mesh = data_mesh(4, [torch.device("cpu")] * 4)
+    for sample in (True, False):
+        want = daa.avatar_sweep(model, tdata, torch.from_numpy(scores),
+                                sample, torch.Generator().manual_seed(3),
+                                cfg, chunk=4)
+        got = daa.avatar_sweep_sharded(
+            model, tdata, torch.from_numpy(scores), sample,
+            torch.Generator().manual_seed(3), mesh, cfg, chunk=4)
+        assert torch.equal(got, want)
+
+
+def test_daa_exp_runs_on_a_deep_run(tmp_path):
+    """``train_exp`` of a deep laplace run, then ``daa_exp`` on it through
+    the general sweep, on the CPU; ``chunk`` is a flag of the CLI."""
+    from multivae_tpu_torch.data import make_synthetic_cohort as port_cohort
+
+    datasetdir = str(tmp_path / "data")
+    port_cohort(datasetdir, n_subjects=160, n_scores=N_SCORES, n_rois=N_ROIS,
+                seed=4, signal_strength=2.0)
+    outdir = str(tmp_path / "out")
+    run = workflows.train_exp(
+        "synthetic", datasetdir, outdir, [N_SCORES, N_ROIS], latent_dim=4,
+        style_dim=[2, 3], num_hidden_layer_decoder=1, likelihood="laplace",
+        batch_size=32, num_epochs=2, use_tensorboard=False, device="cpu")
+    resdir = workflows.daa_exp(
+        "synthetic", datasetdir, outdir, run, device="cpu", chunk=5,
+        **dict(DAA_KW, n_validation=2, sample_latents=True,
+               sampling_strategy="likelihood"))
+    avatars = load(resdir, "rois_digital_avatars.npy")
+    assert avatars.shape == (2, DAA_KW["n_subjects"], N_SCORES,
+                             DAA_KW["n_samples"], N_ROIS)
+    assert np.isfinite(avatars).all()
+    p = load(resdir, "pvalues.npy")
+    assert p.shape == (2, N_SCORES, N_ROIS)
+    assert np.isfinite(p).all() and ((p >= 0) & (p <= 1)).all()
+    assert os.path.isfile(os.path.join(resdir, "significant_rois.tsv"))

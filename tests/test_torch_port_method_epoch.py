@@ -307,12 +307,12 @@ def test_generic_epoch_args_follow_the_table(arch):
         "method": fused_generic.METHODS.index("jsd"), "b": dims.b,
         "h": dims.h, "n_enc": dims.n_enc, "n_dec": dims.n_dec,
         "sample_scale": int(dims.sample_scale), "learn_scale": 1,
-        "count": 9, "lr": HYPER.lr, "eps": HYPER.eps, "phase_times": None,
-        "stream": 0})
-    # the method kernel's arguments with the depths and the scale mode
-    # after the widths
-    depth = ("n_enc", "n_dec", "sample_scale")
+        "likelihood": 0, "count": 9, "lr": HYPER.lr, "eps": HYPER.eps,
+        "phase_times": None, "stream": 0})
+    # the method kernel's arguments with the depths, the scale mode and the
+    # likelihood after the widths
+    depth = ("n_enc", "n_dec", "sample_scale", "likelihood")
     names = [n for n, _ in fused_generic.EPOCH_ARGS]
     assert [n for n in names if n not in depth] == [
         n for n, _ in fused_methods.EPOCH_ARGS]
-    assert names[names.index("s2") + 1:names.index("s2") + 4] == list(depth)
+    assert names[names.index("s2") + 1:names.index("s2") + 5] == list(depth)

@@ -370,9 +370,12 @@ def test_resume_continues_exactly(cohort, tmp_path):
 
 UNPORTED = [
     # outside the layer-stack step's envelope, and a deep config's
-    # data-parallel route (the row-sharded general step)
-    dict(likelihood="laplace"),
-    dict(factorized_representation=False),
+    # data-parallel route (the row-sharded general step); the other
+    # likelihoods and the unfactorized latent train, but not at these
+    # depths nor data-parallel
+    dict(likelihood="laplace", num_hidden_layer_encoder=5),
+    dict(factorized_representation=False, num_hidden_layer_decoder=5),
+    dict(likelihood="bernoulli", data_parallel=2),
     dict(num_hidden_layer_decoder=1, data_parallel=2),
     dict(out_scale_per_subject=True, num_hidden_layer_encoder=5),
     dict(data_parallel=2, fused_training=False),
