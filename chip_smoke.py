@@ -12,9 +12,14 @@ Phases, one line or more each:
 1. device: the card's name and power limit;
 2. build: every ``multivae_tpu_torch/csrc/*.cu`` at once (one nvcc each),
    with ptxas' registers and spills;
-3. kernel: the avatar-sweep kernel against its plain PyTorch version, B=50
-   and 200 x 7 cells, four methods with and without sampled latents
-   (atol = rtol = 1e-4), both timed with CUDA events;
+3. kernel: the avatar-sweep kernel against its plain PyTorch version
+   (atol = rtol = 1e-4), four methods with and without sampled latents, at
+   B=50 and 200 x 7 cells (the flagship round), B=37 x 3 cells, B=7 x 2
+   cells (fewer rows than a tile), 1407 cells, hidden 1024 (the weights
+   staged in chunks) and a 4099-wide decoder (chunked, scalar stores), each
+   with its plan; the flagship and hidden-1024 sweeps at two grid sizes (the
+   SM count and 7: equal bits); the flagship sweep timed by CUDA graph
+   replay and by events around back-to-back calls, kernel and plain;
 4. train-kernel: every step route against its plain version at B=256, 64,
    164 (the flagship epoch's batches) and 137, with and without a learned
    output scale (loss rtol 1e-5; metrics
@@ -35,7 +40,8 @@ Phases, one line or more each:
    of 6 steps with Adam (device time per step, and each phase's time by the
    kernel's own clock stamps), ``method_step`` on joint_elbo without masks
    (the MoPoE step's math on the method kernel, timed only), the Adam pass
-   beside ``torch.optim.Adam(fused=True)``, one flagship epoch of device
+   beside ``torch.optim.Adam(fused=True)`` (both also by CUDA graph replay,
+   which the host's enqueue rate does not set), one flagship epoch of device
    work (4 launches for its 8 steps); each kernel's bound from its bytes
    and operations;
 5. slice: ``run_daa`` of a seeded-init flagship model on a numpy cohort
@@ -73,7 +79,8 @@ Phases, one line or more each:
 9. ensemble-slice: ``train_exp(num_models=2, ensemble_parallel=True)``
    against ``ensemble_parallel=False`` from the same seed (every param and
    moment of both members bit-identical), and ``avatar_sweep_sharded``
-   over a 4-entry mesh against the unsharded sweep (identical);
+   over a 4-entry mesh against the unsharded sweep (identical), both timed
+   for one flagship round;
 10. generic-kernel: the layer-stack step (``generic_step``, a persistent
    cooperative kernel for architectures outside the split layout) against
    its plain version at the flagship widths: deep-A (1 encoder + 1 decoder
@@ -157,7 +164,9 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call of ``fn`` on the card (CUDA events)."""
+    """Mean milliseconds per call of ``fn`` on the card (CUDA events around
+    back-to-back calls: for a short kernel this is the host's enqueue rate
+    of its wrapper, not the kernel's time)."""
     import torch
 
     for _ in range(warmup):
@@ -172,84 +181,209 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, calls: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call of ``fn``: ``calls`` calls captured in
+    one CUDA graph (a ctypes launch on the capturing stream is captured
+    too), the graph replayed ``replays`` times between CUDA events, so the
+    wrapper's Python cost is not in the number."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (replays * calls)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
+
+
 def flagship_cfg(method="joint_elbo", **kw):
     from multivae_tpu_torch.train.config import Config
 
     return Config(**{**FLAGSHIP, "method": method, **kw}).derive()
 
 
-def kernel_check(device):
-    """Phase kernel: the avatar sweep vs its plain version, all methods and
-    both branches."""
+def sweep_setup(device, gen, method, b, n_cells=None, **cfg_kw):
+    """Seeded sweep inputs ``(sp, post, cdata, eps, dims)``: the flagship
+    round's cell grid (``N_SAMPLES`` x 7 cells), or ``n_cells`` random
+    perturbed blocks; ``cfg_kw`` changes the widths."""
     import torch
 
     from multivae_tpu_torch.models import build_model, make_modalities
     from multivae_tpu_torch.ops import fused_daa
     from multivae_tpu_torch.params import dims_from, model_split_params
 
-    gen = torch.Generator(device=device).manual_seed(SEED)
-    n_scores = FLAGSHIP["input_dim"][0]
-    max_err, timing = 0.0, None
-    for method in fused_daa.METHODS:
-        cfg = flagship_cfg(method)
-        model = build_model(cfg, make_modalities(
-            cfg.input_dim, cfg.style_dim, cfg.likelihood), device, seed=SEED)
-        dims = dims_from(cfg, B)
-        clinical = torch.randn((B, dims.d1), generator=gen, device=device)
-        rois = torch.randn((B, dims.d2), generator=gen, device=device)
-        scores = torch.randn((N_SAMPLES, B, n_scores), generator=gen,
+    cfg = flagship_cfg(method, **cfg_kw)
+    model = build_model(cfg, make_modalities(
+        cfg.input_dim, cfg.style_dim, cfg.likelihood), device, seed=SEED)
+    dims = dims_from(cfg, b)
+    clinical = torch.randn((b, dims.d1), generator=gen, device=device)
+    rois = torch.randn((b, dims.d2), generator=gen, device=device)
+    if n_cells is None:
+        scores = torch.randn((N_SAMPLES, b, dims.d1), generator=gen,
                              device=device)
-        sp = model_split_params(model, dims)
-        post = fused_daa.rois_posteriors(model, rois)
         cdata = fused_daa.build_cell_grid(clinical, scores)
-        eps = torch.randn((cdata.shape[0], B, dims.cd + dims.s2),
-                          generator=gen, device=device)
-        for sample in (True, False):
-            ker = fused_daa.sweep_cells(sp, post, cdata, eps, dims, sample,
-                                        method=method)
-            ref = fused_daa.sweep_cells_reference(sp, post, cdata, eps,
-                                                  dims, sample, method)
-            torch.cuda.synchronize()
-            err = float((ker - ref).abs().max())
-            max_err = max(max_err, err)
-            ok = bool(torch.isfinite(ker).all()) and torch.allclose(
-                ker, ref, rtol=RTOL, atol=ATOL)
-            log("kernel", f"{method:10s} sample_latents={sample!s:5s} "
-                f"cells={cdata.shape[0]} B={B} max_abs_err={err:.3e} "
-                f"{'ok' if ok else 'MISMATCH'}")
-            if not ok:
-                raise SystemExit(f"kernel disagrees with the plain version "
-                                 f"({method}, sample_latents={sample})")
-            if method == "joint_elbo" and sample:
-                def run_ker():
-                    fused_daa.sweep_cells(sp, post, cdata, eps, dims, True,
-                                          method=method)
+    else:
+        cdata = torch.randn((n_cells, b, dims.d1), generator=gen,
+                            device=device)
+    eps = torch.randn((cdata.shape[0], b, dims.cd + dims.s2), generator=gen,
+                      device=device)
+    return (model_split_params(model, dims),
+            fused_daa.rois_posteriors(model, rois), cdata, eps, dims)
 
-                def run_ref():
-                    fused_daa.sweep_cells_reference(sp, post, cdata, eps,
-                                                    dims, True, method)
-                # in turns on one card: plain, kernel, kernel, plain
-                t = [cuda_ms(run_ref), cuda_ms(run_ker), cuda_ms(run_ker),
-                     cuda_ms(run_ref)]
-                # each input read once, the avatars written once; the
-                # clinical encoder (content heads) and the ROI decoder per
-                # row of every cell
-                rows = cdata.shape[0] * B
-                used = [sp[k] for k in sp if k.startswith(("enc1_Wh",
-                        "enc1_bh", "enc1_Wc", "enc1_bc", "dec2_W",
-                        "dec2_bd"))]
-                timing = dict(
-                    ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
-                    library_ms=None,
-                    **bound(nbytes(cdata, eps, ker, *post, *used),
-                            2.0 * rows * (dims.d1 * dims.h
-                                          + 2 * dims.h * dims.cd
-                                          + (dims.s2 + dims.cd) * dims.d2)))
-                log("kernel", f"joint_elbo sampled: kernel "
-                    f"{t[1]:.4f}/{t[2]:.4f} ms, plain {t[0]:.4f}/"
-                    f"{t[3]:.4f} ms per sweep of {cdata.shape[0]} cells; "
-                    f"bound {timing['bound_ms']:.5f} ms by "
-                    f"{timing['bound_by']}")
+
+def hold_sweep(label, inputs, method, sample, n_blocks=None):
+    """One kernel launch against the plain version (atol = rtol = 1e-4);
+    returns ``(avatars, max_abs_err)``."""
+    import torch
+
+    from multivae_tpu_torch.ops import fused_daa
+
+    sp, post, cdata, eps, dims = inputs
+    ker = fused_daa._launch_sweep(sp, post, cdata, eps, dims, sample, method,
+                                  n_blocks=n_blocks)
+    ref = fused_daa.sweep_cells_reference(sp, post, cdata, eps, dims, sample,
+                                          method)
+    torch.cuda.synchronize()
+    err = float((ker - ref).abs().max())
+    ok = bool(torch.isfinite(ker).all()) and torch.allclose(
+        ker, ref, rtol=RTOL, atol=ATOL)
+    log("kernel", f"{label} {method:10s} sample_latents={sample!s:5s} "
+        f"cells={cdata.shape[0]} B={dims.b} rows={cdata.shape[0] * dims.b} "
+        f"max_abs_err={err:.3e} {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise SystemExit(f"kernel disagrees with the plain version ({label}, "
+                         f"{method}, sample_latents={sample})")
+    return ker, err
+
+
+def kernel_check(device):
+    """Phase kernel: the avatar sweep vs its plain version, all methods and
+    both branches at the flagship round, at its edges (rows fewer than a
+    tile, a ragged last tile, chunked weights, a wide decoder), equal bits
+    at two grid sizes, and timed."""
+    import torch
+
+    from multivae_tpu_torch.ops import fused_daa
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+    max_err, timing = 0.0, None
+    # (label, B, cells (None: the flagship grid of N_SAMPLES x 7), widths,
+    #  methods); every method takes both branches
+    cases = [
+        ("flagship", B, None, {}, fused_daa.METHODS),
+        ("B=37 x 3 cells", 37, 3, {}, fused_daa.METHODS),
+        ("B=7 x 2 cells (one partial tile)", 7, 2, {}, ("joint_elbo", "jsd")),
+        ("1407 cells", B, 1407, {}, fused_daa.METHODS),
+        ("hidden 1024 (chunked)", B, 1400, dict(hidden_dim=1024),
+         fused_daa.METHODS),
+        ("d2 4099 (chunked, scalar stores)", 37, 21,
+         dict(input_dim=[7, 4099]), ("moe", "poe")),
+    ]
+    for label, b, n_cells, widths, methods in cases:
+        for method in methods:
+            inputs = sweep_setup(device, gen, method, b, n_cells, **widths)
+            dims = inputs[4]
+            if method == methods[0]:
+                plan = fused_daa.sweep_plan(dims, n_sms,
+                                            inputs[2].shape[0] * b)
+                log("kernel", f"{label}: plan {plan._asdict()}")
+            for sample in (True, False):
+                _, err = hold_sweep(label, inputs, method, sample)
+                max_err = max(max_err, err)
+            if method != "joint_elbo" or label not in (
+                    "flagship", "hidden 1024 (chunked)"):
+                continue
+            # the same inputs at two grid sizes: equal bits
+            outs = [hold_sweep(f"{label} grid {g}", inputs, method, True,
+                               n_blocks=g)[0] for g in (n_sms, 7)]
+            same = torch.equal(outs[0], outs[1])
+            log("kernel", f"{label}: grid {n_sms} vs grid 7 equal bits "
+                f"{same}")
+            if not same:
+                raise SystemExit("the sweep's bits depend on the grid")
+            if label != "flagship":
+                continue
+            sp, post, cdata, eps, dims = inputs
+
+            def run_ker():
+                fused_daa.sweep_cells(sp, post, cdata, eps, dims, True,
+                                      method=method)
+
+            def run_ref():
+                fused_daa.sweep_cells_reference(sp, post, cdata, eps, dims,
+                                                True, method)
+            # in turns on one card: plain, kernel, kernel, plain; events
+            # around back-to-back calls, then CUDA graph replays
+            t = [cuda_ms(run_ref), cuda_ms(run_ker), cuda_ms(run_ker),
+                 cuda_ms(run_ref)]
+            g = [graph_ms(run_ref, 10), graph_ms(run_ker, 20),
+                 graph_ms(run_ker, 20), graph_ms(run_ref, 10)]
+            # each input read once, the avatars written once; the
+            # clinical encoder (content heads) and the ROI decoder per
+            # row of every cell
+            rows = cdata.shape[0] * b
+            used = [sp[k] for k in sp if k.startswith(("enc1_Wh",
+                    "enc1_bh", "enc1_Wc", "enc1_bc", "dec2_W",
+                    "dec2_bd"))]
+            out_bytes = rows * dims.d2 * 4
+            flops = 2.0 * rows * (dims.d1 * dims.h + 2 * dims.h * dims.cd
+                                  + (dims.s2 + dims.cd) * dims.d2)
+            # one traced launch: each phase's SM cycles per tile (thread 0
+            # of every block, barrier to barrier), and the products' FMAs
+            # per cycle against the SM's 128 f32 lanes
+            clocks = torch.zeros((n_sms, len(fused_daa.SWEEP_PHASES)),
+                                 dtype=torch.int64, device=device)
+            fused_daa._launch_sweep(sp, post, cdata, eps, dims, True, method,
+                                    phase_clocks=clocks)
+            torch.cuda.synchronize()
+            per_tile = (clocks[:plan.grid].sum(0).double()
+                        / -(-rows // plan.rows)).tolist()
+            fmas = {"hidden": dims.d1 * dims.h,
+                    "heads": 2 * dims.cd * dims.h,
+                    "decoder": (dims.s2 + dims.cd) * dims.d2}
+            phases = dict(zip(fused_daa.SWEEP_PHASES, per_tile))
+            log("kernel", "flagship sweep, SM cycles per tile of "
+                f"{plan.rows} rows (one traced launch): " + ", ".join(
+                    f"{k} {v:.0f} ({100 * v / sum(per_tile):.1f} %"
+                    + (f"; {100 * plan.rows * fmas[k] / v / 128:.1f} % of "
+                       f"the f32 FMA rate" if k in fmas else "") + ")"
+                    for k, v in phases.items()))
+            timing = dict(
+                ms=(g[1] + g[2]) / 2, plain_ms=(g[0] + g[3]) / 2,
+                phase_cycles_per_tile=phases,
+                ms_events=(t[1] + t[2]) / 2,
+                plain_ms_events=(t[0] + t[3]) / 2, library_ms=None,
+                plan=plan._asdict(),
+                **bound(nbytes(cdata, eps, *post, *used) + out_bytes, flops))
+            log("kernel", f"joint_elbo sampled, {cdata.shape[0]} cells: "
+                f"kernel {g[1]:.4f}/{g[2]:.4f} ms by graph replay "
+                f"({t[1]:.4f}/{t[2]:.4f} by events around back-to-back "
+                f"calls), plain {g[0]:.4f}/{g[3]:.4f} ms by graph replay "
+                f"({t[0]:.4f}/{t[3]:.4f} by events); bound "
+                f"{timing['bound_ms']:.5f} ms by {timing['bound_by']} = "
+                f"{100 * timing['bound_ms'] / timing['ms']:.1f} % of the "
+                f"kernel's time; {flops / (timing['ms'] * 1e-3) / 1e12:.2f} "
+                f"TFLOP/s, {out_bytes / (timing['ms'] * 1e-3) / 1e12:.3f} "
+                f"TB/s of avatars")
     return max_err, timing
 
 
@@ -774,6 +908,58 @@ def time_launch(route, p0, dims, consts, hyper, gen, device, phase, group=6):
                 phase_us=dict(zip(names, phase_us)))
 
 
+def time_flat_adam(p0, gen, hyper, device) -> dict:
+    """``flat_adam`` in place on one state, beside torch's fused Adam on one
+    flat parameter (the library call; the port never calls it): events
+    around back-to-back calls in turns plain, kernel, kernel, plain, then
+    the kernel and the library call in CUDA graph replays -- their device
+    time, which the host's enqueue rate sets in the event times (the plain
+    version builds its step count on the host: events only; the library's
+    step is captured with its count on the card)."""
+    import torch
+
+    from multivae_tpu_torch.ops import adam as adam_ops
+
+    q = p0.clone()
+    mu, nu = torch.zeros_like(q), torch.zeros_like(q)
+    g = torch.randn(q.numel(), generator=gen, device=device) * 1e-3
+    r = p0.clone()
+    rmu, rnu = torch.zeros_like(r), torch.zeros_like(r)
+
+    def run_ker():
+        adam_ops.adam_update(q, mu, nu, g, 1, hyper)
+
+    def run_ref():
+        adam_ops.adam_update_reference(r, rmu, rnu, g, 1, hyper)
+
+    def library(capturable):
+        lib_p = torch.nn.Parameter(p0.clone())
+        lib_p.grad = g.clone()
+        return torch.optim.Adam([lib_p], lr=hyper.lr,
+                                betas=(hyper.b1, hyper.b2), eps=hyper.eps,
+                                fused=True, capturable=capturable)
+
+    t = [cuda_ms(run_ref, 50), cuda_ms(run_ker, 50), cuda_ms(run_ker, 50),
+         cuda_ms(run_ref, 50)]
+    lib_ev_ms = cuda_ms(library(False).step, 50)
+    gt = [graph_ms(run_ker, 50), graph_ms(run_ker, 50)]
+    lib_ms = graph_ms(library(True).step, 50)
+    out = dict(ms=(gt[0] + gt[1]) / 2, plain_ms=(t[0] + t[3]) / 2,
+               library_ms=lib_ms, ms_events=(t[1] + t[2]) / 2,
+               library_ms_events=lib_ev_ms,
+               **bound(nbytes(q, mu, nu, g) + nbytes(q, mu, nu),
+                       12.0 * q.numel()))
+    log("train-kernel", f"flat_adam n={q.numel()}: kernel {gt[0]:.4f}/"
+        f"{gt[1]:.4f} ms by graph replay ({t[1]:.4f}/{t[2]:.4f} by events "
+        f"around back-to-back calls), plain {t[0]:.4f}/{t[3]:.4f} by "
+        f"events, torch.optim.Adam(fused=True) {lib_ms:.4f} by graph replay "
+        f"(capturable; {lib_ev_ms:.4f} by events, not capturable) ms per "
+        f"update in place; bound {out['bound_ms']:.5f} ms by "
+        f"{out['bound_by']} = {100 * out['bound_ms'] / out['ms']:.1f} % of "
+        f"the kernel's graph-replay time")
+    return out
+
+
 def train_kernel_check(device):
     """Phase train-kernel: every step route and the Adam kernel against
     their plain versions at the flagship widths (one-step launches), the
@@ -913,29 +1099,7 @@ def train_kernel_check(device):
             f"{fl / (ker_ms * 1e-3) / 1e12:.3f} TFLOP/s = "
             f"{100 * entry['bound_ms'] / ker_ms:.2f} % of the bound's rate")
 
-    # Adam in place on one state, beside torch's fused Adam on one flat
-    # parameter (the library call; the port never calls it)
-    q = p0.clone()
-    mu, nu = torch.zeros_like(q), torch.zeros_like(q)
-    g = torch.randn(q.numel(), generator=gen, device=device) * 1e-3
-    lib_p = torch.nn.Parameter(p0.clone())
-    lib_p.grad = g.clone()
-    lib = torch.optim.Adam([lib_p], lr=hyper.lr, betas=(hyper.b1, hyper.b2),
-                           eps=hyper.eps, fused=True)
-    r = p0.clone()
-    rmu, rnu = torch.zeros_like(r), torch.zeros_like(r)
-    ker_ms, plain_ms, t = time_pair(
-        lambda: adam_ops.adam_update(q, mu, nu, g, 1, hyper),
-        lambda: adam_ops.adam_update_reference(r, rmu, rnu, g, 1, hyper))
-    lib_ms = cuda_ms(lib.step, 50)
-    result["flat_adam"].update(
-        ms=ker_ms, plain_ms=plain_ms, library_ms=lib_ms,
-        **bound(nbytes(q, mu, nu, g) + nbytes(q, mu, nu), 12.0 * q.numel()))
-    log("train-kernel", f"flat_adam n={q.numel()}: kernel {t[1]:.4f}/"
-        f"{t[2]:.4f} ms, plain {t[0]:.4f}/{t[3]:.4f} ms, "
-        f"torch.optim.Adam(fused=True) {lib_ms:.4f} ms per update in place; "
-        f"bound {result['flat_adam']['bound_ms']:.5f} ms by "
-        f"{result['flat_adam']['bound_by']}")
+    result["flat_adam"].update(time_flat_adam(p0, gen, hyper, device))
 
     # one flagship epoch of device work: 6 complete + 2 clinical-only steps
     mopoe, presence = routes[0], next(
@@ -2986,6 +3150,27 @@ def ensemble_slice(device, card: str):
             f"avatar_sweep, {n_samples * 7} cells: identical={same}")
         if not same:
             raise SystemExit("the sharded sweep differs from the unsharded")
+        if n_samples == N_SAMPLES:
+            # one flagship round's sweep, whole and over the mesh (cell
+            # grid, noise, posteriors and the launches; events around
+            # back-to-back calls, and the host's clock of one call)
+            g = torch.Generator(device=device).manual_seed(SEED + 7)
+            ms = {}
+            for name, fn, extra in (
+                    ("avatar_sweep", daa.avatar_sweep, ()),
+                    ("avatar_sweep_sharded", daa.avatar_sweep_sharded,
+                     (mesh,))):
+                ev = cuda_ms(lambda: fn(model, data, scores, True, g,
+                                        *extra, cfg), iters=10)
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                fn(model, data, scores, True, g, *extra, cfg)
+                torch.cuda.synchronize()
+                ms[name] = (ev, 1e3 * (time.perf_counter() - start))
+            log("ensemble-slice", "one flagship round's sweep on one card, "
+                "events / host clock (ms): " + "; ".join(
+                    f"{k} {v[0]:.4f} / {v[1]:.4f}" for k, v in ms.items())
+                + f" ({card})")
     by_path["daa_sharded"] = {"avatar_sweep": sharded_launches}
     return by_path
 
@@ -3012,19 +3197,23 @@ REPLACES = {
                  "multivae_tpu/ops/fused_methods.py:382"}
 
 
-def build_phase() -> None:
-    """Phase build: every kernel source at once, one nvcc each."""
+def build_phase() -> dict:
+    """Phase build: every kernel source at once, one nvcc each. Returns
+    ptxas' register, shared-memory and spill lines per source."""
     from multivae_tpu_torch.ops import _build
 
     start = time.perf_counter()
     built = _build.build_kernels(SOURCES)
+    lines = {}
     for name, res in built.items():
-        ptxas = [ln.strip() for ln in res.log.splitlines()
-                 if "registers" in ln or "spill" in ln]
+        lines[name] = " | ".join(
+            ln.strip() for ln in res.log.splitlines()
+            if "registers" in ln or "spill" in ln)
         log("build", f"{name}.cu built in {res.seconds:.2f} s -> "
-            f"{res.path.name}; " + " | ".join(ptxas))
+            f"{res.path.name}; " + lines[name])
     log("build", f"all {len(built)} kernels in "
         f"{time.perf_counter() - start:.2f} s (parallel nvcc)")
+    return lines
 
 
 def main() -> int:
@@ -3038,7 +3227,7 @@ def main() -> int:
     smi = nvidia_smi_line()
     log("device", f"{name}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"CUDA {torch.version.cuda}")
-    build_phase()
+    ptxas = build_phase()
 
     from multivae_tpu_torch.ops.fused_step import full_f32_products
 
@@ -3055,7 +3244,9 @@ def main() -> int:
 
     with full_f32_products():
         max_err, timing = timed("kernel", kernel_check(device))
-        entries = {"avatar_sweep": dict(max_abs_err=max_err, **timing)}
+        entries = {"avatar_sweep": dict(max_abs_err=max_err,
+                                        ptxas=ptxas["avatar_sweep"],
+                                        **timing)}
         for kname, res in timed("train-kernel",
                                 train_kernel_check(device)).items():
             if kname in KERNELS:
@@ -3088,7 +3279,10 @@ def main() -> int:
             "bound_by", "library_ms", "launches_by_path")},
         **({"timed_variant": entries[k]["timed_variant"],
             "variants": entries[k]["variants"]}
-           if entries[k].get("variants") else {})}
+           if entries[k].get("variants") else {}),
+        **{f: entries[k][f] for f in (
+            "ms_events", "plain_ms_events", "library_ms_events", "plan",
+            "phase_cycles_per_tile", "ptxas") if f in entries[k]}}
         for k in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -18,7 +18,8 @@ the ``[B, .]`` posteriors by ``row mod B``.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+import functools
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -127,9 +128,10 @@ def _sweep_library():
     if lib.avatar_sweep_launch.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.avatar_sweep_launch.argtypes = (
-            [ptr] * 16 + [ctypes.c_longlong] + [i32] * 8 + [ptr])
+            [ptr] * 17 + [ctypes.c_longlong] + [i32] * 15
+            + [ctypes.c_longlong, ptr])
         lib.avatar_sweep_launch.restype = i32
-        lib.avatar_sweep_smem_bytes.argtypes = [i32] * 4
+        lib.avatar_sweep_smem_bytes.argtypes = [i32] * 11
         lib.avatar_sweep_smem_bytes.restype = ctypes.c_longlong
         lib.avatar_sweep_error_string.argtypes = [i32]
         lib.avatar_sweep_error_string.restype = ctypes.c_char_p
@@ -137,10 +139,123 @@ def _sweep_library():
 
 
 _MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
+SWEEP_THREADS = 512  # threads per block (csrc kThreads)
+SWEEP_ROWS = (32, 16, 8, 4)  # tile rows, in order of preference
+# the kernel's tracing phases (csrc kPhases)
+SWEEP_PHASES = ("inputs", "hidden", "heads", "latents", "decoder")
+_CHUNK_FLOOR = 64  # the narrowest chunk a wide tile is worth
+
+
+class SweepPlan(NamedTuple):
+    """How the sweep kernel covers the rows. All but ``grid`` depend on the
+    widths alone, so the sums of an element run in one order whatever the
+    launch."""
+    rows: int       # rows per tile
+    split: int      # K splits of the content heads, added in order
+    resident: bool  # weights copied once per block, else staged per tile
+    h_chunk: int    # chunked: hidden columns per chunk
+    k_chunk: int    # chunked: rows of [Wcmu|Wclv] per chunk
+    n_chunk: int    # chunked: decoder columns per chunk
+    grid: int       # persistent blocks
+    smem: int       # bytes of shared memory per block
+
+
+def _r4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def _splits(dims, rows: int) -> int:
+    """The most K splits of the content heads worth having: enough to keep
+    the block's threads busy on the heads' micro-tiles of 4 x 4 (csrc
+    kHeadRows, kHeadCols), each split of at least 16 rows of K, at most 16
+    (the latents add them)."""
+    tiles = (rows // 4) * (_r4(2 * dims.cd) // 4)
+    return max(1, min(SWEEP_THREADS // tiles, dims.h // 16, 16))
+
+
+def _sweep_floats(dims, rows: int, split: int, resident: bool,
+                  h_chunk: int = 0, k_chunk: int = 0,
+                  n_chunk: int = 0) -> int:
+    """Floats of shared memory per block (csrc ``make_layout``)."""
+    h4, cp, dp = _r4(dims.h), _r4(2 * dims.cd), _r4(dims.d2)
+    kd = ew = dims.s2 + dims.cd
+    tile = (2 * (_r4(rows * dims.d1) + _r4(rows * ew))
+            + max(h4, kd) * rows + split * cp * rows)
+    if resident:
+        return (tile + dims.d1 * h4 + h4 + dims.h * cp + cp + kd * dp
+                + dp)
+    return tile + cp + max(dims.d1 * h_chunk + h_chunk, k_chunk * cp,
+                           kd * n_chunk + n_chunk)
+
+
+def _chunks(dims, rows: int, split: int, floor: int):
+    """Even chunks of the hidden columns, the heads' K and the decoder
+    columns that fit beside a tile of ``rows``, each at least
+    ``min(floor, whole)`` wide, or None."""
+    budget = _MAX_SMEM // 4 - _sweep_floats(dims, rows, split, False)
+    h4, cp, dp = _r4(dims.h), _r4(2 * dims.cd), _r4(dims.d2)
+    kd = dims.s2 + dims.cd
+    most = (budget // (dims.d1 + 1) // 4 * 4, budget // cp,
+            budget // (kd + 1) // 4 * 4)
+    whole = (h4, dims.h, dp)
+    least = (4, 1, 4)
+    if any(m < max(lo, min(floor, w))
+           for m, w, lo in zip(most, whole, least)):
+        return None
+    # as few chunks as fit, of even width
+    even = [-(-w // -(-w // m)) for m, w in zip(most, whole)]
+    return _r4(even[0]), even[1], _r4(even[2])
+
+
+@functools.lru_cache(maxsize=64)
+def _width_plan(dims) -> tuple:
+    """The grid-free part of :func:`sweep_plan` (``SweepPlan`` less
+    ``grid``)."""
+    def fits(rows, split, resident, chunks=(0, 0, 0)):
+        smem = 4 * _sweep_floats(dims, rows, split, resident, *chunks)
+        return ((rows, split, resident, *chunks, smem)
+                if smem <= _MAX_SMEM else None)
+
+    # tiles of 16 rows or more: resident weights, else chunks of at least
+    # 64; then narrower tiles likewise; then any chunks; within each, the
+    # most splits that fit
+    wide = [r for r in SWEEP_ROWS if r >= 16]
+    narrow = [r for r in SWEEP_ROWS if r < 16]
+    order = ([(r, True, _CHUNK_FLOOR) for r in wide]
+             + [(r, False, _CHUNK_FLOOR) for r in wide]
+             + [(r, res, _CHUNK_FLOOR) for r in narrow
+                for res in (True, False)]
+             + [(r, False, 1) for r in SWEEP_ROWS])
+    for rows, resident, floor in order:
+        for split in range(_splits(dims, rows), 0, -1):
+            chunks = (0, 0, 0) if resident else _chunks(dims, rows, split,
+                                                        floor)
+            plan = chunks and fits(rows, split, resident, chunks)
+            if plan:
+                return plan
+    raise ValueError(f"avatar_sweep: no tile of {SWEEP_ROWS[-1]} rows fits "
+                     f"Hopper's {_MAX_SMEM} B of shared memory per block "
+                     f"at widths {dims}")
+
+
+def sweep_plan(dims, n_sms: int, n_rows: int) -> SweepPlan:
+    """The kernel's plan: the weights resident in shared memory beside a
+    tile of 32 or 16 rows, else staged per tile in chunks beside such a
+    tile, else the same with 8 or 4 rows; ``grid`` is ``min(n_sms,
+    tiles)``. Raises where nothing fits in one block's shared memory."""
+    plan = _width_plan(dims._replace(b=0))
+    grid = max(1, min(int(n_sms), -(-int(n_rows) // plan[0])))
+    return SweepPlan(*plan[:-1], grid, plan[-1])
 
 
 def _launch_sweep(sp, posteriors, cdata, eps, dims: FusedDims,
-                  sample_latents: bool, method: str):
+                  sample_latents: bool, method: str,
+                  n_blocks: Optional[int] = None, phase_clocks=None):
+    """Checks the inputs, plans and launches the kernel; ``n_blocks`` caps
+    the grid (default: one block per SM). ``phase_clocks`` (tracing, one
+    barrier more a tile): a contiguous int64 ``[n, len(SWEEP_PHASES)]`` on
+    the cells' device, ``n`` at least the grid, whose first ``grid`` rows
+    receive each block's SM cycles per phase."""
     n_cells, b = cdata.shape[0], cdata.shape[1]
     device = cdata.device
     if method not in _METHOD_CODES:
@@ -168,21 +283,42 @@ def _launch_sweep(sp, posteriors, cdata, eps, dims: FusedDims,
                              f"expected {shape}")
         if not t.is_contiguous():
             raise ValueError("avatar_sweep takes contiguous tensors")
+    n_rows = n_cells * b
+    if n_blocks is None:
+        n_blocks = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    plan = sweep_plan(dims, n_blocks, n_rows)
+    if phase_clocks is not None and (
+            phase_clocks.device != device
+            or phase_clocks.dtype != torch.int64
+            or phase_clocks.dim() != 2
+            or phase_clocks.shape[0] < plan.grid
+            or phase_clocks.shape[1] != len(SWEEP_PHASES)
+            or not phase_clocks.is_contiguous()):
+        raise ValueError(f"avatar_sweep: phase_clocks is a contiguous int64 "
+                         f"[>= {plan.grid}, {len(SWEEP_PHASES)}] on {device}")
     lib = _sweep_library()
-    smem = lib.avatar_sweep_smem_bytes(dims.d1, dims.h, dims.cd, dims.s2)
-    if smem > _MAX_SMEM:
-        raise ValueError(f"avatar_sweep: {smem} B of shared memory per "
-                         f"block exceeds Hopper's {_MAX_SMEM} B")
+    shape_args = (dims.d1, dims.h, dims.cd, dims.s2, dims.d2)
+    plan_args = (plan.rows, plan.split, int(plan.resident), plan.h_chunk,
+                 plan.k_chunk, plan.n_chunk)
+    smem = lib.avatar_sweep_smem_bytes(*shape_args, *plan_args)
+    if smem != plan.smem:
+        raise RuntimeError(f"avatar_sweep: the kernel lays out {smem} B of "
+                           f"shared memory, the plan {plan.smem} B")
     out = torch.empty((n_cells, b, dims.d2), dtype=torch.float32,
                       device=device)
+    if n_rows == 0:
+        return out
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.avatar_sweep_launch(
             cdata.data_ptr(), eps.data_ptr(),
             *[t.data_ptr() for t in enc + dec],
             *[t.data_ptr() for t in posteriors], out.data_ptr(),
-            n_cells * b, b, dims.d1, dims.h, dims.cd, dims.s2, dims.d2,
-            _METHOD_CODES[method], int(bool(sample_latents)), stream)
+            None if phase_clocks is None else phase_clocks.data_ptr(),
+            n_rows, b, *shape_args, _METHOD_CODES[method],
+            int(bool(sample_latents)), *plan_args, plan.grid, plan.smem,
+            stream)
     if rc != 0:
         raise RuntimeError("avatar_sweep launch failed: "
                            + lib.avatar_sweep_error_string(rc).decode())

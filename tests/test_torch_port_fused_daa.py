@@ -34,9 +34,12 @@ STYLE = (2, 4)
 HIDDEN = 16
 METHODS = ("joint_elbo", "moe", "jsd", "poe")
 # 23 cells: not a multiple of the JAX kernel's 21-cell pack at B=24, nor of
-# the CUDA kernel's 16-row tile (23 * 24 = 552 rows)
+# the CUDA kernel's 32-row tile (23 * 24 = 552 rows)
 N_SAMPLES, N_SCORES = 23, 1
 RTOL, ATOL = 2e-4, 1e-5
+# the odd shape the card check also holds the kernel to: B=37 and 3 cells,
+# 111 rows, a multiple of no tile (4, 8, 16 or 32 rows)
+ODD_B, ODD_CELLS = 37, 3
 
 
 def make_cfg(method):
@@ -46,11 +49,11 @@ def make_cfg(method):
                   learn_output_scale=True).derive()
 
 
-def setup(method, seed=2):
+def setup(method, seed=2, b=B):
     rng = np.random.default_rng(seed)
     cfg = make_cfg(method)
-    data = {"clinical": rng.normal(size=(B, DIMS[0])).astype(np.float32),
-            "rois": rng.normal(size=(B, DIMS[1])).astype(np.float32)}
+    data = {"clinical": rng.normal(size=(b, DIMS[0])).astype(np.float32),
+            "rois": rng.normal(size=(b, DIMS[1])).astype(np.float32)}
     jmodel = jax_build_model(cfg, jax_make_modalities(
         cfg.input_dim, cfg.style_dim, cfg.likelihood))
     params = jax_init_params(cfg, jmodel,
@@ -100,15 +103,26 @@ def test_rois_posteriors_match():
                                    atol=1e-5)
 
 
-@pytest.mark.parametrize("sample_latents", [True, False],
-                         ids=["sampled", "deterministic"])
-@pytest.mark.parametrize("method", METHODS)
-def test_sweep_cells_matches_jax_kernel(method, sample_latents):
-    cfg, data, jmodel, params, tmodel, rng = setup(method)
-    dims = bridge.dims_from(cfg, B)
-    n_cells = N_SAMPLES * N_SCORES
-    cdata = rng.normal(size=(n_cells, B, DIMS[0])).astype(np.float32)
-    eps = rng.normal(size=(n_cells, B, CD + STYLE[1])).astype(np.float32)
+def sweep_cases():
+    """(method, sample_latents, B, n_cells): every method and branch at
+    B=24 x 23 cells, then at the odd shape (ids with ``-B37``)."""
+    cases = []
+    for b, n_cells, tag in ((B, N_SAMPLES * N_SCORES, ""),
+                            (ODD_B, ODD_CELLS, f"-B{ODD_B}")):
+        for method in METHODS:
+            for sample, name in ((True, "sampled"),
+                                 (False, "deterministic")):
+                cases.append(pytest.param(method, sample, b, n_cells,
+                                          id=f"{method}-{name}{tag}"))
+    return cases
+
+
+@pytest.mark.parametrize("method,sample_latents,b,n_cells", sweep_cases())
+def test_sweep_cells_matches_jax_kernel(method, sample_latents, b, n_cells):
+    cfg, data, jmodel, params, tmodel, rng = setup(method, b=b)
+    dims = bridge.dims_from(cfg, b)
+    cdata = rng.normal(size=(n_cells, b, DIMS[0])).astype(np.float32)
+    eps = rng.normal(size=(n_cells, b, CD + STYLE[1])).astype(np.float32)
     jsp = split_params(flatten_params(params, jmodel), dims)
     jpost = jax_daa.rois_posteriors(jmodel, params,
                                     jnp.asarray(data["rois"]))
@@ -123,7 +137,7 @@ def test_sweep_cells_matches_jax_kernel(method, sample_latents):
         sample_latents, method=method)
     # the CPU path is the plain version: no kernel launch is counted
     assert fused_daa.KERNEL_LAUNCHES == launches
-    assert got.shape == (n_cells, B, DIMS[1])
+    assert got.shape == (n_cells, b, DIMS[1])
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
                                atol=ATOL)
 
@@ -164,3 +178,97 @@ def test_sweep_cells_has_no_kernel_for_other_devices():
     with pytest.raises(ValueError, match="no kernel"):
         fused_daa.sweep_cells(bridge.model_split_params(tmodel, dims),
                               (None,) * 4, meta, meta, dims, True)
+
+
+# ------------------------------------------------------- the kernel's plan
+# The CUDA kernel's plan is pure Python (the kernel runs only on the card):
+# shared memory per block, resident or chunked weights, tile rows and the
+# heads' K splits, which set the order of every sum.
+MAX_SMEM = 232448  # bytes of shared memory one Hopper block may use
+PLAN_WIDTHS = [(d1, h, cd, s2, d2) for d1 in (3, 7) for h in (16, 256, 1024)
+               for cd in (4, 20) for s2 in (4, 20) for d2 in (12, 444, 4096)]
+
+
+def plan_dims(d1, h, cd, s2, d2, b=50):
+    return bridge.FusedDims(b=b, d1=d1, d2=d2, h=h, cd=cd, s1=3, s2=s2)
+
+
+def tile_per_block_smem(d1, h, cd, s2):
+    """Shared memory of the tile-per-block sweep kernel (16 rows a block,
+    x | h | heads | latents), which took every width up to this limit."""
+    return 16 * (d1 + h + 2 * cd + s2 + cd) * 4
+
+
+@pytest.mark.parametrize("d1,h,cd,s2,d2", PLAN_WIDTHS,
+                         ids=[f"{d1}-{h}-{cd}-{s2}-{d2}"
+                              for d1, h, cd, s2, d2 in PLAN_WIDTHS])
+def test_sweep_plan_fits_shared_memory(d1, h, cd, s2, d2):
+    dims = plan_dims(d1, h, cd, s2, d2)
+    plan = fused_daa.sweep_plan(dims, 132, 70000)
+    assert plan.smem <= MAX_SMEM
+    assert plan.rows in fused_daa.SWEEP_ROWS and plan.split >= 1
+    assert plan.grid == 132
+    # resident whenever the weights fit whole beside a tile of 16 rows or
+    # more, with the widest such tile
+    fits = [r for r in fused_daa.SWEEP_ROWS if r >= 16 and 4 * (
+        fused_daa._sweep_floats(dims, r, 1, True)) <= MAX_SMEM]
+    if fits:
+        assert plan.resident and plan.rows == fits[0]
+    if (cd, s2) == (20, 20) and (h == 1024 or d2 == 4096):
+        assert not plan.resident   # the wide widths at the flagship latents
+    if not plan.resident:
+        assert plan.h_chunk % 4 == 0 and 4 <= plan.h_chunk <= h + 3
+        assert 1 <= plan.k_chunk <= h
+        assert plan.n_chunk % 4 == 0 and 4 <= plan.n_chunk <= d2 + 3
+    # the order of the sums depends on the widths alone: not on the grid,
+    # the row count or the slice of cells a launch takes
+    for n_sms, n_rows in ((7, 70000), (132, 17500), (132, 111), (1, 5)):
+        other = fused_daa.sweep_plan(dims, n_sms, n_rows)
+        assert other._replace(grid=0) == plan._replace(grid=0)
+
+
+def test_sweep_plan_of_the_flagship():
+    plan = fused_daa.sweep_plan(plan_dims(7, 256, 20, 20, 444), 132, 70000)
+    assert plan == fused_daa.SweepPlan(rows=32, split=6, resident=True,
+                                       h_chunk=0, k_chunk=0, n_chunk=0,
+                                       grid=132, smem=197648)
+    # fewer tiles than SMs: one block a tile
+    assert fused_daa.sweep_plan(plan_dims(7, 256, 20, 20, 444, b=37), 132,
+                                111).grid == 4
+    wide = fused_daa.sweep_plan(plan_dims(7, 1024, 20, 20, 444), 132, 70000)
+    assert not wide.resident and wide.smem <= MAX_SMEM
+
+
+# the widest of each width the tile-per-block kernel took, the others at 1
+# or at the flagship's; and decoders far wider than any SM's memory
+EDGE_WIDTHS = [(3627, 1, 1, 1, 444), (1, 3627, 1, 1, 444),
+               (1, 1, 1209, 1, 444), (1, 1, 1, 3627, 444),
+               (7, 256, 20, 20, 1_000_003), (7, 3000, 20, 20, 100_000),
+               (7, 256, 1100, 20, 444)]
+
+
+@pytest.mark.parametrize("widths", EDGE_WIDTHS,
+                         ids=["-".join(map(str, w)) for w in EDGE_WIDTHS])
+def test_sweep_plan_takes_every_width_the_old_kernel_took(widths):
+    d1, h, cd, s2, d2 = widths
+    assert tile_per_block_smem(d1, h, cd, s2) <= MAX_SMEM
+    plan = fused_daa.sweep_plan(plan_dims(*widths), 132, 70000)
+    assert plan.smem <= MAX_SMEM
+
+
+def test_sweep_plan_takes_random_widths_the_old_kernel_took():
+    rng = np.random.default_rng(9)
+    taken = 0
+    while taken < 400:
+        d1, h, cd, s2 = (int(x) for x in np.exp(rng.uniform(0, 8.2, 4)))
+        d2 = int(np.exp(rng.uniform(0, 12)))
+        if tile_per_block_smem(d1, h, cd, s2) > MAX_SMEM:
+            continue
+        taken += 1
+        plan = fused_daa.sweep_plan(plan_dims(d1, h, cd, s2, d2), 132, 1000)
+        assert plan.smem <= MAX_SMEM, (d1, h, cd, s2, d2, plan)
+
+
+def test_sweep_plan_refuses_what_fits_no_block():
+    with pytest.raises(ValueError, match="no tile"):
+        fused_daa.sweep_plan(plan_dims(100_000, 256, 20, 20, 444), 132, 10)
