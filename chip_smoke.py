@@ -118,7 +118,23 @@ Phases, one line or more each:
    recomputed by the plain version from the card's own state; then
    ``workflows.daa_exp`` of the deep-A and the laplace runs through the
    general sweep (wall per round), one round's sweep on the card held to
-   the same function on the CPU from the same noise.
+   the same function on the CPU from the same noise;
+12. eval-slice: ``train_exp`` of joint_elbo on the train-slice cohort for 4
+   epochs with ``calc_nll``, ``calc_prd``, ``calc_clf``, ``calc_coherence``
+   (``eval_freq`` = ``eval_freq_fid`` = 2) and ``save_samples``: the step
+   kernels' launches (the cadence runs plain torch and launches none), the
+   Likelihoods, PRD, Latent Representation and Generation families at
+   epochs 2 and 4, the ``fid/`` dump's groups, and each cadence hit's
+   host-clock seconds by part; ``eval_exp`` of the last checkpoint on the
+   card and on the CPU with the same noise, every row held to the other
+   (IWAE relative 1e-4, PRD absolute 0.01, accuracies and coherences equal
+   or each differing prediction within 1e-3 of its classifier's boundary)
+   with the wall of each command and part; ``daa_exp`` of the trained run
+   with the full, stats-only and sampled artifacts from one seed (2 rounds,
+   B=50, P=200, likelihood strategy): the sampled ROI indices, the sampled
+   avatars against the full artifact's columns and the sampled p-values
+   and coefs against stats-only (bit for bit), and the wall per round of
+   each mode.
 
 The meshes of phases 7-9 start at card 0 and wrap at the card count, so one
 card holds every shard and member (on a machine with several cards they
@@ -3175,6 +3191,352 @@ def ensemble_slice(device, card: str):
     return by_path
 
 
+# ------------------------------------------------------------- eval slice
+EVAL_EPOCHS = 4
+EVAL_TRAIN = dict(method="joint_elbo", calc_nll=True, calc_prd=True,
+                  calc_clf=True, calc_coherence=True, eval_freq=2,
+                  eval_freq_fid=2, save_samples=True)
+EVAL_FAMILIES = ("Likelihoods", "PRD", "Latent Representation",
+                 "Generation")
+# card against CPU on one checkpoint with the same noise: the IWAE rows
+# (float32 sums in another order) to a relative 1e-4; the PRD rows (k-means
+# of generations that agree to float32 rounding, where one point may change
+# cluster) to 0.01 absolute; accuracies and coherences equal, or each
+# differing prediction within FLIP_MARGIN of its classifier's boundary
+IWAE_RTOL, PRD_ATOL, FLIP_MARGIN = 1e-4, 0.01, 1e-3
+SAMPLED_DAA = dict(sampling_strategy="likelihood", n_validation=2,
+                   n_samples=N_SAMPLES, n_subjects=B, M=100, seed=SEED)
+SAMPLED_ROIS = 16
+
+
+@contextlib.contextmanager
+def timing_evals(seconds: dict):
+    """Add the host-clock seconds of each eval family's functions (each
+    ends in a fetch) to ``seconds`` while the block runs."""
+    from multivae_tpu_torch.eval import (coherence, likelihood,
+                                         representation, sample_quality)
+
+    parts = ((likelihood, "estimate_likelihoods", "Likelihoods"),
+             (sample_quality, "generate_conditional_samples",
+              "cond_generation"),
+             (sample_quality, "calc_prd_score", "PRD"),
+             (representation, "train_clf_lr_all_subsets",
+              "Latent Representation"),
+             (representation, "test_clf_lr_all_subsets",
+              "Latent Representation"),
+             (coherence, "train_modality_classifiers", "Generation"),
+             (coherence, "evaluate_coherence", "Generation"))
+    saved = []
+    for module, name, part in parts:
+        real = getattr(module, name)
+
+        def timed(*args, _real=real, _part=part, **kwargs):
+            start = time.perf_counter()
+            out = _real(*args, **kwargs)
+            seconds[_part] = (seconds.get(_part, 0.0)
+                              + time.perf_counter() - start)
+            return out
+
+        saved.append((module, name, real))
+        setattr(module, name, timed)
+    try:
+        yield seconds
+    finally:
+        for module, name, real in saved:
+            setattr(module, name, real)
+
+
+def eval_train(outdir, datadir, card, complete, clinical):
+    """``train_exp`` with every eval flag and ``save_samples`` on the card,
+    every count set to 0 just before and read just after: the step
+    kernels' launches (the cadence launches none), the four families at
+    epochs 2 and 4, the sample dumps, and each cadence hit's seconds by
+    part. Returns ``(run, launches)``."""
+    import pandas as pd
+    import torch
+
+    from multivae_tpu_torch.train import trainer
+
+    phase = "eval-slice"
+    counters = slice_counters()
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
+    hits = []
+    real = trainer.run_eval_cadence
+
+    def recording(exp, model_idx, logger, epoch_done):
+        seconds = real(exp, model_idx, logger, epoch_done)
+        hits.append((epoch_done, seconds))
+        return seconds
+
+    trainer.run_eval_cadence = recording
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    try:
+        run, walls = train_run(datadir, outdir, EVAL_EPOCHS, "cuda",
+                               **EVAL_TRAIN)
+    finally:
+        trainer.run_eval_cadence = real
+    total = time.perf_counter() - start
+    launches = {k: c[k] for k, c in counters.items()}
+    rundir = os.path.join(outdir, run)
+    csv = pd.read_csv(os.path.join(rundir, "logs", "metrics.csv"))
+    train_steps = np.sort(csv[csv.phase == "train"].step.unique())
+    ev = csv[csv.phase.isin(EVAL_FAMILIES)]
+    steps_per_epoch = len(complete) + len(clinical)
+    # the epoch of each eval row: the train steps logged before it
+    epochs_of = {s: int((train_steps < s).sum()) // steps_per_epoch
+                 for s in ev.step.unique()}
+    fid = os.path.join(rundir, "fid")
+    groups = sorted(os.listdir(fid)) if os.path.isdir(fid) else []
+    n_real = len(os.listdir(os.path.join(fid, "real", "rois"))) \
+        if groups else 0
+    whole_groups = len(set(complete))
+    checks = {
+        "cadence at epochs 2 and 4": sorted(epochs_of.values()) == [2, 4]
+        and [e for e, _ in hits] == [2, 4],
+        "four families at each": all(
+            set(ev[ev.step == s].phase) == set(EVAL_FAMILIES)
+            for s in epochs_of),
+        "eval values finite": bool(np.isfinite(ev.value).all()),
+        "accuracies in [0, 1]": bool(ev[ev.phase.isin(
+            ["Latent Representation", "Generation"])].value.between(
+                0, 1).all()),
+        "mopoe_step launches": launches["mopoe_step"]
+        == whole_groups * EVAL_EPOCHS,
+        "presence_step launches": launches["presence_step"]
+        == len(set(clinical)) * EVAL_EPOCHS,
+        "no other kernel": all(launches[k] == 0 for k in (
+            "method_step", "generic_step", "flat_adam", "dp_step",
+            "dp_method_step")),
+        "fid groups": groups == ["clinical", "clinical_rois", "random",
+                                 "real", "rois"],
+        "fid rows": n_real > 0 and all(
+            len(os.listdir(os.path.join(fid, g, m))) == n_real
+            for g in groups for m in ("clinical", "rois")),
+    }
+    log(phase, f"train_exp {EVAL_EPOCHS} epochs with calc_nll, calc_prd, "
+        f"calc_clf, calc_coherence (eval_freq 2, eval_freq_fid 2) and "
+        f"save_samples: {total:.3f} s (set-up and sample dumps included); "
+        f"train wall per epoch {', '.join(f'{w:.4f}' for w in walls)} s; "
+        f"launches {launches}; fid dump {groups}, {n_real} rows a group; "
+        f"checks " + ", ".join(f"{k}={v}" for k, v in checks.items()))
+    for epoch_done, seconds in hits:
+        log(phase, f"cadence hit after epoch {epoch_done}: "
+            f"{sum(seconds.values()):.3f} s host clock = "
+            + ", ".join(f"{k} {v:.3f}" for k, v in seconds.items())
+            + f" ({card})")
+    if not all(checks.values()):
+        raise SystemExit(f"eval slice train wrong: {checks}")
+    return run, launches
+
+
+def _decisions(clf, x):
+    """``(predictions, distance to the boundary)`` of a logistic
+    regression: ``|logit|`` for two classes, the top-two gap for more."""
+    d = clf.decision_function(np.asarray(x))
+    if d.ndim == 1:
+        return d > 0, np.abs(d)
+    top = np.sort(d, axis=1)
+    return d.argmax(axis=1), top[:, -1] - top[:, -2]
+
+
+def flip_margins(outdir, run, family, metric):
+    """The predictions behind one accuracy or coherence row, recomputed on
+    the card and on the CPU: ``(flipped samples, the largest distance to
+    the boundary among them on either run)``."""
+    from multivae_tpu_torch.eval import (coherence, representation,
+                                         sample_quality)
+    from multivae_tpu_torch.train.experiment import load_run
+
+    exps = {}
+    for dev in ("cuda", "cpu"):
+        exps[dev], _ = load_run(outdir, run, dev)
+        exps[dev].set_datasets()
+    preds, margins = {}, {}
+    if family == "Latent Representation":
+        for dev, exp in exps.items():
+            clf = representation.train_clf_lr_all_subsets(exp)[metric]
+            feats, _ = representation._subset_latents(
+                exp, exp.member_datasets(0)[1], 0)
+            preds[dev], margins[dev] = _decisions(clf, feats[metric])
+    else:
+        clfs = coherence.train_modality_classifiers(exps["cpu"])
+        for dev, exp in exps.items():
+            if metric == "Random":
+                rand = sample_quality.generate_random_samples(exp, 0, 256)
+                both = [_decisions(clfs[m], x) for m, x in rand.items()]
+                preds[dev] = np.stack([p for p, _ in both])
+                margins[dev] = np.min([m for _, m in both], axis=0)
+            else:
+                s_key, m_key = metric.split("/")
+                gen, _ = sample_quality.generate_conditional_samples(exp)
+                preds[dev], margins[dev] = _decisions(clfs[m_key],
+                                                      gen[s_key][m_key])
+    flipped = preds["cuda"] != preds["cpu"]
+    if flipped.ndim > 1:
+        flipped = flipped.any(axis=0)
+    if not flipped.any():
+        return 0, 0.0
+    return int(flipped.sum()), float(np.minimum(
+        margins["cuda"], margins["cpu"])[flipped].max())
+
+
+def eval_compare(outdir, run, datadir, card):
+    """``eval_exp`` of the run's last checkpoint on the card and on the CPU
+    with the same noise (drawn on the CPU): every row held to the other
+    (module constants), the wall of each command and of each part."""
+    import pandas as pd
+    import torch
+
+    from multivae_tpu_torch import workflows
+
+    phase = "eval-slice"
+    tables, walls, parts = {}, {}, {}
+    for dev in ("cuda", "cpu"):
+        parts[dev] = {}
+        with timing_evals(parts[dev]), \
+                contextlib.redirect_stdout(io.StringIO()):
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            start = time.perf_counter()
+            path = workflows.eval_exp("synthetic", datadir, outdir, run,
+                                      device=dev)
+            walls[dev] = time.perf_counter() - start
+        tables[dev] = pd.read_table(path)
+        os.replace(path, path.replace(".tsv", f"_{dev}.tsv"))
+    card_t, host_t = tables["cuda"], tables["cpu"]
+    same_rows = (list(zip(card_t.family, card_t.metric))
+                 == list(zip(host_t.family, host_t.metric)))
+    bad, worst = [], {}
+    for (family, metric), a, b in zip(zip(card_t.family, card_t.metric),
+                                      card_t.value, host_t.value):
+        if family == "Likelihoods":
+            err = abs(a - b) / max(abs(b), 1e-12)
+            ok = err <= IWAE_RTOL
+        elif family == "PRD":
+            err = abs(a - b)
+            ok = err <= PRD_ATOL
+        else:
+            err = abs(a - b)
+            ok = a == b
+            if not ok:
+                n_flip, margin = flip_margins(outdir, run, family, metric)
+                ok = n_flip > 0 and margin < FLIP_MARGIN
+                log(phase, f"row {family}/{metric}: card {a!r}, CPU {b!r}; "
+                    f"{n_flip} predictions differ, the farthest "
+                    f"{margin:.3e} from the boundary (excused below "
+                    f"{FLIP_MARGIN}): {'excused' if ok else 'NOT excused'}")
+        worst[family] = max(worst.get(family, 0.0), err)
+        if not ok:
+            bad.append((family, metric, a, b))
+    checks = {
+        "same rows": same_rows and len(card_t) > 0,
+        "four families": set(card_t.family) == set(EVAL_FAMILIES),
+        "all rows within bounds": not bad,
+        "values finite": bool(np.isfinite(card_t.value).all()),
+    }
+    log(phase, f"eval_exp of the last checkpoint: card {walls['cuda']:.3f}"
+        f" s ({', '.join(f'{k} {v:.3f}' for k, v in parts['cuda'].items())})"
+        f", CPU {walls['cpu']:.3f} s ("
+        + ", ".join(f"{k} {v:.3f}" for k, v in parts["cpu"].items())
+        + f"); {len(card_t)} rows; card vs CPU, largest difference per "
+        f"family (Likelihoods relative, bound {IWAE_RTOL}; PRD absolute, "
+        f"bound {PRD_ATOL}; accuracies equal): "
+        + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+        + "; checks " + ", ".join(f"{k}={v}" for k, v in checks.items())
+        + f" ({card})")
+    if not all(checks.values()):
+        raise SystemExit(f"eval card vs CPU wrong: {checks}; rows {bad}")
+
+
+def sampled_daa(root, outdir, run, datadir, card):
+    """``daa_exp`` of the trained run on the card with one seed, once per
+    artifact mode (full, stats-only, sampled), each in a copy of the run
+    of its own: the sampled ROI indices, the sampled avatars against the
+    full artifact's columns (bit for bit: both cross as float16), the
+    sampled regression outputs against stats-only (bit for bit); the wall
+    per round of each mode. Returns the sampled run's launches."""
+    import shutil
+
+    import torch
+
+    from multivae_tpu_torch import workflows
+    from multivae_tpu_torch.analysis import daa
+    from multivae_tpu_torch.ops import fused_daa
+
+    phase = "eval-slice"
+    res, walls, launches = {}, {}, {}
+    for mode in ("full", "stats-only", "sampled"):
+        mode_out = os.path.join(root, f"daa_{mode}")
+        shutil.copytree(os.path.join(outdir, run),
+                        os.path.join(mode_out, run),
+                        ignore=shutil.ignore_patterns("fid", "eval", "logs"))
+        fused_daa.KERNEL_LAUNCHES["avatar_sweep"] = 0
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res[mode] = workflows.daa_exp(
+                "synthetic", datadir, mode_out, run, artifact=mode,
+                sampled_rois=SAMPLED_ROIS, device="cuda", **SAMPLED_DAA)
+        torch.cuda.synchronize()
+        walls[mode] = time.perf_counter() - start
+        launches[mode] = fused_daa.KERNEL_LAUNCHES["avatar_sweep"]
+
+    def load(mode, name):
+        return np.load(os.path.join(res[mode], name), mmap_mode="r")
+
+    want_idx = np.sort(np.random.default_rng(SEED + 17).choice(
+        444, SAMPLED_ROIS, replace=False))
+    idx = np.asarray(load("sampled", daa.SAMPLED_ROIS_FILE))
+    sub = np.asarray(load("sampled", daa.SAMPLED_AVATARS_FILE))
+    full = load("full", "rois_digital_avatars.npy")
+    n_val = SAMPLED_DAA["n_validation"]
+    checks = {
+        "indices = default_rng(seed + 17) choice": np.array_equal(
+            idx, want_idx),
+        "sampled shape": sub.shape == (n_val, B, 7, N_SAMPLES,
+                                       SAMPLED_ROIS),
+        "sampled = full columns, bit for bit": np.array_equal(
+            sub, np.asarray(full[..., idx])),
+        "pvalues sampled = stats-only, bit for bit": np.array_equal(
+            load("sampled", "pvalues.npy"), load("stats-only",
+                                                 "pvalues.npy")),
+        "coefs sampled = stats-only, bit for bit": np.array_equal(
+            load("sampled", "coefs.npy"), load("stats-only", "coefs.npy")),
+        "one sweep launch a round": all(v == n_val
+                                        for v in launches.values()),
+        "significant_rois.tsv": all(os.path.isfile(os.path.join(
+            r, "significant_rois.tsv")) for r in res.values()),
+    }
+    log(phase, f"daa_exp of the trained run, seed {SEED}, {n_val} rounds "
+        f"of B={B} x 7 scores x P={N_SAMPLES} (likelihood strategy, "
+        f"float16 wire), wall per round: "
+        + ", ".join(f"{m} {w / n_val:.3f} s" for m, w in walls.items())
+        + f"; sweep launches {launches}; sampled ROIs {idx.tolist()}; "
+        f"checks " + ", ".join(f"{k}={v}" for k, v in checks.items())
+        + f" ({card})")
+    if not all(checks.values()):
+        raise SystemExit(f"daa sampled wrong: {checks}")
+    return {"avatar_sweep": launches["sampled"]}
+
+
+def eval_slice(device, card: str):
+    """Phase eval-slice: ``train_exp`` with the eval cadence and the sample
+    dumps, ``eval_exp`` on the card against the CPU, and ``daa_exp`` with
+    the full, stats-only and sampled artifacts. Returns ``{path: {kernel:
+    count}}`` for the train run (``eval``) and the sampled ``daa``."""
+    with tempfile.TemporaryDirectory() as root:
+        datadir, complete, clinical, _ = slice_cohort(root, "eval-slice")
+        outdir = os.path.join(root, "out")
+        run, launches = eval_train(outdir, datadir, card, complete,
+                                   clinical)
+        eval_compare(outdir, run, datadir, card)
+        sampled = sampled_daa(root, outdir, run, datadir, card)
+    return {"eval": launches, "daa-sampled": sampled}
+
+
 # every source under csrc/ and the kernels (entry points) the record lists
 SOURCES = ("avatar_sweep", "mopoe_step", "presence_step", "flat_adam",
            "method_step", "generic_step")
@@ -3260,6 +3622,7 @@ def main() -> int:
         entries["generic_step"] = timed("generic-kernel",
                                         generic_kernel_check(device))
         by_path.update(timed("generic-slice", generic_slice(device, smi)))
+        by_path.update(timed("eval-slice", eval_slice(device, smi)))
     for k in KERNELS:
         # each path's own count (set to 0 just before it, read just after)
         # and their sum

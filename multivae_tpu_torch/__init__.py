@@ -7,8 +7,10 @@ package: modules it needs that hold no JAX code (the config, the data
 layer, the print helpers) are copied.
 
 Layers, from the entry point down:
-  * ``cli`` / ``workflows`` — the ``train``, ``resume`` and ``daa``
-    commands (``--device``, default ``cuda``);
+  * ``cli`` / ``workflows`` — the ``train``, ``resume``, ``eval`` and
+    ``daa`` commands (``--device``, default ``cuda``);
+  * ``eval`` — IWAE likelihoods, PRD, FID, latent probes and coherence
+    (plain torch on the device, numpy on the host);
   * ``train.trainer`` — the per-epoch driver: batching, routes, noise,
     logging (``train.logging``), checkpoints (``train.checkpoint``);
   * ``train.experiment`` — config, models, datasets, train state;

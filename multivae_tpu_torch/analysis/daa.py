@@ -18,7 +18,12 @@ plain torch here. The regressions run on the host in float64
 are split over the mesh's entries, each slice through the same kernel or
 general sweep with the unsharded sweep's noise, cell for cell.
 
-Not ported yet (ROADMAP Queue 1 item 10): the ``sampled`` artifact mode.
+Artifacts (``run_daa``'s ``artifact``): ``full`` fetches every round's
+avatars into ``rois_digital_avatars.npy``; ``stats-only`` reduces each
+round on the device to the regressions' sufficient statistics; ``sampled``
+is ``stats-only`` plus the avatars of ``sampled_rois`` ROI columns, drawn
+from a stream of their own (``default_rng(seed + 17)``), gathered on the
+device and fetched at the full artifact's wire dtype.
 """
 
 from __future__ import annotations
@@ -55,8 +60,10 @@ from .stats import (
 )
 
 SAMPLING_STRATEGIES = ("linear", "uniform", "gaussian", "likelihood")
-ARTIFACT_MODES = ("full", "stats-only")
+ARTIFACT_MODES = ("full", "stats-only", "sampled")
 SUFFSTATS_FILE = "regression_suffstats.npz"
+SAMPLED_AVATARS_FILE = "rois_digital_avatars_sampled.npy"
+SAMPLED_ROIS_FILE = "sampled_rois_idx.npy"
 
 
 @dataclass
@@ -327,7 +334,8 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
             reg_method: str = "hierarchical", sample_latents: bool = True,
             vote_prop: float = 1.0, exact_reconstruction="auto",
             fetch_dtype: str = "float16", artifact: str = "full",
-            use_sharding="auto", chunk: int = 16) -> str:
+            use_sharding="auto", chunk: int = 16,
+            sampled_rois: int = 16) -> str:
     """Full DAA pipeline; returns the result directory.
 
     ``models`` and ``cohorts`` hold one entry per ensemble member
@@ -343,7 +351,14 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
     the on-disk artifact stays float32. ``artifact``: ``"full"`` writes the
     ``rois_digital_avatars.npy`` memmap; ``"stats-only"`` reduces each round
     to the regression sufficient statistics on the device and never
-    fetches the avatars (same regression outputs to float tolerance).
+    fetches the avatars (same regression outputs to float tolerance);
+    ``"sampled"`` does the same and also writes the avatars of
+    ``sampled_rois`` ROI columns, ``np.sort(default_rng(seed + 17).choice(
+    n_rois, k, replace=False))``, a stream of their own so the subjects are
+    those of a full run: ``SAMPLED_AVATARS_FILE`` ``[(n_models,)
+    n_validation, B, S, P, k]`` float32 (the columns cast to the fetch
+    dtype on the device, so they equal the full artifact's) and
+    ``SAMPLED_ROIS_FILE``.
     ``use_sharding``: split each round's cell grid over the visible cards
     (:func:`avatar_sweep_sharded`); ``"auto"`` does so whenever the models
     are on a card and more than one is visible. ``chunk``: cells per
@@ -353,10 +368,6 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
     if sampling_strategy not in SAMPLING_STRATEGIES:
         raise ValueError("sampling_strategy must be either linear, uniform"
                          "gaussian or likelihood")
-    if artifact == "sampled":
-        raise NotImplementedError(
-            "artifact='sampled' is not ported yet: see ROADMAP.md, Queue 1 "
-            "item 10")
     if artifact not in ARTIFACT_MODES:
         raise ValueError(f"artifact must be one of {ARTIFACT_MODES}, "
                          f"got: {artifact}")
@@ -398,9 +409,22 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
     # clamp to the available complete test subjects before sizing the memmap
     n_subjects = min(n_subjects, len(cohorts[0].test_metadata))
 
-    stats_only = artifact == "stats-only"
-    rois_digital_avatars = None
-    if stats_only:
+    stats_only = artifact in ("stats-only", "sampled")
+    rois_digital_avatars = roi_sub = None
+    if artifact == "sampled":
+        # a stream of its own: the subjects drawn from np_rng stay those of
+        # a full or stats-only run at the same seed
+        sub_rng = np.random.default_rng((seed if seed is not None else 0)
+                                        + 17)
+        roi_sub = np.sort(sub_rng.choice(
+            n_rois, size=min(int(sampled_rois), n_rois),
+            replace=False)).astype(np.int32)
+        roi_sub_dev = torch.as_tensor(roi_sub, dtype=torch.long,
+                                      device=device)
+        print_text(f"artifact=sampled: regression sufficient statistics on "
+                   f"device and a {len(roi_sub)}-ROI avatar subsample per "
+                   f"round")
+    elif stats_only:
         print_text("artifact=stats-only: reducing each round to regression "
                    "sufficient statistics on device")
     else:
@@ -414,6 +438,7 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
 
     all_sampled_scores, all_metadatas, all_rois_reconstructions = [], [], []
     all_suffstats = []  # per model: list of per-round (ysum, xysum, yysum)
+    all_sub_avatars = []  # sampled: per model, per-round [B, S, P, k]
     metadata_columns = None
     for model_idx, (model, cohort) in enumerate(zip(models, cohorts)):
         print_text(f"complete train subjects: {len(cohort.train_clinical)}")
@@ -430,6 +455,7 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
         n_complete = len(cohort.test_metadata)
         sampled_scores, metadatas, rois_recs, suffstats_rounds = \
             [], [], [], []
+        sub_avatar_rounds = []
         for val_idx in range(n_validation):
             print_text(f"validation round {val_idx + 1}/{n_validation}")
             sel = np_rng.choice(n_complete, size=n_subjects, replace=False)
@@ -465,6 +491,12 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
                 suffstats_rounds.append(tuple(
                     s.cpu().numpy() for s in _device_suffstats(
                         avatars, scores_values, roundtrip_dtype=rt)))
+                if roi_sub is not None:
+                    # gather the columns, then cast to the wire dtype: the
+                    # full artifact's bits for these columns
+                    sub_avatar_rounds.append(
+                        avatars[..., roi_sub_dev].to(wire).cpu().float()
+                        .numpy())
             else:
                 host = avatars.to(wire).cpu().float().numpy()
                 if n_models == 1:
@@ -478,6 +510,7 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
         all_metadatas.append(metadatas)
         all_rois_reconstructions.append(rois_recs)
         all_suffstats.append(suffstats_rounds)
+        all_sub_avatars.append(sub_avatar_rounds)
 
     if n_models == 1:
         all_sampled_scores = all_sampled_scores[0]
@@ -491,6 +524,11 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
         if n_models == 1:
             stacked = {k: v[0] for k, v in stacked.items()}
         np.savez(os.path.join(resdir, SUFFSTATS_FILE), **stacked)
+        if roi_sub is not None:
+            sub_arr = np.asarray(all_sub_avatars, dtype=np.float32)
+            np.save(os.path.join(resdir, SAMPLED_AVATARS_FILE),
+                    sub_arr[0] if n_models == 1 else sub_arr)
+            np.save(os.path.join(resdir, SAMPLED_ROIS_FILE), roi_sub)
     else:
         rois_digital_avatars.flush()
         del rois_digital_avatars
@@ -532,8 +570,8 @@ def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
             f"{resdir} holds neither the avatar artifact "
             f"('rois_digital_avatars.npy', written by daa --artifact full) "
             f"nor the sufficient statistics ('{SUFFSTATS_FILE}', written "
-            f"by --artifact stats-only); re-run the daa workflow before "
-            f"the regression stage")
+            f"by --artifact stats-only or sampled); re-run the daa "
+            f"workflow before the regression stage")
     all_sampled_scores = np.load(os.path.join(resdir, "sampled_scores.npy"))
     all_metadatas = np.load(os.path.join(resdir, "metadatas.npy"),
                             allow_pickle=True)

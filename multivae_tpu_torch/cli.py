@@ -1,5 +1,5 @@
 """Command-line interface of the port: ``python -m multivae_tpu_torch
-{train,resume,daa}``.
+{train,resume,eval,daa}``.
 
 Counterpart of ``multivae_tpu/cli.py``: the workflow function's signature
 drives the argument parser, so the flags are its parameters
@@ -50,7 +50,7 @@ def _commands() -> Dict[str, Callable]:
     from . import workflows as wf
 
     return {"train": wf.train_exp, "resume": wf.resume_exp,
-            "daa": wf.daa_exp}
+            "eval": wf.eval_exp, "daa": wf.daa_exp}
 
 
 def main(argv: Sequence[str] | None = None) -> int:

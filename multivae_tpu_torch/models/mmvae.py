@@ -7,8 +7,18 @@ subset posteriors come from one masked PoE over the stacked present experts
 (:func:`multivae_tpu_torch.ops.fusion.masked_poe_all_subsets`). Dropout is
 an explicit input (``masks``: per modality the encoder's and the decoder's
 lists of keep masks, :mod:`.networks`); without it the pass is the
-inference pass. Generation (``generate``, ``cond_generation``) comes with
-the eval port.
+inference pass.
+
+Generation (``:281-340`` there): ``get_random_styles``, ``generate`` and
+``cond_generation`` take their standard-normal draws as ``noise`` (the
+tensors themselves) or from ``generator``, drawn on the generator's device
+and moved to the model's. Order of the draws with a generator:
+``get_random_styles`` one ``[n, style_dim]`` draw per modality with a
+style latent, in modality order; ``generate`` the content ``[n,
+class_dim]`` first, then the styles; ``cond_generation`` the styles
+first, then one content draw per subset posterior in the dict's order.
+These are the JAX package's orders of ``make_rng("sample")`` calls, so a
+test can feed it the JAX draws.
 """
 
 from __future__ import annotations
@@ -252,6 +262,95 @@ class MultimodalVAE(nn.Module):
                "rec": rec}
         out.update(divs)
         return out
+
+    # -------------------------------------------------------------- generation
+    def _device(self) -> torch.device:
+        return next(self.parameters()).device
+
+    def _has_style(self, mod: ModalitySpec) -> bool:
+        return self.factorized_representation and mod.style_dim > 0
+
+    def get_random_styles(self, num_samples: int, noise=None,
+                          generator: Optional[torch.Generator] = None):
+        """Unit-normal style draws per modality, None for a modality
+        without a style latent (``BaseMMVae.py:302-312``). ``noise``:
+        ``{modality: [num_samples, style_dim]}``."""
+        styles = {}
+        for mod in self.modalities:
+            if not self._has_style(mod):
+                styles[mod.name] = None
+            elif noise is not None:
+                styles[mod.name] = noise[mod.name].to(self._device())
+            else:
+                styles[mod.name] = _normal((num_samples, mod.style_dim),
+                                           generator, self._device())
+        return styles
+
+    def get_random_style_dists(self, num_samples: int):
+        """Unit-Gaussian style distributions ``(mu, logvar)``, zeros of
+        ``[num_samples, style_dim]`` (``BaseMMVae.py:290-299``)."""
+        dev = self._device()
+        return {mod.name: (torch.zeros(num_samples, mod.style_dim,
+                                       device=dev),
+                           torch.zeros(num_samples, mod.style_dim,
+                                       device=dev))
+                for mod in self.modalities}
+
+    def generate_sufficient_statistics_from_latents(self, latents):
+        """Decode ``{"content": z, "style": {modality: z or None}}`` to each
+        modality's ``(loc, scale)`` (``BaseMMVae.py:257-264``)."""
+        content = latents["content"]
+        return {mod.name: self.decoders[mod.name](
+            latents["style"][mod.name], content) for mod in self.modalities}
+
+    def generate_from_latents(self, latents):
+        """Distribution means per modality (``BaseMMVae.py:267-273``)."""
+        suff = self.generate_sufficient_statistics_from_latents(latents)
+        return {m: loc for m, (loc, _) in suff.items()}
+
+    def generate(self, num_samples: int, noise=None,
+                 generator: Optional[torch.Generator] = None):
+        """Unconditional generation from the unit prior
+        (``BaseMMVae.py:242-254``). ``noise``: ``{"content": [n,
+        class_dim], "style": {modality: [n, style_dim]}}``."""
+        if noise is not None:
+            content = noise["content"].to(self._device())
+        else:
+            content = _normal((num_samples, self.class_dim), generator,
+                              self._device())
+        styles = self.get_random_styles(
+            num_samples, None if noise is None else noise["style"],
+            generator)
+        return self.generate_from_latents({"content": content,
+                                           "style": styles})
+
+    def cond_generation(self, latent_distributions, num_samples=None,
+                        noise=None,
+                        generator: Optional[torch.Generator] = None):
+        """Conditional generation from subset posteriors ``{key: (mu,
+        logvar)}`` (``BaseMMVae.py:276-287``): one style draw shared by
+        every subset, one content draw per subset. ``noise``: ``{"style":
+        {modality: [n, style_dim]}, "content": {key: [n, class_dim]}}``."""
+        if num_samples is None:
+            num_samples = next(iter(latent_distributions.values()))[0].shape[0]
+        styles = self.get_random_styles(
+            num_samples, None if noise is None else noise["style"],
+            generator)
+        out = {}
+        for key, (mu, logvar) in latent_distributions.items():
+            eps = (noise["content"][key].to(mu.device) if noise is not None
+                   else _normal(mu.shape, generator, mu.device))
+            out[key] = self.generate_from_latents(
+                {"content": mu + eps * torch.exp(0.5 * logvar),
+                 "style": styles})
+        return out
+
+
+def _normal(shape, generator: Optional[torch.Generator], device):
+    """A float32 standard-normal draw from ``generator`` on its own device
+    (the CPU without one), moved to ``device``."""
+    where = generator.device if generator is not None else "cpu"
+    return torch.randn(shape, generator=generator, device=where).to(device)
 
 
 def init_params(model: MultimodalVAE, generator: torch.Generator) -> None:

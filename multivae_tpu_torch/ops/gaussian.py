@@ -1,4 +1,4 @@
-"""Gaussian math primitives (KL divergences, reparameterization).
+"""Gaussian math primitives (KL divergences, log-pdfs, reparameterization).
 
 Counterpart of ``multivae_tpu/ops/gaussian.py``; same formulas on torch
 tensors. Random draws take an explicit ``torch.Generator``.
@@ -56,3 +56,22 @@ def reparameterize(mu, logvar, noise: Optional[torch.Tensor] = None,
         noise = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
                             device=mu.device)
     return mu + noise * torch.exp(0.5 * logvar)
+
+
+def gaussian_log_pdf(x, mu, logvar):
+    """Diagonal Gaussian log-density summed over the last axis."""
+    log_pdf = -0.5 * LOG2PI - logvar / 2.0 - (x - mu).square() / (
+        2.0 * torch.exp(logvar))
+    return log_pdf.sum(dim=-1)
+
+
+def unit_gaussian_log_pdf(x):
+    """Standard-normal log-density summed over the last axis."""
+    return (-0.5 * LOG2PI - x.square() / 2.0).sum(dim=-1)
+
+
+def log_mean_exp(x, axis=1):
+    """``log(mean(exp(x)))`` along ``axis``, stabilized by the max; the axis
+    is kept (size 1)."""
+    m = x.amax(dim=axis, keepdim=True)
+    return m + torch.log(torch.exp(x - m).mean(dim=axis, keepdim=True))

@@ -2,11 +2,14 @@
 
 Counterpart of ``multivae_tpu/ops/likelihoods.py``: each family is a
 function of the decoder's ``(loc, scale)``, with ``scale = exp(logvar / 2)``.
+:func:`sample` takes its randomness from an explicit ``torch.Generator`` or
+from the uniform / normal draws given as ``noise``.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -46,3 +49,46 @@ def log_prob(name: str, x, loc, scale):
 def calc_log_prob(name: str, x, loc, scale, norm_value):
     """``log_prob(x).sum() / norm_value``."""
     return torch.sum(log_prob(name, x, loc, scale)) / norm_value
+
+
+def sample_noise(name: str, shape, generator: Optional[torch.Generator] =
+                 None, device=None, dtype=torch.float32):
+    """The draws :func:`sample` consumes for ``name``: standard normals for
+    normal, uniforms in ``[0, 1)`` for the three others (categorical: one
+    per row and class, for the Gumbel-max trick), drawn on the generator's
+    device (the CPU without one) and moved to ``device``."""
+    where = generator.device if generator is not None else "cpu"
+    if name == "normal":
+        draw = torch.randn(shape, generator=generator, dtype=dtype,
+                           device=where)
+    elif name in ("laplace", "bernoulli", "categorical"):
+        draw = torch.rand(shape, generator=generator, dtype=dtype,
+                          device=where)
+    else:
+        raise ValueError(f"likelihood not implemented: {name}")
+    return draw.to(device) if device is not None else draw
+
+
+def sample(name: str, loc, scale, noise: Optional[torch.Tensor] = None,
+           generator: Optional[torch.Generator] = None):
+    """A draw from the output distribution. ``noise`` (shape of ``loc``) is
+    the family's base draw, :func:`sample_noise`'s law; without it one is
+    drawn from ``generator``. Laplace clips the uniform to ``[1e-7, 1 -
+    1e-7]`` before the inverse CDF, as the JAX package draws it; categorical
+    takes the Gumbel-max of the logits."""
+    if noise is None:
+        noise = sample_noise(name, loc.shape, generator, loc.device,
+                             loc.dtype)
+    if name == "normal":
+        return loc + scale * noise
+    if name == "laplace":
+        u = noise.clamp(1e-7, 1.0 - 1e-7) - 0.5
+        return loc - scale * torch.sign(u) * torch.log1p(-2.0 * u.abs())
+    if name == "bernoulli":
+        return (noise < torch.sigmoid(loc)).to(loc.dtype)
+    if name == "categorical":
+        gumbel = -torch.log(-torch.log(noise.clamp_min(
+            torch.finfo(loc.dtype).tiny)))
+        idx = torch.argmax(loc + gumbel, dim=-1)
+        return F.one_hot(idx, loc.shape[-1]).to(loc.dtype)
+    raise ValueError(f"likelihood not implemented: {name}")

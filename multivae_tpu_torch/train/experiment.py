@@ -139,11 +139,13 @@ class MultimodalExperiment:
         return exp, cfg
 
 
-def load_run(outdir: str, run: str, device: torch.device | str):
-    """:meth:`MultimodalExperiment.get_experiment` of ``<outdir>/<run>``."""
+def load_run(outdir: str, run: str, device: torch.device | str,
+             load_epoch: Optional[int] = None):
+    """:meth:`MultimodalExperiment.get_experiment` of ``<outdir>/<run>``:
+    the latest checkpoint, or the newest at or before ``load_epoch``."""
     expdir = os.path.join(outdir, run)
     flags_file = os.path.join(expdir, "flags.json")
     if not os.path.isfile(flags_file):
         raise ValueError("You need first to train the model.")
     return MultimodalExperiment.get_experiment(
-        flags_file, os.path.join(expdir, "checkpoints"), device)
+        flags_file, os.path.join(expdir, "checkpoints"), device, load_epoch)

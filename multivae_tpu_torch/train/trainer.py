@@ -38,7 +38,10 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
 * the test split is evaluated with the general forward and
   :func:`~multivae_tpu_torch.train.losses.total_loss`;
 * every 5 epochs and at the end the model and optimizer state are
-  checkpointed in the JAX package's layout.
+  checkpointed in the JAX package's layout;
+* on the eval cadence (:func:`run_eval_cadence`, ``trainer.py:412-508``
+  there) the IWAE likelihoods, PRD, latent probes and coherence of
+  :mod:`multivae_tpu_torch.eval` are logged after the test pass.
 
 Noise: torch cannot reproduce JAX's threefry streams. Each epoch's noise
 comes from one generator seeded by ``(cfg.seed, model_idx, epoch)``
@@ -73,6 +76,7 @@ the result is the sequential run's, bit for bit. The JAX package's stacked
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, List, Optional
@@ -122,9 +126,6 @@ def unported_features(cfg, model) -> List[str]:
     if cfg.data_parallel > 1 and not cfg.fused_training:
         out.append("data_parallel > 1 with fused_training=False: the "
                    "row-sharded general step (ROADMAP Queue 1 item 4)")
-    for flag in ("calc_nll", "calc_prd", "calc_clf", "calc_coherence"):
-        if getattr(cfg, flag, False):
-            out.append(f"{flag}: the eval cadence (ROADMAP Queue 1 item 3)")
     return out
 
 
@@ -502,6 +503,100 @@ def test_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
     return results
 
 
+# evals riding the eval_freq cadence; calc_prd rides eval_freq_fid. The one
+# flag registry: eval_cadence_active, eval_breaks_after and run_eval_cadence
+# all derive from it
+_EVAL_FREQ_FLAGS = ("calc_nll", "calc_clf", "calc_coherence")
+
+
+def _any_eval_freq_flag(cfg) -> bool:
+    return any(getattr(cfg, f, False) for f in _EVAL_FREQ_FLAGS)
+
+
+def eval_cadence_active(cfg) -> bool:
+    """Any eval hooked onto the ``eval_freq`` / ``eval_freq_fid`` cadence?"""
+    return bool(_any_eval_freq_flag(cfg) or cfg.calc_prd)
+
+
+def eval_breaks_after(cfg, epoch_done: int) -> bool:
+    """Must the host run eval code after ``epoch_done`` epochs?"""
+    if _any_eval_freq_flag(cfg) and epoch_done % cfg.eval_freq == 0:
+        return True
+    return bool(cfg.calc_prd and epoch_done % cfg.eval_freq_fid == 0)
+
+
+def run_eval_cadence(exp, model_idx: int, logger, epoch_done: int
+                     ) -> Dict[str, float]:
+    """The eval cadence of one member after ``epoch_done`` epochs
+    (``trainer.py:441-508``): ``calc_nll`` (IWAE likelihoods),
+    ``calc_clf`` (latent probes) and ``calc_coherence`` at multiples of
+    ``eval_freq``, ``calc_prd`` at multiples of ``eval_freq_fid``, every
+    family at the final epoch. PRD and coherence share one
+    conditional-generation pass; the modality classifiers are fit once per
+    member and cached on ``exp``. Returns the host-clock seconds of each
+    part that ran (``Likelihoods``, ``cond_generation``, ``PRD``,
+    ``Latent Representation``, ``Generation``), each ending in a fetch."""
+    from ..eval import coherence, likelihood, representation, sample_quality
+
+    cfg = exp.cfg
+    final = epoch_done == cfg.end_epoch
+    on_freq = final or epoch_done % cfg.eval_freq == 0
+    on_fid = cfg.calc_prd and (final or epoch_done % cfg.eval_freq_fid == 0)
+    seconds: Dict[str, float] = {}
+    cond = []
+
+    @contextlib.contextmanager
+    def timed(part):
+        start = time.perf_counter()
+        yield
+        seconds[part] = seconds.get(part, 0.0) + time.perf_counter() - start
+
+    def cond_samples():
+        if not cond:
+            with timed("cond_generation"):
+                cond.append(sample_quality.generate_conditional_samples(
+                    exp, model_idx))
+        return cond[0]
+
+    if cfg.calc_nll and on_freq:
+        with timed("Likelihoods"):
+            lhoods = likelihood.estimate_likelihoods(exp, model_idx)
+        if logger is not None:
+            logger.write_lhood_logs(lhoods)
+    if on_fid:
+        samples = cond_samples()
+        with timed("PRD"):
+            prd = sample_quality.calc_prd_score(exp, model_idx,
+                                                samples=samples)
+        if logger is not None:
+            logger.write_prd_scores(prd)
+    if getattr(cfg, "calc_clf", False) and on_freq:
+        with timed("Latent Representation"):
+            clfs = representation.train_clf_lr_all_subsets(exp, model_idx)
+            accs = representation.test_clf_lr_all_subsets(exp, clfs,
+                                                          model_idx)
+        if logger is not None and accs:
+            logger.write_lr_eval(accs)
+    if getattr(cfg, "calc_coherence", False) and on_freq:
+        # fit on the train split, which does not change: once per member
+        cache = getattr(exp, "_modality_clfs", None)
+        if cache is None:
+            cache = exp._modality_clfs = {}
+        gen_eval = {}
+        with timed("Generation"):
+            if model_idx not in cache:
+                cache[model_idx] = coherence.train_modality_classifiers(
+                    exp, model_idx)
+        if cache[model_idx] is not None:
+            samples = cond_samples()
+            with timed("Generation"):
+                gen_eval = coherence.evaluate_coherence(
+                    exp, model_idx, clfs=cache[model_idx], samples=samples)
+        if logger is not None and gen_eval:
+            logger.write_coherence_logs(gen_eval)
+    return seconds
+
+
 def resume_from_checkpoints(exp) -> int:
     """Restore every member's model, params and Adam state from its latest
     checkpoint; returns (and sets) the epoch to resume from."""
@@ -587,7 +682,7 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
     own noise and mask generators, so params, moments, logs and checkpoints
     are the sequential run's, bit for bit. Returns the host-clock seconds
     per epoch (all members; train, test, logging, ending in a device
-    synchronize)."""
+    synchronize); each member's eval cadence runs after it."""
     cfg = exp.cfg
     n_models = cfg.num_models
     mesh = ensemble_mesh(cfg) if exp.device.type == "cuda" else None
@@ -633,6 +728,11 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
             for dev in dict.fromkeys(members.devices):
                 torch.cuda.synchronize(dev)
         walls.append(time.perf_counter() - start)
+        if (eval_cadence_active(cfg) and (eval_breaks_after(cfg, epoch + 1)
+                                          or epoch + 1 == cfg.end_epoch)):
+            for m in range(n_models):
+                with members.member(m):
+                    run_eval_cadence(exp, m, loggers[m], epoch + 1)
         if progress:
             frac = (epoch + 1 - cfg.start_epoch) / max(
                 cfg.end_epoch - cfg.start_epoch, 1)
@@ -651,7 +751,8 @@ def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
     """Train every ensemble member (``run_epochs``, per-epoch loop): in
     turn, or through :func:`run_epochs_ensemble` when
     :func:`resolve_ensemble` says so. Returns member 0's host-clock seconds
-    per epoch (train, test, logging, ending in a device synchronize)."""
+    per epoch (train, test, logging, ending in a device synchronize); the
+    eval cadence runs after it."""
     cfg = exp.cfg
     check_supported(cfg, exp.models[0])
     if cfg.load_saved:
@@ -679,6 +780,10 @@ def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
             sync()
             if model_idx == 0:
                 walls.append(time.perf_counter() - start)
+            if (eval_cadence_active(cfg)
+                    and (eval_breaks_after(cfg, epoch + 1)
+                         or epoch + 1 == cfg.end_epoch)):
+                run_eval_cadence(exp, model_idx, logger, epoch + 1)
             if (epoch + 1) % 5 == 0 or (epoch + 1) == cfg.end_epoch:
                 _checkpoint_member(exp, model_idx, epoch)
             if progress:

@@ -1,6 +1,7 @@
-"""Workflows of the port: the ``train``, ``resume`` and ``daa`` commands.
+"""Workflows of the port: the ``train``, ``resume``, ``eval`` and ``daa``
+commands.
 
-Counterpart of ``multivae_tpu/workflows.py:28-133, 229-309``.
+Counterpart of ``multivae_tpu/workflows.py:28-309``.
 """
 
 from __future__ import annotations
@@ -50,17 +51,17 @@ def train_exp(dataset, datasetdir, outdir, input_dims, num_models=1,
     ensemble member, checkpoints every 5 epochs and at the end, and appends
     the run to the ``runs.tsv`` registry. ``device`` (``cuda`` by default)
     runs the kernels; ``cpu`` runs their plain PyTorch versions.
-    ``epoch_chunk`` is accepted and the per-epoch driver runs. Options whose
-    route is not ported yet raise ``NotImplementedError`` naming their
-    ROADMAP item: ``profile_dir``, ``save_samples`` and those listed by
+    ``epoch_chunk`` is accepted and the per-epoch loop runs. The
+    ``calc_*`` flags log their evals on the ``eval_freq`` /
+    ``eval_freq_fid`` cadence; ``save_samples`` writes each member's sample
+    dumps (``fid/<group>/<modality>/NNNNNN.npy``) after training. Options
+    whose route is not ported yet raise ``NotImplementedError`` naming
+    their ROADMAP item: ``profile_dir`` and those listed by
     :func:`multivae_tpu_torch.train.trainer.unported_features`."""
     dev = resolve_device(device)
     if profile_dir is not None:
         raise NotImplementedError("profile_dir: tracing the port's epoch "
                                   "(ROADMAP Queue 1 item 9)")
-    if save_samples:
-        raise NotImplementedError("save_samples: generation and the eval "
-                                  "port (ROADMAP Queue 1 item 3)")
     print_title(f"TRAIN: {dataset}")
     cfg = Config(
         dataset=dataset, datasetdir=datasetdir, dir_experiment=outdir,
@@ -95,6 +96,11 @@ def train_exp(dataset, datasetdir, outdir, input_dims, num_models=1,
                        log_every=log_every)
     print_text("train wall per epoch (s): "
                + " ".join(f"{w:.6f}" for w in walls))
+    if save_samples:
+        from .eval.sample_quality import save_generated_samples
+        for model_idx in range(cfg.num_models):
+            print_text(f"sample dumps: "
+                       f"{save_generated_samples(exp, model_idx)}")
     _register_run(cfg)
     print_result(f"run: {cfg.str_experiment}")
     return cfg.str_experiment
@@ -155,12 +161,96 @@ def resume_exp(dataset, datasetdir, outdir, run, num_epochs: int,
     return run
 
 
+def eval_exp(dataset, datasetdir, outdir, run, nll=True, prd=True,
+             clf=True, coherence=True, load_epoch: int = -1,
+             embedding: str = None, device="cuda"):
+    """Post-hoc evaluation of a trained run (``multivae_tpu/workflows.py:
+    134-226``): IWAE likelihoods, PRD, latent-probe classification and
+    conditional-generation coherence of a saved checkpoint.
+    ``load_epoch`` picks the newest checkpoint at or before it (default
+    -1: the latest); ``embedding`` maps samples through a feature
+    extractor before the PRD statistics (``.npz`` affine map or
+    ``module:attr``). ``device`` runs the model (``cuda`` by default); the
+    noise is drawn on the CPU, so a card run and a CPU run of one
+    checkpoint see the same. Writes ``<run>/eval/eval_<epoch>.tsv``
+    (``model, family, metric, value`` rows) and returns its path."""
+    from .eval import coherence as coh
+    from .eval import likelihood, representation, sample_quality
+
+    dev = resolve_device(device)
+    expdir = os.path.join(outdir, run)
+    print_title(f"EVAL: {run}")
+    latest = load_epoch in (-1, None)
+    experiment, cfg = load_run(outdir, run, dev,
+                               None if latest else int(load_epoch))
+    experiment.set_datasets()
+    evaldir = os.path.join(expdir, "eval")
+    os.makedirs(evaldir, exist_ok=True)
+
+    rows = []
+
+    def add(model_idx, family, metric, value):
+        rows.append({"model": model_idx, "family": family,
+                     "metric": metric, "value": float(value)})
+
+    for model_idx in range(cfg.num_models):
+        cond_cache = []
+
+        def cond_samples():
+            if not cond_cache:
+                cond_cache.append(sample_quality.generate_conditional_samples(
+                    experiment, model_idx))
+            return cond_cache[0]
+
+        if nll:
+            lhoods = likelihood.estimate_likelihoods(experiment, model_idx)
+            for s_key in sorted(lhoods):
+                for m_key, val in lhoods[s_key].items():
+                    add(model_idx, "Likelihoods", f"{s_key}/{m_key}", val)
+        if prd:
+            for key, val in sample_quality.calc_prd_score(
+                    experiment, model_idx, samples=cond_samples(),
+                    embedding=embedding).items():
+                add(model_idx, "PRD", key, val)
+        if clf:
+            clfs = representation.train_clf_lr_all_subsets(experiment,
+                                                           model_idx)
+            accs = representation.test_clf_lr_all_subsets(experiment, clfs,
+                                                          model_idx)
+            for l_key in sorted(accs):
+                add(model_idx, "Latent Representation", l_key, accs[l_key])
+        if coherence:
+            # fit the modality classifiers first: with one label class
+            # there are none, and no generation pass is made
+            clfs_m = coh.train_modality_classifiers(experiment, model_idx)
+            gen_eval = {}
+            if clfs_m is not None:
+                gen_eval = coh.evaluate_coherence(
+                    experiment, model_idx, clfs=clfs_m,
+                    samples=cond_samples())
+            for l_key in sorted(gen_eval.get("cond", {})):
+                for m_key, val in gen_eval["cond"][l_key].items():
+                    add(model_idx, "Generation", f"{l_key}/{m_key}", val)
+            if "random" in gen_eval:
+                add(model_idx, "Generation", "Random", gen_eval["random"])
+
+    frame = pd.DataFrame(rows, columns=["model", "family", "metric",
+                                        "value"])
+    epoch_tag = "latest" if latest else f"{int(load_epoch):04d}"
+    out = os.path.join(evaldir, f"eval_{epoch_tag}.tsv")
+    frame.to_csv(out, index=False, sep="\t")
+    for _, r in frame.iterrows():
+        print_text(f"model {r.model} {r.family}/{r.metric}: {r.value:.4f}")
+    print_result(f"eval summary: {out}")
+    return out
+
+
 def daa_exp(dataset, datasetdir, outdir, run, sampling_strategy="likelihood",
             n_validation=5, n_samples=200, n_subjects=50, M=1000,
             trust_level=0.75, seed=1037, reg_method="hierarchical",
             sample_latents=True, vote_prop=1.0, exact_reconstruction="auto",
             fetch_dtype="float16", artifact="full", use_sharding="auto",
-            chunk=16, device="cuda"):
+            chunk=16, sampled_rois=16, device="cuda"):
     """Digital avatars analysis (``workflow.py:185-539``): perturb one
     clinical score at a time, decode ROI avatars (on the avatar-sweep kernel
     where it takes the configuration), regress avatar on score per ROI and
@@ -172,7 +262,10 @@ def daa_exp(dataset, datasetdir, outdir, run, sampling_strategy="likelihood",
     ``fetch_dtype`` is the device->host wire dtype of the avatars (the
     on-disk artifact is float32 either way); ``artifact=stats-only`` skips
     the avatar artifact and reduces each round to device-side regression
-    sufficient statistics; ``use_sharding`` splits each round's cell grid
+    sufficient statistics; ``artifact=sampled`` does the same and keeps a
+    ``sampled_rois``-column ROI subsample of the avatars
+    (``rois_digital_avatars_sampled.npy``, ``sampled_rois_idx.npy``);
+    ``use_sharding`` splits each round's cell grid
     over the visible cards (``auto``: whenever there is more than one);
     ``chunk`` is the number of cells per batched forward of the general
     sweep, which serves the configurations the avatar-sweep kernel does
@@ -198,4 +291,5 @@ def daa_exp(dataset, datasetdir, outdir, run, sampling_strategy="likelihood",
                    sample_latents=sample_latents, vote_prop=vote_prop,
                    exact_reconstruction=exact_reconstruction,
                    fetch_dtype=fetch_dtype, artifact=artifact,
-                   use_sharding=use_sharding, chunk=chunk)
+                   use_sharding=use_sharding, chunk=chunk,
+                   sampled_rois=sampled_rois)

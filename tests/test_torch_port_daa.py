@@ -141,11 +141,11 @@ def test_cuda_device_without_a_card_raises():
 
 
 def test_unported_options_raise(cohort_dir):
+    """Every artifact mode of the JAX package is ported (``sampled``:
+    ``tests/test_torch_port_daa_sampled.py``); an unknown one raises."""
     root, datasetdir = cohort_dir
     _, _, outdir, run = jax_run(root, datasetdir, 1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        workflows.daa_exp("synthetic", datasetdir, outdir, run,
-                          device="cpu", artifact="sampled", **DAA_KW)
+    assert daa.ARTIFACT_MODES == jax_daa.ARTIFACT_MODES
     with pytest.raises(ValueError, match="artifact"):
         workflows.daa_exp("synthetic", datasetdir, outdir, run,
                           device="cpu", artifact="bogus", **DAA_KW)

@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing it loads no JAX stack, no JAX
-package and no Triton; no module of it imports the JAX stack or the JAX
-package anywhere; and its `train` and `daa` paths load none of them at
-call time."""
+package, no scikit-learn and no Triton; no module of it, nor
+`chip_smoke.py`, imports the JAX stack, the JAX package or scikit-learn
+anywhere; and its `train` (with the eval cadence), `eval` and `daa` paths
+load none of them at call time (the card's machine has neither)."""
 
 import ast
 import json
@@ -13,7 +14,7 @@ import pytest
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "multivae_tpu_torch"
-BANNED = ("jax", "flax", "optax", "multivae_tpu")
+BANNED = ("jax", "flax", "optax", "multivae_tpu", "sklearn")
 # Triton, where a kernel needs it, is imported inside the launching function
 NOT_AT_IMPORT = BANNED + ("triton",)
 
@@ -68,7 +69,15 @@ def test_slice_modules_exist():
                  "multivae_tpu_torch.parallel",
                  "multivae_tpu_torch.parallel.mesh",
                  # the deep-architecture slice
-                 "multivae_tpu_torch.ops.fused_generic"):
+                 "multivae_tpu_torch.ops.fused_generic",
+                 # the eval slice
+                 "multivae_tpu_torch.eval",
+                 "multivae_tpu_torch.eval.estimators",
+                 "multivae_tpu_torch.eval.prd",
+                 "multivae_tpu_torch.eval.likelihood",
+                 "multivae_tpu_torch.eval.sample_quality",
+                 "multivae_tpu_torch.eval.representation",
+                 "multivae_tpu_torch.eval.coherence"):
         assert name in mods
 
 
@@ -148,6 +157,75 @@ def test_dp_and_ensemble_train_load_no_jax_at_call_time(tmp_path):
     assert [(f["data_parallel"], f["ensemble_parallel"], f["num_models"])
             for f in flags] == [(4, "auto", 1), (1, True, 2)]
     assert "training epochs progress (ensemble of 2" in proc.stdout
+
+
+def test_eval_paths_load_no_jax_or_sklearn_at_call_time(tmp_path):
+    """``train`` with every eval flag and ``--save-samples``, then ``eval``
+    and ``daa --artifact sampled``, through the CLI on the CPU."""
+    code = (
+        "import json, os, sys\n"
+        "from multivae_tpu_torch.cli import main\n"
+        "from multivae_tpu_torch.data import make_synthetic_cohort\n"
+        "d, o = sys.argv[1], sys.argv[2]\n"
+        "make_synthetic_cohort(d, n_subjects=90, n_scores=3, n_rois=12,\n"
+        "                      missing_rate=0.2, seed=0)\n"
+        "common = ['--dataset', 'synthetic', '--datasetdir', d,\n"
+        "          '--outdir', o, '--device', 'cpu']\n"
+        "main(['train', *common, '--input-dims', '3', '12',\n"
+        "      '--latent-dim', '4', '--style-dim', '2', '3',\n"
+        "      '--batch-size', '16', '--num-epochs', '2',\n"
+        "      '--eval-freq', '1', '--eval-freq-fid', '1',\n"
+        "      '--calc-nll', 'true', '--calc-prd', 'true',\n"
+        "      '--calc-clf', 'true', '--calc-coherence', 'true',\n"
+        "      '--save-samples', 'true', '--use-tensorboard', 'false'])\n"
+        "run = [r for r in os.listdir(o) if r.startswith('synthetic')][0]\n"
+        "main(['eval', *common, '--run', run])\n"
+        "main(['daa', *common, '--run', run, '--n-validation', '1',\n"
+        "      '--n-samples', '6', '--n-subjects', '8', '--M', '4',\n"
+        "      '--artifact', 'sampled', '--sampled-rois', '4'])\n"
+        f"print(json.dumps(sorted(m for m in {list(NOT_AT_IMPORT)!r} "
+        "if m in sys.modules)))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "data"),
+         str(tmp_path / "out")], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    out = tmp_path / "out"
+    assert list(out.glob("*/eval/eval_latest.tsv"))
+    assert list(out.glob("*/fid/random/rois/000000.npy"))
+    assert list(out.glob("*/daa/*/rois_digital_avatars_sampled.npy"))
+
+
+def banned_imports(path):
+    """``(module, line)`` of every import of a banned package in ``path``,
+    at any level."""
+    found = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module]
+        found += [(n, node.lineno) for n in names
+                  if n.split(".")[0] in BANNED]
+    return found
+
+
+def test_chip_smoke_imports_nothing_banned_and_needs_a_card(tmp_path):
+    """``chip_smoke.py`` imports none of the banned packages anywhere, and
+    without a card, or alone in a directory, it exits non-zero before
+    printing any result."""
+    script = REPO / "chip_smoke.py"
+    assert banned_imports(script) == []
+    alone = tmp_path / "alone"
+    alone.mkdir()
+    (alone / "chip_smoke.py").write_text(script.read_text())
+    for where in (REPO, alone):
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=where,
+                              capture_output=True, text=True, timeout=120)
+        assert proc.returncode != 0
+        assert '"ok": true' not in proc.stdout
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")),

@@ -380,9 +380,7 @@ UNPORTED = [
     dict(out_scale_per_subject=True, num_hidden_layer_encoder=5),
     dict(data_parallel=2, fused_training=False),
     dict(tensor_parallel=2), dict(num_models=2, tensor_parallel=2),
-    dict(calc_nll=True), dict(calc_prd=True), dict(calc_clf=True),
-    dict(calc_coherence=True), dict(profile_dir="trace"),
-    dict(save_samples=True),
+    dict(profile_dir="trace"),
 ]
 
 
