@@ -135,6 +135,23 @@ Phases, one line or more each:
    avatars against the full artifact's columns and the sampled p-values
    and coefs against stats-only (bit for bit), and the wall per round of
    each mode.
+13. analysis-slice, on the eval slice's run and its daa copies:
+   ``avatar_plot_exp`` (its traverse, ``avatar_traverse``: 4 subjects, 20
+   frames x 7 scores at the latent means) with one ``avatar_sweep`` launch
+   and no other kernel, the kernel's inputs recorded from that run and
+   held against the plain version through the wrapper's CPU route (atol =
+   rtol = 1e-4, the frames too), the traverse's plan and its launch timed
+   by CUDA graph replay beside the plain version on the card, the GIF and
+   a 20-frame AVI; ``rsa_exp`` on the card against the CPU (latent
+   dissimilarities rtol = atol = 1e-5, Kendall taus and p-values 1e-4
+   absolute); ``anova_exp``; the robustness counts of the full and the
+   stats-only run, equal; ``analyze_avatars`` of the full and the sampled
+   run; ``univariate_tests`` with the ROI blocks the synthetic cohort's
+   first three scores drive significant; ``hist_plot_exp``, the two
+   ``daa-plot`` commands (one on a synthetic surface atlas file) and
+   ``rsa_plot_exp``. Where the host lacks matplotlib or PIL, one line
+   names the renderers not run, and ``avatar_traverse``,
+   ``robustness_counts`` and ``univariate_pvalues`` run in their place.
 
 The meshes of phases 7-9 start at card 0 and wrap at the card count, so one
 card holds every shard and member (on a machine with several cards they
@@ -3348,12 +3365,9 @@ def flip_margins(outdir, run, family, metric):
     the boundary among them on either run)``."""
     from multivae_tpu_torch.eval import (coherence, representation,
                                          sample_quality)
-    from multivae_tpu_torch.train.experiment import load_run
+    from multivae_tpu_torch.train.experiment import load_trained
 
-    exps = {}
-    for dev in ("cuda", "cpu"):
-        exps[dev], _ = load_run(outdir, run, dev)
-        exps[dev].set_datasets()
+    exps = {dev: load_trained(outdir, run, dev)[0] for dev in ("cuda", "cpu")}
     preds, margins = {}, {}
     if family == "Latent Representation":
         for dev, exp in exps.items():
@@ -3522,19 +3536,343 @@ def sampled_daa(root, outdir, run, datadir, card):
     return {"avatar_sweep": launches["sampled"]}
 
 
-def eval_slice(device, card: str):
-    """Phase eval-slice: ``train_exp`` with the eval cadence and the sample
-    dumps, ``eval_exp`` on the card against the CPU, and ``daa_exp`` with
-    the full, stats-only and sampled artifacts. Returns ``{path: {kernel:
-    count}}`` for the train run (``eval``) and the sampled ``daa``."""
-    with tempfile.TemporaryDirectory() as root:
-        datadir, complete, clinical, _ = slice_cohort(root, "eval-slice")
-        outdir = os.path.join(root, "out")
-        run, launches = eval_train(outdir, datadir, card, complete,
-                                   clinical)
-        eval_compare(outdir, run, datadir, card)
-        sampled = sampled_daa(root, outdir, run, datadir, card)
-    return {"eval": launches, "daa-sampled": sampled}
+def eval_slice(device, card: str, root: str):
+    """Phase eval-slice under ``root``: ``train_exp`` with the eval cadence
+    and the sample dumps, ``eval_exp`` on the card against the CPU, and
+    ``daa_exp`` with the full, stats-only and sampled artifacts (each a
+    copy of the run under ``root/daa_<mode>``). Returns ``({path: {kernel:
+    count}}, run)`` for the train run (``eval``) and the sampled
+    ``daa``."""
+    datadir, complete, clinical, _ = slice_cohort(root, "eval-slice")
+    outdir = os.path.join(root, "out")
+    run, launches = eval_train(outdir, datadir, card, complete, clinical)
+    eval_compare(outdir, run, datadir, card)
+    sampled = sampled_daa(root, outdir, run, datadir, card)
+    return {"eval": launches, "daa-sampled": sampled}, run
+
+
+# ---------------------------------------------------------- analysis slice
+TRAVERSE = dict(n_frames=20, n_subjects=4, seed=SEED)
+TRAVERSE_SCORE = 0
+# the rsa command on the card against the CPU (its defaults: one round of
+# 301 subjects, the latent means): the latent dissimilarities to rtol and
+# atol 1e-5, the Kendall taus and their p-values to 1e-4 absolute
+RSA_DIS_TOL, RSA_TAU_ATOL = 1e-5, 1e-4
+COVARIATES = dict(continuous_covs=["age"], categorical_covs=["sex", "site"])
+# host plotting libraries the renderers need
+PLOT_LIBS = ("matplotlib", "PIL")
+
+
+def walled(walls: dict, name: str, fn):
+    """``fn()`` with its output swallowed; its wall on the host's clock,
+    the card synchronized before and after, into ``walls[name]``."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        out = fn()
+    torch.cuda.synchronize()
+    walls[name] = time.perf_counter() - start
+    return out
+
+
+def avi_frames(path: str) -> int:
+    """``dwTotalFrames`` of an AVI's main header, checked against its
+    ``idx1`` entries."""
+    raw = open(path, "rb").read()
+    at = raw.index(b"avih") + 8
+    total = int(np.frombuffer(raw[at + 16:at + 20], dtype="<u4")[0])
+    return total if raw.count(b"00dc") == 2 * total else -1
+
+
+def traverse_check(outdir, run, card, render, checks, walls):
+    """``avatar-plot`` on the card (``avatar_traverse`` alone when a host
+    plotting library is missing), every count set to 0 just before and
+    read just after; the kernel's inputs recorded from that run, held
+    against the plain version through the wrapper's CPU route (and the
+    frames with them), and timed. Returns ``(launches, entry)``."""
+    import torch
+
+    from multivae_tpu_torch import workflows
+    from multivae_tpu_torch.ops import fused_daa
+    from multivae_tpu_torch.train.experiment import load_trained
+
+    phase = "analysis-slice"
+    datadir = os.path.join(os.path.dirname(outdir), "data")
+    recorded, traversed = [], []
+    real_cells, real_traverse = fused_daa.sweep_cells, workflows.avatar_traverse
+
+    def cells(*args, **kwargs):
+        recorded.append((args, kwargs))
+        return real_cells(*args, **kwargs)
+
+    def traverse(*args, **kwargs):
+        out = real_traverse(*args, **kwargs)
+        traversed.append(out)
+        return out
+
+    counters = {**slice_counters(),
+                "avatar_sweep": fused_daa.KERNEL_LAUNCHES}
+    fused_daa.sweep_cells, workflows.avatar_traverse = cells, traverse
+    for c in counters.values():
+        for k in c:
+            c[k] = 0
+    try:
+        if render:
+            gif = walled(walls, "avatar-plot", lambda: workflows.
+                         avatar_plot_exp("synthetic", datadir, outdir, run,
+                                         score=f"score_{TRAVERSE_SCORE}",
+                                         device="cuda", **TRAVERSE))
+        else:
+            def numbers():
+                exp, cfg = load_trained(outdir, run, "cuda")
+                return workflows.avatar_traverse(exp, cfg, TRAVERSE_SCORE,
+                                                 **TRAVERSE)
+            walled(walls, "avatar-plot (avatar_traverse)", numbers)
+    finally:
+        fused_daa.sweep_cells = real_cells
+        workflows.avatar_traverse = real_traverse
+    launches = {k: c[k] for k, c in counters.items()}
+    (args, kwargs), = recorded
+    (traverse_values, frames), = traversed
+    sp, post, cdata, eps, dims, sample = args[:6]
+    method = kwargs["method"]
+    n_cells = cdata.shape[0]
+    n_frames = TRAVERSE["n_frames"]
+    n_scores = dims.d1
+    # the plain version on the same inputs, through the wrapper's CPU route
+    ref = fused_daa.sweep_cells({k: v.cpu() for k, v in sp.items()},
+                                tuple(t.cpu() for t in post), cdata.cpu(),
+                                eps.cpu(), dims, sample, method=method)
+    ker = fused_daa._launch_sweep(sp, post, cdata, eps, dims, sample, method)
+    err = float((ker.cpu() - ref).abs().max())
+    ref_frames = fused_daa.avatar_layout(ref, n_frames, n_scores)[
+        :, TRAVERSE_SCORE].mean(dim=0).numpy()
+    frames_err = float(np.abs(frames - ref_frames).max())
+    checks.update({
+        "avatar-plot: one avatar_sweep launch, no other kernel": launches
+        == {**{k: 0 for k in launches}, "avatar_sweep": 1},
+        f"avatar-plot: B=4, 20 frames x {n_scores} scores = "
+        f"{20 * n_scores} cells, means": (dims.b, n_cells, sample)
+        == (4, 20 * n_scores, False),
+        "avatar-plot: kernel = plain (atol = rtol = 1e-4)":
+            bool(torch.isfinite(ker).all()) and torch.allclose(
+                ker.cpu(), ref, rtol=RTOL, atol=ATOL),
+        "avatar-plot: frames = plain frames (atol = rtol = 1e-4)":
+            frames.shape == (n_frames, dims.d2) and np.allclose(
+                frames, ref_frames, rtol=RTOL, atol=ATOL),
+        "avatar-plot: traverse of 20 values": len(traverse_values) == 20,
+    })
+    if render:
+        avi = gif[:-4] + ".avi"
+        checks["avatar-plot: GIF written"] = os.path.getsize(gif) > 0
+        checks["avatar-plot: AVI of 20 frames"] = avi_frames(avi) == n_frames
+
+    # the traverse's launch timed: in turns plain, kernel, kernel, plain by
+    # CUDA graph replay, the plain version on the card
+    def run_ker():
+        fused_daa._launch_sweep(sp, post, cdata, eps, dims, sample, method)
+
+    def run_ref():
+        fused_daa.sweep_cells_reference(sp, post, cdata, eps, dims, sample,
+                                        method)
+
+    g = [graph_ms(run_ref, 10), graph_ms(run_ker, 20), graph_ms(run_ker, 20),
+         graph_ms(run_ref, 10)]
+    rows = n_cells * dims.b
+    # the cells, the ROI posteriors and the weights read once (no noise at
+    # the latent means), the avatars written once; the clinical encoder,
+    # its content heads and the ROI decoder per row of every cell
+    used = [sp[k] for k in sp if k.startswith(("enc1_Wh", "enc1_bh",
+                                               "enc1_Wc", "enc1_bc",
+                                               "dec2_W", "dec2_bd"))]
+    flops = 2.0 * rows * (dims.d1 * dims.h + 2 * dims.h * dims.cd
+                          + (dims.s2 + dims.cd) * dims.d2)
+    n_sms = torch.cuda.get_device_properties(cdata.device).multi_processor_count
+    entry = dict(plan=fused_daa.sweep_plan(dims, n_sms, rows)._asdict(),
+                 ms=(g[1] + g[2]) / 2, plain_ms=(g[0] + g[3]) / 2,
+                 max_abs_err=err, frames_max_abs_err=frames_err,
+                 **bound(nbytes(cdata, *post, *used) + rows * dims.d2 * 4,
+                         flops))
+    log(phase, f"avatar-plot traverse: launches {launches}, "
+        f"B={dims.b} x {n_cells} cells ({rows} rows), sample_latents="
+        f"{sample}; plan {entry['plan']}; kernel vs plain (CPU route) "
+        f"max_abs_err {err:.3e}, frames {frames_err:.3e}; kernel "
+        f"{g[1]:.4f}/{g[2]:.4f} ms, plain on the card {g[0]:.4f}/{g[3]:.4f}"
+        f" ms by graph replay; bound {entry['bound_ms']:.5f} ms by "
+        f"{entry['bound_by']} ({card})")
+    return launches, entry
+
+
+def rsa_check(outdir, run, card, checks, walls, n_scores):
+    """``rsa_exp`` on the card and on the CPU (the command's defaults):
+    latent dissimilarities, Kendall taus and p-values held to the other."""
+    from multivae_tpu_torch import workflows
+
+    datadir = os.path.join(os.path.dirname(outdir), "data")
+    rsadir = os.path.join(outdir, run, "rsa")
+    res = {}
+    for dev in ("cuda", "cpu"):
+        taus = walled(walls, f"rsa ({dev})", lambda: workflows.rsa_exp(
+            "synthetic", datadir, outdir, run, device=dev))
+        res[dev] = (taus, np.load(os.path.join(
+            rsadir, "latent_dissimilarity.npy")))
+    (t_card, d_card), (t_cpu, d_cpu) = res["cuda"], res["cpu"]
+    dis_err = float(np.abs(d_card - d_cpu).max())
+    tau_err = float(np.abs(t_card[..., 0] - t_cpu[..., 0]).max())
+    p_err = float(np.abs(t_card[..., 1] - t_cpu[..., 1]).max())
+    n_subjects = d_card.shape[-1]
+    checks.update({
+        "rsa: shapes": t_card.shape == t_cpu.shape == (1, 4, 1,
+                                                       n_scores + 3, 2)
+        and d_card.shape == (1, 4, n_subjects, n_subjects),
+        "rsa: finite": bool(np.isfinite(t_card).all()
+                            and np.isfinite(d_card).all()),
+        f"rsa: dissimilarities card = CPU (rtol = atol = {RSA_DIS_TOL})":
+            np.allclose(d_card, d_cpu, rtol=RSA_DIS_TOL, atol=RSA_DIS_TOL),
+        f"rsa: taus card = CPU (atol {RSA_TAU_ATOL})": tau_err
+        <= RSA_TAU_ATOL,
+        f"rsa: p-values card = CPU (atol {RSA_TAU_ATOL})": p_err
+        <= RSA_TAU_ATOL,
+    })
+    log("analysis-slice", f"rsa_exp (1 round, {n_subjects} subjects, 4 "
+        f"latents x {n_scores + 3} scores and covariates): card {walls['rsa (cuda)']:.3f} s, CPU "
+        f"{walls['rsa (cpu)']:.3f} s; card vs CPU largest difference: "
+        f"dissimilarity {dis_err:.3e} (of up to {float(d_cpu.max()):.3f}), "
+        f"tau {tau_err:.3e}, p-value {p_err:.3e} ({card})")
+
+
+def glob_one(outdir, run, name):
+    """The one ``daa`` result file ``name`` under ``<outdir>/<run>``."""
+    import glob
+
+    found = glob.glob(os.path.join(outdir, run, "daa", "*", name))
+    if len(found) != 1:
+        raise SystemExit(f"expected one {name} under {outdir}, got {found}")
+    return found[0]
+
+
+def analysis_slice(root, run, card):
+    """Phase analysis-slice, on the eval slice's trained run and its
+    ``daa`` copies (full, stats-only, sampled). Returns ``({"avatar-plot":
+    {kernel: count}}, the traverse's kernel entry)``."""
+    import importlib.util
+
+    from multivae_tpu_torch import workflows
+    from multivae_tpu_torch.analysis import avatars
+    from multivae_tpu_torch.viz.surface import SurfaceAtlas
+
+    phase = "analysis-slice"
+    datadir = os.path.join(root, "data")
+    out = {m: os.path.join(root, f"daa_{m}") for m in ("full", "stats-only",
+                                                       "sampled")}
+    missing = [m for m in PLOT_LIBS if importlib.util.find_spec(m) is None]
+    render = not missing
+    if missing:
+        log(phase, f"host libraries missing: {', '.join(missing)}; not run: "
+            "avatar_plot_exp's GIF and AVI (avatar_traverse runs), "
+            "analyze_avatars, the figures of assess_robustness and "
+            "univariate_tests (robustness_counts and univariate_pvalues "
+            "run), hist_plot_exp, daa_plot_most_connected, "
+            "daa_plot_score_metric, rsa_plot_exp")
+    names = [np.load(os.path.join(datadir, f), allow_pickle=True)
+             for f in ("clinical_names.npy", "rois_names.npy")]
+    n_scores, n_rois = len(names[0]), len(names[1])
+    checks, walls = {}, {}
+    launches, entry = traverse_check(out["full"], run, card, render, checks,
+                                     walls)
+    rsa_check(out["full"], run, card, checks, walls, n_scores)
+
+    daa_kw = dict(SAMPLED_DAA)
+    anova = walled(walls, "anova", lambda: workflows.anova_exp(
+        "synthetic", datadir, out["full"], run, **daa_kw))
+    checks["anova: p-values of every (round, score, ROI) in [0, 1]"] = (
+        anova.shape == (1, daa_kw["n_validation"], n_scores, n_rois)
+        and bool(((anova >= 0) & (anova <= 1)).all()))
+
+    counts = {}
+    for mode in ("full", "stats-only"):
+        if render:
+            counts[mode] = walled(
+                walls, f"daa-robustness ({mode})",
+                lambda: avatars.assess_robustness(
+                    "synthetic", datadir, out[mode], run, **daa_kw))
+        else:
+            pvalues = np.load(glob_one(out[mode], run, "pvalues.npy"))
+            counts[mode] = walled(
+                walls, f"robustness_counts ({mode})",
+                lambda: avatars.robustness_counts(
+                    pvalues, *names, daa_kw["n_validation"], 1))
+    checks["daa-robustness: counts full = stats-only"] = all(
+        list(counts["full"][k]) == list(counts["stats-only"][k])
+        and all(counts["full"][k][i].equals(counts["stats-only"][k][i])
+                for i in counts["full"][k])
+        for k in ("per_model", "per_vote_prop"))
+
+    if render:
+        for mode in ("full", "sampled"):
+            figdir = walled(walls, f"daa-analysis ({mode})",
+                            lambda: avatars.analyze_avatars(
+                                "synthetic", datadir, out[mode], run,
+                                **daa_kw))
+            checks[f"daa-analysis ({mode}): figures"] = os.path.isfile(
+                os.path.join(figdir, "avatars_vs_scores.png"))
+
+    uni_out = os.path.join(root, "univariate")
+    if render:
+        pvalues, _ = walled(walls, "univariate-tests",
+                            lambda: avatars.univariate_tests(
+                                "synthetic", datadir, outdir=uni_out,
+                                **COVARIATES))
+    else:
+        pvalues, _ = walled(walls, "univariate_pvalues",
+                            lambda: avatars.univariate_pvalues(
+                                datadir, **COVARIATES))
+    sig = pvalues < 0.05 / n_scores / n_rois
+    block = n_rois // 12
+    driven = [int(sig[s, s * block:(s + 1) * block].sum()) for s in range(3)]
+    checks["univariate: the driven blocks of scores 0-2 significant"] = (
+        driven == [block] * 3)
+    log(phase, f"univariate: {int(sig.sum())} significant (score, ROI) "
+        f"associations of {sig.size}; in the blocks scores 0-2 drive: "
+        f"{driven} of {block} each")
+
+    if render:
+        rois = names[1]
+        atlas = SurfaceAtlas.synthetic(
+            roi_names=sorted({str(n).rsplit("_", 1)[0] for n in rois}),
+            subdiv=2).save(os.path.join(root, "atlas.npz"))
+        walled(walls, "hist-plot", lambda: workflows.hist_plot_exp(
+            ["synthetic"], [datadir], ["score_0"], root))
+        walled(walls, "daa-plot-most-connected",
+               lambda: workflows.daa_plot_most_connected(
+                   "synthetic", datadir, out["full"], run, trust_level=0.0,
+                   plot_associations=True, surface_atlas=atlas))
+        walled(walls, "daa-plot-score-metric",
+               lambda: workflows.daa_plot_score_metric(
+                   "synthetic", datadir, out["full"], run, "score_0",
+                   "thickness", trust_level=0.0, device="cuda"))
+        walled(walls, "rsa-plot", lambda: workflows.rsa_plot_exp(
+            "synthetic", datadir, out["full"], run))
+        resdir = os.path.dirname(glob_one(out["full"], run, "coefs.npy"))
+        for name in ("hist.png", "atlas.npz"):
+            checks[f"{name} written"] = os.path.isfile(os.path.join(root,
+                                                                    name))
+        for name in ("most_connected_rois.png",
+                     "associated_rois_for_score_0_in_thickness.png"):
+            checks[f"{name} written"] = os.path.isfile(os.path.join(resdir,
+                                                                    name))
+        checks["dissimilarity.png written"] = os.path.isfile(os.path.join(
+            out["full"], run, "rsa", "dissimilarity.png"))
+    log(phase, "walls on the host's clock: " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in walls.items()) + f" ({card})")
+    for k, v in checks.items():
+        log(phase, f"check {k}: {v}")
+    if not all(checks.values()):
+        raise SystemExit(f"analysis slice wrong: "
+                         f"{[k for k, v in checks.items() if not v]}")
+    return {"avatar-plot": launches}, entry
 
 
 # every source under csrc/ and the kernels (entry points) the record lists
@@ -3622,7 +3960,13 @@ def main() -> int:
         entries["generic_step"] = timed("generic-kernel",
                                         generic_kernel_check(device))
         by_path.update(timed("generic-slice", generic_slice(device, smi)))
-        by_path.update(timed("eval-slice", eval_slice(device, smi)))
+        with tempfile.TemporaryDirectory() as root:
+            paths, run = timed("eval-slice", eval_slice(device, smi, root))
+            by_path.update(paths)
+            paths, traverse = timed("analysis-slice",
+                                    analysis_slice(root, run, smi))
+            by_path.update(paths)
+        entries["avatar_sweep"]["traverse"] = traverse
     for k in KERNELS:
         # each path's own count (set to 0 just before it, read just after)
         # and their sum
@@ -3645,7 +3989,8 @@ def main() -> int:
            if entries[k].get("variants") else {}),
         **{f: entries[k][f] for f in (
             "ms_events", "plain_ms_events", "library_ms_events", "plan",
-            "phase_cycles_per_tile", "ptxas") if f in entries[k]}}
+            "phase_cycles_per_tile", "ptxas", "traverse")
+            if f in entries[k]}}
         for k in KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

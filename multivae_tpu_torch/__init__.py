@@ -7,8 +7,11 @@ package: modules it needs that hold no JAX code (the config, the data
 layer, the print helpers) are copied.
 
 Layers, from the entry point down:
-  * ``cli`` / ``workflows`` — the ``train``, ``resume``, ``eval`` and
-    ``daa`` commands (``--device``, default ``cuda``);
+  * ``cli`` / ``workflows`` — the JAX CLI's fourteen commands: ``train``,
+    ``resume``, ``eval``, ``daa``, the analyses and the plots
+    (``--device``, default ``cuda``, where a model runs);
+  * ``viz`` — matplotlib figures (imported by the functions that draw),
+    the surface atlas and the MJPEG AVI writer;
   * ``eval`` — IWAE likelihoods, PRD, FID, latent probes and coherence
     (plain torch on the device, numpy on the host);
   * ``train.trainer`` — the per-epoch driver: batching, routes, noise,
@@ -16,8 +19,10 @@ Layers, from the entry point down:
   * ``train.experiment`` — config, models, datasets, train state;
   * ``train.train_step`` / ``train.losses`` — the general autograd step and
     the ELBO losses;
-  * ``analysis.daa`` / ``analysis.stats`` — the Digital Avatars Analysis
-    pipeline and its regressions;
+  * ``analysis`` — the Digital Avatars Analysis pipeline, ANOVA, RSA, the
+    avatar post-hoc analyses, the univariate baseline and their
+    statistics (host numpy, scipy and pandas; RSA's inference on the
+    device);
   * ``data`` — cohorts, splits, samplers, scaling (numpy and pandas);
   * ``models`` — the presence-masked multimodal VAE as ``nn.Module`` s;
   * ``params`` — the weights bridge to and from the JAX param tree and the

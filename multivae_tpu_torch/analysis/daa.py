@@ -109,6 +109,14 @@ def complete_indices(dataset) -> np.ndarray:
     return np.asarray(dataset.idx_per_modality_subset[-1])
 
 
+def full_batch(dataset, idxs, device):
+    """``({modality: float32 tensor on device}, metadata frame)`` of the
+    dataset's samples ``idxs``, scaled as the dataset serves them."""
+    data, _, metadata = dataset.gather(idxs)
+    return ({k: torch.as_tensor(v, device=device) for k, v in data.items()},
+            metadata)
+
+
 def _device_suffstats(avatars, scores_values, roundtrip_dtype=None):
     """Per-(subject, score, ROI) regression sufficient statistics on the
     device: ``Σ_p y``, ``Σ_p x·y`` and ``Σ_p y²`` of the ``[B, S, P, R]``
@@ -139,6 +147,25 @@ def params_namespace(n_validation, n_subjects, M, n_samples, reg_method,
 def resdir_name(params: SimpleNamespace) -> str:
     return "_".join("_".join([key, str(val)])
                     for key, val in params.__dict__.items())
+
+
+def require_resdir(resdir: str) -> str:
+    """Validate that a reconstructed DAA result dir exists; on a mismatch
+    say what IS there instead of failing later with a raw
+    FileNotFoundError on the first artifact read (the downstream commands
+    — anova, daa-analysis, daa-robustness — rebuild the dir name from
+    their own grid args, which must match the ``daa`` run's)."""
+    if os.path.isdir(resdir):
+        return resdir
+    daadir = os.path.dirname(resdir)
+    have = sorted(os.listdir(daadir)) if os.path.isdir(daadir) else []
+    hint = ("pass the same --n-validation/--n-samples/--n-subjects/--M/"
+            "--reg-method/--sampling-strategy/--sample-latents/--seed "
+            "values the `daa` run used")
+    if have:
+        raise ValueError(f"no DAA results at {os.path.basename(resdir)}; "
+                         f"{hint}. Available under {daadir}: {have}")
+    raise ValueError(f"{daadir} has no DAA results — run `daa` first")
 
 
 @torch.no_grad()

@@ -1,20 +1,186 @@
-"""The DAA regressions: closed-form two-level, pooled-OLS and
-random-intercept REML fits over every ROI at once.
+"""Statistics of the analyses: similarity matrices and RSA, scalar linear
+models, the DAA regressions and the one-way ANOVA.
 
-The regression half of ``multivae_tpu/analysis/stats.py`` (``:197-450``),
-in numpy and scipy only: the original module imports pandas at module level
-for its RSA and scalar-fit helpers, which the DAA path does not use. Each
-design comes in a ``_batch`` form (from the avatar tensor) and a
-``_from_stats`` form (from the per-subject sufficient statistics that the
-``stats-only`` artifact mode reduces on the device).
+Counterpart of ``multivae_tpu/analysis/stats.py``, in numpy, scipy and
+pandas (statsmodels is not used). The RSA and scalar-fit helpers
+(``:39-195``) and :func:`one_way_anova_batch` (``:450-471``) are copies of
+the JAX package's. The DAA regressions (``:197-450``) fit every ROI at
+once: closed-form two-level, pooled-OLS and random-intercept REML designs,
+each in a ``_batch`` form (from the avatar tensor) and a ``_from_stats``
+form (from the per-subject sufficient statistics that the ``stats-only``
+artifact mode reduces on the device).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
-from scipy import stats
+import pandas as pd
+from scipy import optimize, stats
+from scipy.spatial.distance import pdist, squareform
+from scipy.stats import kendalltau
+
+
+# --------------------------------------------------------------------------
+# similarity matrices / RSA
+# --------------------------------------------------------------------------
+def data2cmat(data: np.ndarray) -> np.ndarray:
+    """Pairwise euclidean dissimilarity matrix (``stat_utils.py:25-32``)."""
+    if data.ndim > 2:
+        return np.array([squareform(pdist(data[idx], metric="euclidean"))
+                         for idx in range(len(data))])
+    return squareform(pdist(data, metric="euclidean"))
+
+
+def cmat2triu(arr: np.ndarray) -> np.ndarray:
+    """Upper triangular (k=1) of a square matrix (``stat_utils.py:35-42``)."""
+    assert np.ndim(arr) == 2, "Expect 2 dim similarity!"
+    assert arr.shape[0] == arr.shape[1], "Expect square similarity!"
+    return arr[np.triu_indices(n=arr.shape[0], k=1)]
+
+
+def vec2cmat(vec: np.ndarray, categorical: bool = False,
+             metric: str = "euclidean") -> np.ndarray:
+    """Dissimilarity matrix of a single characteristic
+    (``stat_utils.py:45-53``)."""
+    vec = np.asarray(vec)
+    if not categorical:
+        return squareform(pdist(vec[:, None].astype(float), metric=metric))
+    return (vec[:, None] != vec[None, :]).astype(int)
+
+
+def fit_rsa(cmat: np.ndarray, ref_cmat: np.ndarray,
+            idxs: Optional[np.ndarray] = None):
+    """Kendall tau between matrix upper triangles (``stat_utils.py:81-95``).
+
+    The 3-D branch replicates the reference's hardcoded ``range(10)`` loop
+    (``stat_utils.py:87-92``) — bug-compatible by documented choice — but
+    guards the silent 10-round assumption: fewer rounds would IndexError
+    upstream (raised here with a clear message), extra rounds are silently
+    ignored upstream (warned about here).
+    """
+    if cmat.ndim > 2:
+        if cmat.shape[0] < 10:
+            raise ValueError(
+                f"fit_rsa's 3-D path replicates the reference's hardcoded "
+                f"10-round loop (stat_utils.py:87-92) and needs "
+                f"cmat.shape[0] >= 10; got {cmat.shape[0]}")
+        if cmat.shape[0] > 10:
+            import warnings
+            warnings.warn(
+                f"fit_rsa's 3-D path uses only the first 10 of "
+                f"{cmat.shape[0]} rounds (reference range(10) quirk, "
+                f"stat_utils.py:87-92)", stacklevel=2)
+        r = np.array([
+            kendalltau(cmat2triu(cmat[idx][idxs, :][:, idxs]),
+                       cmat2triu(ref_cmat))[0]
+            for idx in range(10)])
+        return np.arctan(r)
+    tau, pval = kendalltau(cmat2triu(cmat), cmat2triu(ref_cmat))
+    return tau, pval
+
+
+# --------------------------------------------------------------------------
+# scalar linear models (statsmodels-free)
+# --------------------------------------------------------------------------
+def _design(df: pd.DataFrame, x_name: str,
+            other_cov_names: Sequence[str]) -> np.ndarray:
+    cols = [np.ones(len(df)), np.asarray(df[x_name], dtype=float)]
+    for c in other_cov_names:
+        cols.append(np.asarray(df[c], dtype=float))
+    return np.stack(cols, axis=1)
+
+
+def ols_fit(X: np.ndarray, y: np.ndarray):
+    """OLS with t-tests; returns (params, pvalues, se, dof)."""
+    n, p = X.shape
+    beta, _, rank, _ = np.linalg.lstsq(X, y, rcond=None)
+    resid = y - X @ beta
+    dof = n - rank
+    sigma2 = float(resid @ resid) / max(dof, 1)
+    xtx_inv = np.linalg.pinv(X.T @ X)
+    se = np.sqrt(np.clip(np.diag(xtx_inv) * sigma2, 0, None))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.where(se > 0, beta / se, np.inf)
+    pvals = 2.0 * stats.t.sf(np.abs(t), max(dof, 1))
+    return beta, pvals, se, dof
+
+
+def _mixed_reml(X: np.ndarray, y: np.ndarray, groups: np.ndarray):
+    """Random-intercept LMM by REML; returns (beta, pvalues, se)."""
+    uniq, inv = np.unique(groups, return_inverse=True)
+    group_lists = [np.where(inv == g)[0] for g in range(len(uniq))]
+    n, p = X.shape
+
+    def profile(lam: float):
+        xtwx = np.zeros((p, p))
+        xtwy = np.zeros(p)
+        logdet = 0.0
+        for rows in group_lists:
+            Xi, yi = X[rows], y[rows]
+            ni = len(rows)
+            w = lam / (1.0 + ni * lam)
+            xtwx += Xi.T @ Xi - w * np.outer(Xi.sum(0), Xi.sum(0))
+            xtwy += Xi.T @ yi - w * Xi.sum(0) * yi.sum()
+            logdet += np.log1p(ni * lam)
+        beta = np.linalg.solve(xtwx, xtwy)
+        rss = 0.0
+        for rows in group_lists:
+            Xi, yi = X[rows], y[rows]
+            ri = yi - Xi @ beta
+            ni = len(rows)
+            w = lam / (1.0 + ni * lam)
+            rss += ri @ ri - w * ri.sum() ** 2
+        sigma2 = rss / max(n - p, 1)
+        _, ld2 = np.linalg.slogdet(xtwx)
+        reml = -0.5 * ((n - p) * np.log(sigma2) + logdet + ld2
+                       + (n - p))
+        return reml, beta, sigma2, xtwx
+
+    res = optimize.minimize_scalar(
+        lambda t: -profile(np.exp(t))[0], bounds=(-10.0, 10.0),
+        method="bounded")
+    lam = float(np.exp(res.x))
+    _, beta, sigma2, xtwx = profile(lam)
+    cov = sigma2 * np.linalg.pinv(xtwx)
+    se = np.sqrt(np.clip(np.diag(cov), 0, None))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        z = np.where(se > 0, beta / se, np.inf)
+    pvals = 2.0 * stats.norm.sf(np.abs(z))
+    return beta, pvals, se
+
+
+def make_regression(df: pd.DataFrame, x_name: str, y_name: str,
+                    other_cov_names: Sequence[str] = (),
+                    groups_name: Optional[str] = None, method: str = "fixed",
+                    other=None):
+    """Fit a linear model with the requested design
+    (``stat_utils.py:55-79``); returns ``(pvalue, coef, subjects_betas)``."""
+    y = np.asarray(df[y_name], dtype=float)
+    subjects_betas = None
+    if method == "fixed":
+        X = _design(df, x_name, other_cov_names)
+        beta, pvals, _, _ = ols_fit(X, y)
+        return pvals[1], beta[1], None
+    if method == "mixed":
+        X = _design(df, x_name, other_cov_names)
+        groups = np.asarray(df[groups_name])
+        beta, pvals, _ = _mixed_reml(X, y, groups)
+        return pvals[1], beta[1], None
+    if method == "hierarchical":
+        rows = []
+        for group_lab, group_df in df.groupby(groups_name, sort=False):
+            Xg = _design(group_df, x_name, other_cov_names)
+            yg = np.asarray(group_df[y_name], dtype=float)
+            bg, *_ = np.linalg.lstsq(Xg, yg, rcond=None)
+            rows.append([group_lab, bg[1]])
+        lv1 = pd.DataFrame(rows, columns=[groups_name, "beta"])
+        subjects_betas = lv1
+        betas = lv1["beta"].to_numpy(dtype=float)
+        coef, pval = one_sample_ttest(betas)
+        return pval, coef, subjects_betas
+    raise ValueError(f"unknown regression method: {method}")
 
 
 def one_sample_ttest(values: np.ndarray) -> Tuple[float, float]:
@@ -267,3 +433,27 @@ def fixed_regression_batch(x: np.ndarray, y: np.ndarray):
         t = np.where(se > 0, slope / se, np.inf)
     pvals = 2.0 * stats.t.sf(np.abs(t), n - 2)
     return pvals, slope
+
+
+def one_way_anova_batch(values: np.ndarray, groups: np.ndarray):
+    """Vectorized one-way ANOVA F-test p-values.
+
+    ``values``: ``[N, R]`` responses; ``groups``: ``[N]`` labels. Equals
+    statsmodels ``anova_lm(OLS('y ~ C(g)'))``'s ``PR(>F)`` per column.
+    """
+    values = np.asarray(values, dtype=np.float64)
+    uniq, inv = np.unique(groups, return_inverse=True)
+    k = len(uniq)
+    n = values.shape[0]
+    grand = values.mean(axis=0)
+    ss_between = np.zeros(values.shape[1])
+    ss_within = np.zeros(values.shape[1])
+    for g in range(k):
+        rows = values[inv == g]
+        mg = rows.mean(axis=0)
+        ss_between += len(rows) * (mg - grand) ** 2
+        ss_within += ((rows - mg) ** 2).sum(axis=0)
+    df_b, df_w = k - 1, n - k
+    with np.errstate(divide="ignore", invalid="ignore"):
+        f = (ss_between / df_b) / (ss_within / df_w)
+    return stats.f.sf(f, df_b, df_w)

@@ -1,9 +1,14 @@
 """Command-line interface of the port: ``python -m multivae_tpu_torch
-{train,resume,eval,daa}``.
+<command>``, the JAX CLI's fourteen commands in its order (train, resume,
+eval, daa, anova, daa-plot-most-connected, daa-plot-score-metric, rsa,
+rsa-plot, hist-plot, avatar-plot, daa-analysis, daa-robustness,
+univariate-tests).
 
 Counterpart of ``multivae_tpu/cli.py``: the workflow function's signature
 drives the argument parser, so the flags are its parameters
-(``--input-dims 7 444``, ``--n-validation 5``, ``--device cuda``).
+(``--input-dims 7 444``, ``--n-validation 5``, ``--device cuda``). A list
+or tuple default takes one or more values of its element's type (str
+where the default is empty: ``--categorical-covs sex site``).
 """
 
 from __future__ import annotations
@@ -26,18 +31,30 @@ def _add_args_from_signature(parser: argparse.ArgumentParser,
         kw: Dict = {"required": default is inspect.Parameter.empty}
         if not kw["required"]:
             kw["default"] = default
-        if name in ("input_dims", "style_dim"):
-            kw["nargs"] = "+"
-            kw["type"] = int
-            if not kw["required"]:
-                kw["default"] = list(default)
+        # PEP 563 (from __future__ import annotations) stringizes
+        # annotations, so accept both forms
+        ann = {int: int, float: float, str: str,
+               "int": int, "float": float, "str": str}.get(param.annotation)
+        if ann is not None:
+            kw["type"] = ann
         elif isinstance(default, bool):
             kw["type"] = _as_bool
         elif isinstance(default, (int, float)):
             kw["type"] = type(default)
-        elif param.annotation in (int, "int"):
-            kw["type"] = int
+        elif isinstance(default, (list, tuple)):
+            kw["nargs"] = "+"
+            kw["type"] = type(default[0]) if len(default) else str
+            kw["default"] = list(default)
         else:
+            kw["type"] = str
+        # int lists of the model's widths
+        if name in ("input_dims", "style_dim"):
+            kw["nargs"] = "+"
+            kw["type"] = int
+        # hist-plot compares cohorts: aligned str lists (one score per
+        # cohort entry)
+        if name in ("datasets", "datasetdirs", "scores"):
+            kw["nargs"] = "+"
             kw["type"] = str
         if flag.lower() != flag:
             # e.g. --M also accepts --m
@@ -48,9 +65,24 @@ def _add_args_from_signature(parser: argparse.ArgumentParser,
 
 def _commands() -> Dict[str, Callable]:
     from . import workflows as wf
+    from .analysis import avatars as av
 
-    return {"train": wf.train_exp, "resume": wf.resume_exp,
-            "eval": wf.eval_exp, "daa": wf.daa_exp}
+    return {
+        "train": wf.train_exp,
+        "resume": wf.resume_exp,
+        "eval": wf.eval_exp,
+        "daa": wf.daa_exp,
+        "anova": wf.anova_exp,
+        "daa-plot-most-connected": wf.daa_plot_most_connected,
+        "daa-plot-score-metric": wf.daa_plot_score_metric,
+        "rsa": wf.rsa_exp,
+        "rsa-plot": wf.rsa_plot_exp,
+        "hist-plot": wf.hist_plot_exp,
+        "avatar-plot": wf.avatar_plot_exp,
+        "daa-analysis": av.analyze_avatars,
+        "daa-robustness": av.assess_robustness,
+        "univariate-tests": av.univariate_tests,
+    }
 
 
 def main(argv: Sequence[str] | None = None) -> int:

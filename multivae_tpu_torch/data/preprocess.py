@@ -1,12 +1,15 @@
-"""Per-modality preprocessing: standard scaling and covariate residualization.
+"""Per-modality preprocessing: standard scaling, ordinal encoding and
+covariate residualization.
 
 Counterpart of ``multivae_tpu/data/preprocess.py``, which takes its scaler
-from scikit-learn. The port's :class:`StandardScaler` is numpy with
-scikit-learn's semantics, so the data layer loads where scikit-learn is not
-installed (the card's machine): population standard deviation (``ddof=0``),
-a zero standard deviation scales by 1, ``fit`` / ``transform`` /
-``inverse_transform`` / ``fit_transform``, fitted ``mean_``, ``var_``,
-``scale_`` and ``n_samples_seen_``. :class:`Residualizer` is the JAX
+from scikit-learn (as ``multivae_tpu/analysis/avatars.py`` takes its
+``OrdinalEncoder``). The port's :class:`StandardScaler` and
+:class:`OrdinalEncoder` are numpy with scikit-learn's semantics, so the
+port loads where scikit-learn is not installed: the scaler's
+population standard deviation (``ddof=0``) from float64 accumulators,
+scikit-learn's constant-feature rule (such a column scales by 1),
+``fit`` / ``transform`` / ``inverse_transform`` / ``fit_transform``, fitted
+``mean_``, ``var_``, ``scale_`` and ``n_samples_seen_``. :class:`Residualizer` is the JAX
 package's, which is numpy and pandas already: one ``lstsq`` over a shared
 design matrix (off by default, ``train/experiment.py``).
 """
@@ -18,7 +21,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 import pandas as pd
 
-__all__ = ["StandardScaler", "Residualizer"]
+__all__ = ["OrdinalEncoder", "StandardScaler", "Residualizer"]
 
 
 class StandardScaler:
@@ -34,18 +37,29 @@ class StandardScaler:
         self.n_samples_seen_ = 0
 
     def fit(self, X, y=None) -> "StandardScaler":
-        X = np.asarray(X, dtype=np.float64)
+        X = np.asarray(X)
         if X.ndim != 2:
             raise ValueError(f"expected a 2-d array, got shape {X.shape}")
-        self.n_samples_seen_ = X.shape[0]
-        self.mean_ = X.mean(axis=0) if self.with_mean else None
+        n = X.shape[0]
+        self.n_samples_seen_ = n
+        # scikit-learn's float64 accumulators: the mean, then the corrected
+        # two-pass variance (Chan, Golub and LeVeque), in its order
+        mean = np.sum(X, axis=0, dtype=np.float64) / n
+        self.mean_ = mean if self.with_mean else None
         if self.with_std:
-            self.var_ = X.var(axis=0)
-            scale = np.sqrt(self.var_)
-            # scikit-learn's _handle_zeros_in_scale: a constant column
-            # (std within 10 eps of 0) is left unscaled
+            temp = X - mean
+            correction = np.sum(temp, axis=0, dtype=np.float64)
+            temp **= 2
+            self.var_ = (np.sum(temp, axis=0, dtype=np.float64)
+                         - correction ** 2 / n) / n
+            # scikit-learn's _is_constant_feature on the variance, then
+            # _handle_zeros_in_scale: a column indistinguishable from a
+            # constant is left unscaled
             eps = np.finfo(np.float64).eps
-            scale[scale < 10 * eps] = 1.0
+            constant = self.var_ <= (n * eps * self.var_
+                                     + (n * mean * eps) ** 2)
+            scale = np.sqrt(self.var_)
+            scale[constant] = 1.0
             self.scale_ = scale
         return self
 
@@ -78,6 +92,44 @@ class StandardScaler:
         if self.with_mean:
             X += self.mean_.astype(X.dtype)
         return X
+
+    def fit_transform(self, X, y=None):
+        return self.fit(X).transform(X)
+
+
+class OrdinalEncoder:
+    """Each column's categories coded ``0 .. k-1`` in sorted order
+    (scikit-learn's ``OrdinalEncoder`` with its default flags: the
+    categories are ``np.unique`` of the column, an unknown one raises, the
+    codes are float64)."""
+
+    def __init__(self):
+        self.categories_ = None
+
+    def fit(self, X, y=None) -> "OrdinalEncoder":
+        X = np.asarray(X)
+        if X.ndim != 2:
+            raise ValueError(f"expected a 2-d array, got shape {X.shape}")
+        self.categories_ = [np.unique(X[:, j]) for j in range(X.shape[1])]
+        return self
+
+    def transform(self, X):
+        if self.categories_ is None:
+            raise ValueError("This OrdinalEncoder instance is not fitted "
+                             "yet. Call 'fit' first.")
+        X = np.asarray(X)
+        out = np.empty(X.shape, dtype=np.float64)
+        for j, cats in enumerate(self.categories_):
+            col = X[:, j]
+            codes = np.searchsorted(cats, col)
+            known = (codes < len(cats)) & (cats[np.minimum(
+                codes, len(cats) - 1)] == col)
+            if not known.all():
+                raise ValueError(f"Found unknown categories "
+                                 f"{sorted(set(col[~known].tolist()))} in "
+                                 f"column {j} during transform")
+            out[:, j] = codes
+        return out
 
     def fit_transform(self, X, y=None):
         return self.fit(X).transform(X)

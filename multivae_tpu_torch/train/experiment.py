@@ -42,6 +42,7 @@ class MultimodalExperiment:
             for idx in range(cfg.num_models)]
         self.dataset_train = None
         self.dataset_test = None
+        self.scalers = None
         self.params: List[torch.Tensor] = []
         self.opt_states: List = []
 
@@ -89,7 +90,7 @@ class MultimodalExperiment:
             validation=validation, test_size=test_size, seed=cfg.data_seed)
         fetcher = manager.fetcher
 
-        train, test = [], []
+        train, test, scalers_all = [], [], []
         for model_idx in range(n_models):
             train_dataset = manager.train_dataset
             train_idx = test_idx = None
@@ -103,6 +104,7 @@ class MultimodalExperiment:
                 test_idx = fold["valid_idx"]
                 train_dataset = fold["train"]
             scalers = self.set_scalers(train_dataset)
+            scalers_all.append(scalers)
             train.append(MultimodalDataset(
                 fetcher.train_input_path, fetcher.train_metadata_path,
                 train_idx, on_the_fly_transform=scalers))
@@ -110,9 +112,10 @@ class MultimodalExperiment:
                 test_input_path, test_metadata_path, test_idx,
                 on_the_fly_transform=scalers))
         if n_models == 1:
-            train, test = train[0], test[0]
+            train, test, scalers_all = train[0], test[0], scalers_all[0]
         self.dataset_train = train
         self.dataset_test = test
+        self.scalers = scalers_all
 
     def member_datasets(self, model_idx: int):
         """``(train, test)`` datasets of one ensemble member."""
@@ -149,3 +152,12 @@ def load_run(outdir: str, run: str, device: torch.device | str,
         raise ValueError("You need first to train the model.")
     return MultimodalExperiment.get_experiment(
         flags_file, os.path.join(expdir, "checkpoints"), device, load_epoch)
+
+
+def load_trained(outdir: str, run: str, device: torch.device | str):
+    """:func:`load_run` of the latest checkpoint with the datasets and
+    their scalers loaded (``multivae_tpu/workflows.py:258 _load_trained``):
+    ``(experiment, cfg)``."""
+    experiment, cfg = load_run(outdir, run, device)
+    experiment.set_datasets()
+    return experiment, cfg

@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing it loads no JAX stack, no JAX
-package, no scikit-learn and no Triton; no module of it, nor
-`chip_smoke.py`, imports the JAX stack, the JAX package or scikit-learn
-anywhere; and its `train` (with the eval cadence), `eval` and `daa` paths
-load none of them at call time (the card's machine has neither)."""
+package, no scikit-learn, no Triton and no matplotlib; no module of it,
+nor `chip_smoke.py`, imports the JAX stack, the JAX package or
+scikit-learn anywhere; and its `train` (with the eval cadence), `eval`,
+`daa` and the ten analysis and plot commands load none of them at call
+time (the card's machine has neither)."""
 
 import ast
 import json
@@ -15,8 +16,9 @@ import pytest
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PACKAGE = REPO / "multivae_tpu_torch"
 BANNED = ("jax", "flax", "optax", "multivae_tpu", "sklearn")
-# Triton, where a kernel needs it, is imported inside the launching function
-NOT_AT_IMPORT = BANNED + ("triton",)
+# Triton, where a kernel needs it, is imported inside the launching function,
+# matplotlib inside the functions that draw
+NOT_AT_IMPORT = BANNED + ("triton", "matplotlib")
 
 
 def port_modules():
@@ -77,7 +79,17 @@ def test_slice_modules_exist():
                  "multivae_tpu_torch.eval.likelihood",
                  "multivae_tpu_torch.eval.sample_quality",
                  "multivae_tpu_torch.eval.representation",
-                 "multivae_tpu_torch.eval.coherence"):
+                 "multivae_tpu_torch.eval.coherence",
+                 # the analysis slice
+                 "multivae_tpu_torch.analysis.anova",
+                 "multivae_tpu_torch.analysis.rsa",
+                 "multivae_tpu_torch.analysis.avatars",
+                 "multivae_tpu_torch.data.cohorts",
+                 "multivae_tpu_torch.constants",
+                 "multivae_tpu_torch.viz",
+                 "multivae_tpu_torch.viz.plotting",
+                 "multivae_tpu_torch.viz.surface",
+                 "multivae_tpu_torch.viz.video"):
         assert name in mods
 
 
@@ -195,6 +207,69 @@ def test_eval_paths_load_no_jax_or_sklearn_at_call_time(tmp_path):
     assert list(out.glob("*/eval/eval_latest.tsv"))
     assert list(out.glob("*/fid/random/rois/000000.npy"))
     assert list(out.glob("*/daa/*/rois_digital_avatars_sampled.npy"))
+
+
+def test_analysis_commands_load_no_jax_or_sklearn_at_call_time(tmp_path):
+    """A tiny ``train`` and ``daa``, then the ten analysis and plot
+    commands, through the CLI on the CPU."""
+    code = (
+        "import json, os, sys\n"
+        "from multivae_tpu_torch.cli import main\n"
+        "from multivae_tpu_torch.data import make_synthetic_cohort\n"
+        "from multivae_tpu_torch.viz.surface import SurfaceAtlas\n"
+        "d, o = sys.argv[1], sys.argv[2]\n"
+        "make_synthetic_cohort(d, n_subjects=90, n_scores=3, n_rois=12,\n"
+        "                      missing_rate=0.2, seed=0)\n"
+        "atlas = SurfaceAtlas.synthetic(roi_names=[f'roi{i:03d}' for i in\n"
+        "                               range(4)], subdiv=1).save(o + '.npz')\n"
+        "common = ['--dataset', 'synthetic', '--datasetdir', d,\n"
+        "          '--outdir', o]\n"
+        "cpu = ['--device', 'cpu']\n"
+        "main(['train', *common, *cpu, '--input-dims', '3', '12',\n"
+        "      '--latent-dim', '4', '--style-dim', '2', '3',\n"
+        "      '--batch-size', '16', '--num-epochs', '1',\n"
+        "      '--use-tensorboard', 'false'])\n"
+        "run = [r for r in os.listdir(o) if r.startswith('synthetic')][0]\n"
+        "grid = ['--n-validation', '2', '--n-samples', '6',\n"
+        "        '--n-subjects', '8', '--M', '4']\n"
+        "main(['daa', *common, *cpu, '--run', run, *grid])\n"
+        "main(['anova', *common, '--run', run, *grid])\n"
+        "main(['daa-robustness', *common, '--run', run, *grid])\n"
+        "main(['daa-analysis', *common, '--run', run, *grid,\n"
+        "      '--n-subjects-to-plot', '2'])\n"
+        "main(['rsa', *common, *cpu, '--run', run, '--n-subjects', '12'])\n"
+        "main(['rsa-plot', *common, '--run', run])\n"
+        "main(['daa-plot-most-connected', *common, '--run', run,\n"
+        "      '--trust-level', '0', '--plot-associations', 'true'])\n"
+        "main(['daa-plot-score-metric', *common, *cpu, '--run', run,\n"
+        "      '--score', 'score_0', '--metric', 'area', '--trust-level',\n"
+        "      '0', '--surface-atlas', o + '.npz'])\n"
+        "main(['hist-plot', '--datasets', 'synthetic', '--datasetdirs', d,\n"
+        "      '--scores', 'score_1', '--outdir', o])\n"
+        "main(['avatar-plot', *common, *cpu, '--run', run, '--n-frames',\n"
+        "      '3', '--n-subjects', '2'])\n"
+        "main(['univariate-tests', '--dataset', 'synthetic',\n"
+        "      '--datasetdir', d, '--categorical-covs', 'sex', 'site',\n"
+        "      '--outdir', o])\n"
+        f"print(json.dumps(sorted(m for m in {list(BANNED)!r} "
+        "if m in sys.modules)))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "data"),
+         str(tmp_path / "out")], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    out = tmp_path / "out"
+    res = list(out.glob("*/daa/*/"))
+    assert len(res) == 1
+    for name in ("anova_pvalues.npy", "figures/robustness_model_0.png",
+                 "figures/avatars_vs_scores.png",
+                 "associated_rois_for_score_0_in_area.png"):
+        assert (res[0] / name).is_file(), name
+    for pattern in ("*/rsa/kendalltau_stats.npy", "*/rsa/dissimilarity.png",
+                    "hist.png", "*/avatar_traverse_score_0.avi",
+                    "univariate/univariate_pvalues.npy"):
+        assert list(out.glob(pattern)), pattern
 
 
 def banned_imports(path):
