@@ -1441,7 +1441,13 @@ GENERIC_ROWS = (256, 137)
 # step at the flagship architecture (1 + 0, per-feature scale) too
 FLAT_ARCH = dict(num_hidden_layer_encoder=1, num_hidden_layer_decoder=0,
                  learn_output_sample_scale=False)
-ALL_ARCHS = {**DEEP_ARCHS, "1+0": FLAT_ARCH}
+# stacks past four hidden layers, as the JAX kernel takes them (its VMEM
+# guard): at hidden 128 5 + 1 and 6 + 6, at hidden 64 8 + 8
+DEEP_STACKS = {"5+1": (5, 1, 128), "6+6": (6, 6, 128), "8+8": (8, 8, 64)}
+ALL_ARCHS = {**DEEP_ARCHS, "1+0": FLAT_ARCH, **{
+    arch: dict(num_hidden_layer_encoder=n_enc, num_hidden_layer_decoder=n_dec,
+               learn_output_sample_scale=False)
+    for arch, (n_enc, n_dec, _) in DEEP_STACKS.items()}}
 VARIANTS = {"laplace": dict(likelihood="laplace"),
             "bernoulli": dict(likelihood="bernoulli"),
             "categorical": dict(likelihood="categorical"),
@@ -1450,12 +1456,13 @@ VARIANT_ARCHS = ("1+0", "deep-A")
 
 
 def generic_flops(dims, enc_passes: int, dec_passes: int) -> float:
-    """Matmul FLOPs one layer-stack step needs: per row and pass, 4 per
-    multiply-add of an encoder's first layer (forward and weight gradient:
-    nothing takes the gradient of the data) and 6 per multiply-add of every
-    other product (forward, weight gradient, the gradient of its input)."""
+    """Matmul FLOPs one layer-stack step needs: per row, modality and pass,
+    4 per multiply-add of an encoder's first layer (forward and weight
+    gradient: nothing takes the gradient of the data) and 6 per
+    multiply-add of every other product (forward, weight gradient, the
+    gradient of its input)."""
     per_row = 0
-    for e, (d, s) in enumerate(((dims.d1, dims.s1), (dims.d2, dims.s2))):
+    for d, s in zip(dims.ds, dims.ss):
         enc = 4 * d * dims.h + 6 * dims.h * dims.h * (dims.n_enc - 1) \
             + 6 * dims.h * (2 * dims.cd + 2 * s)
         n_out = 2 * d if dims.sample_scale else d
@@ -1470,22 +1477,24 @@ def generic_flops(dims, enc_passes: int, dec_passes: int) -> float:
 ROUNDING = 1e-6
 
 
-def rounding_level_units(method, p, inp, dims, consts):
+def rounding_level_units(method, p, inp, dims, consts, uni=True):
     """Hidden units of the layer stacks that may take either ReLU branch at
     the rounding level: in some row the unit's input, computed by the plain
     version in float64, is within ``ROUNDING`` of zero relative to the sum
     of its terms' sizes, so two float32 sums in different orders can land
-    on different sides. Returns the mask of the gradient elements behind
-    such units (the unit's own input weights and bias, every layer below it
-    in its network and, below a decoder, the encoders) and their
-    description."""
+    on different sides. ``inp``: the M batches, the noise and the masks.
+    Returns the mask of the gradient elements behind such units (the unit's
+    own input weights and bias, every layer below it in its network and,
+    below a decoder, the encoders) and their description."""
     import torch
 
     from multivae_tpu_torch.ops import fused_generic as fg
+    from multivae_tpu_torch.ops import latent_multi
     from multivae_tpu_torch.ops.fused_methods import latent_fwd_bwd
     from multivae_tpu_torch.params import flat_views
 
-    x1, x2, noise, masks = (None if t is None else t.double() for t in inp)
+    inp = [None if t is None else t.double() for t in inp]
+    xs, noise, masks = inp[:dims.m], inp[dims.m], inp[dims.m + 1]
     found = []
 
     class Recording(fg.StackNets):
@@ -1522,10 +1531,13 @@ def rounding_level_units(method, p, inp, dims, consts):
             return nll, cache
 
     ties = []
-    nets = Recording(flat_views(p.double(), dims), (x1, x2), dims, True,
-                     masks)
-    latent_fwd_bwd(method, nets, noise, dims.b, dims.cd, dims.s1, dims.s2,
-                   consts)
+    nets = Recording(flat_views(p.double(), dims), xs, dims, True, masks)
+    if fg.multi_latents(method, dims, uni):
+        latent_multi.latent_fwd_bwd(method, nets, noise, dims.b, dims.cd,
+                                    dims.ss, consts, uni)
+    else:
+        latent_fwd_bwd(method, nets, noise, dims.b, dims.cd, dims.s1,
+                       dims.s2, consts)
     mask = torch.zeros_like(p, dtype=torch.bool)
     views = flat_views(mask, dims)
 
@@ -1559,38 +1571,46 @@ def rounding_level_units(method, p, inp, dims, consts):
 
 class GenericRoute:
     """The layer-stack step of one architecture and method: its kernel, its
-    plain version, and the noise and masks it takes."""
+    plain version, and the noise and masks it takes. ``mods`` (a dict of
+    ``input_dim`` and ``style_dim``, and ``hidden_dim`` where it is not
+    the flagship's) gives a modality count other than the flagship's two;
+    ``uni`` False is poe without its unimodal ELBOs. A step's inputs are
+    ``(x_1 .. x_M, noise, masks)``."""
 
     kernel = "generic_step"
 
     def __init__(self, arch: str, method="joint_elbo", masked=False,
-                 variant=None):
+                 variant=None, mods=None, label=None, uni=True):
         self.arch, self.method, self.masked = arch, method, masked
         self.variant = variant
-        self.cfg_kw = {**ALL_ARCHS[arch], **VARIANTS.get(variant, {})}
+        self.uni = bool(uni) or method != "poe"
+        self.cfg_kw = {**ALL_ARCHS[arch], **VARIANTS.get(variant, {}),
+                       **(mods or {})}
         self.likelihood = self.cfg_kw.get("likelihood", "normal")
-        self.name = (f"generic_step[{arch}, "
+        self.name = (f"generic_step[{label + ' ' if label else ''}{arch}, "
                      + (f"{variant}, " if variant else "") + method
+                     + ("" if self.uni else " without unimodal ELBOs")
                      + (", masks" if masked else "") + "]")
-        poe = method == "poe"
+        poe = method == "poe" and self.uni
         self.dec_passes = 2 if poe else 1
         self.enc_passes = 2 if poe and masked else 1
 
     def setup(self, device, b: int, seed: int):
         """Seeded params (flat, the general layout) and the dims."""
         from multivae_tpu_torch.models import build_model, make_modalities
-        from multivae_tpu_torch.params import dims_from, model_flat_params
+        from multivae_tpu_torch.params import generic_dims, model_flat_params
 
         cfg = flagship_cfg(self.method, seed=seed, **self.cfg_kw)
         model = build_model(cfg, make_modalities(
             cfg.input_dim, cfg.style_dim, cfg.likelihood), device, seed=seed)
-        dims = dims_from(cfg, b)
+        dims = generic_dims(cfg, b)
         return dims, model_flat_params(model, dims)
 
     def inputs(self, dims, gen, device, steps=None):
         import torch
 
         from multivae_tpu_torch.ops import fused_generic as fg
+        from multivae_tpu_torch.ops import latent_multi
 
         lead = () if steps is None else (steps,)
         b = dims.b
@@ -1598,36 +1618,37 @@ class GenericRoute:
         def randn(*shape):
             return torch.randn(lead + shape, generator=gen, device=device)
 
-        w = dims.cd + dims.s1 + dims.s2
-        if self.method == "poe":
-            w += 2 * dims.cd + dims.s1 + dims.s2
-        x1, x2, noise = randn(b, dims.d1), randn(b, dims.d2), randn(b, w)
+        w = latent_multi.noise_width(self.method, dims.cd, dims.ss,
+                                     self.uni)
+        xs = [randn(b, d) for d in dims.ds]
+        noise = randn(b, w)
         if self.likelihood == "bernoulli":  # the cohort thresholded at 0
-            x1, x2 = (x1 > 0).float(), (x2 > 0).float()
+            xs = [(x > 0).float() for x in xs]
         elif self.likelihood == "categorical":  # one-hot rows
-            x1, x2 = (torch.nn.functional.one_hot(torch.randint(
+            xs = [torch.nn.functional.one_hot(torch.randint(
                 0, d, lead + (b,), generator=gen, device=device), d).float()
-                for d in (dims.d1, dims.d2))
+                for d in dims.ds]
         masks = None
         if self.masked:
             n = fg.n_dropout_masks(self.method, MASK_RATE, dims.n_enc,
-                                   dims.n_dec)
+                                   dims.n_dec, dims.m, self.uni)
             keep = torch.rand(lead + (n, b, dims.h), generator=gen,
                               device=device) < 1 - MASK_RATE
             masks = keep.float() / (1 - MASK_RATE)
-        return x1, x2, noise, masks
+        return (*xs, noise, masks)
 
     def step(self, version, p, inp, dims, consts, learn_scale=True):
         from multivae_tpu_torch.ops import fused_generic as fg
         from multivae_tpu_torch.params import flat_views, flatten_named
 
-        x1, x2, noise, masks = inp
+        xs, noise, masks = inp[:dims.m], inp[dims.m], inp[dims.m + 1]
         if version == "kernel":
-            return fg.generic_step_flat(self.method, p, x1, x2, noise, dims,
-                                        consts, learn_scale, masks)
+            return fg.generic_step_flat(self.method, p, xs, noise, dims,
+                                        consts, learn_scale, masks,
+                                        unimodal_elbos=self.uni)
         _, m, g = fg.generic_fwd_bwd_reference(
-            self.method, flat_views(p, dims), x1, x2, noise, dims, consts,
-            learn_scale, masks)
+            self.method, flat_views(p, dims), xs, noise, dims, consts,
+            learn_scale, masks, unimodal_elbos=self.uni)
         return m, flatten_named(g, dims)
 
     def launch_epoch(self, p, mu, nu, count, stacks, dims, consts, hyper,
@@ -1636,10 +1657,12 @@ class GenericRoute:
         persistent kernel, as :meth:`Route.launch_epoch`."""
         from multivae_tpu_torch.ops import fused_generic as fg
 
-        x1s, x2s, noises, masks = stacks
-        return fg.generic_epoch_flat(self.method, p, mu, nu, count, x1s, x2s,
+        xs, noises, masks = (stacks[:dims.m], stacks[dims.m],
+                             stacks[dims.m + 1])
+        return fg.generic_epoch_flat(self.method, p, mu, nu, count, xs,
                                      noises, dims, consts, hyper, True, masks,
-                                     None, phase_times)
+                                     None, phase_times,
+                                     unimodal_elbos=self.uni)
 
     def phases(self, dims):
         from multivae_tpu_torch.ops import fused_generic as fg
@@ -1649,17 +1672,70 @@ class GenericRoute:
     def geometry(self, dims, device):
         from multivae_tpu_torch.ops import fused_generic as fg
 
-        return fg.launch_geometry(dims, device, self.method, self.masked)
+        return fg.launch_geometry(dims, device, self.method, self.masked,
+                                  self.uni)
+
+    def excuse(self, p, inp, dims, consts):
+        return rounding_level_units(self.method, p, inp, dims, consts,
+                                    self.uni)
 
     def bound(self, p, inp, dims) -> dict:
-        """Params, batch, noise and masks read once, every gradient and the
-        metrics written once; the operations of its passes (categorical's
-        row pass: ~10 per output element and decode)."""
-        moved = 2 * nbytes(p) + nbytes(*inp) + 4 * 19
+        """Params, batches, noise and masks read once, every gradient and
+        the metrics written once; the operations of its passes
+        (categorical's row pass: ~10 per output element and decode)."""
+        from multivae_tpu_torch.ops import latent_multi
+
+        n_metrics = latent_multi.n_step_metrics(dims.m, self.method, self.uni)
+        moved = 2 * nbytes(p) + nbytes(*inp) + 4 * n_metrics
         flops = generic_flops(dims, self.enc_passes, self.dec_passes)
         if self.likelihood == "categorical":
-            flops += 10.0 * dims.b * (dims.d1 + dims.d2) * self.dec_passes
+            flops += 10.0 * dims.b * sum(dims.ds) * self.dec_passes
         return bound(moved, flops)
+
+
+def stepwise_epoch(route, dims, p0, consts, hyper, gen, device, phase,
+                   n=8):
+    """An ``n``-step epoch of one layer-stack route: along the kernels' own
+    trajectory every step is recomputed by the plain version from the same
+    state (the step bound), then the free-running plain epoch is held by
+    :func:`hold_epoch`, which accepts what parts downstream of Adam's trap or
+    of a rounding-level ReLU. Returns its error."""
+    import torch
+
+    from multivae_tpu_torch.ops import adam as adam_ops
+
+    stacks = route.inputs(dims, gen, device, steps=n)
+    steps = [tuple(None if t is None else t[i] for t in stacks)
+             for i in range(n)]
+    name = f"{route.name} + flat_adam {n}-step epoch"
+    p, q = p0.clone(), p0.clone()
+    sp, sq = adam_ops.init_adam_state(p), adam_ops.init_adam_state(q)
+    ker_grads, ref_grads = [], []
+    branch = torch.zeros_like(p, dtype=torch.bool)
+    worst = 0.0
+    for i, inp in enumerate(steps):
+        ker = route.step("kernel", p, inp, dims, consts)
+
+        def excuse(inp=inp):
+            mask, text = route.excuse(p, inp, dims, consts)
+            branch.logical_or_(mask)
+            return mask, text
+
+        worst = max(worst, check_step(
+            name, ker, route.step("plain", p, inp, dims, consts),
+            split_pairs(dims), f"step {i} from the kernels' state", phase,
+            quiet=True, excuse=excuse))
+        adam_ops.adam_update(p, sp.mu, sp.nu, ker[1], i + 1, hyper)
+        ker_grads.append(ker[1])
+        _, g = route.step("plain", q, inp, dims, consts)
+        adam_ops.adam_update_reference(q, sq.mu, sq.nu, g, i + 1, hyper)
+        ref_grads.append(g)
+    torch.cuda.synchronize()
+    log(phase, f"{name}: every step recomputed by the plain version from "
+        f"the kernels' state: metrics+grads max_abs_err {worst:.3e}")
+    return hold_epoch(phase, name, (p, sp.mu, sp.nu), (q, sq.mu, sq.nu),
+                      ker_grads, ref_grads, dims, branch=branch,
+                      downstream_ok=True)
 
 
 def generic_kernel_check(device):
@@ -1698,8 +1774,8 @@ def generic_kernel_check(device):
                             split_pairs(dims),
                             f"B={b} learn_scale={learn_scale}",
                             "generic-kernel", quiet=True,
-                            excuse=lambda: rounding_level_units(
-                                route.method, p, inp, dims, consts)))
+                            excuse=lambda: route.excuse(p, inp, dims,
+                                                        consts)))
                         n_cases += 1
                 entry["max_abs_err"] = max(entry["max_abs_err"], worst)
                 log("generic-kernel", f"{route.name} B={list(GENERIC_ROWS)} "
@@ -1741,40 +1817,8 @@ def generic_kernel_check(device):
               + [GenericRoute("3+2", "jsd")])
     for route in epochs:
         dims, p0 = route.setup(device, 256, SEED)
-        x1s, x2s, noises, masks = route.inputs(dims, gen, device, steps=8)
-        steps = [(x1s[i], x2s[i], noises[i],
-                  None if masks is None else masks[i]) for i in range(8)]
-        name = f"{route.name} + flat_adam 8-step epoch"
-        p, q = p0.clone(), p0.clone()
-        sp, sq = adam_ops.init_adam_state(p), adam_ops.init_adam_state(q)
-        ker_grads, ref_grads = [], []
-        branch = torch.zeros_like(p, dtype=torch.bool)
-        worst = 0.0
-        for i, inp in enumerate(steps):
-            ker = route.step("kernel", p, inp, dims, consts)
-
-            def excuse(inp=inp):
-                mask, text = rounding_level_units(route.method, p, inp,
-                                                  dims, consts)
-                branch.logical_or_(mask)
-                return mask, text
-
-            worst = max(worst, check_step(
-                name, ker, route.step("plain", p, inp, dims, consts),
-                split_pairs(dims), f"step {i} from the kernels' state",
-                "generic-kernel", quiet=True, excuse=excuse))
-            adam_ops.adam_update(p, sp.mu, sp.nu, ker[1], i + 1, hyper)
-            ker_grads.append(ker[1])
-            _, g = route.step("plain", q, inp, dims, consts)
-            adam_ops.adam_update_reference(q, sq.mu, sq.nu, g, i + 1, hyper)
-            ref_grads.append(g)
-        torch.cuda.synchronize()
-        log("generic-kernel", f"{name}: every step recomputed by the plain "
-            f"version from the kernels' state: metrics+grads max_abs_err "
-            f"{worst:.3e}")
-        err = hold_epoch("generic-kernel", name, (p, sp.mu, sp.nu),
-                         (q, sq.mu, sq.nu), ker_grads, ref_grads, dims,
-                         branch=branch, downstream_ok=True)
+        err = stepwise_epoch(route, dims, p0, consts, hyper, gen, device,
+                             "generic-kernel")
         entry["epoch_err"] = max(entry.get("epoch_err", 0.0), err)
 
     # ---- timing, in turns: plain, kernel, kernel, plain
@@ -2083,14 +2127,15 @@ SLICE_TRAIN = dict(input_dims=[7, 444], latent_dim=20, style_dim=[3, 20],
                    use_tensorboard=False)
 
 
-def epoch_batch_counts(datadir: str):
+def epoch_batch_counts(datadir: str, **cfg_kw):
     """``(complete, clinical-only)`` batch sizes of one training epoch of
-    the cohort, from the port's data layer and sampler."""
+    the cohort, from the port's data layer and sampler (``cfg_kw``: the
+    blocks' widths where they are not the flagship's)."""
     from multivae_tpu_torch.data import MissingModalitySampler
     from multivae_tpu_torch.train.experiment import MultimodalExperiment
 
     cfg = flagship_cfg(dataset="synthetic", datasetdir=datadir,
-                       batch_size=256)
+                       batch_size=256, **cfg_kw)
     exp = MultimodalExperiment(cfg, "cpu")
     exp.set_datasets()
     ds = exp.dataset_train
@@ -2098,7 +2143,8 @@ def epoch_batch_counts(datadir: str):
     complete, clinical = [], []
     for idxs in MissingModalitySampler(ds, batch_size=256, seed=cfg.seed):
         data, _, _ = ds.gather(idxs)
-        (complete if len(data) == 2 else clinical).append(len(idxs))
+        (complete if len(data) == len(cfg.input_dim) else clinical).append(
+            len(idxs))
     return sorted(complete), sorted(clinical), time.perf_counter() - start
 
 
@@ -2117,7 +2163,7 @@ def train_run(datadir, outdir, epochs, device, **kw):
     with contextlib.redirect_stdout(out):
         run = workflows.train_exp("synthetic", datadir, outdir,
                                   num_epochs=epochs, device=device,
-                                  **SLICE_TRAIN, **kw)
+                                  **{**SLICE_TRAIN, **kw})
     line = [ln for ln in out.getvalue().splitlines()
             if "train wall per epoch (s):" in ln][-1]
     return run, [float(w) for w in line.split(":", 1)[1].split()]
@@ -2746,20 +2792,25 @@ def recording_generic_epoch():
     rec = {"steps": [], "updates": []}
     epoch_fn = fused_generic.generic_epoch_flat
 
-    def epoch(method, p, mu, nu, count, x1s, x2s, noise, dims, consts, hyper,
-              learn_scale=True, masks=None, order=None):
+    def epoch(method, p, mu, nu, count, xs, noise, dims, consts, hyper,
+              learn_scale=True, masks=None, order=None, phase_times=None,
+              unimodal_elbos=True):
         q, qm, qv = (x.clone() for x in (p, mu, nu))
-        metrics = epoch_fn(method, p, mu, nu, count, x1s, x2s, noise, dims,
-                           consts, hyper, learn_scale, masks, order)
+        metrics = epoch_fn(method, p, mu, nu, count, xs, noise, dims,
+                           consts, hyper, learn_scale, masks, order,
+                           phase_times, unimodal_elbos=unimodal_elbos)
         counts = (adam.KERNEL_LAUNCHES, fused_generic.KERNEL_LAUNCHES,
                   fused_generic.KERNEL_STEPS)
         saved = [dict(c) for c in counts]
         rows = []
-        for i in range(x1s.shape[0]):
-            args = (method, q, x1s[i], x2s[i], noise[i], dims, consts,
+        for i in range(noise.shape[0]):
+            args = (method, q, [x[i] for x in xs], noise[i], dims, consts,
                     learn_scale, None if masks is None else masks[i])
-            out = fused_generic.generic_step_flat(*args)
-            rec["steps"].append(([cpu(a) for a in args],
+            out = fused_generic.generic_step_flat(
+                *args, unimodal_elbos=unimodal_elbos)
+            rec["steps"].append(([[cpu(x) for x in a] if isinstance(a, list)
+                                  else cpu(a) for a in args]
+                                 + [unimodal_elbos],
                                  [cpu(o) for o in out]))
             before = [cpu(x) for x in (q, qm, qv)]
             adam.adam_update(q, qm, qv, out[1], count + i + 1, hyper)
@@ -2785,14 +2836,17 @@ def recording_generic_epoch():
 
 
 def generic_train_and_check(root, path, kw, datadir, device, card, complete,
-                            clinical, batching_s):
-    """``train_exp`` of one deep-architecture slice on the card with every
-    count set to 0 just before and read just after; checks the launches of
-    its routes (the full complete batches on the layer-stack step, every
-    other batch on the general autograd step), the losses, the metric
-    families, the checkpoints and a resumed run; then recomputes the first
-    epoch's kernel steps by the plain version from the card's own state.
-    Returns the launches."""
+                            clinical, batching_s, phase="generic-slice",
+                            names=("clinical", "rois")):
+    """``train_exp`` of one slice on the layer-stack step on the card with
+    every count set to 0 just before and read just after; checks the
+    launches of its routes (the full complete batches on the layer-stack
+    step, every other batch on the general autograd step), the losses, the
+    metric families, the checkpoints and a resumed run; then recomputes the
+    first epoch's kernel steps by the plain version from the card's own
+    state. ``kw``: train_exp's flags beside the train slice's (a modality
+    count other than two with its ``input_dims`` and ``style_dim``, and
+    ``names``). Returns the launches."""
     import types
 
     import pandas as pd
@@ -2803,7 +2857,7 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
     from multivae_tpu_torch.params import dims_from, flat_size
     from multivae_tpu_torch.train.config import Config
 
-    phase, epochs = "generic-slice", GENERIC_SLICE_EPOCHS
+    epochs = GENERIC_SLICE_EPOCHS
     tag = path[len("train "):]
     counters = slice_counters()
     ran = step_counters()
@@ -2830,17 +2884,17 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
     csv, tr, losses = train_losses()
     per_step = tr.groupby("step").metric.apply(frozenset)
     styled = kw.get("factorized_representation", True)
-    names = types.SimpleNamespace(
+    model = types.SimpleNamespace(
         factorized_representation=styled, modalities=[
             types.SimpleNamespace(name=n, style_dim=s) for n, s in zip(
-                ("clinical", "rois"), SLICE_TRAIN["style_dim"])])
+                names, kw.get("style_dim", SLICE_TRAIN["style_dim"]))])
     method = kw["method"]
-    complete_fam = frozenset(fused_generic.generic_metric_names(names,
+    complete_fam = frozenset(fused_generic.generic_metric_names(model,
                                                                 method))
     # the general step's families: total_loss's, no style family without
     # style latents
     clinical_fam = frozenset(
-        n for n in fused_presence.presence_metric_names(names, method, 0)
+        n for n in fused_presence.presence_metric_names(model, method, 0)
         if styled or "_style" not in n)
     first, last = losses[:steps].mean(), losses[-steps:].mean()
     ckpt = os.path.join(rundir, "checkpoints", f"{epochs - 1:04d}")
@@ -2939,13 +2993,15 @@ def generic_train_and_check(root, path, kw, datadir, device, card, complete,
                                         + "_one"), 1, "cuda", **kw)
     worst = 0.0
     for i, (args, out) in enumerate(rec["steps"]):
-        method_, p, x1, x2, noise, dims, consts, learn_scale, masks = args
+        (method_, p, xs, noise, dims, consts, learn_scale, masks,
+         uni) = args
         worst = max(worst, check_step(
             f"generic_step[{tag}]", out,
-            fused_generic.generic_step_flat(*args), split_pairs(dims),
+            fused_generic.generic_step_flat(*args[:-1], unimodal_elbos=uni),
+            split_pairs(dims),
             f"step {i} of the first epoch, from the card's state", phase,
             quiet=True, excuse=lambda: rounding_level_units(
-                method_, p, (x1, x2, noise, masks), dims, consts)))
+                method_, p, (*xs, noise, masks), dims, consts, uni)))
     worst_adam = hold_adam_updates(rec["updates"], phase, tag)
     ok = len(rec["steps"]) == len(rec["updates"]) == n_full
     log(phase, f"[{tag}] first epoch: the generic_step launch equals its "
@@ -3053,6 +3109,245 @@ def generic_slice(device, card: str):
             by_path[path] = generic_train_and_check(
                 root, path, kw, datadir, device, card, complete, clinical,
                 batching_s)
+    return by_path
+
+
+# ------------------------------------------- modality counts other than two
+# four-block: the flagship's data with its 444-wide ROI block split into the
+# three measures that make it up (148 columns each), the flagship's model
+FOUR_BLOCK = dict(input_dim=[7, 148, 148, 148], style_dim=[3, 20, 20, 20])
+FOUR_BLOCK_NAMES = ("clinical", "rois", "mod2", "mod3")
+# three blocks: four-block without its last
+THREE_BLOCK = dict(input_dim=[7, 148, 148], style_dim=[3, 20, 20])
+# M = 8 at small widths, and M = 10 (1023 subsets, more than a batch has
+# rows) with 8 + 8 hidden layers, whose tables outgrow shared memory
+EIGHT = dict(input_dim=[16, 8, 12, 10, 6, 9, 14, 7],
+             style_dim=[2, 3, 2, 1, 2, 3, 1, 2], hidden_dim=64, class_dim=8)
+TEN = dict(input_dim=[9, 7, 5, 8, 6, 4, 7, 5, 6, 3], style_dim=[2] * 10,
+           hidden_dim=32, class_dim=4)
+MULTIMODAL_SLICES = (
+    ("train four-block joint_elbo", dict(method="joint_elbo",
+                                         dropout_rate=0.0)),
+    ("train four-block poe dropout 0.2", dict(method="poe",
+                                              dropout_rate=MASK_RATE)),
+)
+
+
+def split_roi_block(datadir: str) -> None:
+    """Rewrite a synthetic cohort's ROI block into three blocks by the
+    measure each column holds (the ``_thickness`` / ``_area`` /
+    ``_meancurv`` suffix of ``rois_names.npy``): ``rois``, ``mod2``,
+    ``mod3``. A subject without ROIs lacks all three."""
+    data = np.load(os.path.join(datadir, "rois_data.npy"))
+    names = np.load(os.path.join(datadir, "rois_names.npy"),
+                    allow_pickle=True)
+    subjects = np.load(os.path.join(datadir, "rois_subjects.npy"),
+                       allow_pickle=True)
+    for block, measure in (("rois", "thickness"), ("mod2", "area"),
+                           ("mod3", "meancurv")):
+        cols = [i for i, n in enumerate(names)
+                if str(n).endswith("_" + measure)]
+        np.save(os.path.join(datadir, f"{block}_data.npy"),
+                np.ascontiguousarray(data[:, cols]))
+        np.save(os.path.join(datadir, f"{block}_names.npy"), names[cols])
+        np.save(os.path.join(datadir, f"{block}_subjects.npy"), subjects)
+
+
+def multimodal_kernel_check(device, entry):
+    """Phase multimodal-kernel: the layer-stack step at modality counts
+    other than two, past four hidden layers and for poe without its
+    unimodal ELBOs, each held to its plain version: four-block (the four
+    methods, masks on and off, poe without unimodal ELBOs, B=256 and 137,
+    learned scale on and off), three-block and M = 8 at small widths (the
+    four methods), the JAX kernel's deep stacks at the flagship widths,
+    M = 10 (1023 subsets) and M = 10 with 8 + 8 layers (tables in device
+    memory); for every route ONE launch of 8
+    steps with Adam against 8 one-step launches and ``flat_adam`` (equal
+    bits, two runs equal); two 8-step epochs recomputed step by step; the
+    four-block joint_elbo step and poe + masks step timed as a one-step
+    launch and per step of a 6-step launch beside their bounds. Adds to
+    ``entry`` (``generic_step``'s record)."""
+    import torch
+
+    from multivae_tpu_torch.ops import adam as adam_ops
+    from multivae_tpu_torch.ops import fused_generic as fg
+    from multivae_tpu_torch.ops import fused_step as fs
+    from multivae_tpu_torch.ops import latent_multi
+
+    phase = "multimodal-kernel"
+    consts = fs.FusedConsts(1.0, 0.7, 1.2)
+    hyper = adam_ops.AdamHyper(2e-3, 0.9, 0.999)
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    launch_gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    four = [GenericRoute("1+0", m, masked, mods=FOUR_BLOCK,
+                         label="four-block")
+            for m in fg.PORTED_METHODS for masked in (False, True)]
+    four += [GenericRoute("1+0", "poe", masked, mods=FOUR_BLOCK,
+                          label="four-block", uni=False)
+             for masked in (False, True)]
+    # the split layout's architecture takes the layer-stack step for poe
+    # without its unimodal ELBOs
+    flagship = [GenericRoute("1+0", "poe", masked, label="flagship",
+                             uni=False) for masked in (False, True)]
+    others = [GenericRoute("1+0", m, m == "poe", mods=THREE_BLOCK,
+                           label="three-block")
+              for m in fg.PORTED_METHODS]
+    others += [GenericRoute("1+0", m, m == "poe", mods=EIGHT, label="M=8")
+               for m in fg.PORTED_METHODS]
+    others.append(GenericRoute("2+0 per-sample", "poe", True, mods=EIGHT,
+                               label="M=8", uni=False))
+    for arch, (_, _, hidden) in DEEP_STACKS.items():
+        for method, masked in (("joint_elbo", False), ("poe", True),
+                               ("jsd", False)):
+            others.append(GenericRoute(arch, method, masked,
+                                       mods=dict(hidden_dim=hidden),
+                                       label=f"hidden {hidden}"))
+    others += [GenericRoute("1+0", "joint_elbo", mods=TEN, label="M=10"),
+               GenericRoute("8+8", "poe", True, mods=TEN, label="M=10")]
+    n_cases, geo = 0, {}
+    for route in four + flagship + others:
+        rows = GENERIC_ROWS if route in four + flagship else (256,)
+        worst = 0.0
+        for b in rows:
+            dims, p = route.setup(device, b, SEED + b)
+            for learn_scale in (True, False):
+                inp = route.inputs(dims, gen, device)
+                worst = max(worst, check_step(
+                    route.name,
+                    route.step("kernel", p, inp, dims, consts, learn_scale),
+                    route.step("plain", p, inp, dims, consts, learn_scale),
+                    split_pairs(dims), f"B={b} learn_scale={learn_scale}",
+                    phase, quiet=True,
+                    excuse=lambda: route.excuse(p, inp, dims, consts)))
+                n_cases += 1
+        entry["max_abs_err"] = max(entry["max_abs_err"], worst)
+        dims, p0 = route.setup(device, 256, SEED)
+        launch_vs_steps(route, p0, dims, consts, hyper, launch_gen, device,
+                        phase=phase)
+        g = route.geometry(dims, device)
+        geo[route.name] = g
+        log(phase, f"{route.name} M={dims.m} B={list(rows)} learn_scale "
+            f"on/off: metrics+grads max_abs_err {worst:.3e} ok; "
+            f"{latent_multi.n_step_metrics(dims.m, route.method, route.uni)} "
+            f"metrics, "
+            f"{p0.numel()} params, {g['grid_blocks']} blocks, "
+            f"{g['phases']} phases, tables in "
+            + ("device memory" if g["tables_in_device_memory"]
+               else "shared memory"))
+    log(phase, f"{n_cases} steps held to the plain version (loss rtol "
+        f"{LOSS_RTOL}; metrics and grads rtol {STEP_RTOL} / atol "
+        f"{STEP_ATOL})")
+    if not geo[others[-1].name]["tables_in_device_memory"]:
+        raise SystemExit("the M=10 8+8 route was to keep its tables in "
+                         "device memory")
+    split_route_check(flagship[1], device, launch_gen, phase)
+
+    timed_routes = (four[0], four[7])  # joint_elbo; poe with masks
+    for route in timed_routes:
+        dims, p0 = route.setup(device, 256, SEED)
+        err = stepwise_epoch(route, dims, p0, consts, hyper, gen, device,
+                             phase)
+        entry["epoch_err"] = max(entry.get("epoch_err", 0.0), err)
+
+    # ---- timing, in turns: plain, kernel, kernel, plain
+    for route in timed_routes:
+        dims, p = route.setup(device, 256, SEED)
+        inp = route.inputs(dims, gen, device)
+        ker = lambda: route.step("kernel", p, inp, dims, consts)
+        ref = lambda: route.step("plain", p, inp, dims, consts)
+        t = [cuda_ms(ref, 30), cuda_ms(ker, 30), cuda_ms(ker, 30),
+             cuda_ms(ref, 30)]
+        timed = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                     library_ms=None, **route.bound(p, inp, dims))
+        timed.update(time_launch(route, p, dims, consts, hyper, gen, device,
+                                 phase))
+        entry["variants"][route.name] = timed
+        fl = generic_flops(dims, route.enc_passes, route.dec_passes)
+        log(phase, f"{route.name} B=256: kernel {t[1]:.4f}/{t[2]:.4f} ms, "
+            f"plain {t[0]:.4f}/{t[3]:.4f} ms per one-step launch; bound "
+            f"{timed['bound_ms']:.5f} ms by {timed['bound_by']} "
+            f"({fl / 1e6:.1f} MFLOP, {p.numel()} params); kernel "
+            f"{fl / (timed['ms'] * 1e-3) / 1e12:.3f} TFLOP/s = "
+            f"{100 * timed['bound_ms'] / timed['ms']:.2f} % of the bound's "
+            f"rate")
+
+
+def split_route_check(route, device, gen, phase, n=5):
+    """The trainer's epoch of the full complete batches for poe without its
+    unimodal ELBOs at the split layout's architecture: the state, kept in
+    the split layout, gathered into the general layout around ONE
+    ``generic_step`` launch must end bit for bit where the launch on the
+    general layout ends."""
+    import torch
+
+    from multivae_tpu_torch.models import build_model, make_modalities
+    from multivae_tpu_torch.ops import adam as adam_ops
+    from multivae_tpu_torch.ops import fused_generic as fg
+    from multivae_tpu_torch.ops import fused_step as fs
+    from multivae_tpu_torch.params import (FusedDims, dims_from,
+                                           generic_dims, layout_index,
+                                           model_flat_params)
+    from multivae_tpu_torch.train import trainer
+
+    cfg = flagship_cfg(route.method, seed=SEED, dropout_rate=MASK_RATE,
+                       **route.cfg_kw)
+    cfg.poe_unimodal_elbos = False
+    model = build_model(cfg, make_modalities(
+        cfg.input_dim, cfg.style_dim, cfg.likelihood), device, seed=SEED)
+    split, general = dims_from(cfg, 256), generic_dims(cfg, 256)
+    epoch = trainer.make_generic_epoch(cfg, model)
+    if not isinstance(split, FusedDims) or epoch is None:
+        raise SystemExit("poe without unimodal ELBOs at the split layout's "
+                         "architecture was to take the layer-stack step")
+    index = layout_index(split, general, model.mod_names).to(device)
+    p = model_flat_params(model, split)
+    q = p[index]
+    stacks = route.inputs(general, gen, device, steps=n)
+    xs = dict(zip(model.mod_names, stacks[:2]))
+    before = fg.KERNEL_LAUNCHES["generic_step"]
+    opt, _, _ = epoch(p, adam_ops.init_adam_state(p), xs, stacks[2],
+                      stacks[3])
+    launches = fg.KERNEL_LAUNCHES["generic_step"] - before
+    mu, nu = torch.zeros_like(q), torch.zeros_like(q)
+    route.launch_epoch(q, mu, nu, 0, stacks, general, fs.consts_from(cfg),
+                       adam_ops.adam_hyper(cfg))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a[index], b)
+               for a, b in ((p, q), (opt.mu, mu), (opt.nu, nu)))
+    log(phase, f"trainer epoch of {n} full batches, poe without unimodal "
+        f"ELBOs at the split layout's architecture, masks: {launches} "
+        f"generic_step launch; params and moments equal bits to the launch "
+        f"on the general layout {same}")
+    if launches != 1 or not same or opt.count != n:
+        raise SystemExit("the trainer's split-architecture route of the "
+                         "layer-stack step disagrees with its launch")
+
+
+def multimodal_slice(device, card: str):
+    """Phase multimodal-slice: ``workflows.train_exp`` on the card on the
+    four-block cohort (the train slices' cohort with its ROI block split
+    by measure) for joint_elbo and for poe with dropout 0.2. Returns each
+    run's launches, ``{path: {kernel: count}}``."""
+    phase = "multimodal-slice"
+    by_path = {}
+    with tempfile.TemporaryDirectory() as root:
+        datadir, _, _, _ = slice_cohort(root, phase)
+        split_roi_block(datadir)
+        complete, clinical, batching_s = epoch_batch_counts(datadir,
+                                                            **FOUR_BLOCK)
+        log(phase, f"four blocks {FOUR_BLOCK_NAMES} of widths "
+            f"{FOUR_BLOCK['input_dim']}: complete batches {complete}, "
+            f"clinical-only batches {clinical}; host batching "
+            f"{batching_s:.4f} s per epoch")
+        if (complete != sorted(EPOCH_COMPLETE)
+                or clinical != sorted(EPOCH_PRESENCE)):
+            raise SystemExit("unexpected four-block epoch batches")
+        train = dict(input_dims=FOUR_BLOCK["input_dim"],
+                     style_dim=FOUR_BLOCK["style_dim"])
+        for path, kw in MULTIMODAL_SLICES:
+            by_path[path] = generic_train_and_check(
+                root, path, {**train, **kw}, datadir, device, card, complete,
+                clinical, batching_s, phase=phase, names=FOUR_BLOCK_NAMES)
     return by_path
 
 
@@ -3960,6 +4255,10 @@ def main() -> int:
         entries["generic_step"] = timed("generic-kernel",
                                         generic_kernel_check(device))
         by_path.update(timed("generic-slice", generic_slice(device, smi)))
+        timed("multimodal-kernel",
+              multimodal_kernel_check(device, entries["generic_step"]))
+        by_path.update(timed("multimodal-slice",
+                             multimodal_slice(device, smi)))
         with tempfile.TemporaryDirectory() as root:
             paths, run = timed("eval-slice", eval_slice(device, smi, root))
             by_path.update(paths)

@@ -298,8 +298,29 @@ EPOCH_ARGS = (
 # every step and after every phase's barrier
 PHASES = ("hidden", "heads", "latents", "decode", "decoder grads",
           "latents backward", "hidden grad", "weight grads + Adam")
+
+
+class IntArray:
+    """An ``int *`` argument given as a tuple of Python ints: ctypes turns
+    the tuple into a C array that lives for the call."""
+
+    @classmethod
+    def from_param(cls, value):
+        return (ctypes.c_int * len(value))(*value)
+
+
+class PtrArray:
+    """A ``const float *const *`` argument given as a tuple of addresses
+    (Python ints), as :class:`IntArray`."""
+
+    @classmethod
+    def from_param(cls, value):
+        return (ctypes.c_void_p * len(value))(*value)
+
+
 _CTYPES = {"ptr": ctypes.c_void_p, "i32": ctypes.c_int,
-           "i64": ctypes.c_longlong, "f32": ctypes.c_float}
+           "i64": ctypes.c_longlong, "f32": ctypes.c_float,
+           "ptrs": PtrArray, "i32s": IntArray}
 
 
 def argtypes_of(table) -> list:

@@ -19,11 +19,14 @@ layout (:func:`flat_views`); :func:`split_flat_to_ravel` and
 :func:`ravel_to_split_flat` convert such a buffer to and from the JAX
 package's raveled ``FlatAdamState`` vectors.
 
-An architecture outside the split layout (any encoder and decoder depth,
-any of the three output-scale modes) trains on the general flat layout
+An architecture outside the split layout (any modality count from 2, any
+encoder and decoder depth, any of the three output-scale modes) trains on
+the general flat layout
 (:class:`GenericDims`, :func:`generic_shapes`): the leaves of the flax tree
 themselves, each in the JAX layout, back to back in model order.
-:func:`dims_from` picks the layout of a config, and :func:`flat_size`,
+:func:`dims_from` picks the layout of a config (:func:`generic_dims` gives
+any config's general-layout dims, :func:`layout_index` moves a buffer
+between the two layouts), and :func:`flat_size`,
 :func:`flat_views`, :func:`model_flat_params`, :func:`load_flat_params`,
 :func:`grads_to_flat`, :func:`split_flat_to_ravel` and
 :func:`ravel_to_split_flat` serve both, by the type of the dims.
@@ -33,7 +36,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Mapping, NamedTuple
+from typing import Dict, Mapping, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -50,21 +53,43 @@ class FusedDims(NamedTuple):
 
 
 class GenericDims(NamedTuple):
-    """The sizes of the general flat layout: :class:`FusedDims` plus the
-    depths, the output-scale mode and the likelihood. A style width of 0 is
-    a modality without style latents (the unfactorized latent)."""
+    """The sizes of the general flat layout: the batch, per modality (in
+    model order) its width and its style width, the hidden and content
+    widths, the depths, the output-scale mode and the likelihood. A style
+    width of 0 is a modality without style latents (the unfactorized
+    latent)."""
     b: int
-    d1: int
-    d2: int
+    ds: Tuple[int, ...]  # per-modality widths
     h: int
     cd: int
-    s1: int
-    s2: int
+    ss: Tuple[int, ...]  # per-modality style widths
     n_enc: int          # encoder hidden layers (>= 1)
     n_dec: int          # decoder hidden layers (>= 0)
     sample_scale: bool  # a per-sample output scale (``out_heads``)
     # one of ``ops.likelihoods.LIKELIHOODS`` (the kernels take its index)
     likelihood: str = "normal"
+
+    @property
+    def m(self) -> int:
+        """The modality count."""
+        return len(self.ds)
+
+    # the first two modalities' sizes under the split layout's names
+    @property
+    def d1(self) -> int:
+        return self.ds[0]
+
+    @property
+    def d2(self) -> int:
+        return self.ds[1]
+
+    @property
+    def s1(self) -> int:
+        return self.ss[0]
+
+    @property
+    def s2(self) -> int:
+        return self.ss[1]
 
 
 def split_layout(cfg) -> bool:
@@ -80,20 +105,25 @@ def split_layout(cfg) -> bool:
             and not cfg.learn_output_sample_scale)
 
 
+def generic_dims(cfg, batch_size: int) -> GenericDims:
+    """The general layout's dims of ``cfg``, whatever its architecture
+    (``Config.derive`` gives an unfactorized latent style widths 0)."""
+    return GenericDims(
+        b=batch_size, ds=tuple(int(d) for d in cfg.input_dim),
+        h=cfg.hidden_dim, cd=cfg.class_dim,
+        ss=tuple(int(s) for s in cfg.style_dim),
+        n_enc=int(cfg.num_hidden_layer_encoder),
+        n_dec=int(cfg.num_hidden_layer_decoder),
+        sample_scale=bool(cfg.learn_output_sample_scale),
+        likelihood=cfg.likelihood)
+
+
 def dims_from(cfg, batch_size: int):
     """The dims of the layout ``cfg`` trains on: :class:`FusedDims` for the
     split layout, :class:`GenericDims` for any other architecture or
-    likelihood (``Config.derive`` gives an unfactorized latent style widths
-    0)."""
+    likelihood."""
     if not split_layout(cfg):
-        return GenericDims(
-            b=batch_size, d1=cfg.input_dim[0], d2=cfg.input_dim[1],
-            h=cfg.hidden_dim, cd=cfg.class_dim, s1=cfg.style_dim[0],
-            s2=cfg.style_dim[1],
-            n_enc=int(cfg.num_hidden_layer_encoder),
-            n_dec=int(cfg.num_hidden_layer_decoder),
-            sample_scale=bool(cfg.learn_output_sample_scale),
-            likelihood=cfg.likelihood)
+        return generic_dims(cfg, batch_size)
     return FusedDims(b=batch_size, d1=cfg.input_dim[0], d2=cfg.input_dim[1],
                      h=cfg.hidden_dim, cd=cfg.class_dim,
                      s1=cfg.style_dim[0], s2=cfg.style_dim[1])
@@ -281,39 +311,38 @@ def split_shapes(dims: FusedDims) -> Dict[str, tuple]:
 
 
 # The general flat layout: the leaves of the flax tree, each in the JAX layout
-# ([in, out] kernels), back to back in this order: encoder 1, encoder 2,
-# decoder 1, decoder 2 (model order); inside an encoder ``hidden_0`` ..
-# ``hidden_{n_enc - 1}`` then ``heads``; inside a decoder ``hidden_0`` ..
-# ``hidden_{n_dec - 1}`` then ``out_mu`` and ``out_logvar``, or ``out_heads``
-# with a per-sample scale; of a layer the kernel, then the bias. Names are
-# ``enc1/hidden_0/kernel``; csrc/generic_step.cu (make_layout) computes the
-# same offsets.
+# ([in, out] kernels), back to back in this order: encoder 1 .. encoder M,
+# decoder 1 .. decoder M (model order, whatever the names' sorted order);
+# inside an encoder ``hidden_0`` .. ``hidden_{n_enc - 1}`` then ``heads``;
+# inside a decoder ``hidden_0`` .. ``hidden_{n_dec - 1}`` then ``out_mu`` and
+# ``out_logvar``, or ``out_heads`` with a per-sample scale; of a layer the
+# kernel, then the bias. Names are ``enc1/hidden_0/kernel``;
+# csrc/generic_step.cu (make_layout) computes the same offsets.
 def generic_shapes(dims: GenericDims) -> Dict[str, tuple]:
     """Shape of every tensor of the general layout, in its order."""
     shapes = {}
-    ds, ss = (dims.d1, dims.d2), (dims.s1, dims.s2)
-    for e in range(2):
-        width = ds[e]
+    for e, (d, s) in enumerate(zip(dims.ds, dims.ss)):
+        width = d
         for i in range(dims.n_enc):
             shapes[f"enc{e + 1}/hidden_{i}/kernel"] = (width, dims.h)
             shapes[f"enc{e + 1}/hidden_{i}/bias"] = (dims.h,)
             width = dims.h
-        n_heads = 2 * dims.cd + 2 * ss[e]
+        n_heads = 2 * dims.cd + 2 * s
         shapes[f"enc{e + 1}/heads/kernel"] = (width, n_heads)
         shapes[f"enc{e + 1}/heads/bias"] = (n_heads,)
-    for e in range(2):
-        width = ss[e] + dims.cd
+    for e, (d, s) in enumerate(zip(dims.ds, dims.ss)):
+        width = s + dims.cd
         for i in range(dims.n_dec):
             shapes[f"dec{e + 1}/hidden_{i}/kernel"] = (width, dims.h)
             shapes[f"dec{e + 1}/hidden_{i}/bias"] = (dims.h,)
             width = dims.h
         if dims.sample_scale:
-            shapes[f"dec{e + 1}/out_heads/kernel"] = (width, 2 * ds[e])
-            shapes[f"dec{e + 1}/out_heads/bias"] = (2 * ds[e],)
+            shapes[f"dec{e + 1}/out_heads/kernel"] = (width, 2 * d)
+            shapes[f"dec{e + 1}/out_heads/bias"] = (2 * d,)
         else:
-            shapes[f"dec{e + 1}/out_mu/kernel"] = (width, ds[e])
-            shapes[f"dec{e + 1}/out_mu/bias"] = (ds[e],)
-            shapes[f"dec{e + 1}/out_logvar"] = (1, ds[e])
+            shapes[f"dec{e + 1}/out_mu/kernel"] = (width, d)
+            shapes[f"dec{e + 1}/out_mu/bias"] = (d,)
+            shapes[f"dec{e + 1}/out_logvar"] = (1, d)
     return shapes
 
 
@@ -422,9 +451,22 @@ def load_flat_params(model, flat: torch.Tensor, dims) -> None:
     model.load_state_dict(sd, strict=True)
 
 
+def layout_index(src, dst, mod_names) -> torch.Tensor:
+    """Indices that gather a flat buffer of the layout ``src`` into the
+    layout ``dst`` of the same params: ``buf[layout_index(src, dst,
+    names)]`` holds every tensor in ``dst``'s place (the split and the
+    general layout hold the same floats in another order)."""
+    where = torch.arange(flat_size(src), dtype=torch.float64)
+    return _tree_flat(_flat_tree(where, src, mod_names), dst,
+                      mod_names).long()
+
+
 def ravel_order(tree: Mapping) -> list:
     """The flat paths of a param tree in ``jax.flatten_util.ravel_pytree``
-    order: dict keys sorted at every level."""
+    order: dict keys sorted at every level. That is not model order once a
+    name sorts apart from its place (``clinical, rois, mod2, mod3`` ravel as
+    ``clinical, mod2, mod3, rois``): the general layout keeps model order
+    and the conversions go by path."""
     return sorted(flatten_tree(tree), key=lambda p: tuple(p.split("/")))
 
 

@@ -17,12 +17,14 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
   that runs all its steps with Adam inside. Without ``fused_training``
   every batch takes the general autograd step, in the same order with the
   same noise and masks;
-* a config outside the split layout (more encoder hidden layers, decoder
-  hidden layers, a per-sample output scale, the laplace, bernoulli or
-  categorical likelihood, an unfactorized latent) inside the layer-stack
-  step's envelope (``ops/fused_generic.py``) sends its full complete
-  batches to that kernel (``csrc/generic_step.cu``, persistent as well:
-  one launch with Adam inside) and every other batch
+* a config the method step does not take (a modality count other than 2,
+  more encoder hidden layers, decoder hidden layers, a per-sample output
+  scale, the laplace, bernoulli or categorical likelihood, an unfactorized
+  latent, poe without its unimodal ELBOs) inside the layer-stack step's
+  envelope (``ops/fused_generic.py``) sends its full complete batches to
+  that kernel (``csrc/generic_step.cu``, persistent as well: one launch
+  with Adam inside; at the split layout's architecture the state is
+  gathered into the general layout around the launch) and every other batch
   (the partial complete batch, the single-present groups) to the general
   autograd step, as the JAX package does (``trainer.py:896-899,
   925-944``);
@@ -94,7 +96,14 @@ from ..ops import (
 )
 from ..ops.adam import AdamState, adam_hyper
 from ..parallel import data_mesh, make_mesh, spread, visible_cards
-from ..params import dims_from, load_flat_params, model_flat_params
+from ..params import (
+    GenericDims,
+    dims_from,
+    generic_dims,
+    layout_index,
+    load_flat_params,
+    model_flat_params,
+)
 from ..utils.filehandling import model_checkpoint_dir, model_log_dir
 from .checkpoint import save_checkpoint, save_networks
 from .logging import MetricLogger
@@ -113,13 +122,15 @@ def unported_features(cfg, model) -> List[str]:
     if getattr(cfg, "precision", "float32") != "float32":
         out.append(f"precision={cfg.precision!r}: bf16 kernel products "
                    f"(ROADMAP Queue 1 item 8)")
-    if not fused_step.split_layout_ok(cfg, model):
-        # outside the split layout the layer-stack step's envelope decides
+    example = {m.name: None for m in model.modalities}
+    if not fused_methods.supports_method_fused(cfg, model, example):
+        # where the method step does not take the full complete batches,
+        # the layer-stack step's envelope decides
         out += fused_generic.envelope_gaps(cfg, model)
         if cfg.data_parallel > 1:
-            out.append("data_parallel > 1 with an architecture outside the "
-                       "split layout: the row-sharded general step (ROADMAP "
-                       "Queue 1 item 4)")
+            out.append("data_parallel > 1 with a config the method step "
+                       "does not take: the row-sharded general step "
+                       "(ROADMAP Queue 1 item 4)")
     if cfg.tensor_parallel > 1:
         out.append("tensor_parallel > 1: tensor-parallel training (ROADMAP "
                    "Queue 1 item 4)")
@@ -253,30 +264,43 @@ def make_group_fused_epoch(cfg, model, key):
 
 
 def make_generic_epoch(cfg, model):
-    """The kernel epoch of the full complete batches of an architecture
-    outside the split layout (``trainer.py:896-899``): the layer-stack step
-    (``ops/fused_generic.py``), or None when the config is the split
-    layout's or outside that step's envelope. Same contract as
+    """The kernel epoch of the full complete batches of a config the method
+    step does not take (``trainer.py:896-899``): the layer-stack step
+    (``ops/fused_generic.py``), or None when the method step takes them or
+    the config is outside the layer-stack step's envelope. Same contract as
     :func:`make_group_fused_epoch`'s functions; the metric rows are in the
-    TPU kernel's order."""
+    TPU kernel's order. At the split layout's architecture (poe without its
+    unimodal ELBOs) the state is gathered into the general layout for the
+    launch and scattered back after it."""
     example = {m.name: None for m in model.modalities}
-    if (fused_step.split_layout_ok(cfg, model)
+    if (fused_methods.supports_method_fused(cfg, model, example)
             or not fused_generic.supports_generic_fused(cfg, model, example)):
         return None
     mod_names = [m.name for m in model.modalities]
-    dims = dims_from(cfg, cfg.batch_size)
+    dims = generic_dims(cfg, cfg.batch_size)
+    layout = dims_from(cfg, cfg.batch_size)
+    gather = (None if isinstance(layout, GenericDims)
+              else layout_index(layout, dims, mod_names))
     consts = fused_step.consts_from(cfg)
     hyper = adam_hyper(cfg)
     learn_scale = bool(cfg.learn_output_scale)
     method = cfg.method
-    names = fused_generic.generic_metric_names(model, method)
-    order = fused_generic.metric_permutation(model, method)
+    uni = bool(cfg.poe_unimodal_elbos)
+    names = fused_generic.generic_metric_names(model, method, uni)
+    order = fused_generic.metric_permutation(model, method, uni)
 
     def generic(p, opt, xs, noise, masks=None):
+        state = (p, opt.mu, opt.nu)
+        if gather is not None:
+            index = gather.to(p.device)
+            state = tuple(t[index] for t in state)
         metrics = fused_generic.generic_epoch_flat(
-            method, p, opt.mu, opt.nu, opt.count, xs[mod_names[0]],
-            xs[mod_names[1]], noise, dims, consts, hyper, learn_scale, masks,
-            order)
+            method, *state, opt.count, [xs[m] for m in mod_names], noise,
+            dims, consts, hyper, learn_scale, masks, order,
+            unimodal_elbos=uni)
+        if gather is not None:
+            for t, g in zip((p, opt.mu, opt.nu), state):
+                t[index] = g
         return (AdamState(opt.count + len(noise), opt.mu, opt.nu), metrics,
                 names)
     return generic
@@ -395,7 +419,7 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
     logs = _Logs()
     n_steps = 0
 
-    # outside the split layout only the full complete batches have a kernel
+    # on the layer-stack step only the full complete batches have a kernel
     generic_epoch = make_generic_epoch(cfg, model) if fused else None
 
     def run_general(data, eps, batch_masks, log: bool):

@@ -175,24 +175,34 @@ def test_presence_epoch_checks_mod_idx_and_method():
 
 # ------------------------------------------------ the C arguments' packing
 KIND_OF = {"ptr": ctypes.c_void_p, "i32": ctypes.c_int,
-           "i64": ctypes.c_longlong, "f32": ctypes.c_float}
+           "i64": ctypes.c_longlong, "f32": ctypes.c_float,
+           "ptrs": fused_step.PtrArray, "i32s": fused_step.IntArray}
 
 
 def check_packed(table, packed, expect):
     """``packed`` against the argument table: one value per argument, a
-    Python int (or None) where the table says pointer or integer and a
-    float where it says f32, each accepted by its ctypes type, and the
-    named values where ``expect`` gives them."""
+    Python int (or None) where the table says pointer or integer, a float
+    where it says f32 and a tuple of ints where it says one per modality
+    (``ptrs``, ``i32s``), each accepted by its ctypes type, and the named
+    values where ``expect`` gives them."""
     assert len(packed) == len(table)
     names = [name for name, _ in table]
     assert len(set(names)) == len(names)
+
+    def is_int(v):
+        return isinstance(v, int) and not isinstance(v, bool)
+
     for (name, kind), value in zip(table, packed):
         if kind == "f32":
             assert isinstance(value, float), name
+            KIND_OF[kind](value)  # ctypes takes it
+        elif kind in ("ptrs", "i32s"):
+            assert isinstance(value, tuple) and value, name
+            assert all(is_int(v) for v in value), name
+            KIND_OF[kind].from_param(value)
         else:
-            assert value is None or (isinstance(value, int)
-                                     and not isinstance(value, bool)), name
-        KIND_OF[kind](value)  # ctypes takes it
+            assert value is None or is_int(value), name
+            KIND_OF[kind](value)
         if name in expect:
             assert value == expect[name], name
     assert fused_step.argtypes_of(table) == [KIND_OF[k] for _, k in table]

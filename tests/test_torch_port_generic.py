@@ -223,9 +223,10 @@ def hold_step(method, arch, scale, masked, seed):
     assert fused_generic.supports_generic_fused(cfg, model, batch)
     launches = dict(fused_generic.KERNEL_LAUNCHES)
     tmet, tg = fused_generic.generic_step_flat(
-        method, flat_of(model, tree, dims), torch.from_numpy(x1),
-        torch.from_numpy(x2), torch.from_numpy(noise), dims,
-        fused_step.consts_from(cfg), cfg.learn_output_scale, masks)
+        method, flat_of(model, tree, dims),
+        (torch.from_numpy(x1), torch.from_numpy(x2)),
+        torch.from_numpy(noise), dims, fused_step.consts_from(cfg),
+        cfg.learn_output_scale, masks)
     assert fused_generic.KERNEL_LAUNCHES == launches  # plain on the CPU
     names = fused_methods.method_metric_names(model, method)
     assert set(names) == set(metrics)
@@ -309,7 +310,8 @@ def hold_epoch(method, arch, scale, masked, seed, steps=3, count=4):
     v = flat_of(model, nu, dims)
     names = fused_generic.generic_metric_names(model, method)
     got = fused_generic.generic_epoch_flat(
-        method, p, m, v, count, torch.from_numpy(x1s), torch.from_numpy(x2s),
+        method, p, m, v, count,
+        (torch.from_numpy(x1s), torch.from_numpy(x2s)),
         torch.from_numpy(noise), dims, fused_step.consts_from(cfg),
         adam_ops.adam_hyper(cfg), cfg.learn_output_scale, masks,
         fused_generic.metric_permutation(model, method))
@@ -446,7 +448,7 @@ def test_general_step_matches_the_plain_version(method, arch, scale, masked):
         hyper, masks)
     m, v = torch.zeros_like(p_ker), torch.zeros_like(p_ker)
     got = fused_generic.generic_epoch_flat(
-        method, p_ker, m, v, 0, x1[None], x2[None], noise[None], dims,
+        method, p_ker, m, v, 0, (x1[None], x2[None]), noise[None], dims,
         fused_step.consts_from(cfg), hyper, cfg.learn_output_scale,
         None if masks is None else masks[None])
     close(got[0, 0], loss, rtol=LOSS_RTOL, atol=0)
@@ -512,14 +514,22 @@ def test_slice_configs_are_the_jax_generic_kernels(method, arch):
 @pytest.mark.parametrize("kw,what", [
     (dict(likelihood="laplace"), None),
     (dict(factorized_representation=False), None),
-    (dict(input_dim=[5, 16, 7], style_dim=[2, 3, 2]), "3 modalities"),
-    (dict(num_hidden_layer_encoder=5), "num_hidden_layer_encoder"),
-    (dict(num_hidden_layer_decoder=5), "num_hidden_layer_decoder"),
+    (dict(input_dim=[5, 16, 7], style_dim=[2, 3, 2]), None),
+    (dict(num_hidden_layer_encoder=5), None),
+    (dict(num_hidden_layer_decoder=5), None),
+    (dict(input_dim=[3] * (fused_generic.MAX_MODS + 1),
+          style_dim=[1] * (fused_generic.MAX_MODS + 1)),
+     f"{fused_generic.MAX_MODS + 1} modalities"),
+    (dict(num_hidden_layer_encoder=fused_generic.MAX_DEPTH + 1),
+     "num_hidden_layer_encoder"),
+    (dict(num_hidden_layer_decoder=fused_generic.MAX_DEPTH + 1),
+     "num_hidden_layer_decoder"),
 ])
 def test_outside_the_envelope_names_its_roadmap_item(kw, what):
-    """M = 3 and a depth of 5 stay outside the step's envelope and raise
-    naming their ROADMAP item; the other likelihoods and the unfactorized
-    latent (``what`` None) are inside it and pass the trainer's check."""
+    """M = 3 and a depth of 5 are inside the step's envelope, as are the
+    other likelihoods and the unfactorized latent (``what`` None): they pass
+    the trainer's check. A modality count or a depth past the kernel's caps
+    raises, naming its ROADMAP item."""
     from multivae_tpu_torch.train import trainer
 
     base = cfg_kw("joint_elbo", "deep-A-like")
@@ -547,11 +557,11 @@ def test_step_refuses_wrong_masks_and_methods():
     x1, x2, noise = (torch.from_numpy(a) for a in batch_np("poe", 50))
     consts = fused_step.consts_from(cfg)
     with pytest.raises(ValueError, match="dropout masks"):
-        fused_generic.generic_step_flat("poe", p, x1, x2, noise, dims,
+        fused_generic.generic_step_flat("poe", p, (x1, x2), noise, dims,
                                         consts, True,
                                         torch.ones(6, B, HIDDEN))
     with pytest.raises(ValueError, match="unknown method"):
-        fused_generic.generic_step_flat("mopoe", p, x1, x2, noise, dims,
+        fused_generic.generic_step_flat("mopoe", p, (x1, x2), noise, dims,
                                         consts)
     assert fused_generic.n_dropout_masks("poe", 0.2, 2, 1) == 12
     assert fused_generic.n_dropout_masks("moe", 0.2, 2, 1) == 6

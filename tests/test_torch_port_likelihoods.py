@@ -149,9 +149,10 @@ def hold_step(kw, seed):
     method = kw["method"]
     launches = dict(fused_generic.KERNEL_LAUNCHES)
     tmet, tg = fused_generic.generic_step_flat(
-        method, flat_of(model, tree, dims), torch.from_numpy(x1),
-        torch.from_numpy(x2), torch.from_numpy(noise), dims,
-        fused_step.consts_from(cfg), cfg.learn_output_scale)
+        method, flat_of(model, tree, dims),
+        (torch.from_numpy(x1), torch.from_numpy(x2)),
+        torch.from_numpy(noise), dims, fused_step.consts_from(cfg),
+        cfg.learn_output_scale)
     assert fused_generic.KERNEL_LAUNCHES == launches  # plain on the CPU
     # the epoch's rows are exactly the keys total_loss emits
     names = fused_generic.generic_metric_names(model, method)
@@ -233,9 +234,9 @@ def test_laplace_tie_takes_the_jax_gradient(method):
         loss.backward()
     auto = tree_of(bridge.grads_to_flat(model, dims), dims)
     _, plain = fused_generic.generic_step_flat(
-        method, flat_of(model, tree, dims), torch.from_numpy(x1),
-        torch.from_numpy(x2), torch.from_numpy(noise), dims,
-        fused_step.consts_from(cfg))
+        method, flat_of(model, tree, dims),
+        (torch.from_numpy(x1), torch.from_numpy(x2)),
+        torch.from_numpy(noise), dims, fused_step.consts_from(cfg))
     plain = tree_of(plain, dims)
     # every row ties in column 0: its bias gradient is -1 / scale per
     # decode (poe's unimodal decode adds a second)
@@ -281,7 +282,8 @@ def hold_epoch(kw, seed, steps=3, count=4):
     method = kw["method"]
     names = fused_generic.generic_metric_names(model, method)
     got = fused_generic.generic_epoch_flat(
-        method, p, m, v, count, torch.from_numpy(x1s), torch.from_numpy(x2s),
+        method, p, m, v, count,
+        (torch.from_numpy(x1s), torch.from_numpy(x2s)),
         torch.from_numpy(noise), dims, fused_step.consts_from(cfg),
         adam_ops.adam_hyper(cfg), cfg.learn_output_scale, None,
         fused_generic.metric_permutation(model, method))

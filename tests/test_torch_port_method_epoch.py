@@ -34,8 +34,8 @@ ARCHS = {"deep-A": (1, 1, True), "deep-B": (2, 1, False)}
 
 def gdims(arch, b=DIMS.b):
     n_enc, n_dec, sample = ARCHS[arch]
-    return bridge.GenericDims(b=b, d1=DIMS.d1, d2=DIMS.d2, h=DIMS.h,
-                              cd=DIMS.cd, s1=DIMS.s1, s2=DIMS.s2,
+    return bridge.GenericDims(b=b, ds=(DIMS.d1, DIMS.d2), h=DIMS.h,
+                              cd=DIMS.cd, ss=(DIMS.s1, DIMS.s2),
                               n_enc=n_enc, n_dec=n_dec, sample_scale=sample)
 
 
@@ -102,14 +102,14 @@ def test_generic_epoch_of_one_is_step_then_adam(arch, method, masked, count):
     x1s, x2s, noise, masks = stacks(dims, method,
                                     generic_masks(method, masked, dims), 1)
     p, mu, nu = state(dims)
-    names = fused_generic.method_metric_names(_Model, method)
+    names = fused_methods.method_metric_names(_Model, method)
     order = fused_generic.metric_permutation(_Model, method)
     metrics = fused_generic.generic_epoch_flat(
-        method, p, mu, nu, count, x1s, x2s, noise, dims, CONSTS, HYPER, True,
-        masks, order)
+        method, p, mu, nu, count, (x1s, x2s), noise, dims, CONSTS, HYPER,
+        True, masks, order)
     q, qm, qv = state(dims)
     m, g = fused_generic.generic_step_flat(
-        method, q, x1s[0], x2s[0], noise[0], dims, CONSTS, True,
+        method, q, (x1s[0], x2s[0]), noise[0], dims, CONSTS, True,
         None if masks is None else masks[0])
     adam_ops.adam_update(q, qm, qv, g, count + 1, HYPER)
     assert metrics.shape == (1, len(names))
@@ -139,9 +139,9 @@ def test_epochs_count_nothing_on_the_cpu():
                                     *stacks(DIMS, "moe", 0, 2)[:3], DIMS,
                                     CONSTS, HYPER)
     dims = gdims("deep-A")
-    fused_generic.generic_epoch_flat("jsd", *state(dims), 0,
-                                     *stacks(dims, "jsd", 0, 2)[:3], dims,
-                                     CONSTS, HYPER)
+    x1s, x2s, noise, _ = stacks(dims, "jsd", 0, 2)
+    fused_generic.generic_epoch_flat("jsd", *state(dims), 0, (x1s, x2s),
+                                     noise, dims, CONSTS, HYPER)
     assert before == (fused_methods.KERNEL_LAUNCHES,
                       fused_methods.KERNEL_STEPS,
                       fused_generic.KERNEL_LAUNCHES,
@@ -175,8 +175,9 @@ def test_generic_epoch_refuses_a_bad_stack(kind, error, match, which):
     args[which] = bad_stack(kind, args[which])
     p, mu, nu = state(dims)
     with pytest.raises(error, match=match):
-        fused_generic.generic_epoch_flat("moe", p, mu, nu, 0, *args[:3],
-                                         dims, CONSTS, HYPER, True, args[3])
+        fused_generic.generic_epoch_flat("moe", p, mu, nu, 0, args[:2],
+                                         args[2], dims, CONSTS, HYPER, True,
+                                         args[3])
     assert torch.equal(p, state(dims)[0])
 
 
@@ -189,7 +190,7 @@ def test_epochs_refuse_the_wrong_mask_count():
     dims = gdims("deep-A")
     x1s, x2s, noise, masks = stacks(dims, "moe", 3, 1)  # moe takes 4
     with pytest.raises(ValueError, match="shape"):
-        fused_generic.generic_epoch_flat("moe", *state(dims), 0, x1s, x2s,
+        fused_generic.generic_epoch_flat("moe", *state(dims), 0, (x1s, x2s),
                                          noise, dims, CONSTS, HYPER, True,
                                          masks)
 
@@ -201,8 +202,8 @@ def test_epochs_check_the_method_and_the_device():
                                         CONSTS, HYPER)
     dims = gdims("deep-A")
     with pytest.raises(ValueError, match="unknown method"):
-        fused_generic.generic_epoch_flat("mopoe", *state(dims), 0, *x, dims,
-                                         CONSTS, HYPER)
+        fused_generic.generic_epoch_flat("mopoe", *state(dims), 0, x[:2],
+                                         x[2], dims, CONSTS, HYPER)
     meta = torch.empty(bridge.flat_size(DIMS), device="meta")
     xm = torch.empty((1, DIMS.b, 1), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -210,7 +211,7 @@ def test_epochs_check_the_method_and_the_device():
                                         xm, DIMS, CONSTS, HYPER)
     gm = torch.empty(bridge.flat_size(dims), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
-        fused_generic.generic_epoch_flat("moe", gm, gm, gm, 0, xm, xm, xm,
+        fused_generic.generic_epoch_flat("moe", gm, gm, gm, 0, (xm, xm), xm,
                                          dims, CONSTS, HYPER)
 
 
@@ -226,10 +227,11 @@ def test_phase_times_trace_the_kernels_only():
     dims = gdims("deep-B")
     gtimes = torch.zeros(n, len(fused_generic.phases(dims)) + 1,
                          dtype=torch.int64)
+    x1s, x2s, noise, _ = stacks(dims, "jsd", 0, n)
     with pytest.raises(ValueError, match="phase_times"):
         fused_generic.generic_epoch_flat(
-            "jsd", *state(dims), 0, *stacks(dims, "jsd", 0, n)[:3], dims,
-            CONSTS, HYPER, True, None, None, gtimes)
+            "jsd", *state(dims), 0, (x1s, x2s), noise, dims, CONSTS, HYPER,
+            True, None, None, gtimes)
     with pytest.raises(ValueError, match=r"\[2, 13\]"):
         fused_step.check_phase_times("generic_step", gtimes.device,
                                      gtimes[:, :-1], n,
@@ -239,7 +241,7 @@ def test_phase_times_trace_the_kernels_only():
 @pytest.mark.parametrize("n_enc,n_dec", [(1, 0), (1, 1), (2, 1), (3, 2),
                                          (4, 4)])
 def test_generic_phases_follow_the_depths(n_enc, n_dec):
-    dims = bridge.GenericDims(b=4, d1=3, d2=5, h=8, cd=2, s1=1, s2=2,
+    dims = bridge.GenericDims(b=4, ds=(3, 5), h=8, cd=2, ss=(1, 2),
                               n_enc=n_enc, n_dec=n_dec, sample_scale=False)
     names = fused_generic.phases(dims)
     assert len(names) == 2 * (n_enc + n_dec) + 6
@@ -298,21 +300,33 @@ def test_generic_epoch_args_follow_the_table(arch):
     grads, metrics = torch.empty_like(p), torch.empty(2, 17)
     work = torch.empty(7)
     packed = fused_generic.pack_epoch_args(
-        p, mu, nu, grads, metrics, x1s, x2s, noise, masks, work, "jsd", dims,
-        CONSTS, True, 9, HYPER, 0)
+        p, mu, nu, grads, metrics, (x1s, x2s), noise, masks, work, "jsd",
+        dims, CONSTS, True, 9, HYPER, 0)
     check_packed(fused_generic.EPOCH_ARGS, packed, {
-        "params": p.data_ptr(), "x1s": x1s.data_ptr(),
-        "x2s": x2s.data_ptr(), "noise": noise.data_ptr(),
+        "params": p.data_ptr(), "xs": (x1s.data_ptr(), x2s.data_ptr()),
+        "noise": noise.data_ptr(),
         "masks": masks.data_ptr(), "work": work.data_ptr(), "n": 2,
-        "method": fused_generic.METHODS.index("jsd"), "b": dims.b,
+        "method": fused_generic.METHODS.index("jsd"), "uni": 0, "b": dims.b,
+        "m": 2, "ds": (DIMS.d1, DIMS.d2), "ss": (DIMS.s1, DIMS.s2),
         "h": dims.h, "n_enc": dims.n_enc, "n_dec": dims.n_dec,
         "sample_scale": int(dims.sample_scale), "learn_scale": 1,
         "likelihood": 0, "count": 9, "lr": HYPER.lr, "eps": HYPER.eps,
         "phase_times": None, "stream": 0})
-    # the method kernel's arguments with the depths, the scale mode and the
-    # likelihood after the widths
+    # the method kernel's arguments, the batches and widths per modality as
+    # arrays, poe's unimodal flag and the modality count beside them, and
+    # the depths, the scale mode and the likelihood after the widths
     depth = ("n_enc", "n_dec", "sample_scale", "likelihood")
+    arrays = {"xs": ["x1s", "x2s"], "ds": ["d1", "d2"], "ss": ["s1", "s2"]}
     names = [n for n, _ in fused_generic.EPOCH_ARGS]
-    assert [n for n in names if n not in depth] == [
+    assert [x for n in names if n not in depth + ("uni", "m")
+            for x in arrays.get(n, [n])] == [
         n for n, _ in fused_methods.EPOCH_ARGS]
-    assert names[names.index("s2") + 1:names.index("s2") + 5] == list(depth)
+    assert names[names.index("ss") + 1:names.index("ss") + 5] == list(depth)
+    poe = fused_generic.pack_epoch_args(
+        p, mu, nu, grads, metrics, (x1s, x2s), noise, masks, work, "poe",
+        dims, CONSTS, True, 9, HYPER, 0, unimodal_elbos=False)
+    assert poe[names.index("uni")] == 0
+    poe = fused_generic.pack_epoch_args(
+        p, mu, nu, grads, metrics, (x1s, x2s), noise, masks, work, "poe",
+        dims, CONSTS, True, 9, HYPER, 0)
+    assert poe[names.index("uni")] == 1

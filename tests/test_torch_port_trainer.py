@@ -369,15 +369,15 @@ def test_resume_continues_exactly(cohort, tmp_path):
 
 
 UNPORTED = [
-    # outside the layer-stack step's envelope, and a deep config's
-    # data-parallel route (the row-sharded general step); the other
-    # likelihoods and the unfactorized latent train, but not at these
-    # depths nor data-parallel
-    dict(likelihood="laplace", num_hidden_layer_encoder=5),
-    dict(factorized_representation=False, num_hidden_layer_decoder=5),
+    # outside the layer-stack step's envelope (a depth past its cap of 8),
+    # and a deep config's data-parallel route (the row-sharded general
+    # step); the other likelihoods and the unfactorized latent train, but
+    # not at these depths nor data-parallel
+    dict(likelihood="laplace", num_hidden_layer_encoder=9),
+    dict(factorized_representation=False, num_hidden_layer_decoder=9),
     dict(likelihood="bernoulli", data_parallel=2),
     dict(num_hidden_layer_decoder=1, data_parallel=2),
-    dict(out_scale_per_subject=True, num_hidden_layer_encoder=5),
+    dict(out_scale_per_subject=True, num_hidden_layer_encoder=9),
     dict(data_parallel=2, fused_training=False),
     dict(tensor_parallel=2), dict(num_models=2, tensor_parallel=2),
     dict(profile_dir="trace"),
@@ -764,12 +764,12 @@ def test_deep_config_routes(cohort, monkeypatch, case):
     step_fn, general_fn = (fused_generic.generic_step_flat,
                            trainer.general_step)
 
-    def generic_step(method, p, x1, x2, noise, dims, consts, learn_scale,
-                     masks=None):
-        calls["generic"].append((len(x1), None if masks is None
+    def generic_step(method, p, xs, noise, dims, consts, learn_scale,
+                     masks=None, **kw):
+        calls["generic"].append((len(xs[0]), None if masks is None
                                  else tuple(masks.shape)))
-        return step_fn(method, p, x1, x2, noise, dims, consts, learn_scale,
-                       masks)
+        return step_fn(method, p, xs, noise, dims, consts, learn_scale,
+                       masks, **kw)
 
     def general_step(cfg_, model_, p, opt, batch, noise, dims, hyper,
                      masks=None):
