@@ -152,6 +152,46 @@ Phases, one line or more each:
    ``rsa_plot_exp``. Where the host lacks matplotlib or PIL, one line
    names the renderers not run, and ``avatar_traverse``,
    ``robustness_counts`` and ``univariate_pvalues`` run in their place.
+14. bf16-kernel: the bfloat16 instances of the three persistent step
+   kernels (``precision="bfloat16"``, the TPU kernels' ``matmul_bf16``;
+   ``multivae_tpu_torch/ops/bf16.py`` names the rounding schemes): ptxas'
+   registers and spills per instance and the count of bf16 ``HMMA``
+   instructions in each instance's SASS (``cuobjdump --dump-sass``: above 0
+   in every bf16 instance, 0 in the f32 ones); every route of train-kernel
+   in bf16 (one-step launches at B=256, the complete routes at 64, the
+   presence routes at 164) against the plain bf16 version on the card by
+   the ratio rule: per metric and per gradient tensor, the kernel's
+   distance from the plain bf16 version at most 0.1 x the plain bf16
+   version's distance from the plain f32 version (or, where bf16 moves a
+   value by float32 round-off only, within 1e-5 of its size); where a
+   tensor is outside the rule, its elements more than float32 noise and at
+   most two bfloat16 steps from the plain value (rounding ties that two
+   float32 sums put on either side of a bfloat16 boundary), at most 10 %
+   of a tensor of 256 elements or more, are counted, printed and left out
+   of its ratio, and a tensor of fewer than 256 elements (a bias, an
+   output scale, a metric) outside the rule holds within two bfloat16
+   steps everywhere;
+   every route's 8-step launch bit-equal to its one-step launches with
+   ``flat_adam`` (the method routes at B=64 too); the row-slice entry
+   points of the complete routes over 4 shards (each shard by the ratio
+   rule, the whole-batch slice bit-equal to the unsharded launch); f32 and
+   bf16 times per step side by side (one-step launches by CUDA events, in
+   turns plain bf16, f32, bf16, bf16, f32, plain bf16; per step in a
+   6-step launch) with each bf16 bound (tensor-core products at 989
+   TFLOP/s, scheme B's backward products at 67 TFLOP/s, bytes at 3.35
+   TB/s);
+15. bf16-slice: the flagship trained with ``precision="bfloat16"`` through
+   ``MultimodalExperiment`` and ``trainer.run_epochs`` on the train slice's
+   cohort: joint_elbo 3 epochs and a fourth by ``workflows.resume_exp``,
+   poe with dropout 0.2 3 epochs, joint_elbo and poe with dropout at
+   ``data_parallel=4`` 1 epoch; each with its launches per kernel and instance (the bf16
+   instances on every route of the JAX package's bf16 table, f32 on the
+   data-parallel remainder groups), each epoch's mean train loss beside an
+   f32 run from the same seed (within 5 %), the wall per epoch, a profiled
+   epoch's busy time and idle share, and a first epoch recorded on the
+   card and held step by step by the plain versions on the host (the
+   ratio rule for bf16 steps, the step bounds for f32 ones, the Adam
+   bound).
 
 The meshes of phases 7-9 start at card 0 and wrap at the card count, so one
 card holds every shard and member (on a machine with several cards they
@@ -642,12 +682,14 @@ def hold_epoch(phase, name, ker, ref, ker_grads, ref_grads, dims,
 class Route:
     """One step route of the trainer at the flagship widths: its kernel,
     its plain version, and the noise and masks it takes. ``kind`` is
-    ``mopoe``, ``method`` or ``presence``."""
+    ``mopoe``, ``method`` or ``presence``; ``bf16`` takes the bfloat16
+    branch of both (the kernel's bfloat16 instance)."""
 
     def __init__(self, kind, method="joint_elbo", mod_idx=None,
-                 masked=False):
+                 masked=False, bf16=False):
         self.kind, self.method = kind, method
         self.mod_idx, self.masked = mod_idx, masked
+        self.bf16 = bf16
         self.kernel = {"mopoe": "mopoe_step", "method": "method_step",
                        "presence": "presence_step"}[kind]
         # the kernel's row-slice entry point (complete batches only)
@@ -658,6 +700,8 @@ class Route:
             tag.append(f"mod_idx={mod_idx}")
         if masked:
             tag.append("masks")
+        if bf16:
+            tag.append("bf16")
         self.name = self.kernel + (f"[{', '.join(tag)}]" if tag else "")
         poe = method == "poe"
         # passes through (encoder 1, encoder 2) and (decoder 1, decoder 2)
@@ -712,29 +756,31 @@ class Route:
 
         x1, x2, noise, masks = inp
         x = x1 if self.mod_idx == 0 else x2
+        bf16 = self.bf16
         if version == "kernel":
             if self.kind == "mopoe":
                 return fs.step_flat(p, x1, x2, *fs.split_noise(noise, dims),
-                                    dims, consts, learn_scale)
+                                    dims, consts, learn_scale, bf16)
             if self.kind == "method":
                 return fm.method_step_flat(self.method, p, x1, x2, noise,
-                                           dims, consts, learn_scale, masks)
+                                           dims, consts, learn_scale, masks,
+                                           bf16)
             return fp.presence_step_flat(p, x, noise, dims, consts,
                                          learn_scale, self.mod_idx,
-                                         self.method, masks)
+                                         self.method, masks, bf16)
         sp = flat_views(p, dims)
         if self.kind == "mopoe":
             _, m, g = fs.fwd_bwd_reference(
                 sp, x1, x2, *fs.split_noise(noise, dims), dims, consts,
-                learn_scale)
+                learn_scale, bf16=bf16)
         elif self.kind == "method":
             _, m, g = fm.method_fwd_bwd_reference(
                 self.method, sp, x1, x2, noise, dims, consts, learn_scale,
-                masks)
+                masks, bf16=bf16)
         else:
             _, m, g = fp.presence_fwd_bwd_reference(
                 sp, x, noise, dims, consts, learn_scale, self.mod_idx,
-                self.method, masks)
+                self.method, masks, bf16)
         return m, flatten_split(g)
 
     def launch_epoch(self, p, mu, nu, count, stacks, dims, consts, hyper,
@@ -751,15 +797,16 @@ class Route:
         x1s, x2s, noises, masks = stacks
         if self.kind == "mopoe":
             return fs.epoch_flat(p, mu, nu, count, x1s, x2s, noises, dims,
-                                 consts, hyper, True, phase_times)
+                                 consts, hyper, True, phase_times, self.bf16)
         if self.kind == "method":
             return fm.method_epoch_flat(self.method, p, mu, nu, count, x1s,
                                         x2s, noises, dims, consts, hyper,
-                                        True, masks, phase_times)
+                                        True, masks, phase_times, self.bf16)
         xs = x1s if self.mod_idx == 0 else x2s
         return fp.presence_epoch_flat(p, mu, nu, count, xs, noises, dims,
                                       consts, hyper, True, self.mod_idx,
-                                      self.method, masks, phase_times)
+                                      self.method, masks, phase_times,
+                                      self.bf16)
 
     def phases(self, dims):
         """The persistent kernel's phases, in order."""
@@ -775,11 +822,12 @@ class Route:
         from multivae_tpu_torch.ops import fused_step as fs
 
         if self.kind == "mopoe":
-            return fs.launch_geometry(dims, device)
+            return fs.launch_geometry(dims, device, self.bf16)
         if self.kind == "method":
-            return fm.launch_geometry(dims, device, self.method, self.masked)
+            return fm.launch_geometry(dims, device, self.method, self.masked,
+                                      self.bf16)
         return fp.launch_geometry(dims, device, self.mod_idx, self.method,
-                                  self.masked)
+                                  self.masked, self.bf16)
 
     def slice_step(self, version, p, inp, local, consts, learn_scale,
                    row_offset, b_total):
@@ -791,29 +839,30 @@ class Route:
         from multivae_tpu_torch.params import flat_views, flatten_split
 
         x1, x2, noise, masks = inp
+        bf16 = self.bf16
         if version == "kernel":
             if self.kind == "mopoe":
                 return fs.slice_step_flat(
                     p, x1, x2, *fs.split_noise(noise, local), local, consts,
-                    learn_scale, row_offset, b_total)
+                    learn_scale, row_offset, b_total, bf16)
             return fm.slice_method_step_flat(
                 self.method, p, x1, x2, noise, local, consts, learn_scale,
-                masks, row_offset, b_total)
+                masks, row_offset, b_total, bf16)
         sp = flat_views(p, local)
         if self.kind == "mopoe":
             _, m, g = fs.fwd_bwd_reference(
                 sp, x1, x2, *fs.split_noise(noise, local), local, consts,
-                learn_scale, row_offset, b_total)
+                learn_scale, row_offset, b_total, bf16)
         else:
             _, m, g = fm.method_fwd_bwd_reference(
                 self.method, sp, x1, x2, noise, local, consts, learn_scale,
-                masks, row_offset, b_total)
+                masks, row_offset, b_total, bf16)
         return m, flatten_split(g)
 
-    def bound(self, p, inp, dims) -> dict:
-        """The step's bound from this run's tensors: the params it reads,
-        its batch, noise and masks in, every gradient and the metrics out;
-        the operations of its passes."""
+    def moved_bytes(self, p, inp, dims) -> int:
+        """The bytes one step must move, from this run's tensors: the
+        params it reads, its batch, noise and masks in, every gradient and
+        the metrics out."""
         from multivae_tpu_torch.params import flat_views
 
         x1, x2, noise, masks = inp
@@ -822,9 +871,17 @@ class Route:
                         or k[3] == str(self.mod_idx + 1)])
         xs = (x1, x2) if self.mod_idx is None else (
             (x1,) if self.mod_idx == 0 else (x2,))
-        moved = read + nbytes(*xs, noise, masks) + nbytes(p) + 4 * 19
-        return bound(moved, step_flops(dims.b, self.enc_passes,
-                                       self.dec_passes))
+        return read + nbytes(*xs, noise, masks) + nbytes(p) + 4 * 19
+
+    def bound(self, p, inp, dims) -> dict:
+        """The step's bound from this run's tensors: :meth:`moved_bytes`
+        and the operations of its passes (the bfloat16 branch's:
+        :func:`bf16_bound`)."""
+        n_bytes = self.moved_bytes(p, inp, dims)
+        if self.bf16:
+            return bf16_bound(self, n_bytes, dims.b)
+        return bound(n_bytes, step_flops(dims.b, self.enc_passes,
+                                         self.dec_passes))
 
 
 MASK_CASES = ([(m, False) for m in ("moe", "jsd", "poe")]
@@ -2220,11 +2277,12 @@ def recording_train_loop():
     and the group is replayed from the kept state with one-step launches
     and ``flat_adam``, which are recorded step by step; the replay must end
     in the launch's state, bit for bit. The replay's launches are taken out
-    of the launch and step counts."""
+    of the launch and step counts. A step's recorded arguments end with its
+    ``bf16`` flag (the plain step's last positional argument)."""
     from multivae_tpu_torch.ops import (adam, fused_methods, fused_presence,
                                         fused_sharded, fused_step)
 
-    rec = {"steps": [], "updates": [], "state": None}
+    rec = {"steps": [], "updates": [], "state": None, "shards": {}}
     modules = (fused_step, fused_methods, fused_presence, fused_sharded)
     owner = {"step_flat": fused_step, "method_step_flat": fused_methods,
              "presence_step_flat": fused_presence,
@@ -2233,9 +2291,11 @@ def recording_train_loop():
     orig = {name: getattr(m, name) for name, m in owner.items()}
 
     def recorder(kind, fn):
-        def step(*args):
-            out = fn(*args)
-            rec["steps"].append((kind, [cpu(a) for a in args],
+        # step_flat and presence_step_flat take bf16 tenth
+        def step(*args, bf16=False):
+            args, bf16 = args[:9], args[9] if len(args) > 9 else bf16
+            out = fn(*args, bf16=bf16)
+            rec["steps"].append((kind, [cpu(a) for a in args] + [bf16],
                                  [cpu(o) for o in out]))
             return out
         return step
@@ -2248,32 +2308,35 @@ def recording_train_loop():
         rec["state"] = (p, mu, nu)
 
     def method_recorder(method, p, x1, x2, noise, dims, consts, learn_scale,
-                        masks=None):
+                        masks=None, bf16=False):
         out = orig["method_step_flat"](method, p, x1, x2, noise, dims,
-                                       consts, learn_scale, masks)
+                                       consts, learn_scale, masks, bf16)
         rec["steps"].append((
             "method", [cpu(a) for a in (p, x1, x2, noise, dims, consts,
-                                        learn_scale, masks, method)],
+                                        learn_scale, masks, method, bf16)],
             [cpu(o) for o in out]))
         return out
 
     def dp_mopoe_recorder(p, mu, nu, t, x1, x2, noise, dims, consts, hyper,
-                          learn_scale, mesh):
+                          learn_scale, mesh, bf16=False):
         args = [cpu(a) for a in (p, x1, x2, *fused_step.split_noise(
-            noise, dims), dims, consts, learn_scale)]
+            noise, dims), dims, consts, learn_scale, bf16)]
         m = orig["dp_step_flat"](p, mu, nu, t, x1, x2, noise, dims, consts,
-                                 hyper, learn_scale, mesh)
+                                 hyper, learn_scale, mesh, bf16)
         rec["steps"].append(("complete", args,
                              [cpu(m), rec["updates"][-1][1]]))
         return m
 
     def dp_method_recorder(method, p, mu, nu, t, x1, x2, noise, dims,
-                           consts, hyper, learn_scale, mesh, masks=None):
+                           consts, hyper, learn_scale, mesh, masks=None,
+                           bf16=False):
         args = [cpu(a) for a in (p, x1, x2, noise, dims, consts,
-                                 learn_scale, masks, method)]
+                                 learn_scale, masks, method, bf16)]
         m = orig["dp_method_step_flat"](method, p, mu, nu, t, x1, x2, noise,
                                         dims, consts, hyper, learn_scale,
-                                        mesh, masks)
+                                        mesh, masks, bf16)
+        # the shard count of a data-parallel method step, by step index
+        rec["shards"][len(rec["steps"])] = len(mesh.axis_devices("data"))
         rec["steps"].append(("method", args,
                              [cpu(m), rec["updates"][-1][1]]))
         return m
@@ -2295,20 +2358,20 @@ def recording_train_loop():
         counts = (adam.KERNEL_LAUNCHES, module.KERNEL_LAUNCHES,
                   module.KERNEL_STEPS)
 
-        def epoch(*args):
+        def epoch(*args, bf16=False):
             head, (p, mu, nu, count), rest = (args[:lead],
                                               args[lead:lead + 4],
                                               args[lead + 4:])
             if p.device.type != "cuda":
                 # the CPU loops the recorded step and update itself
-                return epoch_fn(*args)
+                return epoch_fn(*args, bf16=bf16)
             q, qm, qv = (x.clone() for x in (p, mu, nu))
-            metrics = epoch_fn(*args)
+            metrics = epoch_fn(*args, bf16=bf16)
             hyper = next(a for a in rest if isinstance(a, adam.AdamHyper))
             saved = [dict(c) for c in counts]
             rows = []
             for i in range(metrics.shape[0]):
-                m, g = one_step(q, i, *head, *rest)
+                m, g = one_step(q, i, *head, *rest, bf16=bf16)
                 update(q, qm, qv, g, count + i + 1, hyper)
                 rows.append(m)
             for c, old in zip(counts, saved):
@@ -2323,21 +2386,21 @@ def recording_train_loop():
         return epoch
 
     def mopoe_one(q, i, x1s, x2s, noise, dims, consts, hyper,
-                  learn_scale=True):
+                  learn_scale=True, bf16=False):
         return new["step_flat"](q, x1s[i], x2s[i], *fused_step.split_noise(
-            noise[i], dims), dims, consts, learn_scale)
+            noise[i], dims), dims, consts, learn_scale, bf16=bf16)
 
     def presence_one(q, i, xs, noise, dims, consts, hyper, learn_scale,
-                     mod_idx, method="joint_elbo", masks=None):
+                     mod_idx, method="joint_elbo", masks=None, bf16=False):
         return new["presence_step_flat"](
             q, xs[i], noise[i], dims, consts, learn_scale, mod_idx, method,
-            None if masks is None else masks[i])
+            None if masks is None else masks[i], bf16=bf16)
 
     def method_one(q, i, method, x1s, x2s, noise, dims, consts, hyper,
-                   learn_scale=True, masks=None):
+                   learn_scale=True, masks=None, bf16=False):
         return new["method_step_flat"](
             method, q, x1s[i], x2s[i], noise[i], dims, consts, learn_scale,
-            None if masks is None else masks[i])
+            None if masks is None else masks[i], bf16)
 
     epochs = {"epoch_flat": (fused_step, mopoe_one, 0),
               "presence_epoch_flat": (fused_presence, presence_one, 0),
@@ -2438,6 +2501,81 @@ def hold_adam_updates(updates, phase, label) -> float:
     return worst
 
 
+def plain_steps():
+    """The plain step of each kind :func:`recording_train_loop` records,
+    called with a step's recorded arguments (its ``bf16`` flag last)."""
+    from multivae_tpu_torch.ops import (fused_methods, fused_presence,
+                                        fused_step)
+    from multivae_tpu_torch.ops.fused_sharded import mean_rescale
+
+    def dp_method(p, x1, x2, noise, d, consts, ls, masks, method, n_dev,
+                  bf16):
+        # the row slices' partial sums, summed in shard order (the JAX
+        # kernel rounds each shard's products before the psum)
+        local = d._replace(b=d.b // n_dev)
+        msum = gsum = None
+        for k in range(n_dev):
+            rows = slice(k * local.b, (k + 1) * local.b)
+            m, g = fused_methods.slice_method_step_flat(
+                method, p, x1[rows], x2[rows], noise[rows], local, consts,
+                ls, None if masks is None else [mk[rows] for mk in masks],
+                k * local.b, d.b, bf16)
+            msum = m if msum is None else msum + m
+            gsum = g if gsum is None else gsum + g
+        return mean_rescale(msum, n_dev), gsum
+
+    return {"complete": fused_step.step_flat,
+            "presence": fused_presence.presence_step_flat,
+            "method": lambda p, x1, x2, noise, d, consts, ls, masks, method,
+            bf16: fused_methods.method_step_flat(method, p, x1, x2, noise, d,
+                                                 consts, ls, masks, bf16),
+            # a data-parallel method step: its shard count before bf16
+            "dp_method": dp_method}
+
+
+def hold_plain_step(plain, kind, args, ker, dims, phase, label,
+                    referee64=False):
+    """Hold one recorded step ``ker = (metrics, grads)`` of ``kind`` to its
+    plain version (:func:`plain_steps`) on the host from the same ``args``,
+    every element at the step bounds (``referee64``: as
+    :func:`hold_slice_epoch` says). Returns the largest absolute difference
+    and the largest factor the gradients' absolute bound was scaled by;
+    raises on an element outside."""
+    import torch
+
+    from multivae_tpu_torch.params import flat_views
+
+    def on_host(x):
+        if referee64 and torch.is_tensor(x) and x.is_floating_point():
+            return x.double()
+        return x
+
+    km, kg = ker
+    rm, rg = plain[kind](*[on_host(a) for a in args])
+    g_atol, scale, worst = STEP_ATOL, 1.0, 0.0
+    if referee64:
+        g_atol = torch.empty_like(rg)
+        for t, v in zip(flat_views(g_atol, dims).values(),
+                        flat_views(rg, dims).values()):
+            t.fill_(STEP_ATOL * max(1.0, float(v.abs().max())))
+        scale = float(g_atol.max()) / STEP_ATOL
+    for a, b, rtol, atol in ((km[:1], rm[:1], LOSS_RTOL, 0.0),
+                             (km, rm, STEP_RTOL, STEP_ATOL),
+                             (kg, rg, STEP_RTOL, g_atol)):
+        err, bad = close(a, b, rtol, atol)
+        worst = max(worst, err)
+        if bool(bad.any()):
+            j = int(torch.argmax((a - b).abs() * bad))
+            log(phase, f"a {kind} step, tensor of {a.numel()}: "
+                f"{int(bad.sum())} elements outside rtol {rtol} / atol "
+                f"{atol if isinstance(atol, float) else 'scaled'}; worst "
+                f"[{j}] {float(a.reshape(-1)[j]):.9e} vs "
+                f"plain {float(b.reshape(-1)[j]):.9e}")
+            raise SystemExit(f"a {kind} step of the epoch of {label} "
+                             f"disagrees with the plain version")
+    return worst, scale
+
+
 def hold_slice_epoch(card, host, dims, phase="train-slice",
                      labels=("card (kernels)", "CPU (plain versions)"),
                      referee64=False):
@@ -2463,9 +2601,6 @@ def hold_slice_epoch(card, host, dims, phase="train-slice",
     accepted (``hold_epoch(downstream_ok=True)``): 2. holds every step."""
     import torch
 
-    from multivae_tpu_torch.ops import (adam, fused_methods, fused_presence,
-                                        fused_step)
-
     def tensors_equal(a, b):
         return torch.equal(a, b) if torch.is_tensor(a) else a == b
 
@@ -2476,45 +2611,13 @@ def hold_slice_epoch(card, host, dims, phase="train-slice",
     if not same_inputs:
         raise SystemExit(f"the epochs of {labels[0]} and {labels[1]} were "
                          f"fed different inputs")
-    plain = {"complete": fused_step.step_flat,
-             "presence": fused_presence.presence_step_flat,
-             "method": lambda p, x1, x2, noise, d, consts, ls, masks, method:
-             fused_methods.method_step_flat(method, p, x1, x2, noise, d,
-                                            consts, ls, masks)}
-    worst_step = 0.0
-
-    def on_host(x):
-        if referee64 and torch.is_tensor(x) and x.is_floating_point():
-            return x.double()
-        return x
-
-    from multivae_tpu_torch.params import flat_views
-
-    worst_scale = 1.0
+    plain = plain_steps()
+    worst_step, worst_scale = 0.0, 1.0
     for kind, args, (km, kg) in card["steps"]:
-        rm, rg = plain[kind](*[on_host(a) for a in args])
-        g_atol = STEP_ATOL
-        if referee64:
-            g_atol = torch.empty_like(rg)
-            for t, v in zip(flat_views(g_atol, dims).values(),
-                            flat_views(rg, dims).values()):
-                t.fill_(STEP_ATOL * max(1.0, float(v.abs().max())))
-            worst_scale = max(worst_scale, float(g_atol.max()) / STEP_ATOL)
-        for a, b, rtol, atol in ((km[:1], rm[:1], LOSS_RTOL, 0.0),
-                                 (km, rm, STEP_RTOL, STEP_ATOL),
-                                 (kg, rg, STEP_RTOL, g_atol)):
-            err, bad = close(a, b, rtol, atol)
-            worst_step = max(worst_step, err)
-            if bool(bad.any()):
-                j = int(torch.argmax((a - b).abs() * bad))
-                log(phase, f"a {kind} step, tensor of {a.numel()}: "
-                    f"{int(bad.sum())} elements outside rtol {rtol} / atol "
-                    f"{atol if isinstance(atol, float) else 'scaled'}; worst "
-                    f"[{j}] {float(a.reshape(-1)[j]):.9e} vs "
-                    f"plain {float(b.reshape(-1)[j]):.9e}")
-                raise SystemExit(f"a {kind} step of the epoch of "
-                                 f"{labels[0]} disagrees with the plain "
-                                 f"version")
+        err, scale = hold_plain_step(plain, kind, args, (km, kg), dims,
+                                     phase, labels[0], referee64)
+        worst_step, worst_scale = max(worst_step, err), max(worst_scale,
+                                                            scale)
     worst_adam = hold_adam_updates(card["updates"], phase, labels[0])
     log(phase, f"one epoch, {labels[0]} vs {labels[1]}: same inputs at all "
         f"{len(card['steps'])} steps; the former's steps recomputed by the "
@@ -3389,6 +3492,234 @@ def dp_slice(device, card: str):
     return by_path
 
 
+# bf16 slices: (path, method, dropout rate, data_parallel, epochs)
+BF16_SLICES = (
+    ("train joint_elbo bf16", "joint_elbo", 0.0, 1, 3),
+    ("train poe dropout 0.2 bf16", "poe", MASK_RATE, 1, 3),
+    ("train joint_elbo bf16 data_parallel 4", "joint_elbo", 0.0,
+     DATA_PARALLEL, 1),
+    ("train poe dropout 0.2 bf16 data_parallel 4", "poe", MASK_RATE,
+     DATA_PARALLEL, 1),
+)
+BF16_LOSS_RTOL = 0.05  # an epoch's mean train loss against the f32 run's
+
+
+def launch_counts() -> dict:
+    """Every launch counter of the train kernels, the bfloat16 instances'
+    (``*_bf16``) beside the float32 ones."""
+    from multivae_tpu_torch.ops import (adam, fused_generic, fused_methods,
+                                        fused_presence, fused_step)
+
+    out = {}
+    for c in (fused_step.KERNEL_LAUNCHES, fused_methods.KERNEL_LAUNCHES,
+              fused_presence.KERNEL_LAUNCHES, fused_generic.KERNEL_LAUNCHES,
+              adam.KERNEL_LAUNCHES):
+        out.update(c)
+    return out
+
+
+def zero_launch_counts() -> None:
+    from multivae_tpu_torch.ops import (adam, fused_generic, fused_methods,
+                                        fused_presence, fused_step)
+
+    for c in (fused_step.KERNEL_LAUNCHES, fused_step.KERNEL_STEPS,
+              fused_methods.KERNEL_LAUNCHES, fused_methods.KERNEL_STEPS,
+              fused_presence.KERNEL_LAUNCHES, fused_presence.KERNEL_STEPS,
+              fused_generic.KERNEL_LAUNCHES, fused_generic.KERNEL_STEPS,
+              adam.KERNEL_LAUNCHES):
+        for k in c:
+            c[k] = 0
+
+
+def precision_run(datadir, outdir, epochs, precision, method, rate,
+                  data_parallel=1):
+    """Train the flagship through its entry points with ``precision`` (no
+    CLI flag or ``train_exp`` argument takes it: a ``Config``, a
+    ``MultimodalExperiment`` and ``trainer.run_epochs``); returns the run
+    and the train wall of each epoch."""
+    from multivae_tpu_torch.train import trainer
+    from multivae_tpu_torch.train.config import Config
+    from multivae_tpu_torch.train.experiment import MultimodalExperiment
+    from multivae_tpu_torch.utils.filehandling import create_dir_structure
+
+    cfg = Config(dataset="synthetic", datasetdir=datadir,
+                 dir_experiment=outdir, input_dim=[7, 444], class_dim=20,
+                 style_dim=[3, 20], batch_size=256, end_epoch=epochs,
+                 method=method, dropout_rate=rate,
+                 data_parallel=data_parallel, fused_training=True,
+                 precision=precision).derive()
+    exp = MultimodalExperiment(cfg, "cuda")
+    create_dir_structure(cfg)
+    exp.set_datasets()
+    exp.set_optimizers()
+    with contextlib.redirect_stdout(io.StringIO()):
+        walls = trainer.run_epochs(exp, use_tensorboard=False,
+                                   progress=False)
+    return cfg.str_experiment, walls
+
+
+def epoch_losses(rundir: str, steps: int) -> list:
+    """The mean train loss of each epoch of a run (``steps`` a epoch)."""
+    import pandas as pd
+
+    csv = pd.read_csv(os.path.join(rundir, "logs", "metrics.csv"))
+    tr = csv[(csv.phase == "train") & (csv.metric == "loss")]
+    losses = tr.sort_values("step").value.to_numpy()
+    return [float(losses[i:i + steps].mean())
+            for i in range(0, len(losses), steps)]
+
+
+def hold_bf16_epoch(card, dims, label, phase="bf16-slice"):
+    """Hold a recorded epoch (:func:`recording_train_loop`) step by step
+    along the kernels' own trajectory: every bf16 step recomputed by the
+    plain bf16 and f32 versions on the host from the same inputs and held
+    by the ratio rule (:func:`hold_bf16`), every f32 step (the data-parallel
+    remainder groups) at the step bounds as :func:`hold_slice_epoch` holds
+    a cohort's steps (``referee64``), every Adam update at the Adam bound.
+    Returns the worst ratio."""
+    plain = plain_steps()
+    worst, n16, n32, worst32, scale32 = 0.0, 0, 0, 0.0, 1.0
+    for i, (kind, args, (km, kg)) in enumerate(card["steps"]):
+        if i in card["shards"]:
+            # scheme B rounds each shard's products: the sum of the plain
+            # row slices is its plain version
+            kind, args = "dp_method", args[:-1] + [card["shards"][i],
+                                                   args[-1]]
+        if args[-1]:
+            ratio, _ = hold_bf16(
+                f"{label} step {i} ({kind})", (km, kg),
+                lambda bf16: plain[kind](*args[:-1], bf16), dims,
+                "held on the host", phase)
+            worst, n16 = max(worst, ratio), n16 + 1
+            continue
+        err, scale = hold_plain_step(plain, kind, args, (km, kg), dims,
+                                     phase, f"{label} (f32 step {i})", True)
+        worst32, scale32 = max(worst32, err), max(scale32, scale)
+        n32 += 1
+    worst_adam = hold_adam_updates(card["updates"], phase, label)
+    log(phase, f"{label}: first epoch held step by step along the kernels' "
+        f"trajectory: {n16} bf16 steps by the ratio rule (worst "
+        f"{worst:.4f}), {n32} f32 steps as dp-slice holds its cohort steps "
+        f"(plain in float64, gradient atol {STEP_ATOL} x its tensor's "
+        f"largest element, at most x {scale32:.1f}; max_abs_err "
+        f"{worst32:.3e}), {len(card['updates'])} Adam updates "
+        f"{worst_adam:.3e}")
+    return worst
+
+
+def bf16_slice(device, card: str):
+    """Phase bf16-slice: the flagship trained with ``precision="bfloat16"``
+    on the train slice's cohort through ``MultimodalExperiment`` and
+    ``trainer.run_epochs``: joint_elbo for 3 epochs and a fourth by
+    ``workflows.resume_exp``, poe with dropout 0.2 for 3 epochs, joint_elbo
+    and poe with dropout at ``data_parallel=4`` for 1 epoch; each run's
+    launches per kernel and
+    instance (every count set to 0 just before, read just after), each
+    epoch's mean train loss beside an f32 run from the same seed, the wall
+    per epoch, a profiled epoch's busy time and idle share, and a first
+    epoch recorded and held step by step. Returns each run's launches."""
+    import torch
+
+    from multivae_tpu_torch import workflows
+    from multivae_tpu_torch.params import dims_from
+    from multivae_tpu_torch.train.config import Config
+
+    by_path, worst = {}, 0.0
+    dims = dims_from(flagship_cfg(), 256)
+    with tempfile.TemporaryDirectory() as root:
+        datadir, complete, clinical, _ = slice_cohort(root, "bf16-slice")
+        steps = len(complete) + len(clinical)
+        for path, method, rate, n_dp, epochs in BF16_SLICES:
+            out = os.path.join(root, path.replace(" ", "_"))
+            runs, losses = {}, {}
+            for precision in ("float32", "bfloat16"):
+                zero_launch_counts()
+                torch.cuda.synchronize()
+                runs[precision], walls = precision_run(
+                    datadir, os.path.join(out, precision), epochs, precision,
+                    method, rate, n_dp)
+                counts = launch_counts()
+                losses[precision] = epoch_losses(
+                    os.path.join(out, precision, runs[precision]), steps)
+            by_path[path] = {k: v for k, v in counts.items() if v}
+            # the JAX routes under bf16 (ops/bf16.py): full complete batches
+            # of joint_elbo without dropout on the MoPoE step, the partial
+            # complete batch and every complete batch of poe on the method
+            # step, the clinical-only batches on the presence step; under
+            # data_parallel the row slices in bf16 and the rest in f32
+            groups = len(set(clinical)) * epochs
+            hand = method == "joint_elbo" and not rate
+            if n_dp > 1:
+                want = {("dp_step_bf16" if hand else "dp_method_step_bf16"):
+                        5 * n_dp * epochs, "flat_adam": 5 * epochs,
+                        ("mopoe_step" if hand else "method_step"): epochs,
+                        "presence_step": groups}
+            elif method == "joint_elbo":
+                want = {"mopoe_step_bf16": epochs,
+                        "method_step_bf16": epochs,
+                        "presence_step_bf16": groups}
+            else:
+                want = {"method_step_bf16": 2 * epochs,
+                        "presence_step_bf16": groups}
+            rundir = os.path.join(out, "bfloat16", runs["bfloat16"])
+            flags = Config.load(os.path.join(rundir, "flags.json"))
+            gaps = [abs(a - b) / abs(b) for a, b in zip(losses["bfloat16"],
+                                                         losses["float32"])]
+            checks = {
+                "launches": by_path[path] == want,
+                "flags.json precision": flags.precision == "bfloat16",
+                "losses finite": bool(np.isfinite(losses["bfloat16"]).all()),
+                f"epoch losses within {BF16_LOSS_RTOL} of f32": bool(
+                    len(gaps) == epochs and max(gaps) <= BF16_LOSS_RTOL),
+            }
+            wall = float(np.median(walls[1:])) if len(walls) > 1 else walls[0]
+            log("bf16-slice", f"[{path}] {epochs} epochs: launches "
+                f"{by_path[path]} (expected {want}); mean train loss per "
+                f"epoch bf16 {[round(x, 4) for x in losses['bfloat16']]} vs "
+                f"f32 {[round(x, 4) for x in losses['float32']]} (largest "
+                f"relative gap {max(gaps):.2e}); train wall per epoch first "
+                f"{walls[0]:.4f} s, median of the rest {wall:.4f} s ({card});"
+                f" checks " + ", ".join(f"{k}={v}" for k, v in
+                                         checks.items()))
+            if not all(checks.values()):
+                raise SystemExit(f"bf16 slice wrong ({path}): {checks}")
+            ep_wall, by_name = profile_epoch(datadir, rundir, device)
+            busy = sum(by_name.values())
+            log("bf16-slice", f"[{path}] profiled training epoch: wall "
+                f"{ep_wall * 1e3:.3f} ms, device busy {busy:.3f} ms (idle "
+                f"share {100 * (1 - busy / (ep_wall * 1e3)):.1f} %); top: "
+                + ", ".join(f"{k[:40]} {v:.3f}" for k, v in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])[:5])
+                if busy > 0 else f"[{path}] profiled training epoch: wall "
+                f"{ep_wall * 1e3:.3f} ms; device time not measured")
+            if method == "joint_elbo" and n_dp == 1:
+                zero_launch_counts()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    workflows.resume_exp(
+                        "synthetic", datadir, os.path.join(out, "bfloat16"),
+                        runs["bfloat16"], epochs + 1, use_tensorboard=False,
+                        device="cuda")
+                resumed = {k: v for k, v in launch_counts().items() if v}
+                after = epoch_losses(rundir, steps)
+                ok = (resumed == {k: v // epochs for k, v in want.items()}
+                      and len(after) == epochs + 1
+                      and bool(np.isfinite(after).all())
+                      and after[-1] < after[0])
+                log("bf16-slice", f"[{path}] resumed for epoch {epochs + 1}"
+                    f" from flags.json (precision {flags.precision}): "
+                    f"launches {resumed}, mean train loss {after[-1]:.4f} "
+                    f"(epoch 1 {after[0]:.4f}) ok={ok}")
+                if not ok:
+                    raise SystemExit(f"the resumed bf16 run is wrong")
+            # the first epoch, recorded and held step by step
+            with recording_train_loop() as rec:
+                precision_run(datadir, os.path.join(out, "held"), 1,
+                              "bfloat16", method, rate, n_dp)
+            worst = max(worst, hold_bf16_epoch(rec, dims, path))
+    log("bf16-slice", f"worst ratio over the held epochs {worst:.4f}")
+    return by_path
+
+
 def run_arrays(rundir: str, member: int, epoch: int):
     """Every array of a member's checkpoint: params and Adam state."""
     out = {}
@@ -4171,11 +4502,501 @@ def analysis_slice(root, run, card):
 
 
 # every source under csrc/ and the kernels (entry points) the record lists
+# ----------------------------------------------------- the bfloat16 branch
+PEAK_BF16_FLOPS = 989e12   # bf16 x bf16 -> f32 on the tensor cores, dense
+# the ratio rule: |kernel - plain bf16| <= BF16_RATIO |plain bf16 - plain
+# f32| per loss, metric and gradient tensor; where the bf16 branch moves a
+# value by no more than BF16_ROUNDOFF of its size (float32 round-off), the
+# kernel matches the plain bf16 version to BF16_ROUNDOFF of that size; else
+# the round-off reach (roundoff_reach) holds it
+BF16_RATIO, BF16_ROUNDOFF = 0.1, 1e-5
+BF16_KERNELS = ("mopoe_step_bf16", "method_step_bf16", "presence_step_bf16",
+                "dp_step_bf16", "dp_method_step_bf16")
+BF16_ROWS = (256, 64, 164)  # the flagship epoch's batches
+
+
+def step_flops_split(batch: int, enc_passes=(1, 1), dec_passes=(1, 1)):
+    """:func:`step_flops` as ``(forward, backward)``: 2 of an encoder
+    hidden layer's 4 per multiply-add and 2 of every other product's 6 are
+    the forward's."""
+    d, s = FLAGSHIP["input_dim"], FLAGSHIP["style_dim"]
+    h, cd = FLAGSHIP["hidden_dim"], FLAGSHIP["class_dim"]
+    fwd = sum(enc_passes[e] * (2 * d[e] * h + 2 * h * 2 * (cd + s[e]))
+              + dec_passes[e] * 2 * (s[e] + cd) * d[e] for e in range(2))
+    total = step_flops(1, enc_passes, dec_passes)
+    return float(fwd * batch), float((total - fwd) * batch)
+
+
+def bf16_bound(route, n_bytes: float, batch: int) -> dict:
+    """The bound of a bfloat16 step: bytes over the memory rate against the
+    products' time, the tensor cores' share at the bf16 peak and, under
+    scheme B, the backward products' (a float32 cotangent, on the FMA
+    units) at the f32 peak, one after the other as the phases run them."""
+    fwd, bwd = step_flops_split(batch, route.enc_passes, route.dec_passes)
+    if route.kind == "mopoe":  # scheme A: every product on the tensor cores
+        t_ops = (fwd + bwd) / PEAK_BF16_FLOPS
+    else:
+        t_ops = fwd / PEAK_BF16_FLOPS + bwd / PEAK_F32_FLOPS
+    t_bytes = n_bytes / PEAK_BYTES_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+# the round-off reach: where a tensor is outside the ratio rule, the plain
+# bf16 version runs again with the float32 result of every product moved by
+# the round-off bound of its sum (ops/bf16.py roundoff_moved): all up, all
+# down, and up or down per element at random BF16_REACH_RUNS times. The
+# largest distance of those runs from the plain bf16 version is how far
+# float32 round-off (the order of a sum, the kernel's tile against the
+# library's) reaches through the bfloat16 roundings: a value within its
+# round-off of a rounding boundary rounds either way, and a metric or a
+# gradient downstream moves with it. The kernel holds where it is no
+# farther; a rounding point in the wrong place lies beyond that reach
+# (bf16_planted_faults shows it on the card).
+BF16_REACH_RUNS = 6
+
+
+def split_step(out, dims) -> dict:
+    """A step's ``(metrics, flat grads)`` as named tensors: ``metric j``
+    (the loss is metric 0) and the split tensors."""
+    from multivae_tpu_torch.params import flat_views
+
+    m, g = out
+    named = {f"metric {j}": m[j:j + 1] for j in range(m.numel())}
+    named.update(flat_views(g, dims))
+    return named
+
+
+def distance(a, b) -> float:
+    return float((a.double() - b.double()).norm())
+
+
+def roundoff_reach(plain, p16, dims) -> dict:
+    """Per named tensor (:func:`split_step`): the largest distance from the
+    plain bf16 output ``p16`` of ``plain(True)`` run with every product's
+    float32 result moved within its round-off bound."""
+    from multivae_tpu_torch.ops import bf16 as bf16_ops
+
+    runs = [(0, 1), (0, -1)] + [(SEED + i, 0) for i in range(BF16_REACH_RUNS)]
+    reach = dict.fromkeys(p16, 0.0)
+    for seed, sign in runs:
+        with bf16_ops.roundoff_moved(seed, sign):
+            moved = split_step(plain(True), dims)
+        for k, v in p16.items():
+            reach[k] = max(reach[k], distance(moved[k], v))
+    return reach
+
+
+def judge_bf16(ker, plain, dims):
+    """Each named tensor of a bf16 step ``ker`` against ``plain(True)`` (the
+    plain bf16 version) and ``plain(False)`` (the plain f32 one): held by
+    the ratio rule, by round-off where the bf16 branch moves it by round-off
+    alone, or by the round-off reach (computed only if a tensor needs it).
+    Returns ``(p16 named, {name: (rule or None, distance, ratio, reach)})``;
+    rule None is a tensor outside all three."""
+    import math
+
+    import torch
+
+    p16, p32 = plain(True), plain(False)
+    if isinstance(p16[0], torch.Tensor) and p16[0].is_cuda:
+        torch.cuda.synchronize()
+    kv, v16, v32 = (split_step(x, dims) for x in (ker, p16, p32))
+    verdict, reach = {}, None
+    for k in kv:
+        d, ref = distance(kv[k], v16[k]), distance(v16[k], v32[k])
+        size = float(v16[k].double().norm())
+        ratio = d / ref if ref > 0 else (0.0 if d == 0 else math.inf)
+        if d <= BF16_RATIO * ref:
+            verdict[k] = ("ratio", d, ratio, None)
+        elif ref <= BF16_ROUNDOFF * size and d <= BF16_ROUNDOFF * size:
+            verdict[k] = ("round-off", d, ratio, None)
+        else:
+            reach = reach or roundoff_reach(plain, v16, dims)
+            verdict[k] = ("reach" if d <= reach[k] else None, d, ratio,
+                          reach[k])
+    return v16, verdict
+
+
+def hold_bf16(name, ker, plain, dims, tag, phase="bf16-kernel"):
+    """Hold one step's ``(metrics, grads)`` of a bfloat16 kernel to its
+    plain bf16 version per metric and per split tensor (:func:`judge_bf16`;
+    ``plain(bf16)`` computes the plain version); returns the worst ratio of
+    the tensors the ratio rule holds and the largest absolute difference
+    from the plain bf16 version. Raises on a tensor outside the rule and
+    the round-off reach, or a value not finite."""
+    import torch
+
+    torch.cuda.synchronize()
+    km, kg = ker
+    if not (torch.isfinite(km).all() and torch.isfinite(kg).all()):
+        raise SystemExit(f"{name} {tag}: values not finite")
+    v16, verdict = judge_bf16(ker, plain, dims)
+    kv = split_step(ker, dims)
+    max_err = max(float((kv[k] - v16[k]).abs().max()) for k in kv)
+    held = [(r, k) for k, (rule, _, r, _) in verdict.items()
+            if rule == "ratio"]
+    worst, where = max(held) if held else (0.0, "")
+    reached = [f"{k} {d:.3e} <= {reach:.3e} (ratio {r:.3f})"
+               for k, (rule, d, r, reach) in verdict.items()
+               if rule == "reach"]
+    bad = [f"{k} {d:.3e} > {reach:.3e} (ratio {r:.3f})"
+           for k, (rule, d, r, reach) in verdict.items() if rule is None]
+    n_round = sum(rule == "round-off" for rule, *_ in verdict.values())
+    log(phase, f"{name} {tag}: loss {float(km[0]):.6f}, plain bf16 "
+        f"{float(v16['metric 0'][0]):.6f}; worst ratio |kernel - plain bf16|"
+        f" / |plain bf16 - plain f32| {worst:.4f} ({where}) over "
+        f"{len(held)} of {len(verdict)} tensors, {n_round} at round-off, "
+        f"max_abs_err {max_err:.3e}"
+        + (f"; within the round-off reach: {'; '.join(reached)}"
+           if reached else "")
+        + (" ok" if not bad else "; OUTSIDE: " + "; ".join(bad)))
+    if bad:
+        raise SystemExit(f"{name} disagrees with its plain bf16 version "
+                         f"({tag})")
+    return worst, max_err
+
+
+def kernel_registers(log_text: str) -> dict:
+    """ptxas' registers, stack and spills per kernel entry (``-v``),
+    keyed by the entry's mangled name."""
+    import re
+
+    out, current = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            current = m.group(1)
+            out[current] = {}
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[current].update(stack=int(m.group(1)),
+                                spill_stores=int(m.group(2)),
+                                spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[current]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hmma_counts(library) -> dict:
+    """The count of bf16 ``HMMA`` instructions in each kernel function of a
+    built library (``cuobjdump --dump-sass``)."""
+    import re
+
+    from multivae_tpu_torch.ops import _build
+
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    out = subprocess.run([tool, "--dump-sass", str(library)],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    counts, current = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            current = m.group(1)
+            counts[current] = 0
+        elif current is not None and re.search(r"\bHMMA\.\S*BF16", line):
+            counts[current] += 1
+    return counts
+
+
+def instance(mangled: str) -> str:
+    """``kernel<bf16>`` / ``kernel<f32>`` of a persistent kernel's mangled
+    name (the template argument ``ILb1E`` / ``ILb0E``)."""
+    import re
+
+    m = re.search(r"([a-z]+_steps_kernel)ILb([01])E", mangled)
+    if not m:
+        return mangled
+    return f"{m.group(1)}<{'bf16' if m.group(2) == '1' else 'f32'}>"
+
+
+@contextlib.contextmanager
+def rounded_decoder_outputs(dims):
+    """A planted fault in the plain versions: every decoder output (the
+    ``[B, d]`` mean the NLL takes) rounded to bfloat16, a rounding point
+    where the kernels' loss epilogue has none."""
+    from multivae_tpu_torch.ops import bf16 as bf16_ops
+    from multivae_tpu_torch.ops import fused_methods as fm
+    from multivae_tpu_torch.ops import fused_step as fs
+
+    dot = bf16_ops.dot
+
+    def rounded(a, b, bf16):
+        r = dot(a, b, bf16)
+        if bf16 and r.shape[0] == dims.b and r.shape[-1] in (dims.d1,
+                                                             dims.d2):
+            return bf16_ops.round_bf16(r)
+        return r
+    saved = fs.dot, fm.dot
+    fs.dot = fm.dot = rounded
+    try:
+        yield
+    finally:
+        fs.dot, fm.dot = saved
+
+
+def bf16_planted_faults(device):
+    """The check of :func:`hold_bf16` against rounding faults planted in
+    the plain bf16 version on the card at B=256, each of which it must
+    refuse: the float32 loss and metrics beside the bf16 gradients, every
+    decoder output rounded before the loss (a wrong rounding point in the
+    loss epilogue), and one small bias gradient (the present encoder's
+    style log-variance, 3 or 20 wide) and the decoder's output bias rounded
+    to bfloat16 (bias gradients are float32 sums). Returns the count of
+    faults refused."""
+    import torch
+
+    from multivae_tpu_torch.ops import bf16 as bf16_ops
+    from multivae_tpu_torch.ops import fused_step as fs
+    from multivae_tpu_torch.params import flat_views
+
+    consts = fs.FusedConsts(1.0, 0.7, 1.2)
+    _, dims, p, _, _, _ = train_setup(device, 256, SEED + 31)
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    refused = 0
+    for route in (Route("mopoe", bf16=True),
+                  Route("method", "poe", masked=True, bf16=True),
+                  Route("presence", "jsd", 1, bf16=True)):
+        f32 = Route(route.kind, route.method, route.mod_idx, route.masked)
+        inp = route.inputs(dims, gen, device)
+
+        def plain(bf16):
+            return (route if bf16 else f32).step("plain", p, inp, dims,
+                                                 consts)
+        (m16, g16), (m32, _) = plain(True), plain(False)
+        with rounded_decoder_outputs(dims):
+            faults = {"float32 loss and metrics": (m32, g16),
+                      "decoder outputs rounded before the loss":
+                          plain(True)}
+        e = 2 if route.mod_idx == 1 else 1
+        for name in (f"enc{e}_bslv", f"dec{e}_bd"):
+            g = g16.clone()
+            view = flat_views(g, dims)[name]
+            view.copy_(bf16_ops.round_bf16(view))
+            faults[f"{name} rounded"] = (m16, g)
+        for fault, ker in faults.items():
+            _, verdict = judge_bf16(ker, plain, dims)
+            out = [f"{k} {d:.3e} (ratio {r:.3f}"
+                   + (f", reach {reach:.3e})" if reach is not None else ")")
+                   for k, (rule, d, r, reach) in verdict.items()
+                   if rule is None]
+            log("bf16-kernel", f"planted fault in the plain "
+                f"{route.name} B=256, {fault}: "
+                + (f"refused, {len(out)} tensors outside: "
+                   + "; ".join(out[:4]) + ("; ..." if len(out) > 4 else "")
+                   if out else "NOT REFUSED"))
+            if not out:
+                raise SystemExit(f"the bf16 check let a planted fault pass "
+                                 f"({route.name}: {fault})")
+            refused += 1
+    return refused
+
+
+def bf16_kernel_check(device):
+    """Phase bf16-kernel: the bfloat16 instances of the three persistent
+    step kernels. Every route of :func:`all_routes` in bf16 (one-step
+    launches at B=256, 64 and 164) held to the plain bf16 version on the
+    card by the ratio rule against the plain f32 version; every route's
+    8-step launch bit-equal to its one-step launches; the row-slice entry
+    points of the complete routes over 4 shards, each shard by the ratio
+    rule and the slice that is the whole batch bit-equal to the unsharded
+    kernel; f32 and bf16 times per step side by side with each bf16 bound;
+    registers and spills per instance and the bf16 HMMA count in each
+    kernel's SASS. Returns the record entries of :data:`BF16_KERNELS`."""
+    import torch
+
+    from multivae_tpu_torch.ops import _build
+    from multivae_tpu_torch.ops import adam as adam_ops
+    from multivae_tpu_torch.ops import fused_step as fs
+
+    consts = fs.FusedConsts(1.0, 0.7, 1.2)
+    hyper = adam_ops.AdamHyper(2e-3, 0.9, 0.999)
+    result = {k: {"max_abs_err": 0.0, "worst_ratio": 0.0, "variants": {}}
+              for k in BF16_KERNELS}
+
+    # the instances: registers and spills, and the tensor-core products
+    hmma = {}
+    for source in ("mopoe_step", "method_step", "presence_step"):
+        regs = kernel_registers(BUILD_LOGS.get(source, ""))
+        counts = sass_hmma_counts(_build.library_path(source))
+        for mangled, r in regs.items():
+            log("bf16-kernel", f"{source}.cu {instance(mangled)}: "
+                f"{r.get('registers')} registers, {r.get('stack')} B stack, "
+                f"spill stores {r.get('spill_stores')} B, loads "
+                f"{r.get('spill_loads')} B")
+        for mangled, n in counts.items():
+            if "_steps_kernel" in mangled:
+                hmma[instance(mangled)] = n
+                log("bf16-kernel", f"{source}.cu {instance(mangled)}: {n} "
+                    f"bf16 HMMA instructions in the SASS")
+        kernel = f"{source.replace('_step', '')}_steps_kernel"
+        if hmma.get(f"{kernel}<bf16>", 0) < 1:
+            raise SystemExit(f"{source}: the bf16 instance has no HMMA")
+        if hmma.get(f"{kernel}<f32>", 0) != 0:
+            raise SystemExit(f"{source}: the f32 instance has HMMA")
+        result[f"{source}_bf16"]["sass_hmma"] = hmma[f"{kernel}<bf16>"]
+        result[f"{source}_bf16"]["ptxas"] = {
+            instance(k): v for k, v in regs.items()}
+    result["dp_step_bf16"]["sass_hmma"] = result["mopoe_step_bf16"][
+        "sass_hmma"]
+    result["dp_method_step_bf16"]["sass_hmma"] = result["method_step_bf16"][
+        "sass_hmma"]
+
+    routes = [Route(r.kind, r.method, r.mod_idx, r.masked, bf16=True)
+              for r in all_routes()]
+    def record(key, worst, err):
+        entry = result[key]
+        entry["worst_ratio"] = max(entry["worst_ratio"], worst)
+        entry["max_abs_err"] = max(entry["max_abs_err"], err)
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 13)
+    for b in BF16_ROWS:
+        cfg, dims, p, _, _, _ = train_setup(device, b, SEED + b)
+        for route in routes:
+            # B=256 every route, 64 the complete ones, 164 the presence ones
+            if b == 64 and route.kind == "presence" or (
+                    b == 164 and route.kind != "presence"):
+                continue
+            inp = route.inputs(dims, gen, device)
+            f32 = Route(route.kind, route.method, route.mod_idx,
+                        route.masked)
+            ker = route.step("kernel", p, inp, dims, consts)
+            record(f"{route.kernel}_bf16", *hold_bf16(
+                route.name, ker, lambda bf16: (route if bf16 else f32).step(
+                    "plain", p, inp, dims, consts), dims, f"B={b}"))
+
+    n_faults = bf16_planted_faults(device)
+
+    # a group of steps in one launch is its steps one by one, bit for bit
+    cfg, dims, p0, _, _, _ = train_setup(device, 256, SEED)
+    launch_gen = torch.Generator(device=device).manual_seed(SEED + 14)
+    for route in routes:
+        launch_vs_steps(route, p0, dims, consts, hyper, launch_gen, device,
+                        phase="bf16-kernel")
+    for route in routes:
+        if route.kind == "method":
+            launch_vs_steps(route, p0, dims._replace(b=64), consts, hyper,
+                            launch_gen, device, phase="bf16-kernel")
+    geo = {r.name: r.geometry(dims, device) for r in routes
+           if r.name in ("mopoe_step[bf16]", "method_step[poe, masks, bf16]",
+                         "presence_step[joint_elbo, mod_idx=0, bf16]")}
+    log("bf16-kernel", "bf16 instances at B=256, cooperative grid blocks "
+        "and grid barriers per step (with Adam / one step without): "
+        + "; ".join(f"{k} {v['grid_blocks']} blocks, "
+                    f"{v['barriers_per_step_adam']} / "
+                    f"{v['barriers_per_step']} barriers"
+                    for k, v in geo.items()))
+
+    # the row-slice entry points: 4 shards of 64 rows
+    n_dev = 4
+    local = dims._replace(b=dims.b // n_dev)
+    for route in routes:
+        if route.kind == "presence":
+            continue
+        f32 = Route(route.kind, route.method, route.mod_idx, route.masked)
+        inp = route.inputs(dims, gen, device)
+        whole = route.step("kernel", p0, inp, dims, consts)
+        same = route.slice_step("kernel", p0, inp, dims, consts, True, 0,
+                                dims.b)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(same, whole)):
+            raise SystemExit(f"{route.dp_kernel}_bf16 of {route.name} with "
+                             f"row_offset=0, b_total=b is not the unsharded "
+                             f"kernel bit for bit")
+        kers, _ = sharded(route, "kernel", p0, inp, dims, consts, n_dev)
+        for k in range(n_dev):
+            rows = slice(k * local.b, (k + 1) * local.b)
+
+            def plain(bf16, rows=rows, k=k):
+                return (route if bf16 else f32).slice_step(
+                    "plain", p0, shard_inputs(inp, rows), local, consts,
+                    True, k * local.b, dims.b)
+            record(f"{route.dp_kernel}_bf16", *hold_bf16(
+                f"{route.dp_kernel} of {route.name}", kers[k], plain, local,
+                f"B=256 shard {k} of {n_dev}"))
+        log("bf16-kernel", f"{route.dp_kernel} of {route.name}: "
+            f"row_offset=0 b_total=b equal bits to the unsharded bf16 "
+            f"kernel ok")
+
+    # ---- times: f32 and bf16 side by side; plain bf16, kernel f32, kernel
+    # bf16, kernel bf16, kernel f32, plain bf16
+    headline = {"mopoe_step": "mopoe_step[bf16]",
+                "method_step": "method_step[poe, bf16]",
+                "presence_step": "presence_step[joint_elbo, mod_idx=0, bf16]"}
+    p = p0.clone()
+    for route in routes:
+        f32 = Route(route.kind, route.method, route.mod_idx, route.masked)
+        inp = route.inputs(dims, gen, device)
+        t = [cuda_ms(lambda: route.step("plain", p, inp, dims, consts), 10),
+             cuda_ms(lambda: f32.step("kernel", p, inp, dims, consts), 30),
+             cuda_ms(lambda: route.step("kernel", p, inp, dims, consts), 30),
+             cuda_ms(lambda: route.step("kernel", p, inp, dims, consts), 30),
+             cuda_ms(lambda: f32.step("kernel", p, inp, dims, consts), 30),
+             cuda_ms(lambda: route.step("plain", p, inp, dims, consts), 10)]
+        l16 = time_launch(route, p0, dims, consts, hyper, gen, device,
+                          "bf16-kernel")
+        l32 = time_launch(f32, p0, dims, consts, hyper, gen, device,
+                          "bf16-kernel")
+        entry = dict(ms=(t[2] + t[3]) / 2, plain_ms=(t[0] + t[5]) / 2,
+                     f32_ms=(t[1] + t[4]) / 2, library_ms=None,
+                     step_ms_in_launch=l16["step_ms_in_launch"],
+                     f32_step_ms_in_launch=l32["step_ms_in_launch"],
+                     phase_us=l16["phase_us"], **route.bound(p, inp, dims))
+        result[f"{route.kernel}_bf16"]["variants"][route.name] = entry
+        if headline[route.kernel] == route.name:
+            result[f"{route.kernel}_bf16"].update(entry,
+                                                  timed_variant=route.name)
+        log("bf16-kernel", f"{route.name} B=256: one-step launch bf16 "
+            f"{t[2]:.4f}/{t[3]:.4f} ms, f32 {t[1]:.4f}/{t[4]:.4f} ms, plain "
+            f"bf16 {t[0]:.4f}/{t[5]:.4f} ms; per step in a 6-step launch "
+            f"bf16 {l16['step_ms_in_launch']:.4f} ms, f32 "
+            f"{l32['step_ms_in_launch']:.4f} ms; bf16 bound "
+            f"{entry['bound_ms']:.5f} ms by {entry['bound_by']} = "
+            f"{100 * entry['bound_ms'] / l16['step_ms_in_launch']:.2f} % of "
+            f"the bound's rate in a launch")
+    for route in routes:
+        if route.name not in ("mopoe_step[bf16]",
+                              "method_step[poe, masks, bf16]"):
+            continue
+        inp = route.inputs(dims, gen, device)
+        sl = shard_inputs(inp, slice(local.b, 2 * local.b))
+        t = [cuda_ms(lambda: route.slice_step("plain", p, sl, local, consts,
+                                              True, local.b, dims.b), 10),
+             cuda_ms(lambda: route.slice_step("kernel", p, sl, local, consts,
+                                              True, local.b, dims.b), 30),
+             cuda_ms(lambda: route.slice_step("kernel", p, sl, local, consts,
+                                              True, local.b, dims.b), 30),
+             cuda_ms(lambda: route.slice_step("plain", p, sl, local, consts,
+                                              True, local.b, dims.b), 10)]
+        variant = f"{route.dp_kernel} of {route.name}, rows 64-127 of 256"
+        entry = dict(ms=(t[1] + t[2]) / 2, plain_ms=(t[0] + t[3]) / 2,
+                     library_ms=None, **route.bound(p, sl, local))
+        key = f"{route.dp_kernel}_bf16"
+        result[key]["variants"][variant] = entry
+        result[key].update(entry, timed_variant=variant)
+        log("bf16-kernel", f"{variant}: kernel {t[1]:.4f}/{t[2]:.4f} ms, "
+            f"plain bf16 {t[0]:.4f}/{t[3]:.4f} ms per slice step; bound "
+            f"{entry['bound_ms']:.5f} ms by {entry['bound_by']}")
+    log("bf16-kernel", "worst ratio per kernel: " + ", ".join(
+        f"{k} {result[k]['worst_ratio']:.4f}" for k in BF16_KERNELS)
+        + f"; planted faults refused {n_faults}")
+    return result
+
+
 SOURCES = ("avatar_sweep", "mopoe_step", "presence_step", "flat_adam",
            "method_step", "generic_step")
 KERNELS = SOURCES + ("dp_step", "dp_method_step")
 SOURCE_OF = {**{k: k for k in SOURCES}, "dp_step": "mopoe_step",
              "dp_method_step": "method_step"}
+SOURCE_OF.update({f"{k}_bf16": SOURCE_OF[k] for k in (
+    "mopoe_step", "method_step", "presence_step", "dp_step",
+    "dp_method_step")})
 # the TPU kernels (bodies) each one replaces on the ported paths
 REPLACES = {
     "avatar_sweep": "multivae_tpu/ops/fused_daa.py:54",
@@ -4189,7 +5010,17 @@ REPLACES = {
     "generic_step": "multivae_tpu/ops/fused_generic.py:146",
     "flat_adam": "multivae_tpu/ops/fused_step.py:615, "
                  "multivae_tpu/ops/fused_presence.py:287, "
-                 "multivae_tpu/ops/fused_methods.py:382"}
+                 "multivae_tpu/ops/fused_methods.py:382",
+    # the bfloat16 instances: the matmul_bf16 branch of the same bodies
+    "mopoe_step_bf16": "multivae_tpu/ops/fused_step.py:505, "
+                       "multivae_tpu/ops/fused_step.py:587",
+    "method_step_bf16": "multivae_tpu/ops/fused_methods.py:341",
+    "presence_step_bf16": "multivae_tpu/ops/fused_presence.py:247",
+    "dp_step_bf16": "multivae_tpu/ops/fused_sharded.py:69",
+    "dp_method_step_bf16": "multivae_tpu/ops/fused_sharded.py:110"}
+
+
+BUILD_LOGS = {}  # nvcc's output per source, from the build phase
 
 
 def build_phase() -> dict:
@@ -4201,6 +5032,7 @@ def build_phase() -> dict:
     built = _build.build_kernels(SOURCES)
     lines = {}
     for name, res in built.items():
+        BUILD_LOGS[name] = res.log
         lines[name] = " | ".join(
             ln.strip() for ln in res.log.splitlines()
             if "registers" in ln or "spill" in ln)
@@ -4266,7 +5098,9 @@ def main() -> int:
                                     analysis_slice(root, run, smi))
             by_path.update(paths)
         entries["avatar_sweep"]["traverse"] = traverse
-    for k in KERNELS:
+        entries.update(timed("bf16-kernel", bf16_kernel_check(device)))
+        by_path.update(timed("bf16-slice", bf16_slice(device, smi)))
+    for k in KERNELS + BF16_KERNELS:
         # each path's own count (set to 0 just before it, read just after)
         # and their sum
         entries[k]["launches_by_path"] = {
@@ -4288,9 +5122,11 @@ def main() -> int:
            if entries[k].get("variants") else {}),
         **{f: entries[k][f] for f in (
             "ms_events", "plain_ms_events", "library_ms_events", "plan",
-            "phase_cycles_per_tile", "ptxas", "traverse")
+            "phase_cycles_per_tile", "ptxas", "traverse", "worst_ratio",
+            "sass_hmma", "f32_ms", "step_ms_in_launch",
+            "f32_step_ms_in_launch")
             if f in entries[k]}}
-        for k in KERNELS]}))
+        for k in KERNELS + BF16_KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -79,10 +79,17 @@
 //      hidden bias grads (rows over warps), and Adam             (10)
 // poe with masks has the two-wave phases: 4 hidden problems of 256 x 256
 // (256 tiles on 132 blocks) and 16 heads problems.
-// Products: step_common.cuh's gemm_tile (float32 FMA, 32 x 32 tiles, in-block
-// split-K in a fixed order; tensor cores belong to a bfloat16 mode, see
-// mopoe_step.cu). No library product, no float atomics, no sum whose order
-// depends on gridDim: two runs and two grids give the same bits.
+// Products: step_common.cuh's gemm_tile (32 x 32 tiles, in-block split-K in
+// a fixed order), float32 FMA in the float32 instance. The bfloat16 branch
+// (bf16 != 0, the TPU kernel's matmul_bf16 under in-kernel autodiff, scheme
+// B of multivae_tpu_torch/ops/bf16.py) is a second instance: the forward
+// products (phases 0, 1, 3) round both operands and run on the tensor cores;
+// the backward products (phases 4, 6, 7) multiply the float32 cotangent by
+// the other operand rounded to bfloat16 on the FMA path and round each
+// product's sum to bfloat16 before a problem's segments (the four heads,
+// the two decoders, poe's two passes) are added. No library product, no
+// float atomics, no sum whose order depends on gridDim: two runs and two
+// grids give the same bits.
 
 #include <cooperative_groups.h>
 
@@ -191,6 +198,7 @@ struct StepParams {
   int ld_noise, ld_mask;
   int n_steps, adam, method, passes, b, row_offset, b_total;
   int d1, d2, h, cd, s1, s2, learn_scale;
+  int bf16;  // the bfloat16 branch (scheme B): the kernel<true> instance
   float beta, beta_style, beta_content;
   long long count;  // Adam updates taken before this launch
   adam::Hyper hyper;
@@ -420,6 +428,7 @@ __host__ __device__ constexpr int barriers_per_step(int adam) {
   return adam ? kPhases : kPhases - 1;
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(step::kGemmThreads)
 method_steps_kernel(const __grid_constant__ StepParams a) {
   cg::grid_group grid = cg::this_grid();
@@ -443,6 +452,9 @@ method_steps_kernel(const __grid_constant__ StepParams a) {
     for (int q = 0; q < phase; ++q) first += phase_problems(q);
     tb.tab[phase].reset(tb.prob + first, phase_problems(phase));
     build_phase(phase, a, tb.layout, tb.work, tb.tab[phase], tb.cst);
+    // scheme B: the forward products round both operands, autodiff's
+    // backward products the one that is not the cotangent
+    if (kBf16) tb.tab[phase].round_products(phase >= kDecGrads);
   }
   __syncthreads();
   const Work& w = tb.work;
@@ -472,7 +484,9 @@ method_steps_kernel(const __grid_constant__ StepParams a) {
         if (task < tiles) {
           int tile = task;
           const step::Problem& P = T.find(tile);
-          step::gemm_tile(P, tile, step, sm, adam);
+          step::gemm_tile<kStages, step::kNormal,
+                          kBf16 ? step::kSchemeB : step::kSchemeF32>(
+              P, tile, step, sm, adam);
         } else if (phase == kLatentFwd) {
           latent_fwd_task(tb.lat, noise, task - tiles);
         } else if (phase == kLatentBwd) {
@@ -525,8 +539,9 @@ int max_phase_tasks(const StepParams& a) {
 // The cooperative grid of a launch at these sizes on the current device.
 int grid_blocks(const StepParams& a, int* blocks) {
   return step::cooperative_grid(
-      method_steps_kernel, static_cast<int>(sizeof(Smem)),
-      {a.b, a.d1, a.d2, a.h, a.cd, a.s1, a.s2, a.method, a.passes},
+      a.bf16 ? &method_steps_kernel<true> : &method_steps_kernel<false>,
+      static_cast<int>(sizeof(Smem)),
+      {a.b, a.d1, a.d2, a.h, a.cd, a.s1, a.s2, a.method, a.passes, a.bf16},
       [&] { return max_phase_tasks(a); }, blocks);
 }
 
@@ -550,13 +565,16 @@ int launch_steps(const StepParams& a, cudaStream_t stream) {
   StepParams params = a;
   void* args[] = {&params};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(method_steps_kernel), dim3(blocks),
+      reinterpret_cast<void*>(a.bf16 ? &method_steps_kernel<true>
+                                     : &method_steps_kernel<false>),
+      dim3(blocks),
       dim3(step::kGemmThreads), args, sizeof(Smem), stream));
 }
 
 StepParams sizes_only(int method, int passes, int b, int d1, int d2, int h,
-                      int cd, int s1, int s2) {
+                      int cd, int s1, int s2, int bf16) {
   StepParams a = {};
+  a.bf16 = bf16 != 0;
   a.n_steps = 1;
   a.method = method;
   a.passes = passes;
@@ -585,13 +603,14 @@ long long method_step_workspace_floats(int method, int has_masks, int b,
                cd, s1, s2).total;
 }
 
-// Blocks of the cooperative grid at these sizes on the current device
-// (negative: minus a CUDA error code).
+// Blocks of the cooperative grid at these sizes on the current device, of
+// the float32 (bf16 = 0) or the bfloat16 instance (negative: minus a CUDA
+// error code).
 int method_step_grid_blocks(int method, int has_masks, int b, int d1, int d2,
-                            int h, int cd, int s1, int s2) {
+                            int h, int cd, int s1, int s2, int bf16) {
   int blocks = 0;
   const int rc = grid_blocks(sizes_only(method, passes_of(method, has_masks),
-                                        b, d1, d2, h, cd, s1, s2),
+                                        b, d1, d2, h, cd, s1, s2, bf16),
                              &blocks);
   return rc != 0 ? -rc : blocks;
 }
@@ -606,21 +625,22 @@ int method_step_barriers(int adam) { return barriers_per_step(adam); }
 // all null (no dropout) or the keep masks of encoder 1, encoder 2 and, for
 // poe, of the unimodal re-encodings of 1 and 2 (null otherwise), each
 // [B, h] with row stride ld_mask (the local rows, like x and the noise).
-// One cooperative launch. Returns the first CUDA error (0 on success).
-// Synchronizes nothing and allocates nothing: `work` holds
+// bf16 != 0 takes the bfloat16 branch (scheme B). One cooperative launch.
+// Returns the first CUDA error (0 on success). Synchronizes nothing and
+// allocates nothing: `work` holds
 // method_step_workspace_floats(..., b, ...) floats.
-int method_step_slice_launch(const float* params, float* grads,
-                             float* metrics, const float* x1, const float* x2,
+int method_step_slice_launch(const float* params, float* grads, float* metrics,
+                             const float* x1, const float* x2,
                              const float* noise, int ld_noise,
                              const float* mask0, const float* mask1,
                              const float* mask2, const float* mask3,
                              int ld_mask, float* work, int method, int b,
-                             int row_offset, int b_total, int d1, int d2,
-                             int h, int cd, int s1, int s2, float beta,
+                             int row_offset, int b_total, int d1, int d2, int h,
+                             int cd, int s1, int s2, float beta,
                              float beta_style, float beta_content,
-                             int learn_scale, void* stream_ptr) {
+                             int learn_scale, void* stream_ptr, int bf16) {
   StepParams a = sizes_only(method, mask2 != nullptr ? 2 : 1, b, d1, d2, h,
-                            cd, s1, s2);
+                            cd, s1, s2, bf16);
   // n = 1 and Adam off: the params are only read
   a.params = const_cast<float*>(params);
   a.grads = grads;
@@ -651,13 +671,13 @@ int method_step_launch(const float* params, float* grads, float* metrics,
                        const float* mask2, const float* mask3, int ld_mask,
                        float* work, int method, int b, int d1, int d2, int h,
                        int cd, int s1, int s2, float beta, float beta_style,
-                       float beta_content, int learn_scale,
-                       void* stream_ptr) {
+                       float beta_content, int learn_scale, void* stream_ptr,
+                       int bf16) {
   return method_step_slice_launch(params, grads, metrics, x1, x2, noise,
-                                  ld_noise, mask0, mask1, mask2, mask3,
-                                  ld_mask, work, method, b, 0, b, d1, d2, h,
-                                  cd, s1, s2, beta, beta_style, beta_content,
-                                  learn_scale, stream_ptr);
+                                  ld_noise, mask0, mask1, mask2, mask3, ld_mask,
+                                  work, method, b, 0, b, d1, d2, h, cd, s1, s2,
+                                  beta, beta_style, beta_content, learn_scale,
+                                  stream_ptr, bf16);
 }
 
 // n steps in ONE cooperative launch on `stream`, each followed by Adam at
@@ -667,21 +687,22 @@ int method_step_launch(const float* params, float* grads, float* metrics,
 // for poe) contiguous, metrics [n, 17 | 19], grads a scratch buffer of the
 // params' size (it ends as the last step's gradient). The Adam scalars are
 // float32 as in flat_adam_launch. phase_times is null, or takes n x 9
-// device timestamps in ns (tracing, as in mopoe_epoch_launch). Returns the
-// first CUDA error (0 on success); synchronizes and allocates nothing.
+// device timestamps in ns (tracing, as in mopoe_epoch_launch). bf16 != 0
+// takes the bfloat16 branch. Returns the first CUDA error (0 on success);
+// synchronizes and allocates nothing.
 int method_epoch_launch(float* params, float* mu, float* nu, float* grads,
                         float* metrics, const float* x1s, const float* x2s,
                         const float* noise, const float* masks, float* work,
-                        int n, int method, int b, int d1, int d2, int h,
-                        int cd, int s1, int s2, float beta, float beta_style,
+                        int n, int method, int b, int d1, int d2, int h, int cd,
+                        int s1, int s2, float beta, float beta_style,
                         float beta_content, int learn_scale, long long count,
                         float lr, float b1, float b2, float one_minus_b1,
                         float one_minus_b2, float log_b1, float log_b2,
                         float eps, unsigned long long* phase_times,
-                        void* stream_ptr) {
+                        void* stream_ptr, int bf16) {
   const bool poe = method == kPoe;
   const int passes = passes_of(method, masks != nullptr);
-  StepParams a = sizes_only(method, passes, b, d1, d2, h, cd, s1, s2);
+  StepParams a = sizes_only(method, passes, b, d1, d2, h, cd, s1, s2, bf16);
   const int width = (cd + s1 + s2) + (poe ? 2 * cd + s1 + s2 : 0);
   const long long mask_floats = static_cast<long long>(b) * h;
   a.params = params;

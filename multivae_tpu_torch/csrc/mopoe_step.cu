@@ -69,13 +69,15 @@
 //   eight sizes (make_layout, carve), once per launch.
 // No library product (no cuBLAS), no float atomics: every sum has one fixed
 // order that depends on the tile alone, so two runs, two grids and the
-// (0, b) row slice against the whole batch give the same bits. The products
-// stay float32 FMA: the kernel's contract is float32 (it is held to the
-// plain version in full float32 at 1e-4), TF32 keeps three digits, and the
-// arithmetic is a few microseconds of a step: tensor cores (bf16/TF32
-// wgmma) belong to a bfloat16 precision mode. TMA buys nothing for
-// 32-wide tiles of L2-resident operands; cp.async is the asynchronous copy
-// that fits.
+// (0, b) row slice against the whole batch give the same bits. Two
+// instantiations of the kernel: float32 (the products on the float32 FMA
+// path, held to the plain version in full float32 at 1e-4; TF32 would keep
+// three digits) and the bfloat16 branch (bf16 != 0, the TPU kernel's
+// matmul_bf16, scheme A of multivae_tpu_torch/ops/bf16.py): every product,
+// forward and backward, rounds both operands to bfloat16 and runs on the
+// tensor cores (mma.sync m16n8k16, float32 accumulation) in the same tiles
+// and the same order of sums. TMA buys nothing for 32-wide tiles of
+// L2-resident operands; cp.async is the asynchronous copy that fits.
 
 #include <cooperative_groups.h>
 
@@ -173,6 +175,7 @@ struct StepParams {
   int ld_ej, ld_es1, ld_es2;
   int n_steps, adam, b, row_offset, b_total;
   int d1, d2, h, cd, s1, s2, learn_scale;
+  int bf16;  // the bfloat16 branch (scheme A): the kernel<true> instance
   float beta, beta_style, beta_content;
   long long count;  // Adam updates taken before this launch
   adam::Hyper hyper;
@@ -521,6 +524,7 @@ __host__ __device__ constexpr int barriers_per_step(int adam) {
   return adam ? kPhases : kPhases - 1;
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(step::kGemmThreads)
 mopoe_steps_kernel(const __grid_constant__ StepParams a) {
   cg::grid_group grid = cg::this_grid();
@@ -542,6 +546,7 @@ mopoe_steps_kernel(const __grid_constant__ StepParams a) {
     for (int q = 0; q < phase; ++q) first += phase_problems(q);
     tb.tab[phase].reset(tb.prob + first, phase_problems(phase));
     build_phase(phase, a, tb.layout, tb.work, tb.tab[phase], tb.cst);
+    if (kBf16) tb.tab[phase].round_products(false);  // scheme A
   }
   __syncthreads();
   const Work& w = tb.work;
@@ -569,7 +574,9 @@ mopoe_steps_kernel(const __grid_constant__ StepParams a) {
         if (task < tiles) {
           int tile = task;
           const step::Problem& P = T.find(tile);
-          step::gemm_tile(P, tile, step, sm, adam);
+          step::gemm_tile<kStages, step::kNormal,
+                          kBf16 ? step::kSchemeA : step::kSchemeF32>(
+              P, tile, step, sm, adam);
         } else if (phase == kLatentFwd) {
           latent_fwd_task(a, w, step, task);
         } else if (phase == kLatentBwd) {
@@ -619,8 +626,9 @@ int max_phase_tasks(const StepParams& a) {
 // The cooperative grid of a launch at these sizes on the current device.
 int grid_blocks(const StepParams& a, int* blocks) {
   return step::cooperative_grid(
-      mopoe_steps_kernel, static_cast<int>(sizeof(Smem)),
-      {a.b, a.d1, a.d2, a.h, a.cd, a.s1, a.s2, 0, 0, 0},
+      a.bf16 ? &mopoe_steps_kernel<true> : &mopoe_steps_kernel<false>,
+      static_cast<int>(sizeof(Smem)),
+      {a.b, a.d1, a.d2, a.h, a.cd, a.s1, a.s2, 0, 0, 0, a.bf16},
       [&] { return max_phase_tasks(a); }, blocks);
 }
 
@@ -635,12 +643,16 @@ int launch_steps(const StepParams& a, cudaStream_t stream) {
   StepParams params = a;
   void* args[] = {&params};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(mopoe_steps_kernel), dim3(blocks),
+      reinterpret_cast<void*>(a.bf16 ? &mopoe_steps_kernel<true>
+                                     : &mopoe_steps_kernel<false>),
+      dim3(blocks),
       dim3(step::kGemmThreads), args, sizeof(Smem), stream));
 }
 
-StepParams sizes_only(int b, int d1, int d2, int h, int cd, int s1, int s2) {
+StepParams sizes_only(int b, int d1, int d2, int h, int cd, int s1, int s2,
+                      int bf16) {
   StepParams a = {};
+  a.bf16 = bf16 != 0;
   a.n_steps = 1;
   a.b = a.b_total = b;
   a.d1 = d1;
@@ -666,12 +678,14 @@ long long mopoe_step_workspace_floats(int b, int d1, int d2, int h, int cd,
   return carve(nullptr, b, d1, d2, h, cd, s1, s2).total;
 }
 
-// Blocks of the cooperative grid at these sizes on the current device
-// (negative: minus a CUDA error code).
+// Blocks of the cooperative grid at these sizes on the current device, of
+// the float32 (bf16 = 0) or the bfloat16 instance (negative: minus a CUDA
+// error code).
 int mopoe_step_grid_blocks(int b, int d1, int d2, int h, int cd, int s1,
-                           int s2) {
+                           int s2, int bf16) {
   int blocks = 0;
-  const int rc = grid_blocks(sizes_only(b, d1, d2, h, cd, s1, s2), &blocks);
+  const int rc =
+      grid_blocks(sizes_only(b, d1, d2, h, cd, s1, s2, bf16), &blocks);
   return rc != 0 ? -rc : blocks;
 }
 
@@ -681,18 +695,19 @@ int mopoe_step_barriers(int adam) { return barriers_per_step(adam); }
 // One step on `stream` over rows [row_offset, row_offset + b) of a batch of
 // b_total rows: grads (flat, split layout) and metrics[17] from the flat
 // params, as partial sums of the whole batch's (see the header); params are
-// not touched. One cooperative launch. Returns the first CUDA error (0 on
-// success). Synchronizes nothing and allocates nothing: `work` holds
+// not touched. bf16 != 0 takes the bfloat16 branch (scheme A). One
+// cooperative launch. Returns the first CUDA error (0 on success).
+// Synchronizes nothing and allocates nothing: `work` holds
 // mopoe_step_workspace_floats(b, ...) floats.
 int mopoe_step_slice_launch(float* params, float* grads, float* metrics,
                             const float* x1, const float* x2, const float* ej,
                             int ld_ej, const float* es1, int ld_es1,
                             const float* es2, int ld_es2, float* work, int b,
-                            int row_offset, int b_total, int d1, int d2,
-                            int h, int cd, int s1, int s2, float beta,
+                            int row_offset, int b_total, int d1, int d2, int h,
+                            int cd, int s1, int s2, float beta,
                             float beta_style, float beta_content,
-                            int learn_scale, void* stream_ptr) {
-  StepParams a = sizes_only(b, d1, d2, h, cd, s1, s2);
+                            int learn_scale, void* stream_ptr, int bf16) {
+  StepParams a = sizes_only(b, d1, d2, h, cd, s1, s2, bf16);
   a.params = params;
   a.grads = grads;
   a.metrics = metrics;
@@ -717,15 +732,15 @@ int mopoe_step_slice_launch(float* params, float* grads, float* metrics,
 // The unsharded step: the slice that is the whole batch.
 int mopoe_step_launch(float* params, float* grads, float* metrics,
                       const float* x1, const float* x2, const float* ej,
-                      int ld_ej, const float* es1, int ld_es1,
-                      const float* es2, int ld_es2, float* work, int b,
-                      int d1, int d2, int h, int cd, int s1, int s2,
-                      float beta, float beta_style, float beta_content,
-                      int learn_scale, void* stream_ptr) {
-  return mopoe_step_slice_launch(params, grads, metrics, x1, x2, ej, ld_ej,
-                                 es1, ld_es1, es2, ld_es2, work, b, 0, b, d1,
-                                 d2, h, cd, s1, s2, beta, beta_style,
-                                 beta_content, learn_scale, stream_ptr);
+                      int ld_ej, const float* es1, int ld_es1, const float* es2,
+                      int ld_es2, float* work, int b, int d1, int d2, int h,
+                      int cd, int s1, int s2, float beta, float beta_style,
+                      float beta_content, int learn_scale, void* stream_ptr,
+                      int bf16) {
+  return mopoe_step_slice_launch(params, grads, metrics, x1, x2, ej, ld_ej, es1,
+                                 ld_es1, es2, ld_es2, work, b, 0, b, d1, d2, h,
+                                 cd, s1, s2, beta, beta_style, beta_content,
+                                 learn_scale, stream_ptr, bf16);
 }
 
 // n steps in ONE cooperative launch on `stream`, each followed by Adam at
@@ -735,8 +750,9 @@ int mopoe_step_launch(float* params, float* grads, float* metrics,
 // of the params' size (it ends as the last step's gradient). The Adam
 // scalars are float32 as in flat_adam_launch. phase_times is null, or takes
 // n x 9 device timestamps in ns (tracing: the start of each step and the
-// end of each of its 8 phases, by block 0's clock). Returns the first CUDA
-// error (0 on success); synchronizes and allocates nothing.
+// end of each of its 8 phases, by block 0's clock). bf16 != 0 takes the
+// bfloat16 branch. Returns the first CUDA error (0 on success);
+// synchronizes and allocates nothing.
 int mopoe_epoch_launch(float* params, float* mu, float* nu, float* grads,
                        float* metrics, const float* x1s, const float* x2s,
                        const float* noise, float* work, int n, int b, int d1,
@@ -744,9 +760,9 @@ int mopoe_epoch_launch(float* params, float* mu, float* nu, float* grads,
                        float beta_style, float beta_content, int learn_scale,
                        long long count, float lr, float b1, float b2,
                        float one_minus_b1, float one_minus_b2, float log_b1,
-                       float log_b2, float eps,
-                       unsigned long long* phase_times, void* stream_ptr) {
-  StepParams a = sizes_only(b, d1, d2, h, cd, s1, s2);
+                       float log_b2, float eps, unsigned long long* phase_times,
+                       void* stream_ptr, int bf16) {
+  StepParams a = sizes_only(b, d1, d2, h, cd, s1, s2, bf16);
   a.phase_times = phase_times;
   a.params = params;
   a.mu = mu;

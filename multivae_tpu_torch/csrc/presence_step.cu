@@ -52,9 +52,13 @@
 //      on, every gradient element takes its update where it is produced and
 //      the older phases' (the decoder's, the absent modality's zeros) beside
 //      them, over all 28 tensors
-// Products are step_common.cuh's gemm_tile (float32 FMA, in-block split-K
-// in a fixed order; no tensor cores, see mopoe_step.cu for why). No library
-// product, no float atomics: two runs and two grids give the same bits.
+// Products are step_common.cuh's gemm_tile (in-block split-K in a fixed
+// order), float32 FMA in the float32 instance; the bfloat16 branch (bf16 !=
+// 0, scheme B of multivae_tpu_torch/ops/bf16.py, as in method_step.cu) is a
+// second instance: forward products on the tensor cores, backward products
+// of a float32 cotangent and a bfloat16 operand on the FMA path with each
+// product's sum rounded to bfloat16. No library product, no float atomics:
+// two runs and two grids give the same bits.
 
 #include <cooperative_groups.h>
 
@@ -157,6 +161,7 @@ struct StepParams {
   int ld_noise, ld_mask;
   int n_steps, adam, method, mod_idx, passes, b;
   int d1, d2, h, cd, s1, s2, learn_scale;
+  int bf16;  // the bfloat16 branch (scheme B): the kernel<true> instance
   float beta, beta_style, beta_content;
   long long count;  // Adam updates taken before this launch
   adam::Hyper hyper;
@@ -630,6 +635,7 @@ __host__ __device__ constexpr int barriers_per_step(int adam) {
   return adam ? kPhases : kPhases - 1;
 }
 
+template <bool kBf16>
 __global__ void __launch_bounds__(step::kGemmThreads)
 presence_steps_kernel(const __grid_constant__ StepParams a) {
   cg::grid_group grid = cg::this_grid();
@@ -651,6 +657,9 @@ presence_steps_kernel(const __grid_constant__ StepParams a) {
     for (int q = 0; q < phase; ++q) first += phase_problems(q);
     tb.tab[phase].reset(tb.prob + first, phase_problems(phase));
     build_phase(phase, a, tb.layout, tb.work, tb.tab[phase], tb.cst);
+    // scheme B: the forward products round both operands, autodiff's
+    // backward products the one that is not the cotangent
+    if (kBf16) tb.tab[phase].round_products(phase >= kDecGrads);
   }
   __syncthreads();
   const Work& w = tb.work;
@@ -678,7 +687,9 @@ presence_steps_kernel(const __grid_constant__ StepParams a) {
         if (task < tiles) {
           int tile = task;
           const step::Problem& P = T.find(tile);
-          step::gemm_tile(P, tile, step, sm, adam);
+          step::gemm_tile<kStages, step::kNormal,
+                          kBf16 ? step::kSchemeB : step::kSchemeF32>(
+              P, tile, step, sm, adam);
         } else if (phase == kLatentFwd) {
           latent_fwd_task(a, w, step, task);
         } else if (phase == kLatentBwd) {
@@ -738,9 +749,10 @@ int max_phase_tasks(const StepParams& a) {
 // The cooperative grid of a launch at these sizes on the current device.
 int grid_blocks(const StepParams& a, int* blocks) {
   return step::cooperative_grid(
-      presence_steps_kernel, static_cast<int>(sizeof(Smem)),
+      a.bf16 ? &presence_steps_kernel<true> : &presence_steps_kernel<false>,
+      static_cast<int>(sizeof(Smem)),
       {a.b, a.d1, a.d2, a.h, a.cd, a.s1, a.s2, a.method, a.passes,
-       a.mod_idx},
+       a.mod_idx, a.bf16},
       [&] { return max_phase_tasks(a); }, blocks);
 }
 
@@ -759,13 +771,16 @@ int launch_steps(const StepParams& a, cudaStream_t stream) {
   StepParams params = a;
   void* args[] = {&params};
   return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<void*>(presence_steps_kernel), dim3(blocks),
+      reinterpret_cast<void*>(a.bf16 ? &presence_steps_kernel<true>
+                                     : &presence_steps_kernel<false>),
+      dim3(blocks),
       dim3(step::kGemmThreads), args, sizeof(Smem), stream));
 }
 
 StepParams sizes_only(int method, int passes, int mod_idx, int b, int d1,
-                      int d2, int h, int cd, int s1, int s2) {
+                      int d2, int h, int cd, int s1, int s2, int bf16) {
   StepParams a = {};
+  a.bf16 = bf16 != 0;
   a.n_steps = 1;
   a.method = method;
   a.passes = passes;
@@ -790,14 +805,17 @@ long long presence_step_workspace_floats(int method, int has_masks, int b,
   return carve(nullptr, method, passes, b, d, h, cd, s).total;
 }
 
-// Blocks of the cooperative grid at these sizes on the current device
-// (negative: minus a CUDA error code).
+// Blocks of the cooperative grid at these sizes on the current device, of
+// the float32 (bf16 = 0) or the bfloat16 instance (negative: minus a CUDA
+// error code).
 int presence_step_grid_blocks(int method, int has_masks, int mod_idx, int b,
-                              int d1, int d2, int h, int cd, int s1, int s2) {
+                              int d1, int d2, int h, int cd, int s1, int s2,
+                              int bf16) {
   const int passes = (method == kPoe && has_masks) ? 2 : 1;
   int blocks = 0;
   const int rc = grid_blocks(
-      sizes_only(method, passes, mod_idx, b, d1, d2, h, cd, s1, s2), &blocks);
+      sizes_only(method, passes, mod_idx, b, d1, d2, h, cd, s1, s2, bf16),
+      &blocks);
   return rc != 0 ? -rc : blocks;
 }
 
@@ -810,17 +828,18 @@ int presence_step_barriers(int adam) { return barriers_per_step(adam); }
 // (no dropout) or the encoder's keep mask [B, h] with row stride ld_mask;
 // mask1 is poe's unimodal re-encoding's (null otherwise). grads and params
 // are flat buffers of the split layout of both modalities; metrics holds 9
-// floats (10 for poe). Returns the first CUDA error (0 on success);
-// synchronizes and allocates nothing.
+// floats (10 for poe). bf16 != 0 takes the bfloat16 branch (scheme B).
+// Returns the first CUDA error (0 on success); synchronizes and allocates
+// nothing.
 int presence_step_launch(float* params, float* grads, float* metrics,
                          const float* x, const float* noise, int ld_noise,
                          const float* mask0, const float* mask1, int ld_mask,
                          float* work, int method, int mod_idx, int b, int d1,
                          int d2, int h, int cd, int s1, int s2, float beta,
-                         float beta_style, float beta_content,
-                         int learn_scale, void* stream_ptr) {
+                         float beta_style, float beta_content, int learn_scale,
+                         void* stream_ptr, int bf16) {
   StepParams a = sizes_only(method, mask1 != nullptr ? 2 : 1, mod_idx, b, d1,
-                            d2, h, cd, s1, s2);
+                            d2, h, cd, s1, s2, bf16);
   a.params = params;
   a.grads = grads;
   a.metrics = metrics;
@@ -844,22 +863,22 @@ int presence_step_launch(float* params, float* grads, float* metrics,
 // dropout; n_masks 1, for poe 2) contiguous, metrics [n, 9 | 10], grads a
 // scratch buffer of the params' size. The Adam scalars are float32 as in
 // flat_adam_launch. phase_times is null, or takes n x 9 device timestamps in
-// ns (tracing, as in mopoe_epoch_launch). Returns the first CUDA error (0 on
-// success); synchronizes and allocates nothing.
+// ns (tracing, as in mopoe_epoch_launch). bf16 != 0 takes the bfloat16
+// branch. Returns the first CUDA error (0 on success); synchronizes and
+// allocates nothing.
 int presence_epoch_launch(float* params, float* mu, float* nu, float* grads,
-                          float* metrics, const float* xs,
-                          const float* noise, const float* masks, float* work,
-                          int n, int method, int mod_idx, int b, int d1,
-                          int d2, int h, int cd, int s1, int s2, float beta,
-                          float beta_style, float beta_content,
-                          int learn_scale, long long count, float lr,
-                          float b1, float b2, float one_minus_b1,
+                          float* metrics, const float* xs, const float* noise,
+                          const float* masks, float* work, int n, int method,
+                          int mod_idx, int b, int d1, int d2, int h, int cd,
+                          int s1, int s2, float beta, float beta_style,
+                          float beta_content, int learn_scale, long long count,
+                          float lr, float b1, float b2, float one_minus_b1,
                           float one_minus_b2, float log_b1, float log_b2,
                           float eps, unsigned long long* phase_times,
-                          void* stream_ptr) {
+                          void* stream_ptr, int bf16) {
   const bool two = masks != nullptr && method == kPoe;
   StepParams a = sizes_only(method, two ? 2 : 1, mod_idx, b, d1, d2, h, cd,
-                            s1, s2);
+                            s1, s2, bf16);
   const int width = (cd + a.s()) * (method == kPoe ? 2 : 1);
   const long long mask_floats = static_cast<long long>(b) * h;
   a.params = params;

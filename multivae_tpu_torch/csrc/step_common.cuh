@@ -32,6 +32,24 @@
 //   of both halves of the bias gradient and of the NLL). GemmTable holds
 //   the problems of one phase of a launch, built by the kernel itself in
 //   shared memory; the blocks stride over its tiles.
+// * The bfloat16 branch (precision = "bfloat16", the TPU kernels'
+//   matmul_bf16; multivae_tpu_torch/ops/bf16.py names the two schemes): a
+//   kernel instantiated for scheme A or B (kScheme) reads each problem's
+//   `rounding`. kRoundBoth rounds both operands to bfloat16 as the
+//   fragments are loaded from the float32 stages (__float2bfloat16_rn, to
+//   nearest even) and multiplies them on the tensor cores (mma.sync
+//   m16n8k16, bf16 x bf16 with float32 accumulation), each k-slice's
+//   product into a zeroed fragment that is then added to the running sums
+//   with float32 adds (the tensor cores truncate as they accumulate; kept to
+//   16 products, their bias stays near float32 round-off); the tile, its
+//   k-groups and the order of every sum stay those of the float32 tile, so
+//   the results still depend on the tile alone. kRoundA / kRoundB (scheme
+//   B's backward: a float32 cotangent times the other operand as bfloat16)
+//   run on the float32 FMA path with the named operand rounded as it is
+//   read, and round each segment's sum to bfloat16 before the segments are
+//   added (a segment is one product of the JAX forward, whose gradient
+//   autodiff rounds on its own); the epilogue (ReLU and mask, Adam) takes
+//   that sum. A float32 instance (kSchemeF32) compiles none of this.
 // * colsum_chunk: bias gradients, 32 columns by one block: the rows dealt to
 //   the 8 warps, neighbouring lanes on neighbouring columns, the warps'
 //   partials added in warp order (of one source, or of two passes' sources
@@ -40,6 +58,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -138,6 +157,21 @@ enum Epilogue {
                     // laplace and bernoulli as kDecLoss with lv per element
 };
 
+// How a problem's products round in a kernel of the bfloat16 branch; a
+// float32 kernel ignores it.
+enum Rounding {
+  kRoundNone = 0,  // float32 operands, float32 FMA
+  kRoundBoth = 1,  // both operands bfloat16, float32 sums, tensor cores
+  kRoundA = 2,     // A bfloat16, B float32, float32 FMA; each segment's
+                   // sum rounded
+  kRoundB = 3,     // B bfloat16, A float32, likewise
+};
+
+// The products a kernel instance compiles: float32 FMA alone; the bfloat16
+// branch's scheme A (every problem kRoundBoth); scheme B (kRoundBoth and
+// kRoundA / kRoundB).
+enum Scheme { kSchemeF32 = 0, kSchemeA = 1, kSchemeB = 2 };
+
 struct Segment {
   const float* A;
   const float* B;
@@ -168,6 +202,7 @@ struct Problem {
   // kSampleLoss: the per-sample log-variance [M, N] with row stride ld_lv
   int ld_lv;
   const float* lv;
+  int rounding;  // a Rounding, read by the kernels of the bfloat16 branch
 };
 
 // Adam applied where a gradient element is produced (the persistent steps'
@@ -233,6 +268,7 @@ struct GemmTable {
     P.scale = 1.0f;
     P.ld_lv = 0;
     P.lv = nullptr;
+    P.rounding = kRoundNone;
     P.tiles_n = (N + kTile - 1) / kTile;
     P.tile_begin = total_tiles;
     total_tiles += ((M + kTile - 1) / kTile) * P.tiles_n;
@@ -251,6 +287,17 @@ struct GemmTable {
     S.K = K;
     S.lda = lda;
     S.ldb = ldb;
+  }
+
+  // The bfloat16 branch's rounding of every problem in the table: scheme A
+  // (the hand backward, and every forward product) rounds both operands;
+  // scheme B's backward products (`autodiff`) round the operand that is not
+  // the cotangent: A of dW = A^T G, B of G W^T.
+  __host__ __device__ void round_products(bool autodiff) {
+    for (int i = 0; i < count; ++i) {
+      p[i].rounding =
+          !autodiff ? kRoundBoth : (p[i].transA ? kRoundA : kRoundB);
+    }
   }
 
   // the problem that owns `tile`, which becomes the tile's index inside it
@@ -375,23 +422,199 @@ __device__ __forceinline__ void load_slice(const Operand& X, int k0,
   }
 }
 
+// bfloat16 helpers of the bfloat16 branch: x rounded to nearest even and
+// widened back; two floats rounded into one 32-bit register (lo in the low
+// half, the element of the lower k or column index, as mma expects).
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// One bf16 x bf16 -> float32 tensor-core product of a 16 x 16 A fragment and
+// a 16 x 8 B fragment, added to c with float32 adds (per thread: c[0..1] at
+// row lane / 4, columns 2 (lane % 4) + 0..1; c[2..3] eight rows further).
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  float d[4];
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(0.0f));
+#pragma unroll
+  for (int q = 0; q < 4; ++q) c[q] += d[q];
+}
+
+// The k loop of one kTile x kTile tile over the segments [s_begin, s_end)
+// of P, by every thread of the block (it holds block barriers). The
+// k-slices of those segments, in order, are dealt round-robin to the
+// kGroups k-groups; a group sums its slices in order, the groups' partials
+// are added in group order, so the order of every sum is a function of the
+// tile alone. While a group multiplies one slice its next kStages - 1 are
+// on the way (a ring of stages filled by cp.async). kMode is a Rounding:
+// kRoundNone multiplies on the float32 FMA path, a thread 4 x 4 outputs;
+// kRoundA on the same path with the operand P.rounding names (A or B)
+// rounded to bfloat16 as it is read; kRoundBoth on the tensor cores, a
+// warp 16 rows x 32 columns (four m16n8k16 products a slice), the operands
+// rounded as their fragments are loaded. v[r] is the sum at row m0 + 4 warp
+// + r, column n0 + threadIdx.x % kTile (0 past the problem's edge).
+template <int kStages, int kMode>
+__device__ __forceinline__ void tile_sums(const Problem& P, int s_begin,
+                                          int s_end, int m0, int n0,
+                                          long long a_off,
+                                          GemmSmem<kStages>& sm,
+                                          float v[4]) {
+  const int tid = threadIdx.x;
+  const int g = tid / kGroupThreads, j = tid % kGroupThreads;
+  const int tx = j % 8, ty = j / 8;
+  const int M = P.M, N = P.N;
+
+  int nsl = 0;
+  for (int s = s_begin; s < s_end; ++s) {
+    nsl += (P.seg[s].K + kSlice - 1) / kSlice;
+  }
+  const int iters = (nsl + kGroups - 1) / kGroups;
+
+  // scheme B's backward products round one operand
+  constexpr bool kRoundOne = kMode == kRoundA;
+  const bool round_a = P.rounding == kRoundA;
+  float acc[4][4];
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
+  }
+
+  // start the copies of this group's slice of iteration `it` (none past
+  // the end) into the ring
+  auto start_copies = [&](int it) {
+    int q = it * kGroups + g;
+    for (int s = s_begin; s < s_end; ++s) {
+      const int ns = (P.seg[s].K + kSlice - 1) / kSlice;
+      if (q < ns) {
+        const Segment& S = P.seg[s];
+        const int stage = it % kStages;
+        load_slice(make_operand(S.A + a_off, S.lda, M, S.K, m0,
+                                P.transA != 0),
+                   q * kSlice, sm.a[stage][g], j);
+        load_slice(make_operand(S.B, S.ldb, N, S.K, n0, P.transB == 0),
+                   q * kSlice, sm.b[stage][g], j);
+        return;
+      }
+      q -= ns;
+    }
+  };
+
+  // one commit per stage and iteration, empty or not, so that the count of
+  // groups in flight says which slice has landed
+  for (int it = 0; it < kStages - 1; ++it) {
+    if (it < iters) start_copies(it);
+    cp_async_commit();
+  }
+  for (int it = 0; it < iters; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice `it` has landed; the stage of `it - 1` is free
+    if (it + kStages - 1 < iters) start_copies(it + kStages - 1);
+    cp_async_commit();
+    if (it * kGroups + g < nsl) {
+      float (*As)[kLd] = sm.a[it % kStages][g];
+      float (*Bs)[kLd] = sm.b[it % kStages][g];
+      if constexpr (kMode == kRoundBoth) {
+        // warp j / 32 of the group: rows 16 (j / 32) .. + 16, all 32
+        // columns as four n8 fragments; A(m, k) = As[k][m]
+        const int lane = j % 32;
+        const int r0 = 16 * (j / 32) + lane / 4, k0 = 2 * (lane % 4);
+        const uint32_t a[4] = {
+            pack_bf16(As[k0][r0], As[k0 + 1][r0]),
+            pack_bf16(As[k0][r0 + 8], As[k0 + 1][r0 + 8]),
+            pack_bf16(As[k0 + 8][r0], As[k0 + 9][r0]),
+            pack_bf16(As[k0 + 8][r0 + 8], As[k0 + 9][r0 + 8])};
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int c = 8 * nt + lane / 4;
+          mma_bf16(acc[nt], a, pack_bf16(Bs[k0][c], Bs[k0 + 1][c]),
+                   pack_bf16(Bs[k0 + 8][c], Bs[k0 + 9][c]));
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kSlice; ++k) {
+          const float4 av = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
+          const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
+          float a4[4] = {av.x, av.y, av.z, av.w};
+          float b4[4] = {bv.x, bv.y, bv.z, bv.w};
+          if constexpr (kRoundOne) {
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if (round_a) {
+                a4[q] = round_bf16(a4[q]);
+              } else {
+                b4[q] = round_bf16(b4[q]);
+              }
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              acc[r][c] = fmaf(a4[r], b4[c], acc[r][c]);
+            }
+          }
+        }
+      }
+    }
+  }
+  __syncthreads();  // every group is done with the stages
+
+  // the groups' partials, then each thread finishes 4 rows of one column
+  float (*red)[kTile][kTile] =
+      reinterpret_cast<float (*)[kTile][kTile]>(&sm.a[0][0][0][0]);
+  if constexpr (kMode == kRoundBoth) {
+    const int lane = j % 32;
+    const int r0 = 16 * (j / 32) + lane / 4, c0 = 2 * (lane % 4);
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
+      *reinterpret_cast<float2*>(&red[g][r0][8 * nt + c0]) =
+          make_float2(acc[nt][0], acc[nt][1]);
+      *reinterpret_cast<float2*>(&red[g][r0 + 8][8 * nt + c0]) =
+          make_float2(acc[nt][2], acc[nt][3]);
+    }
+  } else {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      *reinterpret_cast<float4*>(&red[g][4 * ty + r][4 * tx]) =
+          make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
+    }
+  }
+  __syncthreads();
+  const int nl = tid % kTile, warp = tid / kTile;
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const int ml = 4 * warp + r;
+    v[r] = (m0 + ml < M && n0 + nl < N)
+               ? ((red[0][ml][nl] + red[1][ml][nl]) + red[2][ml][nl]) +
+                     red[3][ml][nl]
+               : 0.0f;
+  }
+}
+
 // One kTile x kTile output tile of P by one block of kGemmThreads threads;
-// every thread of the block calls it (it holds block barriers). The k-slices
-// of all segments, in order, are dealt round-robin to the kGroups k-groups;
-// a group sums its slices in order into 4 x 4 outputs a thread, the groups'
-// partials are added in group order, so the order of every sum is a
-// function of the tile alone. While a group multiplies one slice its next
-// kStages - 1 are on the way (a ring of stages filled by cp.async). `step`
-// picks the batch of a launch that runs several steps; with `adam` every
-// output element (a gradient) also takes its Adam update. kLik is the
-// likelihood of the kDecLoss and kSampleLoss epilogues.
-template <int kStages, int kLik = kNormal>
+// every thread of the block calls it (it holds block barriers). The sums
+// are tile_sums' (float32 FMA; under scheme A on the tensor cores; under
+// scheme B as P.rounding says, each segment's sum rounded on its own for
+// kRoundA / kRoundB), then the epilogue. `step` picks the batch of a launch
+// that runs several steps; with `adam` every output element (a gradient)
+// also takes its Adam update. kLik is the likelihood of the kDecLoss and
+// kSampleLoss epilogues; kScheme a Scheme.
+template <int kStages, int kLik = kNormal, int kScheme = kSchemeF32>
 __device__ void gemm_tile(const Problem& P, int tile, int step,
                           GemmSmem<kStages>& sm,
                           const AdamAt* adam = nullptr) {
   const int tid = threadIdx.x;
-  const int g = tid / kGroupThreads, j = tid % kGroupThreads;
-  const int tx = j % 8, ty = j / 8;
   const int M = P.M, N = P.N, nseg = P.nseg;
   const int m0 = (tile / P.tiles_n) * kTile;
   const int n0 = (tile % P.tiles_n) * kTile;
@@ -425,78 +648,27 @@ __device__ void gemm_tile(const Problem& P, int tile, int step,
     }
   }
 
-  int nsl = 0;
-  for (int s = 0; s < nseg; ++s) nsl += (P.seg[s].K + kSlice - 1) / kSlice;
-  const int iters = (nsl + kGroups - 1) / kGroups;
-
-  float acc[4][4];
+  float sums[4];
+  if constexpr (kScheme == kSchemeA) {
+    tile_sums<kStages, kRoundBoth>(P, 0, nseg, m0, n0, a_off, sm, sums);
+  } else if constexpr (kScheme == kSchemeB) {
+    if (P.rounding == kRoundBoth) {
+      tile_sums<kStages, kRoundBoth>(P, 0, nseg, m0, n0, a_off, sm, sums);
+    } else {
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+      for (int r = 0; r < 4; ++r) sums[r] = 0.0f;
+      for (int s = 0; s < nseg; ++s) {
+        float part[4];
+        tile_sums<kStages, kRoundA>(P, s, s + 1, m0, n0, a_off, sm, part);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0.0f;
-  }
-
-  // start the copies of this group's slice of iteration `it` (none past
-  // the end) into the ring
-  auto start_copies = [&](int it) {
-    int q = it * kGroups + g;
-    for (int s = 0; s < nseg; ++s) {
-      const int ns = (P.seg[s].K + kSlice - 1) / kSlice;
-      if (q < ns) {
-        const Segment& S = P.seg[s];
-        const int stage = it % kStages;
-        load_slice(make_operand(S.A + a_off, S.lda, M, S.K, m0,
-                                P.transA != 0),
-                   q * kSlice, sm.a[stage][g], j);
-        load_slice(make_operand(S.B, S.ldb, N, S.K, n0, P.transB == 0),
-                   q * kSlice, sm.b[stage][g], j);
-        return;
-      }
-      q -= ns;
-    }
-  };
-
-  // one commit per stage and iteration, empty or not, so that the count of
-  // groups in flight says which slice has landed
-  for (int it = 0; it < kStages - 1; ++it) {
-    if (it < iters) start_copies(it);
-    cp_async_commit();
-  }
-  for (int it = 0; it < iters; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // slice `it` has landed; the stage of `it - 1` is free
-    if (it + kStages - 1 < iters) start_copies(it + kStages - 1);
-    cp_async_commit();
-    if (it * kGroups + g < nsl) {
-      float (*As)[kLd] = sm.a[it % kStages][g];
-      float (*Bs)[kLd] = sm.b[it % kStages][g];
-#pragma unroll
-      for (int k = 0; k < kSlice; ++k) {
-        const float4 av = *reinterpret_cast<const float4*>(&As[k][4 * ty]);
-        const float4 bv = *reinterpret_cast<const float4*>(&Bs[k][4 * tx]);
-        const float a4[4] = {av.x, av.y, av.z, av.w};
-        const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c) {
-            acc[r][c] = fmaf(a4[r], b4[c], acc[r][c]);
-          }
-        }
+        for (int r = 0; r < 4; ++r) sums[r] += round_bf16(part[r]);
+        __syncthreads();  // the next segment's copies reuse the stages
       }
     }
+  } else {
+    tile_sums<kStages, kRoundNone>(P, 0, nseg, m0, n0, a_off, sm, sums);
   }
-  __syncthreads();  // every group is done with the stages
 
-  // the groups' partials, then each thread finishes 4 rows of one column
-  float (*red)[kTile][kTile] =
-      reinterpret_cast<float (*)[kTile][kTile]>(&sm.a[0][0][0][0]);
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    *reinterpret_cast<float4*>(&red[g][4 * ty + r][4 * tx]) =
-        make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-  }
-  __syncthreads();
   // used by kDecLoss alone: 1 / variance, laplace 1 / scale
   const float iv = kLik == kLaplace ? expf(-0.5f * olv) : expf(-olv);
   float col[kMaxColOut] = {0.0f, 0.0f, 0.0f};
@@ -504,8 +676,7 @@ __device__ void gemm_tile(const Problem& P, int tile, int step,
   for (int r = 0; r < 4; ++r) {
     const int ml = 4 * warp + r, m = m0 + ml;
     if (m >= M || n >= N) continue;
-    float v = ((red[0][ml][nl] + red[1][ml][nl]) + red[2][ml][nl]) +
-              red[3][ml][nl];
+    float v = sums[r];
     switch (epilogue) {
       case kBias:
         v += bias;

@@ -27,6 +27,11 @@ of a batch (the TPU kernel ``fused_sharded._dp_method_kernel``): every row
 partition and normalization is the whole batch's, the outputs are partial
 sums. :func:`slice_method_step_flat` launches the kernel's row-slice entry
 point and counts under ``dp_method_step``.
+
+Every entry point takes ``bf16``: the TPU kernel's ``matmul_bf16`` branch
+under its in-kernel autodiff (scheme B of :mod:`.bf16`). On CUDA tensors it
+launches the kernel's bfloat16 instance, counted under ``method_step_bf16``
+/ ``dp_method_step_bf16``.
 """
 
 from __future__ import annotations
@@ -44,6 +49,7 @@ from ..params import (
     flatten_split,
 )
 from .adam import AdamHyper, adam_scalars, adam_update
+from .bf16 import dot, dot_ct
 from .fused_step import (
     LOG2PI,
     POE_EPS,
@@ -54,6 +60,7 @@ from .fused_step import (
     check_phase_times,
     check_slice,
     check_stack,
+    counter_name,
     split_layout_ok,
     workspace,
 )
@@ -61,10 +68,13 @@ from .fused_step import (
 METHODS = ("joint_elbo", "moe", "jsd", "poe")
 PORTED_METHODS = METHODS
 
-# launches of each kernel in this module; a caller resets and reads it
-KERNEL_LAUNCHES: Dict[str, int] = {"method_step": 0, "dp_method_step": 0}
+# launches of each kernel in this module, the bfloat16 instance's apart
+# (``fused_step.counter_name``); a caller resets and reads it
+KERNEL_LAUNCHES: Dict[str, int] = {
+    "method_step": 0, "dp_method_step": 0, "method_step_bf16": 0,
+    "dp_method_step_bf16": 0}
 # train steps run by those launches (one launch may run a group of steps)
-KERNEL_STEPS: Dict[str, int] = {"method_step": 0, "dp_method_step": 0}
+KERNEL_STEPS: Dict[str, int] = dict.fromkeys(KERNEL_LAUNCHES, 0)
 
 
 def method_metric_names(model, method: str) -> Tuple[str, ...]:
@@ -122,38 +132,43 @@ def supports_method_fused(cfg, model, batch) -> bool:
 # ---------------------------------------------- pieces of the plain versions
 # Shared by :func:`method_fwd_bwd_reference` and
 # ``fused_presence.presence_fwd_bwd_reference``. ``g`` is the dict of split
-# gradients; the backward pieces add into it.
-def encode(sp, e: str, x, dm=None):
+# gradients; the backward pieces add into it. ``bf16``: the products of
+# ``matmul_bf16`` under autodiff (scheme B of :mod:`.bf16`): the forward's
+# of rounded operands, each backward product of a float32 cotangent and a
+# rounded operand, its result rounded.
+def encode(sp, e: str, x, dm=None, bf16: bool = False):
     """``(h, cmu, clv, smu, slv)`` of encoder ``e``; ``h`` is the hidden
     activation after ReLU and the keep mask ``dm``."""
-    h = torch.relu(x @ sp[f"{e}_Wh"] + sp[f"{e}_bh"])
+    h = torch.relu(dot(x, sp[f"{e}_Wh"], bf16) + sp[f"{e}_bh"])
     if dm is not None:
         h = h * dm
-    return (h,) + tuple(h @ sp[f"{e}_W{k}"] + sp[f"{e}_b{k}"]
+    return (h,) + tuple(dot(h, sp[f"{e}_W{k}"], bf16) + sp[f"{e}_b{k}"]
                         for k in ("cmu", "clv", "smu", "slv"))
 
 
-def encode_bwd(sp, g, e: str, x, h, dm, head_grads) -> None:
+def encode_bwd(sp, g, e: str, x, h, dm, head_grads,
+               bf16: bool = False) -> None:
     """Backward of :func:`encode` from the four heads' gradients. Where
     ``dm`` is 0 the unit's gradient is 0; elsewhere ``h > 0`` is the
     ReLU's mask."""
     g_h = torch.zeros_like(h)
     for k, gh in zip(("cmu", "clv", "smu", "slv"), head_grads):
-        g[f"{e}_W{k}"] += h.T @ gh
+        g[f"{e}_W{k}"] += dot_ct(h.T, gh, bf16, "b")
         g[f"{e}_b{k}"] += gh.sum(0)
-        g_h = g_h + gh @ sp[f"{e}_W{k}"].T
+        g_h = g_h + dot_ct(gh, sp[f"{e}_W{k}"].T, bf16, "a")
     g_h = g_h * (h > 0.0).float()
     if dm is not None:
         g_h = g_h * dm
-    g[f"{e}_Wh"] += x.T @ g_h
+    g[f"{e}_Wh"] += dot_ct(x.T, g_h, bf16, "b")
     g[f"{e}_bh"] += g_h.sum(0)
 
 
-def decode_nll(sp, d: str, x, zs, zc, b: float):
+def decode_nll(sp, d: str, x, zs, zc, b: float, bf16: bool = False):
     """``(nll, r, iv)``: the decoder's Gaussian NLL summed over features
     and divided by ``b``, the residual and the inverse output variance."""
     olv = sp[f"{d}_olv"]
-    loc = zs @ sp[f"{d}_Wds"] + zc @ sp[f"{d}_Wdc"] + sp[f"{d}_bd"]
+    loc = (dot(zs, sp[f"{d}_Wds"], bf16) + dot(zc, sp[f"{d}_Wdc"], bf16)
+           + sp[f"{d}_bd"])
     r = x - loc
     iv = torch.exp(-olv)
     nll = torch.sum(0.5 * LOG2PI + 0.5 * olv
@@ -161,16 +176,18 @@ def decode_nll(sp, d: str, x, zs, zc, b: float):
     return nll, r, iv
 
 
-def decode_bwd(sp, g, d: str, r, iv, zs, zc, b: float, learn_scale: bool):
+def decode_bwd(sp, g, d: str, r, iv, zs, zc, b: float, learn_scale: bool,
+               bf16: bool = False):
     """Backward of :func:`decode_nll`; returns ``(g_zs, g_zc)``."""
     g_loc = -r * iv / b
-    g[f"{d}_Wds"] += zs.T @ g_loc
-    g[f"{d}_Wdc"] += zc.T @ g_loc
+    g[f"{d}_Wds"] += dot_ct(zs.T, g_loc, bf16, "b")
+    g[f"{d}_Wdc"] += dot_ct(zc.T, g_loc, bf16, "b")
     g[f"{d}_bd"] += g_loc.sum(0)
     if learn_scale:
         g[f"{d}_olv"] += torch.sum(0.5 - 0.5 * torch.square(r) * iv, 0,
                                    keepdim=True) / b
-    return g_loc @ sp[f"{d}_Wds"].T, g_loc @ sp[f"{d}_Wdc"].T
+    return (dot_ct(g_loc, sp[f"{d}_Wds"].T, bf16, "a"),
+            dot_ct(g_loc, sp[f"{d}_Wdc"].T, bf16, "a"))
 
 
 def mean_or_zero(t):
@@ -253,12 +270,15 @@ class SplitNets:
     """The split layout's networks as :func:`latent_fwd_bwd` takes them:
     one hidden layer per encoder (keep masks ``(dm1, dm2)``, for poe
     ``(dm1, dm2, dm1u, dm2u)``, or none) and linear decoders. ``g`` holds
-    the gradient of every split tensor; the backward pieces add into it."""
+    the gradient of every split tensor; the backward pieces add into it.
+    ``bf16``: scheme B's products (:mod:`.bf16`)."""
 
-    def __init__(self, sp, xs, b: float, learn_scale: bool, masks=None):
+    def __init__(self, sp, xs, b: float, learn_scale: bool, masks=None,
+                 bf16: bool = False):
         self.sp, self.xs, self.b = sp, xs, b
         self.learn_scale = learn_scale
         self.masks = masks
+        self.bf16 = bf16
         # poe's unimodal pass re-encodes under masks of its own
         self.reencode = masks is not None
         self.g = {n: torch.zeros_like(v) for n, v in sp.items()}
@@ -267,25 +287,25 @@ class SplitNets:
         """``(cache, (cmu, clv, smu, slv))`` of encoder ``e`` in pass ``p``
         (0 the main pass, 1 poe's unimodal one)."""
         dm = None if self.masks is None else self.masks[2 * p + e]
-        h, *heads = encode(self.sp, f"enc{e + 1}", self.xs[e], dm)
+        h, *heads = encode(self.sp, f"enc{e + 1}", self.xs[e], dm, self.bf16)
         return (h, dm), tuple(heads)
 
     def encode_bwd(self, e: int, cache, head_grads) -> None:
         h, dm = cache
         encode_bwd(self.sp, self.g, f"enc{e + 1}", self.xs[e], h, dm,
-                   head_grads)
+                   head_grads, self.bf16)
 
     def decode(self, e: int, p: int, zs, zc):
         """``(nll, cache)`` of decoder ``e`` in pass ``p``."""
         nll, r, iv = decode_nll(self.sp, f"dec{e + 1}", self.xs[e], zs, zc,
-                                self.b)
+                                self.b, self.bf16)
         return nll, (r, iv, zs, zc)
 
     def decode_bwd(self, e: int, cache):
         """``(g_zs, g_zc)``; the decoder's gradients add into ``g``."""
         r, iv, zs, zc = cache
         return decode_bwd(self.sp, self.g, f"dec{e + 1}", r, iv, zs, zc,
-                          self.b, self.learn_scale)
+                          self.b, self.learn_scale, self.bf16)
 
 
 def latent_fwd_bwd(method: str, nets, noise, rows: int, cd: int, s1: int,
@@ -485,14 +505,16 @@ def latent_fwd_bwd(method: str, nets, noise, rows: int, cd: int, s1: int,
 def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
                              consts: FusedConsts, learn_scale: bool = True,
                              dropout_masks: Optional[Sequence] = None,
-                             row_offset: int = 0, b_total=None):
+                             row_offset: int = 0, b_total=None,
+                             bf16: bool = False):
     """Plain PyTorch version of the kernel: ``(loss, metrics[17 | 19],
     grads)`` of ``method_loss_split`` with a hand-derived backward;
     ``grads`` a dict of the split tensors' gradients. ``row_offset`` /
     ``b_total`` as there: the inputs (noise and masks too) are rows
     ``[row_offset, row_offset + dims.b)`` of a batch of ``b_total``; the
     partitions use global row indices, the sums are divided by ``b_total``
-    and the latent means stay local."""
+    and the latent means stay local. ``bf16``: ``matmul_bf16`` under the
+    TPU kernel's autodiff (scheme B of :mod:`.bf16`)."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     n_masks = 0 if dropout_masks is None else len(dropout_masks)
@@ -502,7 +524,7 @@ def method_fwd_bwd_reference(method: str, sp, x1, x2, noise, dims: FusedDims,
     row_offset, bt = check_slice("method_fwd_bwd_reference", dims.b,
                                  row_offset, b_total)
     nets = SplitNets(sp, (x1, x2), float(bt), learn_scale,
-                     dropout_masks if n_masks else None)
+                     dropout_masks if n_masks else None, bf16)
     loss, metrics = latent_fwd_bwd(method, nets, noise, dims.b, dims.cd,
                                    dims.s1, dims.s2, consts, row_offset, bt)
     return loss, metrics, {n: nets.g[n] for n in SPLIT_NAMES}
@@ -550,19 +572,20 @@ def _method_library():
     lib = load_kernel("method_step")
     if lib.method_step_launch.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # every launch takes the precision (bf16) after its stream
         lib.method_step_launch.argtypes = (
             [ptr] * 6 + [i32] + [ptr] * 4 + [i32, ptr] + [i32] * 8
-            + [f32] * 3 + [i32, ptr])
+            + [f32] * 3 + [i32, ptr, i32])
         lib.method_step_launch.restype = i32
         lib.method_step_slice_launch.argtypes = (
             [ptr] * 6 + [i32] + [ptr] * 4 + [i32, ptr] + [i32] * 10
-            + [f32] * 3 + [i32, ptr])
+            + [f32] * 3 + [i32, ptr, i32])
         lib.method_step_slice_launch.restype = i32
-        lib.method_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS)
+        lib.method_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS) + [i32]
         lib.method_epoch_launch.restype = i32
         lib.method_step_workspace_floats.argtypes = [i32] * 9
         lib.method_step_workspace_floats.restype = ctypes.c_longlong
-        lib.method_step_grid_blocks.argtypes = [i32] * 9
+        lib.method_step_grid_blocks.argtypes = [i32] * 10
         lib.method_step_grid_blocks.restype = i32
         lib.method_step_barriers.argtypes = [i32]
         lib.method_step_barriers.restype = i32
@@ -572,15 +595,16 @@ def _method_library():
 
 
 def launch_geometry(dims: FusedDims, device, method: str,
-                    has_masks: bool = False) -> Dict[str, int]:
-    """Of the persistent kernel at these sizes on ``device``: the blocks of
-    its cooperative grid and the grid barriers of one step with and without
-    the in-kernel Adam update."""
+                    has_masks: bool = False,
+                    bf16: bool = False) -> Dict[str, int]:
+    """Of the persistent kernel (its float32 or bfloat16 instance) at these
+    sizes on ``device``: the blocks of its cooperative grid and the grid
+    barriers of one step with and without the in-kernel Adam update."""
     lib = _method_library()
     with torch.cuda.device(device):
         blocks = lib.method_step_grid_blocks(
             METHODS.index(method), int(has_masks), dims.b, dims.d1, dims.d2,
-            dims.h, dims.cd, dims.s1, dims.s2)
+            dims.h, dims.cd, dims.s1, dims.s2, int(bool(bf16)))
     if blocks < 0:
         raise RuntimeError("method_step: "
                            + lib.method_step_error_string(-blocks).decode())
@@ -613,10 +637,11 @@ def check_masks(name: str, masks, n_expected: int, b: int, h: int, device):
 
 def _launch_method(method: str, p, x1, x2, noise, dims: FusedDims,
                    consts: FusedConsts, learn_scale: bool, masks, metrics,
-                   grads, row_slice=None):
+                   grads, row_slice=None, bf16: bool = False):
     """Launch the step (``row_slice=None``, counted as ``method_step``) or
     its row-slice entry point (``row_slice=(row_offset, b_total)``, counted
-    as ``dp_method_step``)."""
+    as ``dp_method_step``); ``bf16`` launches the bfloat16 instance,
+    counted with ``_bf16``."""
     device = p.device
     b = dims.b
     check_inputs("method_step", device, [
@@ -646,7 +671,9 @@ def _launch_method(method: str, p, x1, x2, noise, dims: FusedDims,
             p.data_ptr(), grads.data_ptr(), metrics.data_ptr(),
             x1.data_ptr(), x2.data_ptr(), noise.data_ptr(), noise.stride(0),
             *mask_ptrs, ld_mask, work.data_ptr(), method_idx, *rows, *widths,
-            *(float(c) for c in consts), int(bool(learn_scale)), stream)
+            *(float(c) for c in consts), int(bool(learn_scale)), stream,
+            int(bool(bf16)))
+    counter = counter_name(counter, bf16)
     if rc != 0:
         raise RuntimeError(f"{counter} launch failed: "
                            + lib.method_step_error_string(rc).decode())
@@ -672,7 +699,7 @@ def _check_epoch_stacks(p, x1s, x2s, noise, masks, dims: FusedDims,
 def _launch_method_epoch(method: str, p, mu, nu, count, x1s, x2s, noise,
                          dims: FusedDims, consts: FusedConsts,
                          hyper: AdamHyper, learn_scale: bool, masks,
-                         phase_times=None):
+                         phase_times=None, bf16: bool = False):
     """ONE launch for the whole group of steps (its stacks checked by the
     caller); returns ``metrics [n, 17 | 19]``."""
     device = p.device
@@ -693,17 +720,19 @@ def _launch_method_epoch(method: str, p, mu, nu, count, x1s, x2s, noise,
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.method_epoch_launch(*pack_epoch_args(
             p, mu, nu, grads, metrics, x1s, x2s, noise, masks, work, method,
-            dims, consts, learn_scale, count, hyper, stream, phase_times))
+            dims, consts, learn_scale, count, hyper, stream, phase_times),
+            int(bool(bf16)))
+    counter = counter_name("method_step", bf16)
     if rc != 0:
-        raise RuntimeError("method_step epoch launch failed: "
+        raise RuntimeError(f"{counter} epoch launch failed: "
                            + lib.method_step_error_string(rc).decode())
-    KERNEL_LAUNCHES["method_step"] += 1
-    KERNEL_STEPS["method_step"] += n
+    KERNEL_LAUNCHES[counter] += 1
+    KERNEL_STEPS[counter] += n
     return metrics
 
 
 def _method_step_flat(method, p, x1, x2, noise, dims, consts, learn_scale,
-                      dropout_masks, row_slice):
+                      dropout_masks, row_slice, bf16):
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     if p.device.type == "cuda":
@@ -711,30 +740,32 @@ def _method_step_flat(method, p, x1, x2, noise, dims, consts, learn_scale,
                               device=p.device)
         grads = torch.empty_like(p)
         _launch_method(method, p, x1, x2, noise, dims, consts, learn_scale,
-                       dropout_masks, metrics, grads, row_slice)
+                       dropout_masks, metrics, grads, row_slice, bf16)
         return metrics, grads
     if p.device.type == "cpu":
         row_offset, b_total = row_slice or (0, None)
         _, metrics, g = method_fwd_bwd_reference(
             method, flat_views(p, dims), x1, x2, noise, dims, consts,
-            learn_scale, dropout_masks, row_offset, b_total)
+            learn_scale, dropout_masks, row_offset, b_total, bf16)
         return metrics, flatten_split(g)
     raise ValueError(f"method_step: no kernel for {p.device}")
 
 
 def method_step_flat(method: str, p, x1, x2, noise, dims: FusedDims,
                      consts: FusedConsts, learn_scale: bool = True,
-                     dropout_masks=None):
+                     dropout_masks=None, bf16: bool = False):
     """One step on a flat params buffer: ``(metrics[17 | 19], grads)``,
     ``grads`` a new flat buffer of the split layout. The kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors; ``bf16`` the bfloat16
+    branch of either (scheme B of :mod:`.bf16`)."""
     return _method_step_flat(method, p, x1, x2, noise, dims, consts,
-                             learn_scale, dropout_masks, None)
+                             learn_scale, dropout_masks, None, bf16)
 
 
 def slice_method_step_flat(method: str, p, x1, x2, noise, dims: FusedDims,
                            consts: FusedConsts, learn_scale: bool,
-                           dropout_masks, row_offset: int, b_total: int):
+                           dropout_masks, row_offset: int, b_total: int,
+                           bf16: bool = False):
     """:func:`method_step_flat` on rows ``[row_offset, row_offset +
     dims.b)`` of a batch of ``b_total`` (noise and masks row-sliced
     alike): partial ``(metrics, grads)`` whose sum over the shards is the
@@ -743,12 +774,13 @@ def slice_method_step_flat(method: str, p, x1, x2, noise, dims: FusedDims,
     tensors."""
     return _method_step_flat(
         method, p, x1, x2, noise, dims, consts, learn_scale, dropout_masks,
-        check_slice("dp_method_step", dims.b, row_offset, b_total))
+        check_slice("dp_method_step", dims.b, row_offset, b_total), bf16)
 
 
 def method_epoch_flat(method: str, p, mu, nu, count: int, x1s, x2s, noise,
                       dims: FusedDims, consts: FusedConsts, hyper: AdamHyper,
-                      learn_scale: bool = True, masks=None, phase_times=None):
+                      learn_scale: bool = True, masks=None, phase_times=None,
+                      bf16: bool = False):
     """``n`` steps on flat buffers, each followed by Adam at
     ``t = count + step + 1``; ``p``, ``mu`` and ``nu`` are updated in place.
     ``noise [n, B, noise_width]``, ``masks [n, 2 | 4, B, hidden]`` or None.
@@ -757,7 +789,9 @@ def method_epoch_flat(method: str, p, mu, nu, count: int, x1s, x2s, noise,
     persistent kernel (stacks contiguous float32 on the params' device,
     else it raises); on CPU tensors the host loops the plain step and the
     plain Adam. ``phase_times``: tracing, as in ``fused_step.epoch_flat``
-    (the kernel has the same eight phases)."""
+    (the kernel has the same eight phases). ``bf16``: the bfloat16 branch
+    (scheme B of :mod:`.bf16`), on the card the kernel's bfloat16
+    instance."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     if p.device.type not in ("cuda", "cpu"):
@@ -766,7 +800,7 @@ def method_epoch_flat(method: str, p, mu, nu, count: int, x1s, x2s, noise,
     if p.device.type == "cuda":
         return _launch_method_epoch(method, p, mu, nu, count, x1s, x2s,
                                     noise, dims, consts, hyper, learn_scale,
-                                    masks, phase_times)
+                                    masks, phase_times, bf16)
     if phase_times is not None:
         raise ValueError("method_step: phase_times traces the kernel; the "
                          "plain version has no phases")
@@ -774,7 +808,7 @@ def method_epoch_flat(method: str, p, mu, nu, count: int, x1s, x2s, noise,
     for i in range(x1s.shape[0]):
         metrics, grads = method_step_flat(
             method, p, x1s[i], x2s[i], noise[i], dims, consts, learn_scale,
-            None if masks is None else masks[i])
+            None if masks is None else masks[i], bf16)
         adam_update(p, mu, nu, grads, count + i + 1, hyper)
         steps.append(metrics)
     return torch.stack(steps)
@@ -782,13 +816,14 @@ def method_epoch_flat(method: str, p, mu, nu, count: int, x1s, x2s, noise,
 
 def method_epoch(method: str, sp, mu, nu, count: int, x1s, x2s, noise,
                  dims: FusedDims, consts: FusedConsts, hyper: AdamHyper,
-                 learn_scale: bool = True, masks=None):
+                 learn_scale: bool = True, masks=None, bf16: bool = False):
     """``(sp, mu, nu, metrics[n, 17 | 19])`` of an epoch over complete
     batches from split params and moments (dicts), the contract of
     ``build_method_epoch`` with the noise and masks as inputs; the inputs
     are not modified."""
     p, m, v = (flatten_split(t) for t in (sp, mu, nu))
     metrics = method_epoch_flat(method, p, m, v, count, x1s, x2s, noise,
-                                dims, consts, hyper, learn_scale, masks)
+                                dims, consts, hyper, learn_scale, masks,
+                                bf16=bf16)
     return (flat_views(p, dims), flat_views(m, dims), flat_views(v, dims),
             metrics)

@@ -14,7 +14,10 @@ updates is ONE persistent cooperative launch
 for poe (the unimodal re-run's draw); masks ``(dm,)``, for poe
 ``(dm, dm_uni)``. The absent modality's parameters get zero gradients and
 still take the Adam update (their moments decay and a nonzero ``mu`` still
-moves them), as in the JAX package.
+moves them), as in the JAX package. Every entry point takes ``bf16``: the
+``matmul_bf16`` branch under the TPU kernel's autodiff (scheme B of
+:mod:`.bf16`); on CUDA tensors the kernel's bfloat16 instance, counted
+under ``presence_step_bf16``.
 """
 
 from __future__ import annotations
@@ -48,14 +51,17 @@ from .fused_step import (
     check_inputs,
     check_phase_times,
     check_stack,
+    counter_name,
     split_layout_ok,
     workspace,
 )
 
-# launches of each kernel in this module; a caller resets and reads it
-KERNEL_LAUNCHES: Dict[str, int] = {"presence_step": 0}
+# launches of each kernel in this module, the bfloat16 instance's apart
+# (``fused_step.counter_name``); a caller resets and reads it
+KERNEL_LAUNCHES: Dict[str, int] = {"presence_step": 0,
+                                   "presence_step_bf16": 0}
 # train steps those launches ran (one launch may run a group of steps)
-KERNEL_STEPS: Dict[str, int] = {"presence_step": 0}
+KERNEL_STEPS: Dict[str, int] = dict.fromkeys(KERNEL_LAUNCHES, 0)
 
 PORTED_METHODS = METHODS
 
@@ -111,10 +117,13 @@ def supports_presence_fused(cfg, model, batch) -> bool:
 def presence_fwd_bwd_reference(sp, x, noise, dims: FusedDims,
                                consts: FusedConsts, learn_scale: bool,
                                mod_idx: int, method: str = "joint_elbo",
-                               dropout_masks: Optional[Sequence] = None):
+                               dropout_masks: Optional[Sequence] = None,
+                               bf16: bool = False):
     """Plain PyTorch version of the kernel: ``(loss, metrics[9 | 10],
     grads)`` of ``presence_loss_split`` with a hand-derived backward;
-    ``grads`` holds all 28 split tensors, the absent modality's zero."""
+    ``grads`` holds all 28 split tensors, the absent modality's zero.
+    ``bf16``: ``matmul_bf16`` under the TPU kernel's autodiff (scheme B of
+    :mod:`.bf16`)."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}")
     n_masks = 0 if dropout_masks is None else len(dropout_masks)
@@ -129,7 +138,7 @@ def presence_fwd_bwd_reference(sp, x, noise, dims: FusedDims,
     dm = dropout_masks[0] if n_masks else None
     g = {n: torch.zeros_like(v) for n, v in sp.items()}
 
-    h, cmu, clv, smu, slv = encode(sp, e, x, dm)
+    h, cmu, clv, smu, slv = encode(sp, e, x, dm, bf16)
     ev = torch.exp(clv)
     t = 1.0 / (ev + POE_EPS)
     ej, es = noise[:, :cd], noise[:, cd:cd + s_dim]
@@ -159,7 +168,7 @@ def presence_fwd_bwd_reference(sp, x, noise, dims: FusedDims,
 
     zc = joint_mu + ej * torch.exp(0.5 * joint_lv)
     zs = smu + es * torch.exp(0.5 * slv)
-    nll, r, iv = decode_nll(sp, d, x, zs, zc, b)
+    nll, r, iv = decode_nll(sp, d, x, zs, zc, b, bf16)
     kld_s = kl_sum(smu, slv, b)
     style = beta_style * beta_style * kld_s
     extra = []
@@ -173,12 +182,13 @@ def presence_fwd_bwd_reference(sp, x, noise, dims: FusedDims,
         hu, cmuu, clvu, smuu, slvu = h, cmu, clv, smu, slv
         tu, mu_u, lv_u, ts_u = t, mu_s, lv_s, ts
         if n_masks:
-            hu, cmuu, clvu, smuu, slvu = encode(sp, e, x, dropout_masks[1])
+            hu, cmuu, clvu, smuu, slvu = encode(sp, e, x, dropout_masks[1],
+                                               bf16)
             tu = 1.0 / (torch.exp(clvu) + POE_EPS)
             mu_u, lv_u, ts_u = poe_with_prior(cmuu, tu)
         zcu = mu_u + uj * torch.exp(0.5 * lv_u)
         zsu = smuu + us * torch.exp(0.5 * slvu)
-        nll_uni, r_u, iv_u = decode_nll(sp, d, x, zsu, zcu, b)
+        nll_uni, r_u, iv_u = decode_nll(sp, d, x, zsu, zcu, b, bf16)
         loss = nll_uni + nll + beta * (2.0 * beta_content * kld_m
                                        + 2.0 * style)
         extra = [nll_uni]
@@ -186,7 +196,7 @@ def presence_fwd_bwd_reference(sp, x, noise, dims: FusedDims,
                            clv.mean(), smu.mean(), slv.mean()] + extra)
 
     # ---------------- backward ----------------
-    g_zs, g_zc = decode_bwd(sp, g, d, r, iv, zs, zc, b, learn_scale)
+    g_zs, g_zc = decode_bwd(sp, g, d, r, iv, zs, zc, b, learn_scale, bf16)
     g_jmu, g_jlv = reparam_bwd(g_zc, ej, joint_lv)
     g_smu, g_slv = reparam_bwd(g_zs, es, slv)
     cg = beta * beta_content / b
@@ -206,14 +216,15 @@ def presence_fwd_bwd_reference(sp, x, noise, dims: FusedDims,
         k_mu, k_lv = kl_grads(mu_s, lv_s, cg)
         g_mu_s, g_lv_s = g_jmu + k_mu, g_jlv + k_lv
         g_zsu, g_zcu = decode_bwd(sp, g, d, r_u, iv_u, zsu, zcu, b,
-                                  learn_scale)
+                                  learn_scale, bf16)
         g_mu_u, g_lv_u = reparam_bwd(g_zcu, uj, lv_u)
         g_smuu, g_slvu = reparam_bwd(g_zsu, us, slvu)
         if n_masks:
             # the second pass takes the unimodal NLL's gradient alone
             gc, gt = poe_with_prior_bwd(cmuu, tu, ts_u, mu_u, g_mu_u, g_lv_u)
             encode_bwd(sp, g, e, x, hu, dropout_masks[1],
-                       (gc, -gt * torch.exp(clvu) * tu * tu, g_smuu, g_slvu))
+                       (gc, -gt * torch.exp(clvu) * tu * tu, g_smuu, g_slvu),
+                       bf16)
         else:
             g_mu_s, g_lv_s = g_mu_s + g_mu_u, g_lv_s + g_lv_u
             g_smu, g_slv = g_smu + g_smuu, g_slv + g_slvu
@@ -221,7 +232,7 @@ def presence_fwd_bwd_reference(sp, x, noise, dims: FusedDims,
         g_clv = -g_t * ev * t * t
     k_mu, k_lv = kl_grads(smu, slv, cs)
     encode_bwd(sp, g, e, x, h, dm, (g_cmu, g_clv, g_smu + k_mu,
-                                    g_slv + k_lv))
+                                    g_slv + k_lv), bf16)
     return loss, metrics, g
 
 
@@ -267,13 +278,14 @@ def _presence_library():
     lib = load_kernel("presence_step")
     if lib.presence_step_launch.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # every launch takes the precision (bf16) after its stream
         lib.presence_step_launch.argtypes = (
             [ptr] * 5 + [i32, ptr, ptr, i32, ptr] + [i32] * 9 + [f32] * 3
-            + [i32, ptr])
+            + [i32, ptr, i32])
         lib.presence_step_launch.restype = i32
-        lib.presence_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS)
+        lib.presence_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS) + [i32]
         lib.presence_epoch_launch.restype = i32
-        lib.presence_step_grid_blocks.argtypes = [i32] * 10
+        lib.presence_step_grid_blocks.argtypes = [i32] * 11
         lib.presence_step_grid_blocks.restype = i32
         lib.presence_step_barriers.argtypes = [i32]
         lib.presence_step_barriers.restype = i32
@@ -286,7 +298,7 @@ def _presence_library():
 
 def _launch_presence(p, x, noise, dims: FusedDims, consts: FusedConsts,
                      learn_scale: bool, mod_idx: int, method: str, masks,
-                     metrics, grads):
+                     metrics, grads, bf16: bool = False):
     device = p.device
     b = dims.b
     d = dims.d1 if mod_idx == 0 else dims.d2
@@ -313,25 +325,28 @@ def _launch_presence(p, x, noise, dims: FusedDims, consts: FusedConsts,
             x.data_ptr(), noise.data_ptr(), noise.stride(0), *mask_ptrs,
             ld_mask, work.data_ptr(), method_idx, int(mod_idx), b, dims.d1,
             dims.d2, dims.h, dims.cd, dims.s1, dims.s2,
-            *(float(c) for c in consts), int(bool(learn_scale)), stream)
+            *(float(c) for c in consts), int(bool(learn_scale)), stream,
+            int(bool(bf16)))
+    counter = counter_name("presence_step", bf16)
     if rc != 0:
-        raise RuntimeError("presence_step launch failed: "
+        raise RuntimeError(f"{counter} launch failed: "
                            + lib.presence_step_error_string(rc).decode())
-    KERNEL_LAUNCHES["presence_step"] += 1
-    KERNEL_STEPS["presence_step"] += 1
+    KERNEL_LAUNCHES[counter] += 1
+    KERNEL_STEPS[counter] += 1
 
 
 def launch_geometry(dims: FusedDims, device, mod_idx: int,
-                    method: str = "joint_elbo",
-                    has_masks: bool = False) -> Dict[str, int]:
-    """Of the persistent kernel at these sizes on ``device``: the blocks of
-    its cooperative grid and the grid barriers of one step with and without
-    the in-kernel Adam update."""
+                    method: str = "joint_elbo", has_masks: bool = False,
+                    bf16: bool = False) -> Dict[str, int]:
+    """Of the persistent kernel (its float32 or bfloat16 instance) at these
+    sizes on ``device``: the blocks of its cooperative grid and the grid
+    barriers of one step with and without the in-kernel Adam update."""
     lib = _presence_library()
     with torch.cuda.device(device):
         blocks = lib.presence_step_grid_blocks(
             METHODS.index(method), int(has_masks), int(mod_idx), dims.b,
-            dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2)
+            dims.d1, dims.d2, dims.h, dims.cd, dims.s1, dims.s2,
+            int(bool(bf16)))
     if blocks < 0:
         raise RuntimeError("presence_step: "
                            + lib.presence_step_error_string(-blocks).decode())
@@ -360,7 +375,7 @@ def _check_epoch_stacks(p, xs, noise, masks, dims: FusedDims, mod_idx: int,
 def _launch_presence_epoch(p, mu, nu, count, xs, noise, dims: FusedDims,
                            consts: FusedConsts, hyper: AdamHyper,
                            learn_scale: bool, mod_idx: int, method: str,
-                           masks, phase_times=None):
+                           masks, phase_times=None, bf16: bool = False):
     """ONE launch for the whole group of steps; returns ``metrics [n,
     9 | 10]``."""
     device = p.device
@@ -382,21 +397,24 @@ def _launch_presence_epoch(p, mu, nu, count, xs, noise, dims: FusedDims,
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.presence_epoch_launch(*pack_epoch_args(
             p, mu, nu, grads, metrics, xs, noise, masks, work, dims, consts,
-            learn_scale, mod_idx, method, count, hyper, stream, phase_times))
+            learn_scale, mod_idx, method, count, hyper, stream, phase_times),
+            int(bool(bf16)))
+    counter = counter_name("presence_step", bf16)
     if rc != 0:
-        raise RuntimeError("presence_step epoch launch failed: "
+        raise RuntimeError(f"{counter} epoch launch failed: "
                            + lib.presence_step_error_string(rc).decode())
-    KERNEL_LAUNCHES["presence_step"] += 1
-    KERNEL_STEPS["presence_step"] += n
+    KERNEL_LAUNCHES[counter] += 1
+    KERNEL_STEPS[counter] += n
     return metrics
 
 
 def presence_step_flat(p, x, noise, dims: FusedDims, consts: FusedConsts,
                        learn_scale: bool, mod_idx: int,
-                       method: str = "joint_elbo", dropout_masks=None):
+                       method: str = "joint_elbo", dropout_masks=None,
+                       bf16: bool = False):
     """One presence step on a flat params buffer: ``(metrics[9 | 10],
     grads)``. The kernel for CUDA tensors, the plain version for CPU
-    tensors."""
+    tensors; ``bf16`` the bfloat16 branch of either."""
     if mod_idx not in (0, 1):
         raise ValueError(f"mod_idx must be 0 or 1, got {mod_idx}")
     if method not in METHODS:
@@ -406,12 +424,12 @@ def presence_step_flat(p, x, noise, dims: FusedDims, consts: FusedConsts,
                               dtype=torch.float32, device=p.device)
         grads = torch.empty_like(p)
         _launch_presence(p, x, noise, dims, consts, learn_scale, mod_idx,
-                         method, dropout_masks, metrics, grads)
+                         method, dropout_masks, metrics, grads, bf16)
         return metrics, grads
     if p.device.type == "cpu":
         _, metrics, g = presence_fwd_bwd_reference(
             flat_views(p, dims), x, noise, dims, consts, learn_scale,
-            mod_idx, method, dropout_masks)
+            mod_idx, method, dropout_masks, bf16)
         return metrics, flatten_split(g)
     raise ValueError(f"presence_step: no kernel for {p.device}")
 
@@ -420,7 +438,7 @@ def presence_epoch_flat(p, mu, nu, count: int, xs, noise, dims: FusedDims,
                         consts: FusedConsts, hyper: AdamHyper,
                         learn_scale: bool, mod_idx: int,
                         method: str = "joint_elbo", masks=None,
-                        phase_times=None):
+                        phase_times=None, bf16: bool = False):
     """``n`` presence steps on flat buffers, each followed by Adam over all
     28 tensors; ``noise [n, B, presence_noise_width]``, ``masks [n, 1 | 2,
     B, hidden]`` or None. Returns ``metrics [n, 9 | 10]``. On CUDA tensors
@@ -428,7 +446,8 @@ def presence_epoch_flat(p, mu, nu, count: int, xs, noise, dims: FusedDims,
     contiguous float32 on the params' device, else it raises); on CPU
     tensors the host loops the plain step and the plain Adam.
     ``phase_times``: tracing, as in ``fused_step.epoch_flat`` (the kernel
-    has the same eight phases)."""
+    has the same eight phases). ``bf16``: the bfloat16 branch, on the card
+    the kernel's bfloat16 instance."""
     if mod_idx not in (0, 1):
         raise ValueError(f"mod_idx must be 0 or 1, got {mod_idx}")
     if method not in METHODS:
@@ -439,7 +458,7 @@ def presence_epoch_flat(p, mu, nu, count: int, xs, noise, dims: FusedDims,
     if p.device.type == "cuda":
         return _launch_presence_epoch(p, mu, nu, count, xs, noise, dims,
                                       consts, hyper, learn_scale, mod_idx,
-                                      method, masks, phase_times)
+                                      method, masks, phase_times, bf16)
     if phase_times is not None:
         raise ValueError("presence_step: phase_times traces the kernel; "
                          "the plain version has no phases")
@@ -447,7 +466,7 @@ def presence_epoch_flat(p, mu, nu, count: int, xs, noise, dims: FusedDims,
     for i in range(xs.shape[0]):
         metrics, grads = presence_step_flat(
             p, xs[i], noise[i], dims, consts, learn_scale, mod_idx, method,
-            None if masks is None else masks[i])
+            None if masks is None else masks[i], bf16)
         adam_update(p, mu, nu, grads, count + i + 1, hyper)
         steps.append(metrics)
     return torch.stack(steps)
@@ -455,12 +474,14 @@ def presence_epoch_flat(p, mu, nu, count: int, xs, noise, dims: FusedDims,
 
 def presence_epoch(sp, mu, nu, count: int, xs, noise, dims: FusedDims,
                    consts: FusedConsts, hyper: AdamHyper, learn_scale: bool,
-                   mod_idx: int, method: str = "joint_elbo", masks=None):
+                   mod_idx: int, method: str = "joint_elbo", masks=None,
+                   bf16: bool = False):
     """``(sp, mu, nu, metrics[n, 9 | 10])`` of an epoch over single-present
     batches (the contract of ``build_presence_epoch`` with the noise and
     masks as inputs); the inputs are not modified."""
     p, m, v = (flatten_split(t) for t in (sp, mu, nu))
     metrics = presence_epoch_flat(p, m, v, count, xs, noise, dims, consts,
-                                  hyper, learn_scale, mod_idx, method, masks)
+                                  hyper, learn_scale, mod_idx, method, masks,
+                                  bf16=bf16)
     return (flat_views(p, dims), flat_views(m, dims), flat_views(v, dims),
             metrics)

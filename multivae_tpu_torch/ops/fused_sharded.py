@@ -24,6 +24,12 @@ Counterpart of ``multivae_tpu/ops/fused_sharded.py``.
 The shards share one flat train state on the first entry's device. A shard
 whose entry is another device takes copies of the params and of its rows and
 returns its partial sums to the first device.
+
+``cfg.precision = "bfloat16"`` runs both on the kernels' bfloat16 branch
+(``bf16``, :mod:`.bf16`), as the JAX functions read ``matmul_bf16`` from
+it: a shard's rounded products are its local rows', summed over the
+shards after rounding, as ``psum`` sums the TPU kernels' partial
+gradients.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 from ..params import FusedDims, dims_from
 from . import fused_methods, fused_step
 from .adam import AdamHyper, AdamState, adam_hyper, adam_update
+from .bf16 import cfg_bf16
 from .fused_methods import (
     method_metric_names,
     n_dropout_masks,
@@ -90,10 +97,11 @@ def _dp_update(shard_step, p, mu, nu, t: int, devices, local_b: int,
 
 def dp_step_flat(p, mu, nu, t: int, x1, x2, noise, dims: FusedDims,
                  consts: FusedConsts, hyper: AdamHyper, learn_scale: bool,
-                 mesh) -> torch.Tensor:
+                 mesh, bf16: bool = False) -> torch.Tensor:
     """One data-parallel MoPoE step and its Adam update at step ``t`` on
     the flat state, in place; ``dims.b`` is the whole batch, ``noise [B, cd
-    + s1 + s2]``. Returns ``metrics[17]`` of the whole batch."""
+    + s1 + s2]``; ``bf16`` the bfloat16 branch. Returns ``metrics[17]`` of
+    the whole batch."""
     devices = _shard_devices(mesh, p, dims.b)
     local = dims._replace(b=dims.b // len(devices))
 
@@ -101,18 +109,20 @@ def dp_step_flat(p, mu, nu, t: int, x1, x2, noise, dims: FusedDims,
         ej, es1, es2 = split_noise(_on(noise[rows], dev), local)
         return slice_step_flat(pk, _on(x1[rows], dev), _on(x2[rows], dev),
                                ej, es1, es2, local, consts, learn_scale,
-                               offset, dims.b)
+                               offset, dims.b, bf16)
     return _dp_update(shard_step, p, mu, nu, t, devices, local.b, hyper)
 
 
 def dp_method_step_flat(method: str, p, mu, nu, t: int, x1, x2, noise,
                         dims: FusedDims, consts: FusedConsts,
                         hyper: AdamHyper, learn_scale: bool, mesh,
-                        masks: Optional[Sequence] = None) -> torch.Tensor:
+                        masks: Optional[Sequence] = None,
+                        bf16: bool = False) -> torch.Tensor:
     """One data-parallel step of ``method`` (optionally with keep masks
     ``[2 | 4, B, hidden]``) and its Adam update at step ``t`` on the flat
     state, in place; ``dims.b`` is the whole batch, ``noise [B,
-    noise_width]``. Returns ``metrics[17 | 19]`` of the whole batch."""
+    noise_width]``; ``bf16`` the bfloat16 branch. Returns ``metrics[17 |
+    19]`` of the whole batch."""
     devices = _shard_devices(mesh, p, dims.b)
     local = dims._replace(b=dims.b // len(devices))
 
@@ -122,7 +132,7 @@ def dp_method_step_flat(method: str, p, mu, nu, t: int, x1, x2, noise,
         return slice_method_step_flat(
             method, pk, _on(x1[rows], dev), _on(x2[rows], dev),
             _on(noise[rows], dev), local, consts, learn_scale, local_masks,
-            offset, dims.b)
+            offset, dims.b, bf16)
     return _dp_update(shard_step, p, mu, nu, t, devices, local.b, hyper)
 
 
@@ -139,8 +149,9 @@ def make_fused_dp_epoch(cfg, model, mesh):
     with ``xs = {mod: [n, B, d]}`` (``B`` a multiple of the mesh's ``data``
     axis), ``noise [n, B, w]`` and ``masks [n, 2 | 4, B, hidden]`` or None:
     the streams of the unsharded epoch. ``params`` and the moments are
-    updated in place."""
+    updated in place; ``cfg.precision`` picks the kernels' instance."""
     consts = fused_step.consts_from(cfg)
+    bf16 = cfg_bf16(cfg)
     hyper = adam_hyper(cfg)
     learn_scale = bool(cfg.learn_output_scale)
     mod_names = [m.name for m in model.modalities]
@@ -163,12 +174,12 @@ def make_fused_dp_epoch(cfg, model, mesh):
             if use_hand:
                 steps.append(dp_step_flat(
                     p, opt.mu, opt.nu, t, x1s[i], x2s[i], noise[i], dims,
-                    consts, hyper, learn_scale, mesh))
+                    consts, hyper, learn_scale, mesh, bf16))
             else:
                 steps.append(dp_method_step_flat(
                     method, p, opt.mu, opt.nu, t, x1s[i], x2s[i], noise[i],
                     dims, consts, hyper, learn_scale, mesh,
-                    None if masks is None else masks[i]))
+                    None if masks is None else masks[i], bf16))
         return (AdamState(opt.count + n_steps, opt.mu, opt.nu),
                 torch.stack(steps), names)
     return epoch
@@ -213,8 +224,9 @@ def make_fused_ensemble_epoch(cfg, model, mesh):
     mesh device. Each member's epoch runs the unsharded step kernels (the
     MoPoE step, or the method step) on its own stream; the members' params
     and moments are updated in place. The member count must be the mesh's
-    ``model`` axis."""
+    ``model`` axis; ``cfg.precision`` picks the kernels' instance."""
     consts = fused_step.consts_from(cfg)
+    bf16 = cfg_bf16(cfg)
     hyper = adam_hyper(cfg)
     learn_scale = bool(cfg.learn_output_scale)
     mod_names = [m.name for m in model.modalities]
@@ -242,12 +254,13 @@ def make_fused_ensemble_epoch(cfg, model, mesh):
                 if use_hand:
                     out = fused_step.epoch_flat(
                         params[m], opt.mu, opt.nu, opt.count, x1s, x2s,
-                        noise[m], dims, consts, hyper, learn_scale)
+                        noise[m], dims, consts, hyper, learn_scale,
+                        bf16=bf16)
                 else:
                     out = fused_methods.method_epoch_flat(
                         method, params[m], opt.mu, opt.nu, opt.count, x1s,
                         x2s, noise[m], dims, consts, hyper, learn_scale,
-                        None if masks is None else masks[m])
+                        None if masks is None else masks[m], bf16=bf16)
                 metrics.append(out)
                 new_opts.append(AdamState(opt.count + len(noise[m]), opt.mu,
                                           opt.nu))

@@ -19,6 +19,13 @@ local row count, the mixture partition and every normalization are the whole
 batch's, so the outputs are partial sums (the latent means local means, see
 :func:`..fused_sharded.mean_rescale`). :func:`slice_step_flat` launches the
 kernel's row-slice entry point and counts under ``dp_step``.
+
+Every entry point takes ``bf16``: the TPU kernels' ``matmul_bf16`` branch
+(``precision="bfloat16"``), whose products take bfloat16-rounded operands
+and keep float32 results (scheme A of :mod:`.bf16`). On CUDA tensors it
+launches the kernel's bfloat16 instance (tensor-core products), counted
+under ``mopoe_step_bf16`` / ``dp_step_bf16``; on CPU tensors the plain
+version rounds where the scheme says.
 """
 
 from __future__ import annotations
@@ -39,14 +46,22 @@ from ..params import (
     split_layout,
 )
 from .adam import AdamHyper, adam_scalars, adam_update
+from .bf16 import dot
 
 LOG2PI = math.log(2.0 * math.pi)
 POE_EPS = 1e-8
 
-# launches of each kernel in this module; a caller resets and reads it
-KERNEL_LAUNCHES: Dict[str, int] = {"mopoe_step": 0, "dp_step": 0}
+# launches of each kernel in this module, the bfloat16 instance's apart
+# (:func:`counter_name`); a caller resets and reads it
+KERNEL_LAUNCHES: Dict[str, int] = {"mopoe_step": 0, "dp_step": 0,
+                                   "mopoe_step_bf16": 0, "dp_step_bf16": 0}
 # train steps those launches ran (one launch may run a group of steps)
-KERNEL_STEPS: Dict[str, int] = {"mopoe_step": 0, "dp_step": 0}
+KERNEL_STEPS: Dict[str, int] = dict.fromkeys(KERNEL_LAUNCHES, 0)
+
+
+def counter_name(kernel: str, bf16: bool) -> str:
+    """The launch counter of ``kernel``'s float32 or bfloat16 instance."""
+    return f"{kernel}_bf16" if bf16 else kernel
 
 
 class FusedConsts(NamedTuple):
@@ -146,29 +161,30 @@ def check_slice(name: str, b: int, row_offset, b_total) -> Tuple[int, int]:
 # ------------------------------------------------------------ plain version
 def fwd_bwd_reference(sp, x1, x2, ej, es1, es2, dims: FusedDims,
                       consts: FusedConsts, learn_scale: bool = True,
-                      row_offset: int = 0, b_total=None):
+                      row_offset: int = 0, b_total=None, bf16: bool = False):
     """Plain PyTorch version of the kernel: ``(loss, metrics[17], grads)``,
     ``grads`` a dict of the split tensors' gradients (``_fwd_bwd``).
     ``row_offset``/``b_total`` as there: the inputs are rows ``[row_offset,
     row_offset + dims.b)`` of a batch of ``b_total``; the partition masks use
     global row indices, the sums are divided by ``b_total`` and the latent
-    means stay local."""
+    means stay local. ``bf16``: every product of bfloat16-rounded operands
+    with the float32 result (``matmul_bf16``, scheme A of :mod:`.bf16`)."""
     row_offset, bt = check_slice("fwd_bwd_reference", dims.b, row_offset,
                                  b_total)
     k1, k2 = mixture_bounds(bt)
     b = float(bt)
     beta, beta_style, beta_content = consts
 
-    h1 = torch.relu(x1 @ sp["enc1_Wh"] + sp["enc1_bh"])
-    h2 = torch.relu(x2 @ sp["enc2_Wh"] + sp["enc2_bh"])
-    cmu1 = h1 @ sp["enc1_Wcmu"] + sp["enc1_bcmu"]
-    clv1 = h1 @ sp["enc1_Wclv"] + sp["enc1_bclv"]
-    smu1 = h1 @ sp["enc1_Wsmu"] + sp["enc1_bsmu"]
-    slv1 = h1 @ sp["enc1_Wslv"] + sp["enc1_bslv"]
-    cmu2 = h2 @ sp["enc2_Wcmu"] + sp["enc2_bcmu"]
-    clv2 = h2 @ sp["enc2_Wclv"] + sp["enc2_bclv"]
-    smu2 = h2 @ sp["enc2_Wsmu"] + sp["enc2_bsmu"]
-    slv2 = h2 @ sp["enc2_Wslv"] + sp["enc2_bslv"]
+    h1 = torch.relu(dot(x1, sp["enc1_Wh"], bf16) + sp["enc1_bh"])
+    h2 = torch.relu(dot(x2, sp["enc2_Wh"], bf16) + sp["enc2_bh"])
+    cmu1 = dot(h1, sp["enc1_Wcmu"], bf16) + sp["enc1_bcmu"]
+    clv1 = dot(h1, sp["enc1_Wclv"], bf16) + sp["enc1_bclv"]
+    smu1 = dot(h1, sp["enc1_Wsmu"], bf16) + sp["enc1_bsmu"]
+    slv1 = dot(h1, sp["enc1_Wslv"], bf16) + sp["enc1_bslv"]
+    cmu2 = dot(h2, sp["enc2_Wcmu"], bf16) + sp["enc2_bcmu"]
+    clv2 = dot(h2, sp["enc2_Wclv"], bf16) + sp["enc2_bclv"]
+    smu2 = dot(h2, sp["enc2_Wsmu"], bf16) + sp["enc2_bsmu"]
+    slv2 = dot(h2, sp["enc2_Wslv"], bf16) + sp["enc2_bslv"]
 
     ev1, ev2 = torch.exp(clv1), torch.exp(clv2)
     t1 = 1.0 / (ev1 + POE_EPS)
@@ -194,8 +210,10 @@ def fwd_bwd_reference(sp, x1, x2, ej, es1, es2, dims: FusedDims,
     zs2 = smu2 + es2 * ss2
 
     olv1, olv2 = sp["dec1_olv"], sp["dec2_olv"]
-    loc1 = zs1 @ sp["dec1_Wds"] + zc @ sp["dec1_Wdc"] + sp["dec1_bd"]
-    loc2 = zs2 @ sp["dec2_Wds"] + zc @ sp["dec2_Wdc"] + sp["dec2_bd"]
+    loc1 = (dot(zs1, sp["dec1_Wds"], bf16) + dot(zc, sp["dec1_Wdc"], bf16)
+            + sp["dec1_bd"])
+    loc2 = (dot(zs2, sp["dec2_Wds"], bf16) + dot(zc, sp["dec2_Wdc"], bf16)
+            + sp["dec2_bd"])
     r1, r2 = x1 - loc1, x2 - loc2
     iv1, iv2 = torch.exp(-olv1), torch.exp(-olv2)
     nll1 = torch.sum(0.5 * LOG2PI + 0.5 * olv1
@@ -223,10 +241,10 @@ def fwd_bwd_reference(sp, x1, x2, ej, es1, es2, dims: FusedDims,
     g = {}
     g_loc1 = -r1 * iv1 / b
     g_loc2 = -r2 * iv2 / b
-    g["dec1_Wds"] = zs1.T @ g_loc1
-    g["dec1_Wdc"] = zc.T @ g_loc1
-    g["dec2_Wds"] = zs2.T @ g_loc2
-    g["dec2_Wdc"] = zc.T @ g_loc2
+    g["dec1_Wds"] = dot(zs1.T, g_loc1, bf16)
+    g["dec1_Wdc"] = dot(zc.T, g_loc1, bf16)
+    g["dec2_Wds"] = dot(zs2.T, g_loc2, bf16)
+    g["dec2_Wdc"] = dot(zc.T, g_loc2, bf16)
     g["dec1_bd"] = g_loc1.sum(0)
     g["dec2_bd"] = g_loc2.sum(0)
     if learn_scale:
@@ -237,9 +255,10 @@ def fwd_bwd_reference(sp, x1, x2, ej, es1, es2, dims: FusedDims,
     else:
         g["dec1_olv"] = torch.zeros_like(olv1)
         g["dec2_olv"] = torch.zeros_like(olv2)
-    g_zs1 = g_loc1 @ sp["dec1_Wds"].T
-    g_zs2 = g_loc2 @ sp["dec2_Wds"].T
-    g_zc = g_loc1 @ sp["dec1_Wdc"].T + g_loc2 @ sp["dec2_Wdc"].T
+    g_zs1 = dot(g_loc1, sp["dec1_Wds"].T, bf16)
+    g_zs2 = dot(g_loc2, sp["dec2_Wds"].T, bf16)
+    g_zc = (dot(g_loc1, sp["dec1_Wdc"].T, bf16)
+            + dot(g_loc2, sp["dec2_Wdc"].T, bf16))
 
     g_jmu = g_zc
     g_jlv = g_zc * ej * 0.5 * sj
@@ -268,18 +287,20 @@ def fwd_bwd_reference(sp, x1, x2, ej, es1, es2, dims: FusedDims,
                            ("enc2", x2, h2, (g_cmu2, g_clv2, g_smu2, g_slv2))):
         g_h = torch.zeros_like(h)
         for part, gh in zip(("cmu", "clv", "smu", "slv"), heads):
-            g[f"{e}_W{part}"] = h.T @ gh
+            g[f"{e}_W{part}"] = dot(h.T, gh, bf16)
             g[f"{e}_b{part}"] = gh.sum(0)
-            g_h = g_h + gh @ sp[f"{e}_W{part}"].T
+            g_h = g_h + dot(gh, sp[f"{e}_W{part}"].T, bf16)
         g_h = g_h * (h > 0.0).float()
-        g[f"{e}_Wh"] = x.T @ g_h
+        g[f"{e}_Wh"] = dot(x.T, g_h, bf16)
         g[f"{e}_bh"] = g_h.sum(0)
     return loss, metrics, {n: g[n] for n in SPLIT_NAMES}
 
 
 # ------------------------------------------------------------------ kernel
 # The C arguments of ``mopoe_epoch_launch`` in order: (name, kind), kind one
-# of "ptr" (a device pointer or the stream), "i32", "i64", "f32".
+# of "ptr" (a device pointer or the stream), "i32", "i64", "f32". The
+# precision (``bf16``, i32) follows them, as it follows every launch's
+# stream.
 EPOCH_ARGS = (
     ("params", "ptr"), ("mu", "ptr"), ("nu", "ptr"), ("grads", "ptr"),
     ("metrics", "ptr"), ("x1s", "ptr"), ("x2s", "ptr"), ("noise", "ptr"),
@@ -371,21 +392,22 @@ def _step_library():
     lib = load_kernel("mopoe_step")
     if lib.mopoe_step_launch.argtypes is None:
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # every launch takes the precision (bf16) after its stream
         lib.mopoe_step_launch.argtypes = (
             [ptr] * 6 + [i32, ptr, i32, ptr, i32, ptr] + [i32] * 7
-            + [f32] * 3 + [i32, ptr])
+            + [f32] * 3 + [i32, ptr, i32])
         lib.mopoe_step_launch.restype = i32
         lib.mopoe_step_slice_launch.argtypes = (
             [ptr] * 6 + [i32, ptr, i32, ptr, i32, ptr] + [i32] * 9
-            + [f32] * 3 + [i32, ptr])
+            + [f32] * 3 + [i32, ptr, i32])
         lib.mopoe_step_slice_launch.restype = i32
-        lib.mopoe_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS)
+        lib.mopoe_epoch_launch.argtypes = argtypes_of(EPOCH_ARGS) + [i32]
         lib.mopoe_epoch_launch.restype = i32
         lib.mopoe_step_workspace_floats.argtypes = [i32] * 7
         lib.mopoe_step_workspace_floats.restype = ctypes.c_longlong
         lib.mopoe_step_param_floats.argtypes = [i32] * 6
         lib.mopoe_step_param_floats.restype = ctypes.c_longlong
-        lib.mopoe_step_grid_blocks.argtypes = [i32] * 7
+        lib.mopoe_step_grid_blocks.argtypes = [i32] * 8
         lib.mopoe_step_grid_blocks.restype = i32
         lib.mopoe_step_barriers.argtypes = [i32]
         lib.mopoe_step_barriers.restype = i32
@@ -394,14 +416,16 @@ def _step_library():
     return lib
 
 
-def launch_geometry(dims: FusedDims, device) -> Dict[str, int]:
-    """Of the persistent kernel at these sizes on ``device``: the blocks of
-    its cooperative grid and the grid barriers of one step with and without
-    the in-kernel Adam update."""
+def launch_geometry(dims: FusedDims, device,
+                    bf16: bool = False) -> Dict[str, int]:
+    """Of the persistent kernel (its float32 or bfloat16 instance) at these
+    sizes on ``device``: the blocks of its cooperative grid and the grid
+    barriers of one step with and without the in-kernel Adam update."""
     lib = _step_library()
     with torch.cuda.device(device):
         blocks = lib.mopoe_step_grid_blocks(dims.b, dims.d1, dims.d2, dims.h,
-                                            dims.cd, dims.s1, dims.s2)
+                                            dims.cd, dims.s1, dims.s2,
+                                            int(bool(bf16)))
     if blocks < 0:
         raise RuntimeError("mopoe_step: "
                            + lib.mopoe_step_error_string(-blocks).decode())
@@ -446,10 +470,11 @@ def check_inputs(name: str, device, tensors) -> None:
 
 def _launch_step(p, x1, x2, ej, es1, es2, dims: FusedDims,
                  consts: FusedConsts, learn_scale: bool, metrics, grads,
-                 row_slice=None):
+                 row_slice=None, bf16: bool = False):
     """Launch the step (``row_slice=None``, counted as ``mopoe_step``) or
     its row-slice entry point (``row_slice=(row_offset, b_total)``, counted
-    as ``dp_step``)."""
+    as ``dp_step``); ``bf16`` launches the bfloat16 instance, counted with
+    ``_bf16``."""
     device = p.device
     b = dims.b
     check_inputs("mopoe_step", device, [
@@ -477,7 +502,8 @@ def _launch_step(p, x1, x2, ej, es1, es2, dims: FusedDims,
             x1.data_ptr(), x2.data_ptr(), ej.data_ptr(), ej.stride(0),
             es1.data_ptr(), es1.stride(0), es2.data_ptr(), es2.stride(0),
             work.data_ptr(), *rows, *widths, *(float(c) for c in consts),
-            int(bool(learn_scale)), stream)
+            int(bool(learn_scale)), stream, int(bool(bf16)))
+    counter = counter_name(counter, bf16)
     if rc != 0:
         raise RuntimeError(f"{counter} launch failed: "
                            + lib.mopoe_step_error_string(rc).decode())
@@ -502,7 +528,7 @@ def check_stack(name: str, device, t, shape) -> None:
 
 def _launch_epoch(p, mu, nu, count, x1s, x2s, noise, dims: FusedDims,
                   consts: FusedConsts, hyper: AdamHyper, learn_scale: bool,
-                  phase_times=None):
+                  phase_times=None, bf16: bool = False):
     """ONE launch for the whole group of steps (its stacks checked by the
     caller); returns ``metrics [n, 17]``."""
     device = p.device
@@ -524,60 +550,66 @@ def _launch_epoch(p, mu, nu, count, x1s, x2s, noise, dims: FusedDims,
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.mopoe_epoch_launch(*pack_epoch_args(
             p, mu, nu, grads, metrics, x1s, x2s, noise, work, dims, consts,
-            learn_scale, count, hyper, stream, phase_times))
+            learn_scale, count, hyper, stream, phase_times), int(bool(bf16)))
+    counter = counter_name("mopoe_step", bf16)
     if rc != 0:
-        raise RuntimeError("mopoe_step epoch launch failed: "
+        raise RuntimeError(f"{counter} epoch launch failed: "
                            + lib.mopoe_step_error_string(rc).decode())
-    KERNEL_LAUNCHES["mopoe_step"] += 1
-    KERNEL_STEPS["mopoe_step"] += n
+    KERNEL_LAUNCHES[counter] += 1
+    KERNEL_STEPS[counter] += n
     return metrics
 
 
 def _step_flat(p, x1, x2, ej, es1, es2, dims, consts, learn_scale,
-               row_slice):
+               row_slice, bf16):
     if p.device.type == "cuda":
         metrics = torch.empty(N_METRICS, dtype=torch.float32,
                               device=p.device)
         grads = torch.empty_like(p)
         _launch_step(p, x1, x2, ej, es1, es2, dims, consts, learn_scale,
-                     metrics, grads, row_slice)
+                     metrics, grads, row_slice, bf16)
         return metrics, grads
     if p.device.type == "cpu":
         row_offset, b_total = row_slice or (0, None)
         _, metrics, g = fwd_bwd_reference(flat_views(p, dims), x1, x2, ej,
                                           es1, es2, dims, consts,
-                                          learn_scale, row_offset, b_total)
+                                          learn_scale, row_offset, b_total,
+                                          bf16)
         return metrics, flatten_split(g)
     raise ValueError(f"mopoe_step: no kernel for {p.device}")
 
 
 def step_flat(p, x1, x2, ej, es1, es2, dims: FusedDims,
-              consts: FusedConsts, learn_scale: bool = True):
+              consts: FusedConsts, learn_scale: bool = True,
+              bf16: bool = False):
     """One step on a flat params buffer: ``(metrics[17], grads)``, ``grads``
     a new flat buffer of the split layout. The kernel for CUDA tensors, the
-    plain version for CPU tensors."""
+    plain version for CPU tensors; ``bf16`` the bfloat16 branch of either
+    (scheme A of :mod:`.bf16`)."""
     return _step_flat(p, x1, x2, ej, es1, es2, dims, consts, learn_scale,
-                      None)
+                      None, bf16)
 
 
 def slice_step_flat(p, x1, x2, ej, es1, es2, dims: FusedDims,
                     consts: FusedConsts, learn_scale: bool, row_offset: int,
-                    b_total: int):
+                    b_total: int, bf16: bool = False):
     """:func:`step_flat` on rows ``[row_offset, row_offset + dims.b)`` of a
     batch of ``b_total``: partial ``(metrics[17], grads)`` whose sum over
     the shards is the whole batch's (the latent means after
     ``mean_rescale``). The kernel's row-slice entry point for CUDA tensors,
     the plain version for CPU tensors."""
     return _step_flat(p, x1, x2, ej, es1, es2, dims, consts, learn_scale,
-                      check_slice("dp_step", dims.b, row_offset, b_total))
+                      check_slice("dp_step", dims.b, row_offset, b_total),
+                      bf16)
 
 
 def loss_and_grads(sp, x1, x2, ej, es1, es2, dims: FusedDims,
-                   consts: FusedConsts, learn_scale: bool = True):
+                   consts: FusedConsts, learn_scale: bool = True,
+                   bf16: bool = False):
     """``(loss, metrics[17], grads)`` of one step on split params (the
     contract of ``fused_loss_and_grads``, grads in the split layout)."""
     metrics, grads = step_flat(flatten_split(sp), x1, x2, ej, es1, es2,
-                               dims, consts, learn_scale)
+                               dims, consts, learn_scale, bf16)
     return metrics[0], metrics, flat_views(grads, dims)
 
 
@@ -591,7 +623,8 @@ def split_noise(noise, dims: FusedDims):
 
 def epoch_flat(p, mu, nu, count: int, x1s, x2s, noise, dims: FusedDims,
                consts: FusedConsts, hyper: AdamHyper,
-               learn_scale: bool = True, phase_times=None):
+               learn_scale: bool = True, phase_times=None,
+               bf16: bool = False):
     """``n`` steps on flat buffers, each followed by Adam at
     ``t = count + step + 1``; ``p``, ``mu`` and ``nu`` are updated in place.
     ``noise [n, B, cd + s1 + s2]``. Returns ``metrics [n, 17]`` (on the
@@ -601,7 +634,8 @@ def epoch_flat(p, mu, nu, count: int, x1s, x2s, noise, dims: FusedDims,
     plain step and the plain Adam. ``phase_times`` (tracing, the kernel
     only): an int64 ``[n, len(PHASES) + 1]`` tensor that takes the device's
     clock at the start of each step and after each phase
-    (:func:`phase_microseconds`)."""
+    (:func:`phase_microseconds`). ``bf16``: the bfloat16 branch (scheme A
+    of :mod:`.bf16`), on the card the kernel's bfloat16 instance."""
     if p.device.type not in ("cuda", "cpu"):
         raise ValueError(f"mopoe_step: no kernel for {p.device}")
     n = int(x1s.shape[0])
@@ -611,7 +645,7 @@ def epoch_flat(p, mu, nu, count: int, x1s, x2s, noise, dims: FusedDims,
                 (n, dims.b, dims.cd + dims.s1 + dims.s2))
     if p.device.type == "cuda":
         return _launch_epoch(p, mu, nu, count, x1s, x2s, noise, dims,
-                             consts, hyper, learn_scale, phase_times)
+                             consts, hyper, learn_scale, phase_times, bf16)
     if phase_times is not None:
         raise ValueError("mopoe_step: phase_times traces the kernel; the "
                          "plain version has no phases")
@@ -619,7 +653,7 @@ def epoch_flat(p, mu, nu, count: int, x1s, x2s, noise, dims: FusedDims,
     for i in range(n):
         ej, es1, es2 = split_noise(noise[i], dims)
         metrics, grads = step_flat(p, x1s[i], x2s[i], ej, es1, es2, dims,
-                                   consts, learn_scale)
+                                   consts, learn_scale, bf16)
         adam_update(p, mu, nu, grads, count + i + 1, hyper)
         steps.append(metrics)
     return torch.stack(steps)
@@ -627,13 +661,13 @@ def epoch_flat(p, mu, nu, count: int, x1s, x2s, noise, dims: FusedDims,
 
 def fused_epoch(sp, mu, nu, count: int, x1s, x2s, ejs, es1s, es2s,
                 dims: FusedDims, consts: FusedConsts, hyper: AdamHyper,
-                learn_scale: bool = True):
+                learn_scale: bool = True, bf16: bool = False):
     """The contract of ``fused_epoch``: ``(sp, mu, nu, metrics[n, 17])``
     from split params and moments (dicts) and per-step batches and noise.
     The inputs are not modified."""
     p, m, v = (flatten_split(t) for t in (sp, mu, nu))
     noise = torch.cat([ejs, es1s, es2s], dim=-1)
     metrics = epoch_flat(p, m, v, count, x1s, x2s, noise, dims, consts,
-                         hyper, learn_scale)
+                         hyper, learn_scale, bf16=bf16)
     return (flat_views(p, dims), flat_views(m, dims), flat_views(v, dims),
             metrics)

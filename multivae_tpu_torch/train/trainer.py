@@ -17,6 +17,19 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
   that runs all its steps with Adam inside. Without ``fused_training``
   every batch takes the general autograd step, in the same order with the
   same noise and masks;
+* ``precision="bfloat16"`` takes the three kernels' bfloat16 branch (the
+  TPU kernels' ``matmul_bf16``, ``ops/bf16.py``) on the JAX package's
+  routes: the full complete batches of ``joint_elbo`` without dropout take
+  the MoPoE step (scheme A), every other complete batch, a partial
+  ``joint_elbo`` one too, the method step (scheme B;
+  ``trainer.py:63-66`` there: the group policy never takes the MoPoE
+  kernel), the single-present groups the presence step (scheme B). Under
+  ``data_parallel > 1`` the full complete batches take the row-slice
+  kernels in bfloat16 and the other groups stay float32 (the JAX package
+  runs them on its XLA step, ``trainer.py:925-940``); the ensemble runner
+  follows ``run_epochs_ensemble`` there (:func:`run_epochs_ensemble`).
+  The layer-stack step, the autograd step, the test pass and evaluation
+  read no precision;
 * a config the method step does not take (a modality count other than 2,
   more encoder hidden layers, decoder hidden layers, a per-sample output
   scale, the laplace, bernoulli or categorical likelihood, an unfactorized
@@ -79,6 +92,7 @@ the result is the sequential run's, bit for bit. The JAX package's stacked
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import time
 from typing import Dict, List, Optional
@@ -95,6 +109,7 @@ from ..ops import (
     fused_step,
 )
 from ..ops.adam import AdamState, adam_hyper
+from ..ops.bf16 import cfg_bf16
 from ..parallel import data_mesh, make_mesh, spread, visible_cards
 from ..params import (
     GenericDims,
@@ -119,9 +134,6 @@ def unported_features(cfg, model) -> List[str]:
     """Each part of ``cfg`` whose route in the JAX package is a kernel or a
     driver the port does not have yet, with its ROADMAP item."""
     out = []
-    if getattr(cfg, "precision", "float32") != "float32":
-        out.append(f"precision={cfg.precision!r}: bf16 kernel products "
-                   f"(ROADMAP Queue 1 item 8)")
     example = {m.name: None for m in model.modalities}
     if not fused_methods.supports_method_fused(cfg, model, example):
         # where the method step does not take the full complete batches,
@@ -215,12 +227,18 @@ def make_group_fused_epoch(cfg, model, key):
     group (``trainer.py:41-72, 885-895``): complete batches, full or
     partial, take the MoPoE step kernel for ``joint_elbo`` without dropout
     and the method step kernel otherwise; single-present batches the
-    presence kernel. Returns ``fn(params, opt, xs, noise, masks) -> (opt,
-    metrics [n, k], metric names)`` with ``xs = {mod: [n, B, d]}``,
-    ``noise [n, B, w]``, ``masks [n, n_masks, B, hidden]`` or None;
-    ``params`` and the moments are updated in place. A group the JAX
-    package routes to a kernel the port does not have raises."""
+    presence kernel. ``cfg.precision == "bfloat16"`` takes the kernels'
+    bfloat16 branch, where only the FULL complete batches of
+    ``joint_elbo`` without dropout take the MoPoE step, as in the JAX
+    package (its partial ones take the method step: under float32 the two
+    compute the same function, under bfloat16 they round differently).
+    Returns ``fn(params, opt, xs, noise, masks) -> (opt, metrics [n, k],
+    metric names)`` with ``xs = {mod: [n, B, d]}``, ``noise [n, B, w]``,
+    ``masks [n, n_masks, B, hidden]`` or None; ``params`` and the moments
+    are updated in place. A group the JAX package routes to a kernel the
+    port does not have raises."""
     mods, rows = key
+    bf16 = cfg_bf16(cfg)
     mod_names = [m.name for m in model.modalities]
     dims = dims_from(cfg, rows)
     consts = fused_step.consts_from(cfg)
@@ -233,18 +251,19 @@ def make_group_fused_epoch(cfg, model, key):
             check_supported(cfg, model)
             raise NotImplementedError(f"no kernel for the group {key}")
         names = fused_methods.method_metric_names(model, method)
-        mopoe = fused_step.supports_fused(cfg, model, example)
+        mopoe = (fused_step.supports_fused(cfg, model, example)
+                 and (rows == cfg.batch_size or not bf16))
 
         def complete(p, opt, xs, noise, masks=None):
             x1s, x2s = xs[mod_names[0]], xs[mod_names[1]]
             if mopoe:
                 metrics = fused_step.epoch_flat(
                     p, opt.mu, opt.nu, opt.count, x1s, x2s, noise, dims,
-                    consts, hyper, learn_scale)
+                    consts, hyper, learn_scale, bf16=bf16)
             else:
                 metrics = fused_methods.method_epoch_flat(
                     method, p, opt.mu, opt.nu, opt.count, x1s, x2s, noise,
-                    dims, consts, hyper, learn_scale, masks)
+                    dims, consts, hyper, learn_scale, masks, bf16=bf16)
             return (AdamState(opt.count + len(noise), opt.mu, opt.nu),
                     metrics, names)
         return complete
@@ -257,7 +276,7 @@ def make_group_fused_epoch(cfg, model, key):
     def presence(p, opt, xs, noise, masks=None):
         metrics = fused_presence.presence_epoch_flat(
             p, opt.mu, opt.nu, opt.count, xs[mods[0]], noise, dims, consts,
-            hyper, learn_scale, mod_idx, method, masks)
+            hyper, learn_scale, mod_idx, method, masks, bf16=bf16)
         return (AdamState(opt.count + len(noise), opt.mu, opt.nu), metrics,
                 names)
     return presence
@@ -377,21 +396,16 @@ def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
     return n_steps
 
 
-def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
-                        epoch: int = 0, log_every: int = 1, dp_epoch=None):
-    """Launch one epoch of one member on its device's current stream
-    without fetching anything; returns ``(number of steps, the epoch's
-    logs)``, the logs still on the device."""
+def epoch_batches(exp, model_idx: int, epoch: int):
+    """One member's training batches of an epoch in sampler order, as
+    ``(full complete batches, the others)``."""
     cfg = exp.cfg
-    model = exp.models[model_idx]
-    device = exp.params[model_idx].device
     dataset = _member_dataset(exp, model_idx, "train")
     sub_indices = dataset.indices if cfg.num_models > 1 else None
     sampler = MissingModalitySampler(dataset, batch_size=cfg.batch_size,
                                      indices=sub_indices,
                                      seed=cfg.seed + epoch)
-    mod_names = [m.name for m in model.modalities]
-    fused = bool(cfg.fused_training)
+    mod_names = exp.models[model_idx].mod_names
     full, general = [], []
     for idxs in sampler:
         data, _, _ = dataset.gather(idxs)
@@ -400,6 +414,32 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
             full.append(data)
         else:
             general.append(data)
+    return full, general
+
+
+def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
+                        epoch: int = 0, log_every: int = 1, dp_epoch=None,
+                        batches=None, bf16_full=None):
+    """Launch one epoch of one member on its device's current stream
+    without fetching anything; returns ``(number of steps, the epoch's
+    logs)``, the logs still on the device. ``batches``: the epoch's
+    :func:`epoch_batches`, if already drawn. Under ``precision="bfloat16"``
+    the kernels take their bfloat16 branch: every group, or with
+    ``dp_epoch`` the full complete batches alone; ``bf16_full`` (the
+    ensemble runner's) limits it to the first ``bf16_full`` full complete
+    batches, every other batch taking float32."""
+    cfg = exp.cfg
+    model = exp.models[model_idx]
+    device = exp.params[model_idx].device
+    mod_names = [m.name for m in model.modalities]
+    fused = bool(cfg.fused_training)
+    full, general = batches or epoch_batches(exp, model_idx, epoch)
+    bf16 = cfg_bf16(cfg)
+    # the config of the groups that take float32 under bfloat16
+    cfg_f32 = dataclasses.replace(cfg, precision="float32") if bf16 else cfg
+    rest_bf16 = bf16 and dp_epoch is None and bf16_full is None
+    n_bf16 = len(full) if bf16_full is None or not bf16 else min(
+        int(bf16_full), len(full))
     shapes = [(_rows(d), batch_noise_width(cfg, model, d))
               for d in full + general]
     noise = draw_noise(generator, shapes, device)
@@ -437,10 +477,11 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
                      [0])
 
     def run_group(key, batches, batch_noise, batch_masks, rows_to_log,
-                  epoch_fn=None):
+                  epoch_fn=None, group_bf16=False):
         # one kernel epoch over the group's batches
         nonlocal opt, n_steps
-        epoch_fn = epoch_fn or make_group_fused_epoch(cfg, model, key)
+        epoch_fn = epoch_fn or make_group_fused_epoch(
+            cfg if group_bf16 else cfg_f32, model, key)
         xs = {m: _stack(batches, m, device) for m in key[0]}
         opt, metrics, names = epoch_fn(
             p, opt, xs, torch.stack(batch_noise),
@@ -449,9 +490,17 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
         logs.add(names, metrics, rows_to_log)
 
     if fused and full:
-        run_group((tuple(sorted(mod_names)), cfg.batch_size), full,
-                  noise_full, masks_full, range(0, len(full), log_every),
-                  dp_epoch or generic_epoch)
+        # the first n_bf16 in the bfloat16 branch where it is on, the
+        # others (the ensemble's past its members' common prefix) in f32
+        key = (tuple(sorted(mod_names)), cfg.batch_size)
+        for lo, hi, part_bf16 in ((0, n_bf16, bf16), (n_bf16, len(full),
+                                                      False)):
+            if hi > lo:
+                run_group(key, full[lo:hi], noise_full[lo:hi],
+                          masks_full[lo:hi],
+                          [j - lo for j in range(lo, hi)
+                           if j % log_every == 0],
+                          dp_epoch or generic_epoch, part_bf16)
     elif not fused:
         for j, data in enumerate(full):
             run_general(data, noise_full[j], masks_full[j],
@@ -466,7 +515,8 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
             run_group(key, [general[i] for i in idx],
                       [noise_general[i] for i in idx],
                       [masks_general[i] for i in idx],
-                      [j for j, i in enumerate(idx) if i % log_every == 0])
+                      [j for j, i in enumerate(idx) if i % log_every == 0],
+                      group_bf16=rest_bf16)
         else:
             for i in idx:
                 run_general(general[i], noise_general[i], masks_general[i],
@@ -706,10 +756,23 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
     own noise and mask generators, so params, moments, logs and checkpoints
     are the sequential run's, bit for bit. Returns the host-clock seconds
     per epoch (all members; train, test, logging, ending in a device
-    synchronize); each member's eval cadence runs after it."""
+    synchronize); each member's eval cadence runs after it.
+
+    Under ``precision="bfloat16"`` the members follow the JAX runner
+    (``trainer.py:1011-1105, 241-343`` there): where the members spread
+    over the cards (its ``ensemble_mesh``) and the MoPoE or method step
+    takes the config, the first ``n_common`` full complete batches of each
+    member (the fewest any member has this epoch) take the kernels'
+    bfloat16 branch, unsharded (``make_fused_ensemble_epoch``); every other
+    batch, and every batch of an ensemble on one card (its vmapped XLA
+    step), takes float32."""
     cfg = exp.cfg
     n_models = cfg.num_models
     mesh = ensemble_mesh(cfg) if exp.device.type == "cuda" else None
+    example = {m.name: None for m in exp.models[0].modalities}
+    member_bf16 = (cfg_bf16(cfg) and mesh is not None and cfg.fused_training
+                   and fused_methods.supports_method_fused(
+                       cfg, exp.models[0], example))
     if mesh is None:
         mesh = make_mesh(n_models, 1, spread(exp.device, 1) * n_models)
     members = fused_sharded.MemberStreams(mesh)
@@ -720,7 +783,9 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
             exp.params[m] = exp.params[m].to(dev)
             exp.opt_states[m] = AdamState(opt.count, opt.mu.to(dev),
                                           opt.nu.to(dev))
-    dp_epochs = [make_dp_epoch(cfg, exp.models[m], dev)
+    # the JAX runner's member epochs are unsharded
+    dp_epochs = [None if cfg_bf16(cfg) else make_dp_epoch(cfg, exp.models[m],
+                                                          dev)
                  for m, dev in enumerate(members.devices)]
     loggers = [MetricLogger(model_log_dir(cfg, m),
                             use_tensorboard=use_tensorboard)
@@ -735,11 +800,15 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
         start = time.perf_counter()
         generators = [epoch_generator(cfg, m, epoch)
                       for m in range(n_models)]
+        batches = [epoch_batches(exp, m, epoch) for m in range(n_models)]
+        n_common = (min(len(full) for full, _ in batches) if member_bf16
+                    else 0)
         pending = []
         for m in range(n_models):
             with members.member(m):
                 pending.append(enqueue_train_epoch(
-                    exp, m, generators[m], epoch, log_every, dp_epochs[m]))
+                    exp, m, generators[m], epoch, log_every, dp_epochs[m],
+                    batches[m], bf16_full=n_common))
         for m in range(n_models):
             with members.member(m):
                 # the fetches synchronize the member's stream

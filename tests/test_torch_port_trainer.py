@@ -444,13 +444,6 @@ def test_resume_restores_the_route_and_the_mask_stream(cohort, tmp_path):
                 np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
-def test_bf16_precision_raises(cohort):
-    cfg = make_cfg(cohort, precision="bfloat16")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.check_supported(cfg, MultimodalExperiment(cfg, "cpu")
-                                .models[0])
-
-
 def test_checkpoint_fsyncs_the_directory(tmp_path, monkeypatch):
     events = []
     real_fsync, real_replace = os.fsync, os.replace
