@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's `daa` and `train` paths (unsharded,
-data-parallel, ensemble and deep-architecture) on one CUDA card and check
+data-parallel, ensemble, deep-architecture, tensor-parallel, traced, and
+resumed from the JAX package's checkpoints) on one CUDA card and check
 them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py``. It needs one
@@ -191,9 +192,35 @@ Phases, one line or more each:
    epoch's busy time and idle share, and a first epoch recorded on the
    card and held step by step by the plain versions on the host (the
    ratio rule for bf16 steps, the step bounds for f32 ones, the Adam
-   bound).
+   bound);
+16. tp-slice: ``train_exp`` at ``tensor_parallel=4`` and at 2 x 2 (tensor x
+   data) on the train slice's cohort, 2 epochs each: every batch on the
+   tensor-parallel step (``parallel/tensor.py``, Megatron layers in plain
+   torch over the ``("data", "tensor")`` mesh), ``flat_adam`` once a step
+   and no step kernel; every step recomputed from the state before it by
+   the plain single-entry step (autograd of the model on the whole batch)
+   and held to it: the loss at rtol 1e-5, the metrics at rtol 1e-4 / atol
+   1e-5, each tensor's gradient within a relative L2 distance of 1e-3;
+17. dp-general-slice: ``train_exp(data_parallel=4)`` of deep-A and of the
+   four-block ``joint_elbo`` (configs the method step does not take) and
+   of the flagship with ``fused_training=False``, 2 epochs each: every
+   batch on the data-parallel general step, held as in phase 16;
+18. profile-slice: ``train --profile-dir`` through the CLI (2 epochs of
+   the flagship): the first epoch's Chrome trace holds each of that
+   epoch's two ``mopoe_steps_kernel`` and two ``presence_steps_kernel``
+   launches, with each kernel's device ms from the trace and how many of
+   the tracer's warm-up kernels it kept;
+19. jax-checkpoint-slice: a flagship run directory in the JAX package's
+   layout (``model`` and ``opt_state`` written by this script's own
+   msgpack writer, :func:`flax_msgpack_bytes`) and the same run as the
+   port's ``.npz``: ``daa_exp`` of each on the card (the sweep kernel) and
+   one resumed epoch of each (the step kernels), equal bit for bit;
+20. pipeline-slice: the GPipe schedule of the pipelined MLP (S = 4 stages
+   on the card's entries, M = 8 microbatches, 444 -> 512 x 4 -> 7, batch
+   256) against the sequential loss and its gradients, and the walls of
+   a pipelined and a sequential SGD step.
 
-The meshes of phases 7-9 start at card 0 and wrap at the card count, so one
+The meshes of phases 7-9 and 16-20 start at card 0 and wrap at the card count, so one
 card holds every shard and member (on a machine with several cards they
 spread over them). Any failed phase exits non-zero. The last three lines
 are the JSON record of the kernels (``launches`` summed
@@ -208,6 +235,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2226,13 +2254,16 @@ def train_run(datadir, outdir, epochs, device, **kw):
     return run, [float(w) for w in line.split(":", 1)[1].split()]
 
 
-def profile_epoch(datadir, run_dir, device):
-    """Device busy time of one training epoch (``torch.profiler``), its
-    host wall, and the kernels' device time by name."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+WARM_UP_KEPT = []  # each profiled epoch's warm-up kernels in its trace
 
-    from multivae_tpu_torch.train import trainer
+
+def profile_epoch(datadir, run_dir, device):
+    """Device busy time of one training epoch (the package's tracer,
+    ``train/profiling.py``, its trace under ``run_dir/profile``), its host
+    wall, and the kernels' device time by name."""
+    import torch
+
+    from multivae_tpu_torch.train import profiling, trainer
     from multivae_tpu_torch.train.config import Config
     from multivae_tpu_torch.train.experiment import MultimodalExperiment
 
@@ -2245,21 +2276,16 @@ def profile_epoch(datadir, run_dir, device):
     trainer.train_one_epoch(exp, 0, None, trainer.epoch_generator(cfg, 0, 0),
                             dp_epoch=dp_epoch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profiling.trace(os.path.join(run_dir, "profile"), device,
+                         1) as prof:
         start = time.perf_counter()
         trainer.train_one_epoch(exp, 0, None,
                                 trainer.epoch_generator(cfg, 0, 1), 1,
                                 dp_epoch=dp_epoch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    by_name = {}
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0.0))
-        if t > 0:
-            by_name[ev.key] = t / 1e3  # ms
-    return wall, by_name
+    WARM_UP_KEPT.append(profiling.warm_up_kept(prof))
+    return wall, profiling.device_ms_by_name(prof)
 
 
 def cpu(x):
@@ -5023,6 +5049,502 @@ REPLACES = {
 BUILD_LOGS = {}  # nvcc's output per source, from the build phase
 
 
+# ------------------------------------------------------------------------
+# the general step's routes: tensor parallel, the data-parallel general step
+GENERAL_EPOCHS = 2
+TP_SLICES = (("train tp 4", 4, 1), ("train tp 2x2", 2, 2))  # (path, T, D)
+DP_GENERAL_SLICES = (
+    ("train dp-general deep-A joint_elbo", dict(
+        num_hidden_layer_decoder=1, out_scale_per_subject=True), False),
+    ("train dp-general four-block joint_elbo", dict(
+        input_dims=FOUR_BLOCK["input_dim"],
+        style_dim=FOUR_BLOCK["style_dim"]), True),
+    ("train dp-general flagship fused_training=False",
+     dict(fused_training=False), False),
+)
+# a step held to the plain single-entry step: the loss at rtol 1e-5, the
+# metrics at rtol 1e-4 / atol 1e-5, each tensor's gradient by its relative
+# L2 distance (a ReLU whose input lies within float32 round-off of 0 may
+# take the other branch for one row in another order of the sums)
+GENERAL_GRAD_REL = 1e-3
+
+
+@contextlib.contextmanager
+def holding_general_steps(name: str):
+    """Wrap the trainer's ``name`` (``tp_step`` or ``dp_general_step``):
+    each call's state is cloned before it, and after it the plain
+    single-entry step (``train_step.general_grads``: autograd of the
+    model on the whole batch, on the state's device) recomputes the step
+    from the clone and is held to the call's loss, metrics and the
+    gradient its Adam update took. The run goes on from the call's own
+    state. Yields the running record."""
+    import copy
+
+    import torch
+
+    from multivae_tpu_torch.ops import fused_sharded
+    from multivae_tpu_torch.params import flat_views
+    from multivae_tpu_torch.train import train_step, trainer
+
+    real, real_update = getattr(trainer, name), fused_sharded.adam_update
+    rec = {"steps": 0, "loss": 0.0, "metric": 0.0, "grad": 0.0,
+           "grad_at": "", "failed": []}
+    seen, scratch = {}, {}
+
+    def update(p, mu, nu, g, t, hyper):
+        seen["g"] = g.clone()
+        return real_update(p, mu, nu, g, t, hyper)
+
+    def step(cfg, model, p, opt, batch, noise, dims, hyper, mesh,
+             masks=None):
+        p0 = p.clone()
+        out = real(cfg, model, p, opt, batch, noise, dims, hyper, mesh,
+                   masks)
+        if not isinstance(model, torch.nn.Module):
+            model = model(p.device)      # the replicas of the dp step
+        plain = scratch.setdefault(id(model), copy.deepcopy(model))
+        loss, metrics, g = train_step.general_grads(cfg, plain, p0, batch,
+                                                    noise, dims, masks)
+        i = rec["steps"]
+        rec["steps"] += 1
+        err = abs(float(out[1]) - float(loss)) / abs(float(loss))
+        rec["loss"] = max(rec["loss"], err)
+        if err > 1e-5:
+            rec["failed"].append(f"step {i} loss {err:.3e}")
+        for k, v in metrics.items():
+            d = abs(float(out[2][k]) - float(v))
+            rec["metric"] = max(rec["metric"], d)
+            if d > 1e-5 + 1e-4 * abs(float(v)):
+                rec["failed"].append(f"step {i} {k} {d:.3e}")
+        got, want = flat_views(seen.pop("g"), dims), flat_views(g, dims)
+        for k in want:
+            rel = float(torch.linalg.vector_norm(got[k] - want[k])
+                        / torch.linalg.vector_norm(want[k]).clamp_min(1e-30))
+            if rel > rec["grad"]:
+                rec["grad"], rec["grad_at"] = rel, f"step {i} {k}"
+            if rel > GENERAL_GRAD_REL:
+                rec["failed"].append(f"step {i} grad {k} {rel:.3e}")
+        return out
+
+    setattr(trainer, name, step)
+    fused_sharded.adam_update = update
+    try:
+        yield rec
+    finally:
+        setattr(trainer, name, real)
+        fused_sharded.adam_update = real_update
+
+
+def general_route_run(phase, path, datadir, root, card, step_name, **kw):
+    """``train_exp`` on the card for ``GENERAL_EPOCHS`` epochs, every batch
+    on ``step_name`` held step by step (:func:`holding_general_steps`),
+    with every count set to 0 just before and read just after: the route
+    launches ``flat_adam`` once a step and no other kernel. Prints the
+    mesh's entries and the wall per epoch of the same run without the
+    hold; returns the launches of the held run."""
+    import pandas as pd
+
+    from multivae_tpu_torch.models import build_model, make_modalities
+    from multivae_tpu_torch.train import trainer
+
+    width = dict(input_dim=kw.get("input_dims", SLICE_TRAIN["input_dims"]),
+                 style_dim=kw.get("style_dim", SLICE_TRAIN["style_dim"]))
+    cfg = flagship_cfg(**width, **{k: v for k, v in kw.items() if k in (
+        "num_hidden_layer_decoder", "data_parallel", "tensor_parallel",
+        "fused_training")}, learn_output_sample_scale=kw.get(
+            "out_scale_per_subject", False))
+    model = build_model(cfg, make_modalities(cfg.input_dim, cfg.style_dim,
+                                             cfg.likelihood), "cpu")
+    mesh = trainer.general_step_mesh(cfg, model, "cuda:0")
+    log(phase, f"{path}: mesh {mesh}")
+    zero_launch_counts()
+    with holding_general_steps(step_name) as rec:
+        run, walls = train_run(datadir, os.path.join(root, path.replace(
+            " ", "_")), GENERAL_EPOCHS, "cuda", **kw)
+    counts = launch_counts()
+    # the same run without the hold, whose plain recomputation and
+    # per-metric fetches would be inside the walls
+    _, clean = train_run(datadir, os.path.join(root, path.replace(
+        " ", "_") + "_clean"), GENERAL_EPOCHS, "cuda", **kw)
+    rundir = os.path.join(root, path.replace(" ", "_"), run)
+    csv = pd.read_csv(os.path.join(rundir, "logs", "metrics.csv"))
+    losses = csv[(csv.phase == "train") & (csv.metric == "loss")].value
+    steps = GENERAL_EPOCHS * (len(EPOCH_COMPLETE) + len(EPOCH_PRESENCE))
+    checks = {
+        f"{steps} steps held": rec["steps"] == steps,
+        "every step within bounds": not rec["failed"],
+        f"flat_adam {steps}": counts["flat_adam"] == steps,
+        "no step kernel": not any(v for k, v in counts.items()
+                                  if k != "flat_adam"),
+        "losses finite": bool(np.isfinite(losses).all()),
+        "checkpoint": os.path.isfile(os.path.join(
+            rundir, "checkpoints", f"{GENERAL_EPOCHS - 1:04d}",
+            "model.npz")),
+    }
+    log(phase, f"{path}: wall per epoch (s) {clean} ({walls} with every "
+        f"step held); steps against the "
+        f"plain single-entry step: largest loss rel {rec['loss']:.3e}, "
+        f"metric abs {rec['metric']:.3e}, gradient rel L2 "
+        f"{rec['grad']:.3e} ({rec['grad_at']}); launches "
+        f"{ {k: v for k, v in counts.items() if v} }; mean loss epoch 1 "
+        f"{losses.iloc[:8].mean():.4f} -> epoch {GENERAL_EPOCHS} "
+        f"{losses.iloc[-8:].mean():.4f}; checks "
+        + ", ".join(f"{k}={v}" for k, v in checks.items()) + f" ({card})")
+    if not all(checks.values()):
+        raise SystemExit(f"{phase} {path}: {checks} {rec['failed'][:5]}")
+    return counts
+
+
+def tp_slice(datadir, root, card):
+    """Phase tp-slice: ``train_exp(tensor_parallel=4)`` and
+    ``(tensor_parallel=2, data_parallel=2)`` at the flagship widths, every
+    step held to the plain single-entry step from the card's own state.
+    Returns the launches, ``{path: {kernel: count}}``."""
+    return {path: general_route_run(
+        "tp-slice", path, datadir, root, card, "tp_step",
+        tensor_parallel=t, data_parallel=d) for path, t, d in TP_SLICES}
+
+
+def dp_general_slice(datadir, four_block_dir, root, card):
+    """Phase dp-general-slice: ``train_exp(data_parallel=4)`` of deep-A and
+    the four-block joint_elbo (the configs the method step does not take),
+    and of the flagship with ``fused_training=False``, every step held to
+    the plain single-entry step. Returns the launches."""
+    return {path: general_route_run(
+        "dp-general-slice", path, four_block_dir if four else datadir, root,
+        card, "dp_general_step", data_parallel=DATA_PARALLEL, **kw)
+        for path, kw, four in DP_GENERAL_SLICES}
+
+
+def profile_slice(datadir, root, card):
+    """Phase profile-slice: ``train --profile-dir`` through the CLI on the
+    card (2 epochs of the flagship joint_elbo): the first epoch's Chrome
+    trace holds every launch of the MoPoE and presence step kernels in that
+    epoch (half of the two epochs' counts: both epochs have the same
+    batches); each kernel's device ms from the trace, and how many of the
+    tracer's warm-up kernels the trace kept (fewer than launched: the
+    session lost its first records, which the warm-up absorbed). Returns
+    the launches."""
+    from multivae_tpu_torch import cli
+    from multivae_tpu_torch.train import profiling
+
+    phase = "profile-slice"
+    trace_dir = os.path.join(root, "trace")
+    zero_launch_counts()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["train", "--dataset", "synthetic", "--datasetdir",
+                  datadir, "--outdir", os.path.join(root, "profiled"),
+                  "--input-dims", "7", "444", "--latent-dim", "20",
+                  "--style-dim", "3", "20", "--batch-size", "256",
+                  "--num-epochs", "2", "--use-tensorboard", "false",
+                  "--profile-dir", trace_dir, "--device", "cuda"])
+    wall = time.perf_counter() - start
+    counts = launch_counts()
+    files = os.listdir(trace_dir)
+    with open(os.path.join(trace_dir, "epoch_0000.pt.trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernel_ms = {}
+    for ev in events:
+        if ev.get("cat") == "kernel":
+            kernel_ms[ev["name"]] = kernel_ms.get(ev["name"], 0.0) + float(
+                ev.get("dur", 0.0)) / 1e3
+    in_trace = {k: sum(1 for ev in events if ev.get("cat") == "kernel"
+                       and k in ev["name"])
+                for k in ("mopoe_steps_kernel", "presence_steps_kernel",
+                          profiling.WARM_UP_KERNEL)}
+    top = sorted(kernel_ms.items(), key=lambda kv: -kv[1])[:4]
+    checks = {"one trace": files == ["epoch_0000.pt.trace.json"],
+              "mopoe_step 4, presence_step 4": (
+                  counts["mopoe_step"], counts["presence_step"]) == (4, 4),
+              **{f"{k} x2 in the trace": in_trace[k] == 2
+                 for k in ("mopoe_steps_kernel", "presence_steps_kernel")}}
+    log(phase, f"train --profile-dir: {wall:.3f} s for 2 epochs, "
+        f"{len(events)} trace events, kernels in the trace {in_trace} (the "
+        f"tracer's warm-up launched {profiling.WARM_UP_LAUNCHES} "
+        f"{profiling.WARM_UP_KERNEL}), device ms by kernel (top 4) "
+        + ", ".join(f"{n[:48]} {ms:.4f}" for n, ms in top)
+        + "; checks " + ", ".join(f"{k}={v}" for k, v in checks.items())
+        + f" ({card})")
+    if not all(checks.values()):
+        raise SystemExit(f"{phase}: {checks}")
+    return {"train --profile-dir": counts}
+
+
+def write_jax_layout_run(root, cfg, fmt: str, count: int = 40) -> str:
+    """A flagship run directory with seeded weights and Adam state at
+    epoch 4: the JAX package's files (``model``, ``opt_state``, msgpack
+    from :func:`flax_msgpack_bytes`) or the port's ``.npz``."""
+    import torch
+
+    from multivae_tpu_torch.models import build_model, make_modalities
+    from multivae_tpu_torch.ops.adam import AdamState
+    from multivae_tpu_torch.params import (dims_from, model_flat_params,
+                                           split_flat_to_ravel,
+                                           state_dict_to_tree)
+    from multivae_tpu_torch.train.checkpoint import save_checkpoint
+
+    run = "synthetic_jax_layout"
+    rundir = os.path.join(root, fmt, run)
+    ckpt = os.path.join(rundir, "checkpoints", "0004")
+    os.makedirs(ckpt)
+    cfg.save(os.path.join(rundir, "flags.json"))
+    model = build_model(cfg, make_modalities(cfg.input_dim, cfg.style_dim,
+                                             cfg.likelihood), "cpu")
+    dims = dims_from(cfg, cfg.batch_size)
+    gen = torch.Generator().manual_seed(SEED)
+    p = model_flat_params(model, dims)
+    mu = 1e-3 * torch.randn(p.shape, generator=gen)
+    nu = 1e-6 * torch.rand(p.shape, generator=gen)
+    if fmt == "npz":
+        save_checkpoint(ckpt, model, AdamState(count, mu, nu),
+                        dims=dims)
+        return run
+    names = model.mod_names
+    with open(os.path.join(ckpt, "opt_state"), "wb") as fh:
+        fh.write(flax_msgpack_bytes({
+            "count": np.asarray(count, np.int32),
+            "mu": split_flat_to_ravel(mu, dims, names),
+            "nu": split_flat_to_ravel(nu, dims, names)}))
+    with open(os.path.join(ckpt, "model"), "wb") as fh:
+        fh.write(flax_msgpack_bytes(state_dict_to_tree(model.state_dict())))
+    return run
+
+
+def jax_checkpoint_slice(datadir, root, card):
+    """Phase jax-checkpoint-slice: a flagship run directory in the JAX
+    package's layout (msgpack, written here) and the same run in the
+    port's (``.npz``): ``daa_exp`` of each on the card (the sweep kernel)
+    and one resumed epoch of each, their outputs equal bit for bit.
+    Returns the launches of the JAX-layout run's two paths."""
+    import warnings
+
+    from multivae_tpu_torch import workflows
+    from multivae_tpu_torch.ops import fused_daa
+
+    phase = "jax-checkpoint-slice"
+    cfg = flagship_cfg(dataset="synthetic", datasetdir=datadir,
+                       batch_size=256, seed=SEED, end_epoch=5)
+    runs = {fmt: write_jax_layout_run(root, cfg, fmt)
+            for fmt in ("jax", "npz")}
+    size = os.path.getsize(os.path.join(root, "jax", runs["jax"],
+                                        "checkpoints", "0004", "model"))
+    by_path, out, walls = {}, {}, {}
+    for fmt, run in runs.items():
+        outdir = os.path.join(root, fmt)
+        fused_daa.KERNEL_LAUNCHES["avatar_sweep"] = 0
+        start = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            resdir = workflows.daa_exp(
+                "synthetic", datadir, outdir, run, n_validation=1,
+                n_samples=50, n_subjects=50, M=100, device="cuda")
+        walls[f"daa {fmt}"] = time.perf_counter() - start
+        daa_launches = fused_daa.KERNEL_LAUNCHES["avatar_sweep"]
+        zero_launch_counts()
+        start = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught, \
+                contextlib.redirect_stdout(io.StringIO()):
+            warnings.simplefilter("always")
+            workflows.resume_exp("synthetic", datadir, outdir, run, 6,
+                                 use_tensorboard=False, device="cuda")
+        walls[f"resume {fmt}"] = time.perf_counter() - start
+        ckpt = os.path.join(outdir, run, "checkpoints", "0005")
+        out[fmt] = {
+            "daa": {n: np.load(os.path.join(resdir, n)) for n in (
+                "pvalues.npy", "coefs.npy", "rois_digital_avatars.npy")},
+            "resume": {f"{f}/{k}": v[k] for f in ("model.npz",
+                                                   "opt_state.npz")
+                       for v in [np.load(os.path.join(ckpt, f))]
+                       for k in v.files},
+            "warned": any("threefry" in str(w.message) for w in caught)}
+        if fmt == "jax":
+            by_path["daa of a JAX-layout run"] = {
+                "avatar_sweep": daa_launches}
+            by_path["resume of a JAX-layout run"] = launch_counts()
+
+    def same(part):
+        a, b = out["jax"][part], out["npz"][part]
+        return sorted(a) == sorted(b) and all(
+            np.array_equal(a[k], b[k]) for k in a)
+
+    resumed = by_path["resume of a JAX-layout run"]
+    checks = {"daa equal bits": same("daa"),
+              "resumed epoch equal bits": same("resume"),
+              "avatar_sweep launched": by_path[
+                  "daa of a JAX-layout run"]["avatar_sweep"] > 0,
+              "mopoe_step 2, presence_step 2": (
+                  resumed["mopoe_step"], resumed["presence_step"]) == (2, 2),
+              "the JAX-layout resume warned": out["jax"]["warned"],
+              "the npz resume did not": not out["npz"]["warned"]}
+    log(phase, f"JAX-layout checkpoint {size} bytes (msgpack, written "
+        f"here); walls (s) " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                         walls.items())
+        + "; checks " + ", ".join(f"{k}={v}" for k, v in checks.items())
+        + f" ({card})")
+    if not all(checks.values()):
+        raise SystemExit(f"{phase}: {checks}")
+    return by_path
+
+
+PIPE_STAGES, PIPE_MICRO = 4, 8
+PIPE_WIDTHS = dict(in_dim=444, hidden=512, out_dim=7, batch=256)
+
+
+def pipeline_slice(device, card):
+    """Phase pipeline-slice: the GPipe schedule (S = 4 stages on one card's
+    entries, M = 8 microbatches) of the pipelined MLP against the
+    sequential loss and its gradients (loss rtol 1e-5, each gradient
+    within 1e-4 of its largest element), the padded first-layer rows'
+    gradient exactly 0, and the walls of 5 pipelined and 5 sequential SGD
+    steps."""
+    import torch
+
+    from multivae_tpu_torch.parallel import pipeline as pipe
+
+    phase = "pipeline-slice"
+    w = PIPE_WIDTHS
+    gen = torch.Generator().manual_seed(SEED)
+    params = pipe.init_pipelined_mlp(w["in_dim"], w["hidden"], w["out_dim"],
+                                     PIPE_STAGES, generator=gen)
+    params = {k: {kk: vv.to(device) for kk, vv in v.items()}
+              for k, v in params.items()}
+    x = torch.randn(w["batch"], w["in_dim"], generator=gen).to(device)
+    y = torch.randn(w["batch"], w["out_dim"], generator=gen).to(device)
+    mesh = pipe.pipe_mesh(PIPE_STAGES, [device] * PIPE_STAGES)
+
+    def loss_and_grads(fn, **kw):
+        leaves = {k: {kk: vv.clone().requires_grad_() for kk, vv in
+                      v.items()} for k, v in params.items()}
+        flat = [leaves[a][b] for a in ("stack", "head") for b in ("w", "b")]
+        loss = fn(leaves, x, y, **kw)
+        return loss.detach(), torch.autograd.grad(loss, flat)
+
+    loss_p, grads_p = loss_and_grads(pipe.pipelined_mlp_loss,
+                                     n_micro=PIPE_MICRO, mesh=mesh)
+    loss_s, grads_s = loss_and_grads(pipe.sequential_mlp_loss)
+    loss_err = abs(float(loss_p - loss_s)) / abs(float(loss_s))
+    grad_err = max(float((a - b).abs().max() / b.abs().max())
+                   for a, b in zip(grads_p, grads_s))
+    padded = float(grads_p[0][0][w["in_dim"]:].abs().max())
+
+    def walled(step):
+        q = params
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for _ in range(5):
+            q, loss = step(q, x, y)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - start) / 5, float(loss)
+
+    def sequential_step(q, x, y):
+        leaves = {k: {kk: vv.clone().requires_grad_() for kk, vv in
+                      v.items()} for k, v in q.items()}
+        loss = pipe.sequential_mlp_loss(leaves, x, y)
+        flat = [leaves[a][b] for a in ("stack", "head") for b in ("w", "b")]
+        grads = iter(torch.autograd.grad(loss, flat))
+        new = {a: {b: (leaves[a][b] - 1e-2 * next(grads)).detach()
+                   for b in ("w", "b")} for a in ("stack", "head")}
+        return new, loss.detach()
+
+    pipe_s, pipe_loss = walled(pipe.make_pipelined_train_step(
+        mesh, PIPE_MICRO, lr=1e-2))
+    seq_s, seq_loss = walled(sequential_step)
+    checks = {"loss": loss_err <= 1e-5, "gradients": grad_err <= 1e-4,
+              "padded rows 0": padded == 0.0,
+              "5 steps agree": abs(pipe_loss - seq_loss)
+              <= 1e-4 * abs(seq_loss)}
+    log(phase, f"S={PIPE_STAGES} M={PIPE_MICRO} {w}: mesh {mesh}; loss "
+        f"rel {loss_err:.3e}, gradient err / max {grad_err:.3e}, padded "
+        f"rows' gradient {padded}; per SGD step pipelined "
+        f"{1e3 * pipe_s:.3f} ms, sequential {1e3 * seq_s:.3f} ms; checks "
+        + ", ".join(f"{k}={v}" for k, v in checks.items()) + f" ({card})")
+    if not all(checks.values()):
+        raise SystemExit(f"{phase}: {checks}")
+
+
+# ------------------------------------------------------------------------
+# the JAX package's checkpoint format, written here without flax or msgpack
+# (the card's machine has neither): tests/test_torch_port_jax_checkpoint.py
+# holds these bytes equal to flax.serialization.to_bytes of the same tree
+def _msgpack_sized(n: int, small: int, codes, small_max: int) -> bytes:
+    import struct
+
+    if n < small_max:
+        return bytes([small | n]) if small is not None else b""
+    for code, fmt, limit in codes:
+        if n < limit:
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"{n} elements is more than msgpack holds")
+
+
+def _msgpack_ext(code: int, data: bytes) -> bytes:
+    import struct
+
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    n = len(data)
+    if n in fixed:
+        head = bytes([fixed[n]])
+    elif n < 1 << 8:
+        head = bytes([0xC7, n])
+    elif n < 1 << 16:
+        head = b"\xc8" + struct.pack(">H", n)
+    else:
+        head = b"\xc9" + struct.pack(">I", n)
+    return head + struct.pack(">b", code) + data
+
+
+def flax_msgpack_bytes(value) -> bytes:
+    """The bytes ``flax.serialization.to_bytes`` writes for a state dict
+    (nested dicts of numpy arrays and plain values): msgpack with binary
+    strings, each array an ext 1 and each numpy scalar an ext 3 whose
+    payload is msgpack of ``[shape, dtype name, C-order buffer]``."""
+    import struct
+
+    big = ((0xDE, ">H", 1 << 16), (0xDF, ">I", 1 << 32))
+    if isinstance(value, dict):
+        return _msgpack_sized(len(value), 0x80, big, 16) + b"".join(
+            flax_msgpack_bytes(k) + flax_msgpack_bytes(v)
+            for k, v in value.items())
+    if isinstance(value, (list, tuple)):
+        return _msgpack_sized(len(value), 0x90, ((0xDC, ">H", 1 << 16),
+                                                 (0xDD, ">I", 1 << 32)),
+                              16) + b"".join(map(flax_msgpack_bytes, value))
+    if isinstance(value, str):
+        raw = value.encode("utf-8")
+        return _msgpack_sized(len(raw), 0xA0, ((0xD9, ">B", 1 << 8),
+                                               (0xDA, ">H", 1 << 16),
+                                               (0xDB, ">I", 1 << 32)),
+                              32) + raw
+    if isinstance(value, bytes):
+        return _msgpack_sized(len(value), None, ((0xC4, ">B", 1 << 8),
+                                                 (0xC5, ">H", 1 << 16),
+                                                 (0xC6, ">I", 1 << 32)),
+                              0) + value
+    if value is None or isinstance(value, bool):
+        return {None: b"\xc0", False: b"\xc2", True: b"\xc3"}[value]
+    if isinstance(value, int):
+        if 0 <= value < 128 or -32 <= value < 0:
+            return struct.pack(">b" if value < 0 else ">B", value)
+        sizes = ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")) \
+            if value >= 0 else ((0xD0, ">b"), (0xD1, ">h"), (0xD2, ">i"),
+                                (0xD3, ">q"))
+        for code, fmt in sizes:
+            try:
+                return bytes([code]) + struct.pack(fmt, value)
+            except struct.error:
+                continue
+        raise ValueError(f"{value} does not fit 64 bits")
+    if isinstance(value, float):
+        return b"\xcb" + struct.pack(">d", value)
+    if isinstance(value, (np.ndarray, np.generic)):
+        arr = np.asarray(value)
+        payload = flax_msgpack_bytes([list(arr.shape), arr.dtype.name,
+                                      arr.tobytes("C")])
+        return _msgpack_ext(1 if isinstance(value, np.ndarray) else 3,
+                            payload)
+    raise TypeError(f"{type(value).__name__} is not in flax's state dicts")
+
+
 def build_phase() -> dict:
     """Phase build: every kernel source at once, one nvcc each. Returns
     ptxas' register, shared-memory and spill lines per source."""
@@ -5100,6 +5622,24 @@ def main() -> int:
         entries["avatar_sweep"]["traverse"] = traverse
         entries.update(timed("bf16-kernel", bf16_kernel_check(device)))
         by_path.update(timed("bf16-slice", bf16_slice(device, smi)))
+        with tempfile.TemporaryDirectory() as root:
+            datadir = slice_cohort(root, "tp-slice")[0]
+            four = os.path.join(root, "four_block")
+            shutil.copytree(datadir, four)
+            split_roi_block(four)
+            timed("cohorts", None)
+            by_path.update(timed("tp-slice", tp_slice(datadir, root, smi)))
+            by_path.update(timed("dp-general-slice", dp_general_slice(
+                datadir, four, root, smi)))
+            by_path.update(timed("profile-slice", profile_slice(
+                datadir, root, smi)))
+            by_path.update(timed("jax-checkpoint-slice",
+                                 jax_checkpoint_slice(datadir, root, smi)))
+        timed("pipeline-slice", pipeline_slice(device, smi))
+    from multivae_tpu_torch.train import profiling
+    log("profile", f"the tracer's warm-up kernels kept by each profiled "
+        f"epoch's trace (of {profiling.WARM_UP_LAUNCHES}; fewer: the "
+        f"session lost its first records): {WARM_UP_KEPT}")
     for k in KERNELS + BF16_KERNELS:
         # each path's own count (set to 0 just before it, read just after)
         # and their sum

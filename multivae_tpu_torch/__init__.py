@@ -25,6 +25,8 @@ Layers, from the entry point down:
     device);
   * ``data`` — cohorts, splits, samplers, scaling (numpy and pandas);
   * ``models`` — the presence-masked multimodal VAE as ``nn.Module`` s;
+  * ``parallel`` — device meshes, the tensor-parallel step and the GPipe
+    pipeline;
   * ``params`` — the weights bridge to and from the JAX param tree and the
     flat train state;
   * ``ops`` — Gaussian, fusion and likelihood math, and the kernels' Python

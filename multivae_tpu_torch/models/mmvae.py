@@ -94,9 +94,11 @@ class MultimodalVAE(nn.Module):
         return latents
 
     # ----------------------------------------------------------- subset fuse
-    def _fuse_available_subsets(self, enc_mods, present: Tuple[str, ...]):
+    def _fuse_available_subsets(self, enc_mods, present: Tuple[str, ...],
+                                rows=None):
         """``(subset_keys, sub_mus [S,B,D], sub_logvars [S,B,D])`` for every
-        fully-available subset, in powerset order."""
+        fully-available subset, in powerset order (``rows``:
+        :class:`~multivae_tpu_torch.ops.fusion.Rows`)."""
         present_set = set(present)
         avail = [(key, mods) for key, mods in self.subsets.items()
                  if all(m in present_set for m in mods)]
@@ -126,7 +128,7 @@ class MultimodalVAE(nn.Module):
                 else:
                     idx = [col[m] for m in mods]
                     mu_s, lv_s = fusion.mixture_component_selection(
-                        mus[idx], logvars[idx])
+                        mus[idx], logvars[idx], rows=rows)
                     rows_mu.append(mu_s)
                     rows_lv.append(lv_s)
             sub_mus = torch.stack(rows_mu)
@@ -145,14 +147,15 @@ class MultimodalVAE(nn.Module):
     # -------------------------------------------------------------- inference
     def inference(self, batch: Dict[str, torch.Tensor], *,
                   sample: bool = True, use_expert: Optional[str] = None,
-                  masks=None):
-        """Reference ``BaseMMVae.inference`` (``:181-239``)."""
+                  masks=None, rows=None):
+        """Reference ``BaseMMVae.inference`` (``:181-239``); ``rows`` as
+        in :meth:`forward`."""
         present = tuple(m.name for m in self.modalities if m.name in batch)
         if not present:
             raise ValueError("empty batch: no known modality present")
         enc_mods = self.encode(batch, masks)
         keys, sub_mus, sub_logvars = self._fuse_available_subsets(
-            enc_mods, present)
+            enc_mods, present, rows)
         distr_subsets = {k: (sub_mus[i], sub_logvars[i])
                          for i, k in enumerate(keys)}
         sel = [i for i, k in enumerate(keys)
@@ -169,7 +172,8 @@ class MultimodalVAE(nn.Module):
         if use_expert is not None:
             joint = distr_subsets[use_expert]
         elif sample:
-            joint = fusion.mixture_component_selection(mus, logvars)
+            joint = fusion.mixture_component_selection(mus, logvars,
+                                                       rows=rows)
         else:
             joint = (mus.mean(dim=0), logvars.mean(dim=0))
         return {
@@ -183,11 +187,11 @@ class MultimodalVAE(nn.Module):
         }
 
     # ------------------------------------------------------------- divergence
-    def _calc_joint_divergence(self, mus, logvars, weights):
+    def _calc_joint_divergence(self, mus, logvars, weights, rows=None):
         """Group divergence normalized by the batch size
         (``BaseMMVae.py:64-93``)."""
         weights = fusion.reweight_weights(weights)
-        norm = mus.shape[1]
+        norm = fusion.row_count(mus.shape[1], rows)
         if self.method == "jsd":
             group_div, klds, dyn_prior = fusion.alpha_jsd_divergence(
                 mus, logvars, weights, normalization=norm)
@@ -214,17 +218,21 @@ class MultimodalVAE(nn.Module):
                 use_expert: Optional[str] = None,
                 noise: Optional[torch.Tensor] = None,
                 generator: Optional[torch.Generator] = None,
-                masks=None):
+                masks=None, rows=None):
         """Full forward pass (``BaseMMVae.forward``, ``:137-165``).
 
         With ``sample_latents`` the reparameterization noise
         ``[B, noise_width(batch)]`` is ``noise`` when given, else a draw from
         ``generator``. ``masks`` (``{modality: (encoder masks, decoder
         masks)}``, one pre-scaled keep mask per hidden layer) applies
-        dropout; None is the inference pass.
+        dropout; None is the inference pass. ``rows``
+        (:class:`~multivae_tpu_torch.ops.fusion.Rows`): the batch is a
+        data shard's slice of a larger one, whose mixture partition and
+        batch size the pass takes.
         """
         latents = self.inference(batch, sample=sample_latents,
-                                 use_expert=use_expert, masks=masks)
+                                 use_expert=use_expert, masks=masks,
+                                 rows=rows)
         joint_mu, joint_logvar = latents["joint"]
         eps = None
         if sample_latents:
@@ -239,7 +247,7 @@ class MultimodalVAE(nn.Module):
         else:
             class_z = joint_mu
         divs = self._calc_joint_divergence(
-            latents["mus"], latents["logvars"], latents["weights"])
+            latents["mus"], latents["logvars"], latents["weights"], rows)
 
         rec = {}
         offset = self.class_dim

@@ -81,8 +81,11 @@ class Encoder(nn.Module):
         self.heads = Linear(width, 2 * class_dim + 2 * self.style_dim)
 
     def forward(self, x, masks: Optional[Sequence[torch.Tensor]] = None):
-        h = hidden_stack(self, x, masks)
-        heads = self.heads(h)
+        return self.split_heads(self.heads(hidden_stack(self, x, masks)))
+
+    def split_heads(self, heads):
+        """``(style_mu, style_logvar, class_mu, class_logvar)`` from the
+        head projection's columns."""
         cd, s = self.class_dim, self.style_dim
         class_mu = heads[..., :cd]
         class_logvar = heads[..., cd:2 * cd]
@@ -120,14 +123,24 @@ class Decoder(nn.Module):
 
     def forward(self, style_z: Optional[torch.Tensor], class_z: torch.Tensor,
                 masks: Optional[Sequence[torch.Tensor]] = None):
-        h = torch.cat([style_z, class_z], dim=-1) if self.has_style \
-            else class_z
-        h = hidden_stack(self, h, masks)
+        h = hidden_stack(self, self.latent_input(style_z, class_z), masks)
         if self.learn_output_sample_scale:
-            both = self.out_heads(h)
-            loc = both[..., :self.output_dim]
-            logvar = both[..., self.output_dim:]
+            return self.outputs(self.out_heads(h))
+        return self.outputs(self.out_mu(h), self.out_logvar)
+
+    def latent_input(self, style_z, class_z):
+        """The first layer's input: ``concat(style_z, class_z)``, or
+        ``class_z`` without a style latent."""
+        return torch.cat([style_z, class_z], dim=-1) if self.has_style \
+            else class_z
+
+    def outputs(self, out, out_logvar=None):
+        """``(loc, scale)`` from the output projection: ``out_heads``'
+        columns, or ``out_mu``'s beside the per-feature ``out_logvar``."""
+        if out_logvar is None:
+            loc = out[..., :self.output_dim]
+            logvar = out[..., self.output_dim:]
         else:
-            loc = self.out_mu(h)
-            logvar = self.out_logvar.expand_as(loc)
+            loc = out
+            logvar = out_logvar.expand_as(loc)
         return loc, torch.exp(0.5 * logvar)

@@ -80,10 +80,13 @@ def _shard_devices(mesh, p: torch.Tensor, b_total: int):
 
 
 def _dp_update(shard_step, p, mu, nu, t: int, devices, local_b: int,
-               hyper: AdamHyper) -> torch.Tensor:
+               hyper: AdamHyper, rescale=mean_rescale) -> torch.Tensor:
     """Run ``shard_step(params, rows, row_offset, device) -> (metrics,
     grads)`` for every shard, sum both in shard order on the state's
-    device, update the state once; returns the batch's metric vector."""
+    device, update the state once; returns the batch's metric vector,
+    ``rescale(sum, shard count)`` (the kernels' local means divided by the
+    shard count; None where every shard's metrics are already its share of
+    the batch's, as the general step's)."""
     mvec = grads = None
     for k, dev in enumerate(devices):
         rows = slice(k * local_b, (k + 1) * local_b)
@@ -92,7 +95,7 @@ def _dp_update(shard_step, p, mu, nu, t: int, devices, local_b: int,
         mvec = m if mvec is None else mvec + m
         grads = g if grads is None else grads + g
     adam_update(p, mu, nu, grads, t, hyper)
-    return mean_rescale(mvec, len(devices))
+    return mvec if rescale is None else rescale(mvec, len(devices))
 
 
 def dp_step_flat(p, mu, nu, t: int, x1, x2, noise, dims: FusedDims,

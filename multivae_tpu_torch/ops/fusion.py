@@ -8,7 +8,7 @@ subset masks are static numpy arrays, as there; the tensor math is torch.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -16,6 +16,23 @@ import torch
 from .gaussian import kl_divergence, kl_divergence_per_sample
 
 POE_EPS = 1e-8
+
+
+class Rows(NamedTuple):
+    """The rows a slice holds of a whole batch: its first row's index in
+    the batch and the batch's row count. A data shard computes the whole
+    batch's function on its slice: rows are assigned by their index in the
+    batch (:func:`mixture_component_selection`) and every mean over rows
+    divides by ``total`` (``models/mmvae.py``, ``train/losses.py``), so the
+    shards' results sum to the batch's."""
+    offset: int
+    total: int
+
+
+def row_count(b: int, rows: Optional[Rows]) -> int:
+    """The row count a mean over a batch slice of ``b`` rows divides by:
+    the whole batch's when the slice is a shard's."""
+    return b if rows is None else rows.total
 
 
 def poe(mus, logvars, eps: float = POE_EPS):
@@ -99,12 +116,17 @@ def mixture_partition(num_components: int, num_samples: int,
     return owner
 
 
-def mixture_component_selection(mus, logvars, weights=None):
+def mixture_component_selection(mus, logvars, weights=None,
+                                rows: Optional[Rows] = None):
     """Stratified MoE sample selection: each row of ``[K, B, D]`` experts
-    takes its owning component's (mu, logvar)."""
+    takes its owning component's (mu, logvar). ``rows``: the experts are
+    rows ``[offset, offset + B)`` of a batch of ``total``, whose partition
+    they take."""
     k, b = mus.shape[0], mus.shape[1]
-    owner = torch.as_tensor(mixture_partition(k, b, weights),
-                            device=mus.device)
+    owner = mixture_partition(k, row_count(b, rows), weights)
+    if rows is not None:
+        owner = owner[rows.offset:rows.offset + b]
+    owner = torch.as_tensor(owner, device=mus.device)
     rows = torch.arange(b, device=mus.device)
     return mus[owner, rows], logvars[owner, rows]
 

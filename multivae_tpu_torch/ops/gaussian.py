@@ -48,6 +48,15 @@ def kl_divergence_per_sample(mu0, logvar0, mu1=None, logvar1=None):
     return per_el.sum(dim=-1)
 
 
+def gaussian_entropy(logvar, norm_value=None):
+    """Gaussian entropy summed over every element (``kl_div.py:
+    calc_entropy_gauss``); divided by ``norm_value`` when given."""
+    ent = 0.5 * torch.sum(LOG2PI + logvar + 1.0)
+    if norm_value is not None:
+        ent = ent / float(norm_value)
+    return ent
+
+
 def reparameterize(mu, logvar, noise: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None):
     """``z = mu + eps * exp(0.5*logvar)``; ``eps`` is ``noise`` when given,

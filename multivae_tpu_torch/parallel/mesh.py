@@ -1,19 +1,21 @@
-"""Device meshes for ensemble x data parallelism.
+"""Device meshes for ensemble, data and tensor parallelism.
 
-Counterpart of ``multivae_tpu/parallel/mesh.py:19-39`` (``make_mesh``,
-``data_mesh``). A mesh is an explicit grid of ``torch.device`` entries with
-named axes: ensemble members ride the ``model`` axis, a batch's row shards
-the ``data`` axis. Nothing is placed by the mesh itself: the code that runs
-a shard or a member reads its entry and launches there.
+Counterpart of ``multivae_tpu/parallel/mesh.py`` (``make_mesh``,
+``data_mesh``, ``tp_mesh``, ``tp_param_spec``). A mesh is an explicit grid
+of ``torch.device`` entries with named axes: ensemble members ride the
+``model`` axis, a batch's row shards the ``data`` axis, the hidden width's
+column blocks the ``tensor`` axis (:mod:`.tensor`). Nothing is placed by
+the mesh itself: the code that runs a shard or a member reads its entry and
+launches there.
 
 Several entries may name one device. By default the entries are the visible
 cards, and a mesh with more entries than cards wraps (entry ``k`` is card
 ``k % count``), so one card holds every shard or member. An explicit
 ``devices`` list is taken as given and must be long enough.
 
-Tensor and pipeline parallelism (``tp_mesh``, ``tp_param_spec``,
-``pipeline.py``) and the ``NamedSharding`` helpers of the JAX module have no
-counterpart here.
+A partition spec is a tuple of axis names or None, one per dimension of a
+leaf (``()`` replicates it): the JAX module's ``PartitionSpec`` without the
+``NamedSharding`` helpers, which have no counterpart here.
 """
 
 from __future__ import annotations
@@ -104,3 +106,38 @@ def data_mesh(n_data: Optional[int] = None,
         raise ValueError(f"data mesh needs {n_data} devices, have "
                          f"{len(devices)}")
     return Mesh(devices[:n_data], ("data",), (n_data,))
+
+
+def tp_mesh(n_tensor: int, n_data: int = 1,
+            devices: Optional[Sequence] = None) -> Mesh:
+    """A ``("data", "tensor")`` mesh of ``n_data x n_tensor`` entries for
+    tensor (and data) parallel training (``mesh.py:64-84``): entry ``(d,
+    t)`` is device ``d n_tensor + t`` of ``devices``, by default the
+    visible cards, wrapping as :func:`make_mesh` does."""
+    n = n_data * n_tensor
+    if devices is None:
+        devices = spread("cuda", n)
+    devices = list(devices)
+    if n > len(devices):
+        raise ValueError(f"tp mesh {n_data}x{n_tensor} needs {n} devices, "
+                         f"have {len(devices)}")
+    return Mesh(devices[:n], ("data", "tensor"), (n_data, n_tensor))
+
+
+def tp_param_spec(shape, hidden: int) -> Tuple[Optional[str], ...]:
+    """The partition spec of one flax leaf under hidden-width sharding
+    (``mesh.py:90-108``, the same rule in the same order): a 2-D kernel
+    ``[in, out]`` whose rows are ``hidden`` wide shards its rows
+    (``("tensor", None)``, the row-split side whose product is summed over
+    the axis), else one whose columns are shards its columns (``(None,
+    "tensor")``); a 1-D leaf of width ``hidden`` shards; every other leaf
+    is replicated (``()``)."""
+    shape = tuple(shape)
+    if len(shape) == 2:
+        if shape[0] == hidden:
+            return ("tensor", None)
+        if shape[1] == hidden:
+            return (None, "tensor")
+    elif len(shape) == 1 and shape[0] == hidden:
+        return ("tensor",)
+    return ()

@@ -19,6 +19,14 @@ layout (:func:`flat_views`); :func:`split_flat_to_ravel` and
 :func:`ravel_to_split_flat` convert such a buffer to and from the JAX
 package's raveled ``FlatAdamState`` vectors.
 
+Tensor parallelism cuts the leaves of a flat buffer into pieces by their
+partition spec (:func:`tp_pieces`, :func:`tp_slice`; the rule is
+``multivae_tpu_torch.parallel.tp_param_spec``) and joins the pieces'
+gradients back into a flat buffer (:func:`tp_gather_flat`). A tree of
+numpy arrays in the JAX layout, as the pipelined MLP's stacked stages or a
+checkpoint read by :mod:`multivae_tpu_torch.train.flax_msgpack`, becomes
+tensors by :func:`tree_to_tensors`.
+
 An architecture outside the split layout (any modality count from 2, any
 encoder and decoder depth, any of the three output-scale modes) trains on
 the general flat layout
@@ -36,7 +44,8 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Dict, Mapping, NamedTuple, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Optional, \
+    Sequence, Tuple
 
 import numpy as np
 import torch
@@ -495,3 +504,68 @@ def ravel_to_split_flat(vec, dims, mod_names) -> torch.Tensor:
         leaves[path] = vec[off:off + n].reshape(shapes[path])
         off += n
     return _tree_flat(leaves, dims, mod_names)
+
+
+def tree_to_tensors(tree: Mapping) -> Dict:
+    """A nested tree of numpy arrays (or array-likes) as float32 tensors
+    with the same structure and layout."""
+    return {k: (tree_to_tensors(v) if isinstance(v, Mapping)
+                else torch.as_tensor(np.array(v, dtype=np.float32)))
+            for k, v in tree.items()}
+
+
+# ------------------------------------------------ tensor-parallel pieces
+def tp_axis(spec) -> Optional[int]:
+    """The dimension a partition spec shards over the ``tensor`` axis, or
+    None for a replicated leaf."""
+    return spec.index("tensor") if "tensor" in spec else None
+
+
+def tp_slice(leaf: torch.Tensor, spec, k: int, n: int) -> torch.Tensor:
+    """Piece ``k`` of ``n`` of a leaf (JAX layout) under ``spec``: its
+    ``k``-th block along the sharded dimension, or the leaf itself when it
+    is replicated."""
+    axis = tp_axis(spec)
+    if axis is None:
+        return leaf
+    width = leaf.shape[axis] // n
+    return leaf.narrow(axis, k * width, width)
+
+
+def tp_gather(pieces: Sequence[torch.Tensor], spec) -> torch.Tensor:
+    """Inverse of :func:`tp_slice` over ``k = 0 .. n - 1``: the pieces
+    joined in order on the first one's device."""
+    axis = tp_axis(spec)
+    if axis is None:
+        return pieces[0]
+    dev = pieces[0].device
+    return torch.cat([p.to(dev) for p in pieces], dim=axis)
+
+
+def tp_pieces(flat: torch.Tensor, dims, mod_names,
+              spec_of: Callable[[tuple], tuple], devices
+              ) -> Tuple[Dict[str, List[torch.Tensor]], Dict[str, tuple]]:
+    """The leaves of a flat buffer cut over ``devices`` (the tensor axis's
+    entries, in order): ``({flax path: pieces}, {flax path: spec})``. A
+    sharded leaf gives one copy of its piece on each entry, a replicated
+    leaf one copy on the first entry; ``spec_of(shape)`` gives a leaf's
+    partition spec."""
+    pieces, specs = {}, {}
+    for path, leaf in _flat_tree(flat, dims, mod_names).items():
+        spec = specs[path] = spec_of(tuple(leaf.shape))
+        if tp_axis(spec) is None:
+            pieces[path] = [leaf.detach().to(devices[0]).clone()]
+        else:
+            pieces[path] = [tp_slice(leaf.detach(), spec, k,
+                                     len(devices)).to(dev).clone()
+                            for k, dev in enumerate(devices)]
+    return pieces, specs
+
+
+def tp_gather_flat(leaves: Mapping[str, Sequence[torch.Tensor]],
+                   specs: Mapping[str, tuple], dims,
+                   mod_names) -> torch.Tensor:
+    """A flat buffer in the layout of ``dims`` from every leaf's pieces
+    (the inverse of :func:`tp_pieces`), on the first entry's device."""
+    return _tree_flat({path: tp_gather(p, specs[path])
+                       for path, p in leaves.items()}, dims, mod_names)

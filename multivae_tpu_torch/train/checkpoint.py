@@ -11,8 +11,14 @@ checkpoint directory is found through its model file, so once that exists
 its optimizer state is complete. Every file is written to a temporary
 name, fsynced, renamed into place, and its directory fsynced, so a crash
 leaves the previous file or the new one, and the rename survives a power
-loss. Reading the JAX package's msgpack checkpoints is not done yet
-(ROADMAP Queue 1 item 1).
+loss.
+
+A run directory the JAX package wrote reads too: its checkpoint is
+``<epoch:04d>/model`` (no suffix) and ``opt_state`` beside it, both
+``flax.serialization.to_bytes`` files (read by
+:mod:`multivae_tpu_torch.train.flax_msgpack`). :func:`find_checkpoint`
+finds either file, and :func:`checkpoint_format` tells the two formats
+apart by a file's first bytes, not by its name.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from . import flax_msgpack
 from ..params import (
     flatten_tree,
     ravel_to_split_flat,
@@ -36,6 +43,7 @@ from ..params import (
 
 CHECKPOINT_SUFFIX = ".npz"
 OPT_STATE_FILE = "opt_state.npz"
+JAX_OPT_STATE_FILE = "opt_state"   # the JAX package's, msgpack
 
 
 def _atomic_write(path: str, data: bytes) -> None:
@@ -110,8 +118,25 @@ def save_networks(checkpoints_dir: str, model: torch.nn.Module) -> None:
                                       for k, v in flatten_tree(sub).items()}))
 
 
+def checkpoint_format(path: str) -> str:
+    """``"npz"`` (a zip archive, the port's) or ``"msgpack"`` (a
+    ``flax.serialization.to_bytes`` state dict, the JAX package's), by the
+    file's first bytes; anything else raises."""
+    with open(path, "rb") as fh:
+        head = fh.read(4)
+    if head == b"PK\x03\x04":
+        return "npz"
+    if flax_msgpack.is_msgpack_map(head):
+        return "msgpack"
+    raise ValueError(f"{path}: neither an npz nor a flax msgpack "
+                     f"checkpoint")
+
+
 def load_tree(path: str) -> dict:
-    """Read a checkpoint back into a param tree of numpy arrays."""
+    """Read a checkpoint of either format back into a param tree of numpy
+    arrays."""
+    if checkpoint_format(path) == "msgpack":
+        return flax_msgpack.read(path)
     with np.load(path) as fh:
         return unflatten_tree({k: fh[k] for k in fh.files})
 
@@ -128,11 +153,19 @@ def restore_opt_state(ckpt_dir: str, dims, mod_names, device):
     there is none."""
     from ..ops.adam import AdamState
 
-    path = os.path.join(ckpt_dir, OPT_STATE_FILE)
-    if not os.path.exists(path):
+    for name in (OPT_STATE_FILE, JAX_OPT_STATE_FILE):
+        path = os.path.join(ckpt_dir, name)
+        if os.path.exists(path):
+            break
+    else:
         return None
-    with np.load(path) as fh:
-        count, mu, nu = int(fh["count"]), fh["mu"], fh["nu"]
+    if checkpoint_format(path) == "msgpack":
+        # FlatAdamState, keyed by its fields as to_bytes keys a NamedTuple
+        state = flax_msgpack.read(path)
+        count, mu, nu = int(state["count"]), state["mu"], state["nu"]
+    else:
+        with np.load(path) as fh:
+            count, mu, nu = int(fh["count"]), fh["mu"], fh["nu"]
     return AdamState(count,
                      ravel_to_split_flat(mu, dims, mod_names).to(device),
                      ravel_to_split_flat(nu, dims, mod_names).to(device))
@@ -142,13 +175,17 @@ def find_checkpoint(checkpoints_dir: str, model_idx: int = 0,
                     num_models: int = 1, load_epoch: Optional[int] = None,
                     model_save: str = "model") -> Tuple[str, int]:
     """Latest (or the newest at or before ``load_epoch``) checkpoint path
-    and its epoch, discovered by globbing ``*/<model_save>.npz`` under the
-    (per-member) checkpoint dir."""
+    and its epoch, discovered by globbing ``*/<model_save>.npz`` and the
+    JAX package's ``*/<model_save>`` under the (per-member) checkpoint
+    dir."""
     base = checkpoints_dir
     if num_models > 1:
         base = os.path.join(base, f"model_{model_idx}")
-    cp_files = glob.glob(os.path.join(base, "*",
-                                      model_save + CHECKPOINT_SUFFIX))
+    cp_files = [p for p in glob.glob(os.path.join(base, "*", model_save))
+                if os.path.isfile(p)
+                and not os.path.exists(p + CHECKPOINT_SUFFIX)]
+    cp_files += glob.glob(os.path.join(base, "*",
+                                       model_save + CHECKPOINT_SUFFIX))
     if not cp_files:
         raise ValueError("You need first to train the model.")
     epochs = np.array([int(os.path.basename(os.path.dirname(p)))

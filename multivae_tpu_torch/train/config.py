@@ -5,11 +5,11 @@ the port so that loading a run needs nothing of the JAX package: the same
 typed dataclass, the same derived fields (:meth:`Config.derive`) and the
 same JSON file, so either package reads the other's runs. Of the JAX
 package's parallelism and TPU-training knobs the port reads
-``data_parallel``, ``ensemble_parallel``, ``fused_training`` and
-``precision`` (``"bfloat16"`` takes the step kernels' bfloat16 branch, any
-other value is float32, as in the JAX package), and refuses
-``tensor_parallel > 1``; the others are carried for that compatibility and
-read by nothing here.
+``data_parallel``, ``tensor_parallel``, ``ensemble_parallel``,
+``fused_training`` and ``precision`` (``"bfloat16"`` takes the step
+kernels' bfloat16 branch, any other value is float32, as in the JAX
+package); the others are carried for that compatibility and read by
+nothing here.
 """
 
 from __future__ import annotations

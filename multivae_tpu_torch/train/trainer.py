@@ -41,15 +41,29 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
   (the partial complete batch, the single-present groups) to the general
   autograd step, as the JAX package does (``trainer.py:896-899,
   925-944``);
-* with ``data_parallel = N > 1`` the full complete batches take the
-  data-parallel epoch (``ops/fused_sharded.py``): each batch's rows split
-  over a data mesh of ``N`` entries, every shard runs the row-slice entry
-  point of the same step kernel, the shards' gradients are summed in shard
-  order and one Adam update follows. Every other group (the partial
-  complete batch, the single-present groups) takes the unsharded kernels
-  as above, on the first device. ``batch_size`` must be a multiple of
-  ``N``. Noise and masks are the unsharded run's, row-sliced, so the two
-  runs agree to the order of the sums;
+* with ``data_parallel = N > 1`` on a config the method step takes, the
+  full complete batches take the data-parallel epoch
+  (``ops/fused_sharded.py``): each batch's rows split over a data mesh of
+  ``N`` entries, every shard runs the row-slice entry point of the same
+  step kernel, the shards' gradients are summed in shard order and one
+  Adam update follows. Every other group (the partial complete batch, the
+  single-present groups) takes the unsharded kernels as above, on the
+  first device. ``batch_size`` must be a multiple of ``N``. Noise and
+  masks are the unsharded run's, row-sliced, so the two runs agree to the
+  order of the sums;
+* with ``data_parallel = N > 1`` on any other config, or with
+  ``fused_training=False``, every batch takes the data-parallel general
+  step (``train_step.dp_general_step``, the JAX package's XLA step over a
+  data mesh, ``trainer.py:860-865, 909-935, 181-186`` there) when its rows
+  divide ``N`` (``mesh_for_rows``) and the unsharded general step
+  otherwise; no step kernel runs, as JAX sends no group under a mesh to a
+  Pallas kernel there;
+* with ``tensor_parallel = T > 1`` every batch takes the tensor-parallel
+  step (:func:`multivae_tpu_torch.parallel.tensor.tp_step`) over a
+  ``("data", "tensor")`` mesh of ``data_parallel x T`` entries, its rows
+  sharded over ``data`` when they divide it (``trainer.py:834-859``); no
+  step kernel runs (the JAX TP path runs none) and it reads no precision.
+  Ensemble members then train in turn (:func:`resolve_ensemble`);
 * the test split is evaluated with the general forward and
   :func:`~multivae_tpu_torch.train.losses.total_loss`;
 * every 5 epochs and at the end the model and optimizer state are
@@ -73,9 +87,9 @@ once per epoch; the general step takes the same masks (one per hidden layer
 of every network and pass,
 :func:`~multivae_tpu_torch.train.train_step.general_mask_count`). The test
 pass takes no mask. The
-metrics are fetched once for each pass. Configurations whose TPU route is
-a kernel the port does not have yet raise ``NotImplementedError`` naming
-the ROADMAP item; nothing falls back.
+metrics are fetched once for each pass. A configuration whose full
+complete batches would take the layer-stack step past its caps raises
+``NotImplementedError`` naming the ROADMAP item; nothing falls back.
 The chunked drivers are not ported: ``epoch_chunk`` is accepted and the
 per-epoch driver runs (ROADMAP Queue 1 item 5).
 
@@ -95,6 +109,7 @@ import contextlib
 import dataclasses
 import os
 import time
+import warnings
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -110,7 +125,8 @@ from ..ops import (
 )
 from ..ops.adam import AdamState, adam_hyper
 from ..ops.bf16 import cfg_bf16
-from ..parallel import data_mesh, make_mesh, spread, visible_cards
+from ..parallel import data_mesh, make_mesh, spread, tp_mesh, visible_cards
+from ..parallel.tensor import check_divides, tp_step
 from ..params import (
     GenericDims,
     dims_from,
@@ -121,35 +137,30 @@ from ..params import (
 )
 from ..utils.filehandling import model_checkpoint_dir, model_log_dir
 from .checkpoint import save_checkpoint, save_networks
+from . import profiling
 from .logging import MetricLogger
 from .train_step import (
     batch_noise_width,
+    dp_general_step,
     eval_step,
     general_mask_count,
     general_step,
+    mesh_for_rows,
+    model_replicas,
 )
 
 
 def unported_features(cfg, model) -> List[str]:
-    """Each part of ``cfg`` whose route in the JAX package is a kernel or a
-    driver the port does not have yet, with its ROADMAP item."""
-    out = []
+    """Each part of ``cfg`` whose route in the JAX package is a kernel the
+    port does not have yet, with its ROADMAP item: the layer-stack step's
+    caps, where that step would take the full complete batches (a config
+    the method step does not take, trained fused on one data shard)."""
     example = {m.name: None for m in model.modalities}
-    if not fused_methods.supports_method_fused(cfg, model, example):
-        # where the method step does not take the full complete batches,
-        # the layer-stack step's envelope decides
-        out += fused_generic.envelope_gaps(cfg, model)
-        if cfg.data_parallel > 1:
-            out.append("data_parallel > 1 with a config the method step "
-                       "does not take: the row-sharded general step "
-                       "(ROADMAP Queue 1 item 4)")
-    if cfg.tensor_parallel > 1:
-        out.append("tensor_parallel > 1: tensor-parallel training (ROADMAP "
-                   "Queue 1 item 4)")
-    if cfg.data_parallel > 1 and not cfg.fused_training:
-        out.append("data_parallel > 1 with fused_training=False: the "
-                   "row-sharded general step (ROADMAP Queue 1 item 4)")
-    return out
+    if (general_step_mesh(cfg, model, "cpu") is None and cfg.fused_training
+            and not fused_methods.supports_method_fused(cfg, model,
+                                                        example)):
+        return fused_generic.envelope_gaps(cfg, model)
+    return []
 
 
 def check_supported(cfg, model) -> None:
@@ -366,23 +377,39 @@ class _Logs:
 
 def make_dp_epoch(cfg, model, device):
     """The data-parallel epoch of the full complete batches for
-    ``cfg.data_parallel > 1`` (``trainer.py:900-908``) over a data mesh that
-    starts at ``device``, or None for ``data_parallel == 1``. A
-    ``batch_size`` the shards do not divide raises."""
+    ``cfg.data_parallel > 1`` on the row-slice kernels
+    (``trainer.py:900-908``) over a data mesh that starts at ``device``, or
+    None where no batch takes it (``data_parallel == 1``, or the general
+    step's routes, :func:`general_step_mesh`). A ``batch_size`` the shards
+    do not divide raises."""
     n = int(cfg.data_parallel)
-    if n <= 1:
+    if n <= 1 or general_step_mesh(cfg, model, device) is not None:
         return None
     if cfg.batch_size % n:
         raise ValueError(
             f"batch_size={cfg.batch_size} is not a multiple of "
             f"data_parallel={n}: every shard takes batch_size / "
             f"data_parallel rows of a full batch")
-    example = {m.name: None for m in model.modalities}
-    if not fused_methods.supports_method_fused(cfg, model, example):
-        check_supported(cfg, model)
-        raise NotImplementedError("no data-parallel kernel for this config")
     return fused_sharded.make_fused_dp_epoch(
         cfg, model, data_mesh(n, spread(device, n)))
+
+
+def general_step_mesh(cfg, model, device):
+    """The mesh every batch's general step runs over, starting at
+    ``device``: the ``("data", "tensor")`` mesh under ``tensor_parallel >
+    1`` (``trainer.py:834-859``); the data mesh under ``data_parallel > 1``
+    with ``fused_training=False`` or on a config the method step does not
+    take (``:860-865``); else None (the kernel routes)."""
+    n_data, n_tensor = int(cfg.data_parallel), int(cfg.tensor_parallel)
+    if n_tensor > 1:
+        check_divides(cfg, n_tensor)
+        return tp_mesh(n_tensor, n_data, spread(device, n_data * n_tensor))
+    example = {m.name: None for m in model.modalities}
+    if n_data > 1 and not (cfg.fused_training
+                           and fused_methods.supports_method_fused(
+                               cfg, model, example)):
+        return data_mesh(n_data, spread(device, n_data))
+    return None
 
 
 def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
@@ -432,7 +459,11 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
     model = exp.models[model_idx]
     device = exp.params[model_idx].device
     mod_names = [m.name for m in model.modalities]
-    fused = bool(cfg.fused_training)
+    # under a general step's mesh every batch takes that step, in the
+    # unfused order (the full complete batches, then the groups)
+    step_mesh = general_step_mesh(cfg, model, device)
+    fused = bool(cfg.fused_training) and step_mesh is None
+    replicas = model_replicas(model) if step_mesh is not None else None
     full, general = batches or epoch_batches(exp, model_idx, epoch)
     bf16 = cfg_bf16(cfg)
     # the config of the groups that take float32 under bfloat16
@@ -463,13 +494,21 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
     generic_epoch = make_generic_epoch(cfg, model) if fused else None
 
     def run_general(data, eps, batch_masks, log: bool):
-        # autograd of the model, then flat Adam: fused_training=False, and
-        # the batches of a deep architecture that are not full and complete
+        # autograd of the model, then flat Adam: fused_training=False, the
+        # batches of a deep architecture that are not full and complete,
+        # and every batch under a general step's mesh
         nonlocal opt, n_steps
         tdata = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
-        opt, _, metrics = general_step(cfg, model, p, opt, tdata, eps,
-                                       dims_from(cfg, _rows(data)), hyper,
-                                       batch_masks)
+        rows = _rows(data)
+        args = (p, opt, tdata, eps, dims_from(cfg, rows), hyper)
+        if step_mesh is not None and "tensor" in step_mesh.shape:
+            opt, _, metrics = tp_step(cfg, model, *args, step_mesh,
+                                      batch_masks)
+        elif mesh_for_rows(step_mesh, rows) is not None:
+            opt, _, metrics = dp_general_step(cfg, replicas, *args,
+                                              step_mesh, batch_masks)
+        else:
+            opt, _, metrics = general_step(cfg, model, *args, batch_masks)
         n_steps += 1
         if log:
             names = list(metrics)
@@ -673,17 +712,22 @@ def run_eval_cadence(exp, model_idx: int, logger, epoch_done: int
 
 def resume_from_checkpoints(exp) -> int:
     """Restore every member's model, params and Adam state from its latest
-    checkpoint; returns (and sets) the epoch to resume from."""
-    from .checkpoint import find_checkpoint, restore_checkpoint, \
-        restore_opt_state
+    checkpoint (the port's or the JAX package's); returns (and sets) the
+    epoch to resume from. Resuming a run the JAX package wrote warns once:
+    its noise came from threefry streams, the rest of the run's comes from
+    torch's (:func:`epoch_generator`)."""
+    from .checkpoint import checkpoint_format, find_checkpoint, \
+        restore_checkpoint, restore_opt_state
 
     cfg = exp.cfg
     dims = dims_from(cfg, cfg.batch_size)
     latest = 0
+    formats = set()
     for model_idx in range(cfg.num_models):
         model = exp.models[model_idx]
         path, epoch = find_checkpoint(cfg.dir_checkpoints, model_idx,
                                       cfg.num_models, None, cfg.model_save)
+        formats.add(checkpoint_format(path))
         restore_checkpoint(path, model)
         exp.params[model_idx] = model_flat_params(model, dims)
         restored = restore_opt_state(os.path.dirname(path), dims,
@@ -691,6 +735,12 @@ def resume_from_checkpoints(exp) -> int:
         if restored is not None:
             exp.opt_states[model_idx] = restored
         latest = max(latest, epoch + 1)
+    if "msgpack" in formats:
+        warnings.warn(
+            f"resuming a run the JAX package wrote at epoch {latest}: its "
+            f"noise came from JAX's threefry streams, the epochs from here "
+            f"on draw torch's, so the run is not the one the JAX package "
+            f"would have continued", stacklevel=2)
     cfg.start_epoch = latest
     return latest
 
@@ -745,7 +795,8 @@ def _checkpoint_member(exp, model_idx: int, epoch: int) -> None:
 
 
 def run_epochs_ensemble(exp, use_tensorboard: bool = True,
-                        log_every: int = 1, progress: bool = True):
+                        log_every: int = 1, progress: bool = True,
+                        profile_dir: Optional[str] = None):
     """Ensemble runner (``trainer.py:1011-1105``): epochs outermost, the
     members inside. Member ``m`` lives on entry ``m`` of the mesh's model
     axis (the visible cards when the members divide them, else all on the
@@ -765,7 +816,8 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
     member (the fewest any member has this epoch) take the kernels'
     bfloat16 branch, unsharded (``make_fused_ensemble_epoch``); every other
     batch, and every batch of an ensemble on one card (its vmapped XLA
-    step), takes float32."""
+    step), takes float32. ``profile_dir``: the first epoch is traced
+    (:mod:`.profiling`), every member's training and test pass."""
     cfg = exp.cfg
     n_models = cfg.num_models
     mesh = ensemble_mesh(cfg) if exp.device.type == "cuda" else None
@@ -798,28 +850,33 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
     t0 = time.time()
     for epoch in range(cfg.start_epoch, cfg.end_epoch):
         start = time.perf_counter()
-        generators = [epoch_generator(cfg, m, epoch)
-                      for m in range(n_models)]
-        batches = [epoch_batches(exp, m, epoch) for m in range(n_models)]
-        n_common = (min(len(full) for full, _ in batches) if member_bf16
-                    else 0)
-        pending = []
-        for m in range(n_models):
-            with members.member(m):
-                pending.append(enqueue_train_epoch(
-                    exp, m, generators[m], epoch, log_every, dp_epochs[m],
-                    batches[m], bf16_full=n_common))
-        for m in range(n_models):
-            with members.member(m):
-                # the fetches synchronize the member's stream
-                pending[m][1].write(loggers[m], "train")
-                test_one_epoch(exp, m, loggers[m], generators[m], epoch)
-                if (epoch + 1) % 5 == 0 or (epoch + 1) == cfg.end_epoch:
+        with _tracing(profile_dir, exp.device, epoch == cfg.start_epoch,
+                      epoch):
+            generators = [epoch_generator(cfg, m, epoch)
+                          for m in range(n_models)]
+            batches = [epoch_batches(exp, m, epoch)
+                       for m in range(n_models)]
+            n_common = (min(len(full) for full, _ in batches)
+                        if member_bf16 else 0)
+            pending = []
+            for m in range(n_models):
+                with members.member(m):
+                    pending.append(enqueue_train_epoch(
+                        exp, m, generators[m], epoch, log_every,
+                        dp_epochs[m], batches[m], bf16_full=n_common))
+            for m in range(n_models):
+                with members.member(m):
+                    # the fetches synchronize the member's stream
+                    pending[m][1].write(loggers[m], "train")
+                    test_one_epoch(exp, m, loggers[m], generators[m], epoch)
+            members.join()
+            if exp.device.type == "cuda":
+                for dev in dict.fromkeys(members.devices):
+                    torch.cuda.synchronize(dev)
+        if (epoch + 1) % 5 == 0 or (epoch + 1) == cfg.end_epoch:
+            for m in range(n_models):
+                with members.member(m):
                     _checkpoint_member(exp, m, epoch)
-        members.join()
-        if exp.device.type == "cuda":
-            for dev in dict.fromkeys(members.devices):
-                torch.cuda.synchronize(dev)
         walls.append(time.perf_counter() - start)
         if (eval_cadence_active(cfg) and (eval_breaks_after(cfg, epoch + 1)
                                           or epoch + 1 == cfg.end_epoch)):
@@ -839,13 +896,23 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
     return walls
 
 
+def _tracing(profile_dir, device, first: bool, epoch: int):
+    """The trace of an epoch (:mod:`.profiling`) where ``profile_dir`` is
+    set and the epoch is the first trained one, else a null context."""
+    if profile_dir is None or not first:
+        return contextlib.nullcontext()
+    return profiling.trace(profile_dir, device, epoch)
+
+
 def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
-               progress: bool = True):
+               progress: bool = True, profile_dir: Optional[str] = None):
     """Train every ensemble member (``run_epochs``, per-epoch loop): in
     turn, or through :func:`run_epochs_ensemble` when
     :func:`resolve_ensemble` says so. Returns member 0's host-clock seconds
     per epoch (train, test, logging, ending in a device synchronize); the
-    eval cadence runs after it."""
+    eval cadence runs after it. ``profile_dir``: member 0's first trained
+    epoch, its training and test pass, is traced there (``trainer.py:
+    966-986``)."""
     cfg = exp.cfg
     check_supported(cfg, exp.models[0])
     if cfg.load_saved:
@@ -853,7 +920,8 @@ def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
     cfg.save(os.path.join(cfg.dir_experiment_run, "flags.json"))
     if resolve_ensemble(cfg, exp.models[0]):
         return run_epochs_ensemble(exp, use_tensorboard=use_tensorboard,
-                                   log_every=log_every, progress=progress)
+                                   log_every=log_every, progress=progress,
+                                   profile_dir=profile_dir)
     dp_epoch = make_dp_epoch(cfg, exp.models[0], exp.device)
     sync = (torch.cuda.synchronize if exp.device.type == "cuda"
             else (lambda: None))
@@ -867,10 +935,12 @@ def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
         for epoch in range(cfg.start_epoch, cfg.end_epoch):
             start = time.perf_counter()
             generator = epoch_generator(cfg, model_idx, epoch)
-            train_one_epoch(exp, model_idx, logger, generator, epoch,
-                            log_every, dp_epoch)
-            test_one_epoch(exp, model_idx, logger, generator, epoch)
-            sync()
+            with _tracing(profile_dir, exp.device, model_idx == 0
+                          and epoch == cfg.start_epoch, epoch):
+                train_one_epoch(exp, model_idx, logger, generator, epoch,
+                                log_every, dp_epoch)
+                test_one_epoch(exp, model_idx, logger, generator, epoch)
+                sync()
             if model_idx == 0:
                 walls.append(time.perf_counter() - start)
             if (eval_cadence_active(cfg)

@@ -57,17 +57,16 @@ def train_exp(dataset, datasetdir, outdir, input_dims, num_models=1,
     ensemble member, checkpoints every 5 epochs and at the end, and appends
     the run to the ``runs.tsv`` registry. ``device`` (``cuda`` by default)
     runs the kernels; ``cpu`` runs their plain PyTorch versions.
-    ``epoch_chunk`` is accepted and the per-epoch loop runs. The
+    ``epoch_chunk`` is accepted and the per-epoch loop runs;
+    ``profile_dir`` traces member 0's first epoch there
+    (:mod:`multivae_tpu_torch.train.profiling`). The
     ``calc_*`` flags log their evals on the ``eval_freq`` /
     ``eval_freq_fid`` cadence; ``save_samples`` writes each member's sample
-    dumps (``fid/<group>/<modality>/NNNNNN.npy``) after training. Options
-    whose route is not ported yet raise ``NotImplementedError`` naming
-    their ROADMAP item: ``profile_dir`` and those listed by
-    :func:`multivae_tpu_torch.train.trainer.unported_features`."""
+    dumps (``fid/<group>/<modality>/NNNNNN.npy``) after training. A
+    config past the layer-stack step's caps raises ``NotImplementedError``
+    naming its ROADMAP item
+    (:func:`multivae_tpu_torch.train.trainer.unported_features`)."""
     dev = resolve_device(device)
-    if profile_dir is not None:
-        raise NotImplementedError("profile_dir: tracing the port's epoch "
-                                  "(ROADMAP Queue 1 item 9)")
     print_title(f"TRAIN: {dataset}")
     cfg = Config(
         dataset=dataset, datasetdir=datasetdir, dir_experiment=outdir,
@@ -99,7 +98,7 @@ def train_exp(dataset, datasetdir, outdir, input_dims, num_models=1,
     exp.set_datasets()
     exp.set_optimizers()
     walls = run_epochs(exp, use_tensorboard=use_tensorboard,
-                       log_every=log_every)
+                       log_every=log_every, profile_dir=profile_dir)
     print_text("train wall per epoch (s): "
                + " ".join(f"{w:.6f}" for w in walls))
     if save_samples:

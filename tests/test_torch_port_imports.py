@@ -89,7 +89,14 @@ def test_slice_modules_exist():
                  "multivae_tpu_torch.viz",
                  "multivae_tpu_torch.viz.plotting",
                  "multivae_tpu_torch.viz.surface",
-                 "multivae_tpu_torch.viz.video"):
+                 "multivae_tpu_torch.viz.video",
+                 # the parallel layer's last parts, the tracer, the JAX
+                 # checkpoints, the auxiliary divergences
+                 "multivae_tpu_torch.parallel.tensor",
+                 "multivae_tpu_torch.parallel.pipeline",
+                 "multivae_tpu_torch.train.profiling",
+                 "multivae_tpu_torch.train.flax_msgpack",
+                 "multivae_tpu_torch.ops.divergences_extra"):
         assert name in mods
 
 
@@ -323,3 +330,51 @@ def test_no_module_level_banned_import(path):
             names = ([a.name for a in node.names]
                      if isinstance(node, ast.Import) else [node.module or ""])
             assert all(n.split(".")[0] != "triton" for n in names), path
+
+
+def test_tp_profile_and_jax_run_load_no_jax_at_call_time(tmp_path):
+    """``train --tensor-parallel 4 --data-parallel 2``, ``train
+    --profile-dir`` and ``daa`` of a run directory in the JAX package's
+    layout (msgpack files written by ``chip_smoke.py``'s own writer)
+    through the CLI on the CPU, with no flax and no msgpack."""
+    banned = list(NOT_AT_IMPORT) + ["msgpack"]
+    code = (
+        "import json, os, sys\n"
+        "sys.path.insert(0, os.getcwd())\n"
+        "import chip_smoke\n"
+        "from multivae_tpu_torch.cli import main\n"
+        "from multivae_tpu_torch.data import make_synthetic_cohort\n"
+        "from multivae_tpu_torch.train.config import Config\n"
+        "d, o = sys.argv[1], sys.argv[2]\n"
+        "make_synthetic_cohort(d, n_subjects=90, n_scores=3, n_rois=12,\n"
+        "                      missing_rate=0.2, seed=0)\n"
+        "common = ['--dataset', 'synthetic', '--datasetdir', d,\n"
+        "          '--device', 'cpu', '--input-dims', '3', '12',\n"
+        "          '--latent-dim', '4', '--style-dim', '2', '3',\n"
+        "          '--batch-size', '16', '--num-epochs', '1',\n"
+        "          '--use-tensorboard', 'false']\n"
+        "main(['train', *common, '--outdir', o + '/tp',\n"
+        "      '--tensor-parallel', '4', '--data-parallel', '2'])\n"
+        "main(['train', *common, '--outdir', o + '/prof',\n"
+        "      '--profile-dir', o + '/trace'])\n"
+        "cfg = Config(dataset='synthetic', datasetdir=d, input_dim=[3, 12],\n"
+        "             class_dim=4, style_dim=[2, 3], batch_size=16).derive()\n"
+        "run = chip_smoke.write_jax_layout_run(o + '/jx', cfg, 'jax')\n"
+        "main(['daa', '--dataset', 'synthetic', '--datasetdir', d,\n"
+        "      '--outdir', o + '/jx/jax', '--run', run, '--device', 'cpu',\n"
+        "      '--n-validation', '1', '--n-samples', '6',\n"
+        "      '--n-subjects', '8', '--M', '4'])\n"
+        f"print(json.dumps(sorted(m for m in {banned!r} "
+        "if m in sys.modules)))\n")
+    proc = subprocess.run(
+        [sys.executable, "-c", code, str(tmp_path / "data"),
+         str(tmp_path / "out")], cwd=REPO, capture_output=True, text=True,
+        timeout=600)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
+    flags = json.loads(next((tmp_path / "out" / "tp").glob(
+        "*/flags.json")).read_text())
+    assert (flags["tensor_parallel"], flags["data_parallel"]) == (4, 2)
+    assert (tmp_path / "out" / "trace" / "epoch_0000.pt.trace.json").is_file()
+    assert list((tmp_path / "out" / "jx" / "jax").glob(
+        "*/daa/*/significant_rois.tsv"))

@@ -369,18 +369,11 @@ def test_resume_continues_exactly(cohort, tmp_path):
 
 
 UNPORTED = [
-    # outside the layer-stack step's envelope (a depth past its cap of 8),
-    # and a deep config's data-parallel route (the row-sharded general
-    # step); the other likelihoods and the unfactorized latent train, but
-    # not at these depths nor data-parallel
+    # past the layer-stack step's caps (a depth of 9, kMaxDepth is 8), where
+    # the full complete batches of these configs would take that step
     dict(likelihood="laplace", num_hidden_layer_encoder=9),
     dict(factorized_representation=False, num_hidden_layer_decoder=9),
-    dict(likelihood="bernoulli", data_parallel=2),
-    dict(num_hidden_layer_decoder=1, data_parallel=2),
     dict(out_scale_per_subject=True, num_hidden_layer_encoder=9),
-    dict(data_parallel=2, fused_training=False),
-    dict(tensor_parallel=2), dict(num_models=2, tensor_parallel=2),
-    dict(profile_dir="trace"),
 ]
 
 
@@ -389,6 +382,79 @@ def test_unported_options_raise(cohort, tmp_path, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train(cohort, tmp_path, 1, **kw)
     assert not (tmp_path / "runs.tsv").exists()
+
+
+# options the port refused before it had the row-sharded general step,
+# tensor parallelism and tracing: (kw, the step every batch takes, members)
+ROUTED = [
+    (dict(likelihood="bernoulli", data_parallel=2), "dp_general_step", 1),
+    (dict(num_hidden_layer_decoder=1, data_parallel=2), "dp_general_step",
+     1),
+    (dict(data_parallel=2, fused_training=False), "dp_general_step", 1),
+    (dict(tensor_parallel=2), "tp_step", 1),
+    (dict(num_models=2, tensor_parallel=2), "tp_step", 2),
+    (dict(profile_dir="trace"), None, 1),
+]
+
+
+@pytest.mark.parametrize("kw,step,members", ROUTED,
+                         ids=[",".join(kw) for kw, _, _ in ROUTED])
+def test_formerly_refused_options_train(cohort, tmp_path, monkeypatch, kw,
+                                        step, members, capsys):
+    """Each option trains on its route: per epoch every batch (rows 12, 4,
+    12 and 8, each a multiple of 2) takes ``step``, the members in turn,
+    and no step kernel and no unsharded general step runs. ``profile_dir``
+    traces the first epoch on the kernels' routes (their plain versions
+    here): a Chrome trace that parses as JSON and holds the epoch's
+    products."""
+    from multivae_tpu_torch.ops import (fused_generic, fused_methods,
+                                        fused_presence, fused_sharded,
+                                        fused_step)
+
+    calls = {}
+
+    def spy(module, name):
+        fn = getattr(module, name)
+        calls[name] = 0
+
+        def counted(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        monkeypatch.setattr(module, name, counted)
+
+    for name in ("dp_general_step", "tp_step", "general_step"):
+        spy(trainer, name)
+    kernels = ((fused_step, "epoch_flat"),
+               (fused_methods, "method_epoch_flat"),
+               (fused_presence, "presence_epoch_flat"),
+               (fused_generic, "generic_epoch_flat"),
+               (fused_sharded, "dp_step_flat"))
+    for module, name in kernels:
+        spy(module, name)
+    if "profile_dir" in kw:
+        kw = dict(kw, profile_dir=str(tmp_path / "trace"))
+    epochs = 2
+    run = train(cohort, tmp_path / "out", epochs, **kw)
+    rundir = tmp_path / "out" / run
+    for m in range(members):
+        sub = f"model_{m}/" if members > 1 else ""
+        assert np.isfinite(train_losses(rundir, sub)).all()
+    assert (rundir / "checkpoints" / (
+        "model_0/0001" if members > 1 else "0001") / "model.npz").is_file()
+    if step is None:
+        with open(tmp_path / "trace" / "epoch_0000.pt.trace.json") as fh:
+            events = json.load(fh)["traceEvents"]
+        names = {e.get("name") for e in events}
+        assert {"aten::mm", "aten::addmm", "aten::matmul"} & names
+        assert calls["epoch_flat"] == epochs * 2
+        return
+    assert "ensemble of" not in capsys.readouterr().out
+    if members == 1:
+        assert calls[step] == 8 * epochs
+    else:   # each member's fold has its own batches
+        assert calls[step] > 8 * epochs
+    for name, n in calls.items():
+        assert n == 0 or name == step, (name, n)
 
 
 @pytest.mark.parametrize("method,rate", ROUTES, ids=ROUTE_IDS)
