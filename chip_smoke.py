@@ -2663,31 +2663,28 @@ def hold_slice_epoch(card, host, dims, phase="train-slice",
                downstream_ok=referee64)
 
 
+# the float32 train kernels whose launches and steps the slices check
+SLICE_STEP_KERNELS = ("mopoe_step", "dp_step", "method_step",
+                      "dp_method_step", "presence_step", "generic_step")
+
+
 def step_counters():
     """The counts of train steps run by the persistent kernels' launches
-    (one launch may run a group of steps)."""
-    from multivae_tpu_torch.ops import (fused_generic, fused_methods,
-                                        fused_presence, fused_step)
+    (one launch may run a group of steps): each kernel's counter dict,
+    from the port's registry (``train/profiling.py``)."""
+    from multivae_tpu_torch.train import profiling
 
-    return {"mopoe_step": fused_step.KERNEL_STEPS,
-            "dp_step": fused_step.KERNEL_STEPS,
-            "method_step": fused_methods.KERNEL_STEPS,
-            "dp_method_step": fused_methods.KERNEL_STEPS,
-            "presence_step": fused_presence.KERNEL_STEPS,
-            "generic_step": fused_generic.KERNEL_STEPS}
+    steps = profiling.kernel_counters("steps")
+    return {k: steps[k] for k in SLICE_STEP_KERNELS}
 
 
 def slice_counters():
-    from multivae_tpu_torch.ops import (adam, fused_generic, fused_methods,
-                                        fused_presence, fused_step)
+    """Each float32 train kernel's launch counter dict and flat Adam's,
+    from the port's registry (``train/profiling.py``)."""
+    from multivae_tpu_torch.train import profiling
 
-    return {"generic_step": fused_generic.KERNEL_LAUNCHES,
-            "mopoe_step": fused_step.KERNEL_LAUNCHES,
-            "dp_step": fused_step.KERNEL_LAUNCHES,
-            "method_step": fused_methods.KERNEL_LAUNCHES,
-            "dp_method_step": fused_methods.KERNEL_LAUNCHES,
-            "presence_step": fused_presence.KERNEL_LAUNCHES,
-            "flat_adam": adam.KERNEL_LAUNCHES}
+    launches = profiling.kernel_counters("launches")
+    return {k: launches[k] for k in SLICE_STEP_KERNELS + ("flat_adam",)}
 
 
 def train_and_check(outdir, datadir, device, card, method, rate, epochs,
@@ -3530,30 +3527,24 @@ BF16_SLICES = (
 BF16_LOSS_RTOL = 0.05  # an epoch's mean train loss against the f32 run's
 
 
-def launch_counts() -> dict:
-    """Every launch counter of the train kernels, the bfloat16 instances'
-    (``*_bf16``) beside the float32 ones."""
-    from multivae_tpu_torch.ops import (adam, fused_generic, fused_methods,
-                                        fused_presence, fused_step)
+def train_kernel_counters(kind: str = "launches") -> dict:
+    """Each train kernel's ``kind`` counter dict (``profiling``'s registry,
+    the avatar sweep left out), the bfloat16 instances' (``*_bf16``)
+    beside the float32 ones."""
+    from multivae_tpu_torch.train import profiling
 
-    out = {}
-    for c in (fused_step.KERNEL_LAUNCHES, fused_methods.KERNEL_LAUNCHES,
-              fused_presence.KERNEL_LAUNCHES, fused_generic.KERNEL_LAUNCHES,
-              adam.KERNEL_LAUNCHES):
-        out.update(c)
-    return out
+    return {k: c for k, c in profiling.kernel_counters(kind).items()
+            if k != "avatar_sweep"}
+
+
+def launch_counts() -> dict:
+    """Every launch counter of the train kernels."""
+    return {k: c[k] for k, c in train_kernel_counters().items()}
 
 
 def zero_launch_counts() -> None:
-    from multivae_tpu_torch.ops import (adam, fused_generic, fused_methods,
-                                        fused_presence, fused_step)
-
-    for c in (fused_step.KERNEL_LAUNCHES, fused_step.KERNEL_STEPS,
-              fused_methods.KERNEL_LAUNCHES, fused_methods.KERNEL_STEPS,
-              fused_presence.KERNEL_LAUNCHES, fused_presence.KERNEL_STEPS,
-              fused_generic.KERNEL_LAUNCHES, fused_generic.KERNEL_STEPS,
-              adam.KERNEL_LAUNCHES):
-        for k in c:
+    for kind in ("launches", "steps"):
+        for k, c in train_kernel_counters(kind).items():
             c[k] = 0
 
 

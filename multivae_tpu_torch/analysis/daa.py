@@ -49,6 +49,7 @@ from ..ops.fused_daa import (
     sweep_cells,
 )
 from ..parallel import data_mesh, spread, visible_cards
+from ..train import profiling
 from ..utils.colors import print_result, print_subtitle, print_text
 from .stats import (
     fixed_regression_batch,
@@ -109,12 +110,22 @@ def complete_indices(dataset) -> np.ndarray:
     return np.asarray(dataset.idx_per_modality_subset[-1])
 
 
+def _to_device(array: np.ndarray, device, dtype=None) -> torch.Tensor:
+    return profiling.to_device(torch.as_tensor(array, dtype=dtype), device)
+
+
+def _fetch(t: torch.Tensor, dtype=None) -> np.ndarray:
+    """``t`` fetched in a ``daa.fetch`` span, then cast on the host to
+    ``dtype`` when given (numpy has no bfloat16)."""
+    host = profiling.fetch(t, "daa.fetch")
+    return (host if dtype is None else host.to(dtype)).numpy()
+
+
 def full_batch(dataset, idxs, device):
     """``({modality: float32 tensor on device}, metadata frame)`` of the
     dataset's samples ``idxs``, scaled as the dataset serves them."""
     data, _, metadata = dataset.gather(idxs)
-    return ({k: torch.as_tensor(v, device=device) for k, v in data.items()},
-            metadata)
+    return ({k: _to_device(v, device) for k, v in data.items()}, metadata)
 
 
 def _device_suffstats(avatars, scores_values, roundtrip_dtype=None):
@@ -446,8 +457,7 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
         roi_sub = np.sort(sub_rng.choice(
             n_rois, size=min(int(sampled_rois), n_rois),
             replace=False)).astype(np.int32)
-        roi_sub_dev = torch.as_tensor(roi_sub, dtype=torch.long,
-                                      device=device)
+        roi_sub_dev = _to_device(roi_sub, device, torch.long)
         print_text(f"artifact=sampled: regression sufficient statistics on "
                    f"device and a {len(roi_sub)}-ROI avatar subsample per "
                    f"round")
@@ -459,9 +469,10 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
                  n_rois)
         if n_models == 1:
             shape = shape[1:]
-        rois_digital_avatars = open_memmap(
-            os.path.join(resdir, "rois_digital_avatars.npy"),
-            dtype="float32", mode="w+", shape=shape)
+        with profiling.span("daa.files.save"):
+            rois_digital_avatars = open_memmap(
+                os.path.join(resdir, "rois_digital_avatars.npy"),
+                dtype="float32", mode="w+", shape=shape)
 
     all_sampled_scores, all_metadatas, all_rois_reconstructions = [], [], []
     all_suffstats = []  # per model: list of per-round (ysum, xysum, yysum)
@@ -486,15 +497,15 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
         for val_idx in range(n_validation):
             print_text(f"validation round {val_idx + 1}/{n_validation}")
             sel = np_rng.choice(n_complete, size=n_subjects, replace=False)
-            data = {k: torch.as_tensor(np.asarray(v[sel], dtype=np.float32),
-                                       device=device)
+            data = {k: _to_device(np.asarray(v[sel], dtype=np.float32),
+                                  device)
                     for k, v in cohort.test_data.items()}
             metadatas.append(cohort.test_metadata[sel])
 
             loc_hat, scale_hat, rois_reconstruction = reconstruction_stats(
                 model, data, M, generator, cfg=cfg,
                 exact=exact_reconstruction)
-            rois_recs.append(rois_reconstruction.cpu().numpy())
+            rois_recs.append(_fetch(rois_reconstruction))
 
             if sampling_strategy == "likelihood":
                 eps = torch.randn((n_samples,) + tuple(loc_hat.shape),
@@ -502,37 +513,37 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
                                   device=device)
                 scores_values = loc_hat[None] + scale_hat[None] * eps
             else:
-                scores_values = torch.as_tensor(
-                    np.transpose(scores_grid, (2, 0, 1)),
-                    dtype=torch.float32, device=device)       # [P, B, S]
+                scores_values = _to_device(
+                    np.transpose(scores_grid, (2, 0, 1)), device,
+                    torch.float32)                            # [P, B, S]
 
-            if mesh is not None:
-                avatars = avatar_sweep_sharded(model, data, scores_values,
-                                               sample_latents, generator,
-                                               mesh, cfg, chunk)
-            else:
-                avatars = avatar_sweep(model, data, scores_values,
-                                       sample_latents, generator, cfg, chunk)
+            with profiling.span("daa.sweep"):
+                if mesh is not None:
+                    avatars = avatar_sweep_sharded(
+                        model, data, scores_values, sample_latents,
+                        generator, mesh, cfg, chunk)
+                else:
+                    avatars = avatar_sweep(model, data, scores_values,
+                                           sample_latents, generator, cfg,
+                                           chunk)
             if stats_only:
                 rt = None if wire == torch.float32 else wire
                 suffstats_rounds.append(tuple(
-                    s.cpu().numpy() for s in _device_suffstats(
+                    _fetch(s) for s in _device_suffstats(
                         avatars, scores_values, roundtrip_dtype=rt)))
                 if roi_sub is not None:
                     # gather the columns, then cast to the wire dtype: the
                     # full artifact's bits for these columns
-                    sub_avatar_rounds.append(
-                        avatars[..., roi_sub_dev].to(wire).cpu().float()
-                        .numpy())
+                    sub_avatar_rounds.append(_fetch(
+                        avatars[..., roi_sub_dev].to(wire), torch.float32))
             else:
-                host = avatars.to(wire).cpu().float().numpy()
+                host = _fetch(avatars.to(wire), torch.float32)
                 if n_models == 1:
                     rois_digital_avatars[val_idx] = host
                 else:
                     rois_digital_avatars[model_idx, val_idx] = host
             # stored layout: [B, n_samples, n_scores] (workflow.py:420-422)
-            sampled_scores.append(
-                scores_values.permute(1, 0, 2).cpu().numpy())
+            sampled_scores.append(_fetch(scores_values.permute(1, 0, 2)))
         all_sampled_scores.append(sampled_scores)
         all_metadatas.append(metadatas)
         all_rois_reconstructions.append(rois_recs)
@@ -543,28 +554,29 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
         all_sampled_scores = all_sampled_scores[0]
         all_metadatas = all_metadatas[0]
         all_rois_reconstructions = all_rois_reconstructions[0]
-    if stats_only:
-        # [(n_models,) n_validation, B, S, R] per statistic
-        stacked = {name: np.asarray([[rnd[i] for rnd in rounds]
-                                     for rounds in all_suffstats])
-                   for i, name in enumerate(("ysum", "xysum", "yysum"))}
-        if n_models == 1:
-            stacked = {k: v[0] for k, v in stacked.items()}
-        np.savez(os.path.join(resdir, SUFFSTATS_FILE), **stacked)
-        if roi_sub is not None:
-            sub_arr = np.asarray(all_sub_avatars, dtype=np.float32)
-            np.save(os.path.join(resdir, SAMPLED_AVATARS_FILE),
-                    sub_arr[0] if n_models == 1 else sub_arr)
-            np.save(os.path.join(resdir, SAMPLED_ROIS_FILE), roi_sub)
-    else:
-        rois_digital_avatars.flush()
-        del rois_digital_avatars
-    np.save(os.path.join(resdir, "sampled_scores.npy"),
-            np.asarray(all_sampled_scores))
-    np.save(os.path.join(resdir, "metadatas.npy"),
-            np.asarray(all_metadatas, dtype=object))
-    np.save(os.path.join(resdir, "rois_reconstructions.npy"),
-            np.asarray(all_rois_reconstructions))
+    with profiling.span("daa.files.save"):
+        if stats_only:
+            # [(n_models,) n_validation, B, S, R] per statistic
+            stacked = {name: np.asarray([[rnd[i] for rnd in rounds]
+                                         for rounds in all_suffstats])
+                       for i, name in enumerate(("ysum", "xysum", "yysum"))}
+            if n_models == 1:
+                stacked = {k: v[0] for k, v in stacked.items()}
+            np.savez(os.path.join(resdir, SUFFSTATS_FILE), **stacked)
+            if roi_sub is not None:
+                sub_arr = np.asarray(all_sub_avatars, dtype=np.float32)
+                np.save(os.path.join(resdir, SAMPLED_AVATARS_FILE),
+                        sub_arr[0] if n_models == 1 else sub_arr)
+                np.save(os.path.join(resdir, SAMPLED_ROIS_FILE), roi_sub)
+        else:
+            rois_digital_avatars.flush()
+            del rois_digital_avatars
+        np.save(os.path.join(resdir, "sampled_scores.npy"),
+                np.asarray(all_sampled_scores))
+        np.save(os.path.join(resdir, "metadatas.npy"),
+                np.asarray(all_metadatas, dtype=object))
+        np.save(os.path.join(resdir, "rois_reconstructions.npy"),
+                np.asarray(all_rois_reconstructions))
 
     compute_significativity(
         resdir, cfg, clinical_names, rois_names, params_ns,
@@ -572,6 +584,7 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
     return resdir
 
 
+@profiling.spanned("daa.significance")
 def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
                             params_ns, metadata_columns, trust_level: float,
                             vote_prop: float, reg_method: str):
@@ -587,22 +600,25 @@ def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
     da_file = os.path.join(resdir, "rois_digital_avatars.npy")
     suff_file = os.path.join(resdir, SUFFSTATS_FILE)
     rois_da = suffstats = None
-    if os.path.exists(da_file):
-        rois_da = np.load(da_file, mmap_mode="r")
-    elif os.path.exists(suff_file):
-        with np.load(suff_file) as fh:
-            suffstats = {k: fh[k] for k in ("ysum", "xysum", "yysum")}
-    else:
+    if not (os.path.exists(da_file) or os.path.exists(suff_file)):
         raise FileNotFoundError(
             f"{resdir} holds neither the avatar artifact "
             f"('rois_digital_avatars.npy', written by daa --artifact full) "
             f"nor the sufficient statistics ('{SUFFSTATS_FILE}', written "
             f"by --artifact stats-only or sampled); re-run the daa "
             f"workflow before the regression stage")
-    all_sampled_scores = np.load(os.path.join(resdir, "sampled_scores.npy"))
-    all_metadatas = np.load(os.path.join(resdir, "metadatas.npy"),
-                            allow_pickle=True)
-    all_rois_recs = np.load(os.path.join(resdir, "rois_reconstructions.npy"))
+    with profiling.span("daa.files.load"):
+        if os.path.exists(da_file):
+            rois_da = np.load(da_file, mmap_mode="r")
+        else:
+            with np.load(suff_file) as fh:
+                suffstats = {k: fh[k] for k in ("ysum", "xysum", "yysum")}
+        all_sampled_scores = np.load(os.path.join(resdir,
+                                                  "sampled_scores.npy"))
+        all_metadatas = np.load(os.path.join(resdir, "metadatas.npy"),
+                                allow_pickle=True)
+        all_rois_recs = np.load(os.path.join(resdir,
+                                             "rois_reconstructions.npy"))
     if n_models == 1:
         if rois_da is not None:
             rois_da = rois_da[np.newaxis]
@@ -637,35 +653,39 @@ def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
                     ss = {k: v[model_idx, val_idx, :, score_idx]
                           for k, v in suffstats.items()}    # each [B, R]
                 if reg_method == "hierarchical":
-                    if avatars is not None:
-                        pvals, cfs, betas = \
-                            hierarchical_regression_batch(x, y)
-                    else:
-                        pvals, cfs, betas = \
-                            hierarchical_regression_from_stats(
-                                x, ss["ysum"], ss["xysum"])
+                    with profiling.span("daa.regress"):
+                        if avatars is not None:
+                            pvals, cfs, betas = \
+                                hierarchical_regression_batch(x, y)
+                        else:
+                            pvals, cfs, betas = \
+                                hierarchical_regression_from_stats(
+                                    x, ss["ysum"], ss["xysum"])
                     # per-score record: participant_id, site, per-roi betas
                     # (the ANOVA workflow's input, workflow.py:628-637)
-                    rec = np.concatenate([
-                        metadata[:, [participant_id_idx, site_idx]],
-                        betas.astype(object)], axis=1)
+                    with profiling.span("daa.records"):
+                        rec = np.concatenate([
+                            metadata[:, [participant_id_idx, site_idx]],
+                            betas.astype(object)], axis=1)
                     all_coefs[model_idx][val_idx].append(rec)
                 elif reg_method == "fixed":
-                    if avatars is not None:
-                        diff = (y - rois_rec[:, None, :]).reshape(-1,
-                                                                  n_rois)
-                        pvals, cfs = fixed_regression_batch(
-                            x.reshape(-1), diff)
-                    else:
-                        pvals, cfs = fixed_regression_from_stats(
-                            x, ss["ysum"], ss["xysum"], ss["yysum"],
-                            offset_g=rois_rec)
+                    with profiling.span("daa.regress"):
+                        if avatars is not None:
+                            diff = (y - rois_rec[:, None, :]).reshape(
+                                -1, n_rois)
+                            pvals, cfs = fixed_regression_batch(
+                                x.reshape(-1), diff)
+                        else:
+                            pvals, cfs = fixed_regression_from_stats(
+                                x, ss["ysum"], ss["xysum"], ss["yysum"],
+                                offset_g=rois_rec)
                 else:  # mixed: REML, all rois profiled together
-                    if avatars is not None:
-                        pvals, cfs = mixed_regression_batch(x, y)
-                    else:
-                        pvals, cfs = mixed_regression_from_stats(
-                            x, ss["ysum"], ss["xysum"], ss["yysum"])
+                    with profiling.span("daa.regress"):
+                        if avatars is not None:
+                            pvals, cfs = mixed_regression_batch(x, y)
+                        else:
+                            pvals, cfs = mixed_regression_from_stats(
+                                x, ss["ysum"], ss["xysum"], ss["yysum"])
                 pvalues[model_idx, val_idx, score_idx] = pvals
                 coefs[model_idx, val_idx, score_idx] = cfs
 
@@ -674,11 +694,15 @@ def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
         out_pvalues = pvalues[0]
         out_coefs = coefs[0]
         out_all_coefs = all_coefs[0]
-    np.save(os.path.join(resdir, "pvalues.npy"), out_pvalues)
-    np.save(os.path.join(resdir, "coefs.npy"), out_coefs)
-    if reg_method == "hierarchical":
-        np.save(os.path.join(resdir, "all_coefs.npy"),
-                np.asarray(out_all_coefs, dtype=object))
+    with profiling.span("daa.files.save"):
+        np.save(os.path.join(resdir, "pvalues.npy"), out_pvalues)
+        np.save(os.path.join(resdir, "coefs.npy"), out_coefs)
+        if reg_method == "hierarchical":
+            np.save(os.path.join(resdir, "all_coefs.npy"),
+                    np.asarray(out_all_coefs, dtype=object))
+    with profiling.span("daa.records"):
+        # freed here, not at the return: a Python object per beta
+        del all_coefs, out_all_coefs
     print_text(f"p_values: {out_pvalues.shape}")
     print_text(f"regression coefficients: {out_coefs.shape}")
 
@@ -695,7 +719,8 @@ def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
             roi, metric = str(name).rsplit("_", 1)
             rows.append({"metric": metric, "roi": roi, "score": str(score)})
     significant_file = os.path.join(resdir, "significant_rois.tsv")
-    with open(significant_file, "w", newline="") as fh:
+    with profiling.span("daa.files.save"), \
+            open(significant_file, "w", newline="") as fh:
         writer = csv.DictWriter(fh, fieldnames=["metric", "roi", "score"],
                                 delimiter="\t", lineterminator="\n")
         writer.writeheader()

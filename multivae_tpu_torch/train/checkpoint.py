@@ -26,12 +26,12 @@ from __future__ import annotations
 import glob
 import io
 import os
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from . import flax_msgpack
+from . import flax_msgpack, profiling
 from ..params import (
     flatten_tree,
     ravel_to_split_flat,
@@ -46,6 +46,7 @@ OPT_STATE_FILE = "opt_state.npz"
 JAX_OPT_STATE_FILE = "opt_state"   # the JAX package's, msgpack
 
 
+@profiling.spanned("trainer.checkpoint.write")
 def _atomic_write(path: str, data: bytes) -> None:
     """Write to ``<path>.tmp``, fsync, ``os.replace`` into place, then fsync
     the directory: a crash leaves the previous complete file or none, never
@@ -63,10 +64,22 @@ def _atomic_write(path: str, data: bytes) -> None:
         os.close(fd)
 
 
+@profiling.spanned("trainer.checkpoint.serialize")
 def _npz_bytes(arrays: Mapping[str, np.ndarray]) -> bytes:
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     return buf.getvalue()
+
+
+def _fetched(tensors: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: profiling.fetch(v.detach(), "trainer.checkpoint.fetch")
+            for k, v in tensors.items()}
+
+
+@profiling.spanned("trainer.checkpoint.serialize")
+def _model_tree(model: torch.nn.Module) -> dict:
+    """The model's param tree, numpy leaves, fetched from its device."""
+    return state_dict_to_tree(_fetched(model.state_dict()))
 
 
 def save_tree(ckpt_dir: str, tree: Mapping,
@@ -87,10 +100,12 @@ def save_opt_state(ckpt_dir: str, opt_state, dims, mod_names) -> str:
     raveled order."""
     os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(ckpt_dir, OPT_STATE_FILE)
+    with profiling.span("trainer.checkpoint.serialize"):
+        moments = _fetched({"mu": opt_state.mu, "nu": opt_state.nu})
+        arrays = {k: split_flat_to_ravel(v, dims, mod_names)
+                  for k, v in moments.items()}
     _atomic_write(path, _npz_bytes({
-        "count": np.asarray(opt_state.count, dtype=np.int32),
-        "mu": split_flat_to_ravel(opt_state.mu, dims, mod_names),
-        "nu": split_flat_to_ravel(opt_state.nu, dims, mod_names)}))
+        "count": np.asarray(opt_state.count, dtype=np.int32), **arrays}))
     return path
 
 
@@ -100,8 +115,7 @@ def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, opt_state=None,
     the ``dims`` of its layout) before the model's weights."""
     if opt_state is not None:
         save_opt_state(ckpt_dir, opt_state, dims, model.mod_names)
-    return save_tree(ckpt_dir, state_dict_to_tree(model.state_dict()),
-                     model_save)
+    return save_tree(ckpt_dir, _model_tree(model), model_save)
 
 
 def save_networks(checkpoints_dir: str, model: torch.nn.Module) -> None:
@@ -109,7 +123,7 @@ def save_networks(checkpoints_dir: str, model: torch.nn.Module) -> None:
     ``dec_<mod>.npz`` at the checkpoints root, overwritten at each save
     (``save_networks`` of the JAX package)."""
     os.makedirs(checkpoints_dir, exist_ok=True)
-    tree = state_dict_to_tree(model.state_dict())
+    tree = _model_tree(model)
     for key, sub in tree.items():
         if key.startswith("enc_") or key.startswith("dec_"):
             _atomic_write(os.path.join(checkpoints_dir,

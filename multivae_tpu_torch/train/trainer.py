@@ -193,6 +193,7 @@ def mask_generator(cfg, model_idx: int, epoch: int) -> torch.Generator:
     return torch.Generator().manual_seed(int(seed) & (2 ** 63 - 1))
 
 
+@profiling.spanned("trainer.noise")
 def draw_masks(generator: torch.Generator, shapes, rate: float, device):
     """Pre-scaled dropout keep masks (values in ``{0, 1 / (1 - rate)}``),
     one ``[n_masks, rows, hidden]`` block per entry of ``shapes`` in order
@@ -203,7 +204,7 @@ def draw_masks(generator: torch.Generator, shapes, rate: float, device):
             / keep for n, r, h in shapes if n]
     if not flat:
         return [None] * len(shapes)
-    buf = torch.cat(flat).to(device)
+    buf = profiling.to_device(torch.cat(flat), device)
     out, off = [], 0
     for n, r, h in shapes:
         out.append(buf[off:off + n * r * h].view(n, r, h) if n else None)
@@ -211,13 +212,14 @@ def draw_masks(generator: torch.Generator, shapes, rate: float, device):
     return out
 
 
+@profiling.spanned("trainer.noise")
 def draw_noise(generator: torch.Generator, shapes, device):
     """One standard-normal draw per ``(rows, width)`` in order, drawn on the
     CPU and copied to ``device`` once; returns the per-draw views."""
     flat = [torch.randn(r * w, generator=generator) for r, w in shapes]
     if not flat:
         return []
-    buf = torch.cat(flat).to(device)
+    buf = profiling.to_device(torch.cat(flat), device)
     out, off = [], 0
     for r, w in shapes:
         out.append(buf[off:off + r * w].view(r, w))
@@ -322,7 +324,7 @@ def make_generic_epoch(cfg, model):
     def generic(p, opt, xs, noise, masks=None):
         state = (p, opt.mu, opt.nu)
         if gather is not None:
-            index = gather.to(p.device)
+            index = profiling.to_device(gather, p.device)
             state = tuple(t[index] for t in state)
         metrics = fused_generic.generic_epoch_flat(
             method, *state, opt.count, [xs[m] for m in mod_names], noise,
@@ -340,8 +342,14 @@ def _rows(data) -> int:
     return len(next(iter(data.values())))
 
 
+def _data_to_device(data, device) -> Dict[str, torch.Tensor]:
+    return {k: profiling.to_device(torch.from_numpy(v), device)
+            for k, v in data.items()}
+
+
 def _stack(batches, mod, device):
-    return torch.from_numpy(np.stack([b[mod] for b in batches])).to(device)
+    return profiling.to_device(
+        torch.from_numpy(np.stack([b[mod] for b in batches])), device)
 
 
 def _member_dataset(exp, model_idx, split: str):
@@ -361,18 +369,20 @@ class _Logs:
     def write(self, logger: Optional[MetricLogger], phase: str) -> None:
         if logger is None or not self.blocks:
             return
-        flat = torch.cat([m.reshape(-1).float() for _, m, _ in
-                          self.blocks]).cpu().numpy()
+        flat = profiling.fetch(torch.cat([m.reshape(-1).float() for _, m, _
+                                          in self.blocks]),
+                               "trainer.fetch").numpy()
         off = 0
         write = (logger.write_training_logs if phase == "train"
                  else logger.write_testing_logs)
-        for names, metrics, rows in self.blocks:
-            n, k = metrics.shape
-            block = flat[off:off + n * k].reshape(n, k)
-            off += n * k
-            for j in rows:
-                # jitted JAX steps return their metric dicts key-sorted
-                write(dict(sorted(zip(names, block[j]))))
+        with profiling.span("trainer.log_rows"):
+            for names, metrics, rows in self.blocks:
+                n, k = metrics.shape
+                block = flat[off:off + n * k].reshape(n, k)
+                off += n * k
+                for j in rows:
+                    # jitted JAX steps return their metric dicts key-sorted
+                    write(dict(sorted(zip(names, block[j]))))
 
 
 def make_dp_epoch(cfg, model, device):
@@ -423,6 +433,7 @@ def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
     return n_steps
 
 
+@profiling.spanned("trainer.batches")
 def epoch_batches(exp, model_idx: int, epoch: int):
     """One member's training batches of an epoch in sampler order, as
     ``(full complete batches, the others)``."""
@@ -435,7 +446,8 @@ def epoch_batches(exp, model_idx: int, epoch: int):
     mod_names = exp.models[model_idx].mod_names
     full, general = [], []
     for idxs in sampler:
-        data, _, _ = dataset.gather(idxs)
+        with profiling.span("trainer.gather"):
+            data, _, _ = dataset.gather(idxs)
         if (len(idxs) == cfg.batch_size
                 and all(m in data for m in mod_names)):
             full.append(data)
@@ -444,6 +456,7 @@ def epoch_batches(exp, model_idx: int, epoch: int):
     return full, general
 
 
+@profiling.spanned("trainer.steps")
 def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
                         epoch: int = 0, log_every: int = 1, dp_epoch=None,
                         batches=None, bf16_full=None):
@@ -493,12 +506,13 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
     # on the layer-stack step only the full complete batches have a kernel
     generic_epoch = make_generic_epoch(cfg, model) if fused else None
 
+    @profiling.spanned("trainer.launch")
     def run_general(data, eps, batch_masks, log: bool):
         # autograd of the model, then flat Adam: fused_training=False, the
         # batches of a deep architecture that are not full and complete,
         # and every batch under a general step's mesh
         nonlocal opt, n_steps
-        tdata = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
+        tdata = _data_to_device(data, device)
         rows = _rows(data)
         args = (p, opt, tdata, eps, dims_from(cfg, rows), hyper)
         if step_mesh is not None and "tensor" in step_mesh.shape:
@@ -515,6 +529,7 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
             logs.add(names, torch.stack([metrics[k] for k in names])[None],
                      [0])
 
+    @profiling.spanned("trainer.launch")
     def run_group(key, batches, batch_noise, batch_masks, rows_to_log,
                   epoch_fn=None, group_bf16=False):
         # one kernel epoch over the group's batches
@@ -577,7 +592,8 @@ def test_batches(exp, model_idx: int, epoch: int):
     scannable, others = [], []
     for idxs in simple_batches(len(dataset), cfg.batch_size,
                                np.random.default_rng(cfg.seed + epoch)):
-        data, _, _ = dataset.gather(idxs)
+        with profiling.span("trainer.gather"):
+            data, _, _ = dataset.gather(idxs)
         if not data:
             continue
         if len(idxs) == cfg.batch_size and all(m in data for m in mod_names):
@@ -594,6 +610,7 @@ def test_batches(exp, model_idx: int, epoch: int):
 
 
 @torch.no_grad()
+@profiling.spanned("trainer.test")
 def test_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
                    generator: torch.Generator, epoch: int):
     """Evaluate the member on its test split; returns the per-batch metric
@@ -607,11 +624,13 @@ def test_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
                         for d in emitted], device)
     logs, results = _Logs(), []
     for data, i in order:
-        tdata = {k: torch.from_numpy(v).to(device) for k, v in data.items()}
-        _, metrics = eval_step(cfg, model, tdata, noise[i])
-        results.append(metrics)
-        names = list(metrics)
-        logs.add(names, torch.stack([metrics[k] for k in names])[None], [0])
+        with profiling.span("trainer.test.forward"):
+            _, metrics = eval_step(cfg, model, _data_to_device(data, device),
+                                   noise[i])
+            results.append(metrics)
+            names = list(metrics)
+            logs.add(names, torch.stack([metrics[k] for k in names])[None],
+                     [0])
     logs.write(logger, "test")
     return results
 
@@ -782,6 +801,7 @@ def ensemble_mesh(cfg):
                      n_data=n_dev // cfg.num_models)
 
 
+@profiling.spanned("trainer.checkpoint")
 def _checkpoint_member(exp, model_idx: int, epoch: int) -> None:
     cfg = exp.cfg
     ckpt_dir = model_checkpoint_dir(cfg, model_idx, epoch)

@@ -18,6 +18,7 @@ import torch
 
 from .analysis.daa import cohort_from_datasets, run_daa
 from .data.cohorts import split_roi_metric
+from .train import profiling
 from .train.config import Config
 from .train.experiment import MultimodalExperiment, load_run, load_trained
 from .train.trainer import check_supported, run_epochs
@@ -59,7 +60,7 @@ def train_exp(dataset, datasetdir, outdir, input_dims, num_models=1,
     runs the kernels; ``cpu`` runs their plain PyTorch versions.
     ``epoch_chunk`` is accepted and the per-epoch loop runs;
     ``profile_dir`` traces member 0's first epoch there
-    (:mod:`multivae_tpu_torch.train.profiling`). The
+    (:mod:`multivae_tpu_torch.train.profiling`) and prints its counts. The
     ``calc_*`` flags log their evals on the ``eval_freq`` /
     ``eval_freq_fid`` cadence; ``save_samples`` writes each member's sample
     dumps (``fid/<group>/<modality>/NNNNNN.npy``) after training. A
@@ -101,6 +102,10 @@ def train_exp(dataset, datasetdir, outdir, input_dims, num_models=1,
                        log_every=log_every, profile_dir=profile_dir)
     print_text("train wall per epoch (s): "
                + " ".join(f"{w:.6f}" for w in walls))
+    if profile_dir is not None:
+        print_text("traced epoch's counts: " + " ".join(
+            f"{k}={v}" for k, v in sorted(profiling.last_counts().items())
+            if v))
     if save_samples:
         from .eval.sample_quality import save_generated_samples
         for model_idx in range(cfg.num_models):
