@@ -32,12 +32,14 @@ import collections
 import copy
 import csv
 import os
+import pickle
 from dataclasses import dataclass
 from types import SimpleNamespace
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from numpy.lib import format as npy_format
 from numpy.lib.format import open_memmap
 
 from ..ops.fused_daa import (
@@ -584,6 +586,42 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
     return resdir
 
 
+class _CoefRecords:
+    """The hierarchical records as they pickle: ``numpy.concatenate`` of
+    the metadata columns (objects, ``[..., S, B, 2]``) and the betas
+    (numeric, ``[..., S, B, R]``) along the last axis. Unpickling calls it,
+    so the stream names no class of this package, and the object array it
+    rebuilds is the one ``np.save`` of the concatenated records wrote."""
+
+    def __init__(self, meta: np.ndarray, betas: np.ndarray):
+        self.meta, self.betas = meta, betas
+
+    def __reduce__(self):
+        return np.concatenate, ((self.meta, self.betas), -1)
+
+
+def save_coef_records(path: str, meta: np.ndarray, betas: np.ndarray):
+    """Write ``all_coefs.npy``: the records ``[..., S, B, 2 + R]``
+    (``participant_id``, ``site``, then one beta per ROI), from the
+    metadata columns ``meta`` ``[..., B, 2]`` of each round, shared by its
+    ``S`` scores, and the betas ``betas`` ``[..., S, B, R]``. The header
+    is ``np.save``'s for that object array (version 1.0, ``'|O'``, C
+    order); the body pickles the betas as one buffer, not one float
+    object each. ``np.load(path, allow_pickle=True)`` returns the object
+    array: the metadata's own objects (cast to ``object``) and Python
+    floats equal to the betas."""
+    meta = np.asarray(meta, dtype=object)
+    meta = np.broadcast_to(meta[..., None, :, :],
+                           betas.shape[:-1] + meta.shape[-1:])
+    shape = betas.shape[:-1] + (meta.shape[-1] + betas.shape[-1],)
+    with open(path, "wb") as fh:
+        npy_format.write_array_header_1_0(fh, {
+            "descr": npy_format.dtype_to_descr(np.dtype(object)),
+            "fortran_order": False, "shape": shape})
+        pickle.dump(_CoefRecords(meta, betas), fh, protocol=3)
+    profiling.count("daa.coef_records", int(np.prod(betas.shape[:-2])))
+
+
 @profiling.spanned("daa.significance")
 def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
                             params_ns, metadata_columns, trust_level: float,
@@ -591,7 +629,14 @@ def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
     """Regression + voting stage (``workflow.py:443-539``); reads the saved
     artifacts so it can be re-run standalone. Writes ``pvalues.npy``,
     ``coefs.npy``, ``all_coefs.npy`` (hierarchical) and
-    ``significant_rois.tsv``; returns the significant rows as dicts."""
+    ``significant_rois.tsv``; returns the significant rows as dicts.
+
+    ``all_coefs.npy`` holds the per-subject records ``[(n_models,)
+    n_validation, n_scores, B, 2 + R]``: ``participant_id``, ``site``, then
+    the ROIs' betas. The betas are kept in one float64 array and written by
+    :func:`save_coef_records`; ``np.load(..., allow_pickle=True)`` reads
+    the file into the same object array (metadata objects, Python floats)
+    that ``np.save`` of the records would have written."""
     n_models = cfg.num_models
     n_scores = len(clinical_names)
     n_rois = len(rois_names)
@@ -635,16 +680,25 @@ def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
                    "sampled scores...")
     coefs = np.zeros((n_models, n_validation, n_scores, n_rois))
     pvalues = np.zeros((n_models, n_validation, n_scores, n_rois))
-    all_coefs = []
+    if reg_method == "hierarchical":
+        # the records: each round's participant_id and site, each score's
+        # per-subject betas (the ANOVA workflow's input,
+        # workflow.py:628-637)
+        n_subjects = all_sampled_scores.shape[2]
+        coef_meta = np.empty((n_models, n_validation, n_subjects, 2),
+                             dtype=object)
+        coef_betas = np.empty((n_models, n_validation, n_scores, n_subjects,
+                               n_rois))
     for model_idx in range(n_models):
-        all_coefs.append([])
         for val_idx in range(n_validation):
             avatars = (np.asarray(rois_da[model_idx, val_idx])
                        if rois_da is not None else None)
             scores_values = all_sampled_scores[model_idx, val_idx]
             metadata = all_metadatas[model_idx][val_idx]
             rois_rec = all_rois_recs[model_idx, val_idx]
-            all_coefs[model_idx].append([])
+            if reg_method == "hierarchical":
+                coef_meta[model_idx, val_idx] = metadata[
+                    :, [participant_id_idx, site_idx]]
             for score_idx in range(n_scores):
                 x = scores_values[:, :, score_idx]          # [B, P]
                 if avatars is not None:
@@ -661,13 +715,8 @@ def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
                             pvals, cfs, betas = \
                                 hierarchical_regression_from_stats(
                                     x, ss["ysum"], ss["xysum"])
-                    # per-score record: participant_id, site, per-roi betas
-                    # (the ANOVA workflow's input, workflow.py:628-637)
                     with profiling.span("daa.records"):
-                        rec = np.concatenate([
-                            metadata[:, [participant_id_idx, site_idx]],
-                            betas.astype(object)], axis=1)
-                    all_coefs[model_idx][val_idx].append(rec)
+                        coef_betas[model_idx, val_idx, score_idx] = betas
                 elif reg_method == "fixed":
                     with profiling.span("daa.regress"):
                         if avatars is not None:
@@ -689,20 +738,18 @@ def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
                 pvalues[model_idx, val_idx, score_idx] = pvals
                 coefs[model_idx, val_idx, score_idx] = cfs
 
-    out_pvalues, out_coefs, out_all_coefs = pvalues, coefs, all_coefs
+    out_pvalues, out_coefs = pvalues, coefs
     if n_models == 1:
         out_pvalues = pvalues[0]
         out_coefs = coefs[0]
-        out_all_coefs = all_coefs[0]
     with profiling.span("daa.files.save"):
         np.save(os.path.join(resdir, "pvalues.npy"), out_pvalues)
         np.save(os.path.join(resdir, "coefs.npy"), out_coefs)
         if reg_method == "hierarchical":
-            np.save(os.path.join(resdir, "all_coefs.npy"),
-                    np.asarray(out_all_coefs, dtype=object))
-    with profiling.span("daa.records"):
-        # freed here, not at the return: a Python object per beta
-        del all_coefs, out_all_coefs
+            save_coef_records(
+                os.path.join(resdir, "all_coefs.npy"),
+                coef_meta[0] if n_models == 1 else coef_meta,
+                coef_betas[0] if n_models == 1 else coef_betas)
     print_text(f"p_values: {out_pvalues.shape}")
     print_text(f"regression coefficients: {out_coefs.shape}")
 

@@ -202,9 +202,10 @@ def test_a_daa_call_writes_every_daa_span(traced_daa):
             assert inside(s, sig), s
         if s[0] in ("daa.sweep", "daa.fetch"):
             assert not inside(s, sig), s
-    # a regression and a record per round and score; the records' teardown
+    # a regression and a record (its betas into the records' array) per
+    # round and score
     assert sum(s[0] == "daa.regress" for s in spans) == ROUNDS * N_SCORES
-    assert sum(s[0] == "daa.records" for s in spans) == ROUNDS * N_SCORES + 1
+    assert sum(s[0] == "daa.records" for s in spans) == ROUNDS * N_SCORES
     assert sum(s[0] == "daa.sweep" for s in spans) == ROUNDS
 
 
@@ -217,6 +218,8 @@ def test_a_daa_call_counts_its_fetches_and_copies(traced_daa):
     # each round's subjects, both modalities
     assert counts["h2d_bytes"] == ROUNDS * B * (N_SCORES + N_ROIS) * F32
     assert counts["launches.avatar_sweep"] == 0
+    # one record per round and score, written from the betas array
+    assert counts["daa.coef_records"] == ROUNDS * N_SCORES
 
 
 @pytest.mark.parametrize("artifact, avatars_file", [
