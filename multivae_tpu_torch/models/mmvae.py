@@ -126,7 +126,8 @@ class MultimodalVAE(nn.Module):
                     rows_mu.append(mus[col[mods[0]]])
                     rows_lv.append(logvars[col[mods[0]]])
                 else:
-                    idx = [col[m] for m in mods]
+                    idx = fusion.device_constant(
+                        [col[m] for m in mods], mus, torch.int64)
                     mu_s, lv_s = fusion.mixture_component_selection(
                         mus[idx], logvars[idx], rows=rows)
                     rows_mu.append(mu_s)
@@ -158,8 +159,10 @@ class MultimodalVAE(nn.Module):
             enc_mods, present, rows)
         distr_subsets = {k: (sub_mus[i], sub_logvars[i])
                          for i, k in enumerate(keys)}
-        sel = [i for i, k in enumerate(keys)
-               if self._fusion_condition(self.subsets[k], present)]
+        sel = fusion.device_constant(
+            [i for i, k in enumerate(keys)
+             if self._fusion_condition(self.subsets[k], present)],
+            sub_mus, torch.int64)
         mus = sub_mus[sel]
         logvars = sub_logvars[sel]
         if self.method == "jsd":

@@ -3,6 +3,9 @@ selection and the group divergences.
 
 Counterpart of ``multivae_tpu/ops/fusion.py``. Mixture partitions and
 subset masks are static numpy arrays, as there; the tensor math is torch.
+They meet the tensors through :func:`device_constant`, which copies each
+to the device once: a forward pass copies nothing from the host, so a CUDA
+graph can capture it (``train/trainer.py``'s test pass).
 """
 
 from __future__ import annotations
@@ -16,6 +19,26 @@ import torch
 from .gaussian import kl_divergence, kl_divergence_per_sample
 
 POE_EPS = 1e-8
+
+# (value, dtype, device) -> tensor: the static arrays already on a device
+_CONSTANTS: dict = {}
+
+
+def device_constant(array, like: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The static numpy ``array`` (a partition, subset masks, weights, row
+    indices) as a tensor of ``dtype`` (``like``'s by default) on ``like``'s
+    device, copied there once per value. A copy from the host to a card
+    waits for the host, which a CUDA graph's capture refuses: the eager
+    warm-up before a capture makes the constants, and the capture finds
+    them here. Nothing writes to the tensors handed out."""
+    array = np.ascontiguousarray(array)
+    dtype = like.dtype if dtype is None else dtype
+    key = (array.dtype.str, array.shape, array.tobytes(), dtype, like.device)
+    out = _CONSTANTS.get(key)
+    if out is None:
+        out = _CONSTANTS[key] = torch.tensor(array, dtype=dtype,
+                                             device=like.device)
+    return out
 
 
 class Rows(NamedTuple):
@@ -47,7 +70,7 @@ def alpha_poe(alpha, mus, logvars, eps: float = POE_EPS):
     """Weighted PoE used as the JSD dynamic prior."""
     t = 1.0 / (torch.exp(logvars) + eps)
     if not isinstance(alpha, torch.Tensor):
-        alpha = torch.from_numpy(np.asarray(alpha, dtype=np.float32))
+        alpha = device_constant(np.asarray(alpha, dtype=np.float32), mus)
     alpha = alpha.to(mus).reshape((-1,) + (1,) * (mus.dim() - 1))
     pd_var = 1.0 / (alpha * t).sum(dim=0)
     pd_mu = pd_var * (alpha * mus * t).sum(dim=0)
@@ -84,10 +107,8 @@ def masked_poe_all_subsets(mus, logvars, subset_mask, prior_expert,
         t_sum = torch.stack(rows_t)
         mu_sum = torch.stack(rows_mu)
     else:
-        mask = torch.as_tensor(np.asarray(subset_mask), dtype=mus.dtype,
-                               device=mus.device)
-        prior = torch.as_tensor(np.asarray(prior_expert), dtype=mus.dtype,
-                                device=mus.device)
+        mask = device_constant(subset_mask, mus)
+        prior = device_constant(prior_expert, mus)
         t_sum = torch.einsum("sm,mbd->sbd", mask, t)
         t_sum = t_sum + prior[:, None, None] * prior_t
         mu_sum = torch.einsum("sm,mbd->sbd", mask, mu_t)
@@ -126,15 +147,14 @@ def mixture_component_selection(mus, logvars, weights=None,
     owner = mixture_partition(k, row_count(b, rows), weights)
     if rows is not None:
         owner = owner[rows.offset:rows.offset + b]
-    owner = torch.as_tensor(owner, device=mus.device)
+    owner = device_constant(owner, mus, torch.int64)
     rows = torch.arange(b, device=mus.device)
     return mus[owner, rows], logvars[owner, rows]
 
 
 def group_divergence_moe(mus, logvars, weights, normalization=None):
     """Weighted sum of per-component KLs to the unit prior."""
-    weights = torch.as_tensor(np.asarray(weights, dtype=np.float32),
-                              dtype=mus.dtype, device=mus.device)
+    weights = device_constant(np.asarray(weights, dtype=np.float32), mus)
     if normalization is not None:
         klds = torch.stack([
             kl_divergence(mus[k], logvars[k], norm_value=normalization)
@@ -149,8 +169,7 @@ def alpha_jsd_divergence(mus, logvars, weights, normalization=None):
     """JSD dynamic-prior divergence: each expert's KL against the alpha-PoE
     of all experts. Returns ``(group_div, klds, (prior_mu, prior_logvar))``.
     """
-    weights = torch.as_tensor(np.asarray(weights, dtype=np.float32),
-                              dtype=mus.dtype, device=mus.device)
+    weights = device_constant(np.asarray(weights, dtype=np.float32), mus)
     prior_mu, prior_logvar = alpha_poe(weights, mus, logvars)
     klds_ps = kl_divergence_per_sample(mus, logvars, prior_mu[None],
                                        prior_logvar[None])

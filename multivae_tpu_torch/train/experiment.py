@@ -14,7 +14,7 @@ flat params buffer and an Adam state in the layout of the config's dims
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -45,6 +45,10 @@ class MultimodalExperiment:
         self.scalers = None
         self.params: List[torch.Tensor] = []
         self.opt_states: List = []
+        # the trainer's: each member's splits on its device
+        # (train.device_cohort) and test-pass graphs (trainer.EvalGraph)
+        self.device_cohorts: Dict = {}
+        self.test_graphs: Dict = {}
 
     # ---------------------------------------------------------- train state
     def set_optimizers(self):
@@ -116,6 +120,7 @@ class MultimodalExperiment:
         self.dataset_train = train
         self.dataset_test = test
         self.scalers = scalers_all
+        self.device_cohorts = {}
 
     def member_datasets(self, model_idx: int):
         """``(train, test)`` datasets of one ensemble member."""

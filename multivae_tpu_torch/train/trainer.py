@@ -64,8 +64,15 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
   sharded over ``data`` when they divide it (``trainer.py:834-859``); no
   step kernel runs (the JAX TP path runs none) and it reads no precision.
   Ensemble members then train in turn (:func:`resolve_ensemble`);
+* the batches come from each member's splits kept scaled on its device
+  (:class:`~multivae_tpu_torch.train.device_cohort.DeviceCohort`, built at
+  first use): the sampler runs on the host as before, and a batch is an
+  ``index_select`` on the device, bit for bit what
+  ``MultimodalDataset.gather`` gives, one copy of row indices an epoch;
 * the test split is evaluated with the general forward and
-  :func:`~multivae_tpu_torch.train.losses.total_loss`;
+  :func:`~multivae_tpu_torch.train.losses.total_loss`; on a card each
+  batch replays a CUDA graph of that forward, one per ``(member, presence
+  pattern, rows)`` (:class:`EvalGraph`);
 * every 5 epochs and at the end the model and optimizer state are
   checkpointed in the JAX package's layout;
 * on the eval cadence (:func:`run_eval_cadence`, ``trainer.py:412-508``
@@ -138,6 +145,7 @@ from ..params import (
 from ..utils.filehandling import model_checkpoint_dir, model_log_dir
 from .checkpoint import save_checkpoint, save_networks
 from . import profiling
+from .device_cohort import DeviceCohort
 from .logging import MetricLogger
 from .train_step import (
     batch_noise_width,
@@ -342,19 +350,57 @@ def _rows(data) -> int:
     return len(next(iter(data.values())))
 
 
-def _data_to_device(data, device) -> Dict[str, torch.Tensor]:
-    return {k: profiling.to_device(torch.from_numpy(v), device)
-            for k, v in data.items()}
-
-
-def _stack(batches, mod, device):
-    return profiling.to_device(
-        torch.from_numpy(np.stack([b[mod] for b in batches])), device)
+def _stack(batches, mod):
+    """The batches' ``mod`` tensors as one ``[n, rows, d]`` tensor: the
+    block they are consecutive slabs of, as :func:`gather_batches` gives a
+    group's batches, without a copy; else a stack of them."""
+    parts = [b[mod] for b in batches]
+    first = parts[0]
+    storage = first.untyped_storage().data_ptr()
+    step = first.numel() * first.element_size()
+    if all(p.is_contiguous() and p.shape == first.shape
+           and p.untyped_storage().data_ptr() == storage
+           and p.data_ptr() == first.data_ptr() + j * step
+           for j, p in enumerate(parts)):
+        return first.as_strided((len(parts),) + tuple(first.shape),
+                                (first.numel(),) + first.stride(),
+                                first.storage_offset())
+    return torch.stack(parts)
 
 
 def _member_dataset(exp, model_idx, split: str):
     ds = exp.dataset_train if split == "train" else exp.dataset_test
     return ds[model_idx] if exp.cfg.num_models > 1 else ds
+
+
+def device_cohort(exp, model_idx: int, split: str) -> DeviceCohort:
+    """The member's ``split`` (``"train"`` or ``"test"``) on its model's
+    device: built at first use and kept on ``exp`` (``set_datasets`` drops
+    it), built again where the model moved to another device."""
+    device = next(exp.models[model_idx].parameters()).device
+    cohort = exp.device_cohorts.get((model_idx, split))
+    if cohort is None or cohort.device != device:
+        cohort = exp.device_cohorts[(model_idx, split)] = DeviceCohort(
+            _member_dataset(exp, model_idx, split), device)
+    return cohort
+
+
+@profiling.spanned("trainer.gather")
+def gather_batches(cohort: DeviceCohort, batches):
+    """Each batch ``(indices, modalities)`` as ``{modality: [rows, d]}``
+    on the cohort's device, in order: the batches of one ``(modalities,
+    rows)`` group are consecutive slabs of the group's ``[n, rows, d]``
+    gather (:meth:`DeviceCohort.gather_groups`, one index copy for all)."""
+    groups: Dict = {}
+    for i, (idxs, mods) in enumerate(batches):
+        groups.setdefault((mods, len(idxs)), []).append(i)
+    stacks = cohort.gather_groups([(mods, [batches[i][0] for i in members])
+                                   for (mods, _), members in groups.items()])
+    out = [None] * len(batches)
+    for members, stack in zip(groups.values(), stacks):
+        for j, i in enumerate(members):
+            out[i] = {m: t[j] for m, t in stack.items()}
+    return out
 
 
 class _Logs:
@@ -436,9 +482,11 @@ def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
 @profiling.spanned("trainer.batches")
 def epoch_batches(exp, model_idx: int, epoch: int):
     """One member's training batches of an epoch in sampler order, as
-    ``(full complete batches, the others)``."""
+    ``(full complete batches, the others)``, each ``{modality: [rows,
+    d]}`` on the member's device (:func:`gather_batches`)."""
     cfg = exp.cfg
-    dataset = _member_dataset(exp, model_idx, "train")
+    cohort = device_cohort(exp, model_idx, "train")
+    dataset = cohort.dataset
     sub_indices = dataset.indices if cfg.num_models > 1 else None
     sampler = MissingModalitySampler(dataset, batch_size=cfg.batch_size,
                                      indices=sub_indices,
@@ -446,14 +494,14 @@ def epoch_batches(exp, model_idx: int, epoch: int):
     mod_names = exp.models[model_idx].mod_names
     full, general = [], []
     for idxs in sampler:
-        with profiling.span("trainer.gather"):
-            data, _, _ = dataset.gather(idxs)
+        mods = cohort.modalities_of(idxs)
         if (len(idxs) == cfg.batch_size
-                and all(m in data for m in mod_names)):
-            full.append(data)
+                and all(m in mods for m in mod_names)):
+            full.append((idxs, mods))
         else:
-            general.append(data)
-    return full, general
+            general.append((idxs, mods))
+    data = gather_batches(cohort, full + general)
+    return data[:len(full)], data[len(full):]
 
 
 @profiling.spanned("trainer.steps")
@@ -512,9 +560,8 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
         # batches of a deep architecture that are not full and complete,
         # and every batch under a general step's mesh
         nonlocal opt, n_steps
-        tdata = _data_to_device(data, device)
         rows = _rows(data)
-        args = (p, opt, tdata, eps, dims_from(cfg, rows), hyper)
+        args = (p, opt, data, eps, dims_from(cfg, rows), hyper)
         if step_mesh is not None and "tensor" in step_mesh.shape:
             opt, _, metrics = tp_step(cfg, model, *args, step_mesh,
                                       batch_masks)
@@ -536,7 +583,7 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
         nonlocal opt, n_steps
         epoch_fn = epoch_fn or make_group_fused_epoch(
             cfg if group_bf16 else cfg_f32, model, key)
-        xs = {m: _stack(batches, m, device) for m in key[0]}
+        xs = {m: _stack(batches, m) for m in key[0]}
         opt, metrics, names = epoch_fn(
             p, opt, xs, torch.stack(batch_noise),
             None if batch_masks[0] is None else torch.stack(batch_masks))
@@ -585,21 +632,23 @@ def test_batches(exp, model_idx: int, epoch: int):
     """The test pass's batches in evaluation order (``trainer.py:347-411``):
     full complete batches first, then the rest grouped by sorted
     ``(presence pattern, rows)``; each as ``(data, noise draw index)``
-    with the draws numbered in emission order."""
+    with the draws numbered in emission order, ``data`` on the member's
+    device (:func:`gather_batches`)."""
     cfg = exp.cfg
-    dataset = _member_dataset(exp, model_idx, "test")
+    cohort = device_cohort(exp, model_idx, "test")
     mod_names = exp.mod_names
     scannable, others = [], []
-    for idxs in simple_batches(len(dataset), cfg.batch_size,
+    for idxs in simple_batches(len(cohort.dataset), cfg.batch_size,
                                np.random.default_rng(cfg.seed + epoch)):
-        with profiling.span("trainer.gather"):
-            data, _, _ = dataset.gather(idxs)
-        if not data:
+        mods = cohort.modalities_of(idxs)
+        if not mods:
             continue
-        if len(idxs) == cfg.batch_size and all(m in data for m in mod_names):
-            scannable.append(data)
+        if len(idxs) == cfg.batch_size and all(m in mods for m in mod_names):
+            scannable.append((idxs, mods))
         else:
-            others.append(data)
+            others.append((idxs, mods))
+    data = gather_batches(cohort, scannable + others)
+    scannable, others = data[:len(scannable)], data[len(scannable):]
     order = [(d, i) for i, d in enumerate(scannable)]
     groups: Dict = {}
     for i, data in enumerate(others):
@@ -609,12 +658,74 @@ def test_batches(exp, model_idx: int, epoch: int):
     return order, scannable + others
 
 
+class EvalGraph:
+    """:func:`eval_step` of one model at one ``(presence pattern, rows)``
+    captured in a CUDA graph: its inputs (each modality's batch, the noise)
+    are static buffers, and it reads the model's parameters in place
+    (``load_flat_params`` copies into them), so one capture serves every
+    epoch. Captured after PyTorch's side-stream warm-up, which also makes
+    the forward's constants (``ops.fusion.device_constant``); counted as
+    ``test_graph_captures``."""
+
+    def __init__(self, cfg, model, data, noise):
+        self.addresses = _param_addresses(model)
+        self.inputs = {m: t.clone() for m, t in data.items()}
+        self.noise = noise.clone()
+        with torch.cuda.device(noise.device):
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                for _ in range(3):
+                    eval_step(cfg, model, self.inputs, self.noise)
+            torch.cuda.current_stream().wait_stream(side)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph):
+                _, self.outputs = eval_step(cfg, model, self.inputs,
+                                            self.noise)
+        self.names = list(self.outputs)
+        profiling.count("test_graph_captures", 1)
+
+    def run(self, data, noise):
+        """``(metric names, [k] metrics)`` of a batch: its data and noise
+        copied in, a replay, and one stack of the outputs, which the next
+        replay leaves alone."""
+        for m, t in self.inputs.items():
+            t.copy_(data[m])
+        self.noise.copy_(noise)
+        self.graph.replay()
+        return self.names, torch.stack([self.outputs[k]
+                                        for k in self.names])
+
+
+def _param_addresses(model):
+    """Where the model's parameters live: a captured graph reads there."""
+    return tuple(p.data_ptr() for p in model.parameters())
+
+
+def _test_forward(exp, model_idx: int, data, noise):
+    """``(metric names, [k] metrics)`` of one test batch: on a card the
+    replay of the member's :class:`EvalGraph` for the batch's ``(presence
+    pattern, rows)`` (captured at its first use, again only if the
+    parameters moved), on the CPU :func:`eval_step`."""
+    cfg, model = exp.cfg, exp.models[model_idx]
+    if noise.device.type != "cuda":
+        _, metrics = eval_step(cfg, model, data, noise)
+        names = list(metrics)
+        return names, torch.stack([metrics[k] for k in names])
+    key = (model_idx, tuple(data), _rows(data))
+    graph = exp.test_graphs.get(key)
+    if graph is None or graph.addresses != _param_addresses(model):
+        graph = exp.test_graphs[key] = EvalGraph(cfg, model, data, noise)
+    return graph.run(data, noise)
+
+
 @torch.no_grad()
 @profiling.spanned("trainer.test")
 def test_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
                    generator: torch.Generator, epoch: int):
     """Evaluate the member on its test split; returns the per-batch metric
-    dicts (device tensors) in evaluation order."""
+    dicts (device tensors) in evaluation order. On a card each batch is a
+    CUDA graph's replay (:func:`_test_forward`)."""
     cfg = exp.cfg
     model = exp.models[model_idx]
     device = next(model.parameters()).device
@@ -625,12 +736,9 @@ def test_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
     logs, results = _Logs(), []
     for data, i in order:
         with profiling.span("trainer.test.forward"):
-            _, metrics = eval_step(cfg, model, _data_to_device(data, device),
-                                   noise[i])
-            results.append(metrics)
-            names = list(metrics)
-            logs.add(names, torch.stack([metrics[k] for k in names])[None],
-                     [0])
+            names, metrics = _test_forward(exp, model_idx, data, noise[i])
+            results.append(dict(zip(names, metrics)))
+            logs.add(names, metrics[None], [0])
     logs.write(logger, "test")
     return results
 

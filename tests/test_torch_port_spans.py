@@ -23,7 +23,7 @@ from multivae_tpu_torch.train.train_step import batch_noise_width
 from multivae_tpu_torch.utils.filehandling import create_dir_structure
 
 DIMS, CD, STYLE, HIDDEN, BATCH = (3, 12), 4, (2, 3), 16, 12
-F32 = 4  # bytes
+F32, I64 = 4, 8  # bytes
 
 
 def spans_of(trace_dir):
@@ -100,20 +100,33 @@ def test_an_epoch_writes_every_trainer_span_in_its_parent(traced_epoch):
     assert len(by["trainer.checkpoint.write"]) == 6
 
 
-def test_an_epoch_counts_the_bytes_it_copies_to_the_device(traced_epoch):
-    _, counts, exp = traced_epoch
+def epoch_copies(exp, epoch):
+    """The bytes an epoch's batches copy to the device: per batch its row
+    indices (int64) and its noise draw, training and test."""
     cfg, model = exp.cfg, exp.models[0]
-    full, general = trainer.epoch_batches(exp, 0, 0)
-    _, emitted = trainer.test_batches(exp, 0, 0)
+    full, general = trainer.epoch_batches(exp, 0, epoch)
+    _, emitted = trainer.test_batches(exp, 0, epoch)
     h2d = 0
-    for batches in (full + general, emitted):
-        for d in batches:
-            rows = len(next(iter(d.values())))
-            # every present modality, then one noise draw of the batch
-            h2d += sum(rows * v.shape[1] * F32 for v in d.values())
-            h2d += rows * batch_noise_width(cfg, model, d) * F32
-    assert h2d > 0
-    assert counts["h2d_bytes"] == h2d
+    for d in full + general + emitted:
+        rows = len(next(iter(d.values())))
+        h2d += rows * I64 + rows * batch_noise_width(cfg, model, d) * F32
+    return h2d
+
+
+def test_an_epoch_counts_the_bytes_it_copies_to_the_device(traced_epoch,
+                                                            tmp_path):
+    _, counts, exp = traced_epoch
+    # the epoch that builds them copies the train and test splits whole,
+    # every row of every modality, once (train/device_cohort.py)
+    cohorts = sum(len(ds) * sum(DIMS) * F32
+                  for ds in (exp.dataset_train, exp.dataset_test))
+    assert epoch_copies(exp, 0) > 0
+    assert counts["h2d_bytes"] == cohorts + epoch_copies(exp, 0)
+    # a later epoch copies its indices and noise alone
+    exp.cfg.start_epoch, exp.cfg.end_epoch = 1, 2
+    with profiling.trace(str(tmp_path / "trace"), "cpu", 1):
+        trainer.run_epochs(exp, use_tensorboard=False, progress=False)
+    assert profiling.last_counts()["h2d_bytes"] == epoch_copies(exp, 1)
 
 
 def test_an_epoch_counts_the_launches_the_kernels_counted(traced_epoch):

@@ -284,7 +284,7 @@ def test_test_epoch_matches_jax_total_loss(cohort):
     jm = jax_model(cfg)
     variables = {"params": bridge.state_dict_to_tree(model.state_dict())}
     for metrics, (data, i) in zip(got, order):
-        batch = {k: jnp.asarray(v) for k, v in data.items()}
+        batch = {k: jnp.asarray(v.numpy()) for k, v in data.items()}
         out = jm.apply(variables, batch, noise=jnp.asarray(noise[i].numpy()))
         _, want = jax_total_loss(cfg, jm, variables, batch, out,
                                  jax.random.PRNGKey(0), train=False)
