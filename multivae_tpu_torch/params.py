@@ -479,14 +479,28 @@ def ravel_order(tree: Mapping) -> list:
     return sorted(flatten_tree(tree), key=lambda p: tuple(p.split("/")))
 
 
-def split_flat_to_ravel(flat: torch.Tensor, dims, mod_names) -> np.ndarray:
-    """The port's flat state (the layout of ``dims``) -> the JAX package's
-    raveled vector (``FlatAdamState.mu``/``nu`` order)."""
-    flat = torch.as_tensor(flat).detach().cpu()
-    leaves = _flat_tree(flat, dims, mod_names)
+@functools.lru_cache(maxsize=16)
+def _ravel_index(dims, mod_names: tuple) -> np.ndarray:
+    """For each float of the JAX package's raveled vector, its place in a
+    flat buffer of the layout of ``dims``: the layout's conversion run on
+    the places themselves (float64, exact), as int64."""
+    where = torch.arange(flat_size(dims), dtype=torch.float64)
+    leaves = _flat_tree(where, dims, mod_names)
     return np.concatenate([leaves[p].reshape(-1).numpy()
                            for p in ravel_order(unflatten_tree(leaves))]
-                          ).astype(np.float32)
+                          ).astype(np.int64)
+
+
+def split_flat_to_ravel(flat: torch.Tensor, dims, mod_names) -> np.ndarray:
+    """The port's flat state (the layout of ``dims``) -> the JAX package's
+    raveled vector (``FlatAdamState.mu``/``nu`` order): one gather of the
+    buffer by :func:`_ravel_index`."""
+    flat = torch.as_tensor(flat).detach().cpu()
+    if flat.numel() != flat_size(dims):
+        raise ValueError(f"flat buffer holds {flat.numel()} floats, the "
+                         f"layout {flat_size(dims)}")
+    return flat.reshape(-1).numpy()[_ravel_index(dims, tuple(mod_names))
+                                    ].astype(np.float32, copy=False)
 
 
 def ravel_to_split_flat(vec, dims, mod_names) -> torch.Tensor:

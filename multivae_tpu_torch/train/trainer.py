@@ -74,7 +74,9 @@ Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
   batch replays a CUDA graph of that forward, one per ``(member, presence
   pattern, rows)`` (:class:`EvalGraph`);
 * every 5 epochs and at the end the model and optimizer state are
-  checkpointed in the JAX package's layout;
+  checkpointed in the JAX package's layout: fetched and encoded on the
+  training thread, written by the checkpoint writer's thread while the
+  next epochs run (:data:`~.checkpoint.WRITER`);
 * on the eval cadence (:func:`run_eval_cadence`, ``trainer.py:412-508``
   there) the IWAE likelihoods, PRD, latent probes and coherence of
   :mod:`multivae_tpu_torch.eval` are logged after the test pass.
@@ -143,8 +145,7 @@ from ..params import (
     model_flat_params,
 )
 from ..utils.filehandling import model_checkpoint_dir, model_log_dir
-from .checkpoint import save_checkpoint, save_networks
-from . import profiling
+from . import checkpoint, profiling
 from .device_cohort import DeviceCohort
 from .logging import MetricLogger
 from .train_step import (
@@ -909,17 +910,39 @@ def ensemble_mesh(cfg):
                      n_data=n_dev // cfg.num_models)
 
 
-@profiling.spanned("trainer.checkpoint")
-def _checkpoint_member(exp, model_idx: int, epoch: int) -> None:
+def _checkpoint_files(exp, model_idx: int, epoch: int):
+    """Member ``model_idx``'s checkpoint of ``epoch`` and its network dumps
+    (:func:`~.checkpoint.checkpoint_files`): the state fetched and encoded
+    on this thread, as ``(path, bytes)``."""
     cfg = exp.cfg
     ckpt_dir = model_checkpoint_dir(cfg, model_idx, epoch)
     opt = (exp.opt_states[model_idx]
            if cfg.save_optimizer != "none" else None)
-    save_checkpoint(ckpt_dir, exp.models[model_idx], opt, cfg.model_save,
-                    dims=dims_from(cfg, cfg.batch_size))
-    save_networks(os.path.dirname(ckpt_dir)
-                  if cfg.num_models > 1 else cfg.dir_checkpoints,
-                  exp.models[model_idx])
+    return checkpoint.checkpoint_files(
+        ckpt_dir, os.path.dirname(ckpt_dir) if cfg.num_models > 1
+        else cfg.dir_checkpoints, exp.models[model_idx], opt,
+        cfg.model_save, dims_from(cfg, cfg.batch_size))
+
+
+@profiling.spanned("trainer.checkpoint")
+def _checkpoint_member(exp, model_idx: int, epoch: int) -> None:
+    """Checkpoint member ``model_idx`` at ``epoch``: fetch and encode its
+    state here, then hand the files to the writer thread
+    (:data:`~.checkpoint.WRITER`), waiting first for the previous
+    checkpoint's files, not for these."""
+    checkpoint.WRITER.submit(_checkpoint_files(exp, model_idx, epoch))
+
+
+@contextlib.contextmanager
+def _checkpoints_on_disk():
+    """Wait for the writer thread when the block ends, by a return or a
+    raise: every checkpoint the block submitted is then on disk, and the
+    writer's error, if it had one, is raised."""
+    try:
+        yield
+    finally:
+        with profiling.span("trainer.checkpoint"):
+            checkpoint.WRITER.wait()
 
 
 def run_epochs_ensemble(exp, use_tensorboard: bool = True,
@@ -935,7 +958,10 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
     own noise and mask generators, so params, moments, logs and checkpoints
     are the sequential run's, bit for bit. Returns the host-clock seconds
     per epoch (all members; train, test, logging, ending in a device
-    synchronize); each member's eval cadence runs after it.
+    synchronize); each member's eval cadence runs after it. A checkpoint
+    is one writer job holding every member's files; the runner waits for
+    the writer before it returns or raises, so every checkpoint is then on
+    disk.
 
     Under ``precision="bfloat16"`` the members follow the JAX runner
     (``trainer.py:1011-1105, 241-343`` there): where the members spread
@@ -976,47 +1002,53 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
           f"{[str(d) for d in members.devices]}):")
     walls: List[float] = []
     t0 = time.time()
-    for epoch in range(cfg.start_epoch, cfg.end_epoch):
-        start = time.perf_counter()
-        with _tracing(profile_dir, exp.device, epoch == cfg.start_epoch,
-                      epoch):
-            generators = [epoch_generator(cfg, m, epoch)
-                          for m in range(n_models)]
-            batches = [epoch_batches(exp, m, epoch)
-                       for m in range(n_models)]
-            n_common = (min(len(full) for full, _ in batches)
-                        if member_bf16 else 0)
-            pending = []
-            for m in range(n_models):
-                with members.member(m):
-                    pending.append(enqueue_train_epoch(
-                        exp, m, generators[m], epoch, log_every,
-                        dp_epochs[m], batches[m], bf16_full=n_common))
-            for m in range(n_models):
-                with members.member(m):
-                    # the fetches synchronize the member's stream
-                    pending[m][1].write(loggers[m], "train")
-                    test_one_epoch(exp, m, loggers[m], generators[m], epoch)
-            members.join()
-            if exp.device.type == "cuda":
-                for dev in dict.fromkeys(members.devices):
-                    torch.cuda.synchronize(dev)
-        if (epoch + 1) % 5 == 0 or (epoch + 1) == cfg.end_epoch:
-            for m in range(n_models):
-                with members.member(m):
-                    _checkpoint_member(exp, m, epoch)
-        walls.append(time.perf_counter() - start)
-        if (eval_cadence_active(cfg) and (eval_breaks_after(cfg, epoch + 1)
-                                          or epoch + 1 == cfg.end_epoch)):
-            for m in range(n_models):
-                with members.member(m):
-                    run_eval_cadence(exp, m, loggers[m], epoch + 1)
-        if progress:
-            frac = (epoch + 1 - cfg.start_epoch) / max(
-                cfg.end_epoch - cfg.start_epoch, 1)
-            print(f"\r  ensemble: epoch {epoch + 1}/{cfg.end_epoch} "
-                  f"({100 * frac:.1f}%) [{time.time() - t0:.1f}s]", end="",
-                  flush=True)
+    with _checkpoints_on_disk():
+        for epoch in range(cfg.start_epoch, cfg.end_epoch):
+            start = time.perf_counter()
+            with _tracing(profile_dir, exp.device, epoch == cfg.start_epoch,
+                          epoch):
+                generators = [epoch_generator(cfg, m, epoch)
+                              for m in range(n_models)]
+                batches = [epoch_batches(exp, m, epoch)
+                           for m in range(n_models)]
+                n_common = (min(len(full) for full, _ in batches)
+                            if member_bf16 else 0)
+                pending = []
+                for m in range(n_models):
+                    with members.member(m):
+                        pending.append(enqueue_train_epoch(
+                            exp, m, generators[m], epoch, log_every,
+                            dp_epochs[m], batches[m], bf16_full=n_common))
+                for m in range(n_models):
+                    with members.member(m):
+                        # the fetches synchronize the member's stream
+                        pending[m][1].write(loggers[m], "train")
+                        test_one_epoch(exp, m, loggers[m], generators[m],
+                                       epoch)
+                members.join()
+                if exp.device.type == "cuda":
+                    for dev in dict.fromkeys(members.devices):
+                        torch.cuda.synchronize(dev)
+            if (epoch + 1) % 5 == 0 or (epoch + 1) == cfg.end_epoch:
+                # one writer job holds every member's files
+                with profiling.span("trainer.checkpoint"):
+                    files = []
+                    for m in range(n_models):
+                        with members.member(m):
+                            files += _checkpoint_files(exp, m, epoch)
+                    checkpoint.WRITER.submit(files)
+            walls.append(time.perf_counter() - start)
+            if (eval_cadence_active(cfg) and (eval_breaks_after(cfg, epoch + 1)
+                                              or epoch + 1 == cfg.end_epoch)):
+                for m in range(n_models):
+                    with members.member(m):
+                        run_eval_cadence(exp, m, loggers[m], epoch + 1)
+            if progress:
+                frac = (epoch + 1 - cfg.start_epoch) / max(
+                    cfg.end_epoch - cfg.start_epoch, 1)
+                print(f"\r  ensemble: epoch {epoch + 1}/{cfg.end_epoch} "
+                      f"({100 * frac:.1f}%) [{time.time() - t0:.1f}s]", end="",
+                      flush=True)
     if progress:
         print()
     for logger in loggers:
@@ -1038,9 +1070,13 @@ def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
     turn, or through :func:`run_epochs_ensemble` when
     :func:`resolve_ensemble` says so. Returns member 0's host-clock seconds
     per epoch (train, test, logging, ending in a device synchronize); the
-    eval cadence runs after it. ``profile_dir``: member 0's first trained
-    epoch, its training and test pass, is traced there (``trainer.py:
-    966-986``)."""
+    eval cadence runs after it. Checkpoints go to the writer thread
+    (:func:`_checkpoint_member`); the run waits for it before it returns
+    or raises, so every checkpoint is then on disk. A resume finds its
+    checkpoint once the writer is idle
+    (:func:`~.checkpoint.find_checkpoint`). ``profile_dir``: member 0's
+    first trained epoch, its training and test pass, is traced there
+    (``trainer.py:966-986``)."""
     cfg = exp.cfg
     check_supported(cfg, exp.models[0])
     if cfg.load_saved:
@@ -1055,35 +1091,36 @@ def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
             else (lambda: None))
     walls: List[float] = []
     print("training epochs progress:")
-    for model_idx in range(cfg.num_models):
-        logger = MetricLogger(model_log_dir(cfg, model_idx),
-                              use_tensorboard=use_tensorboard)
-        logger.add_text("FLAGS", cfg.describe())
-        t0 = time.time()
-        for epoch in range(cfg.start_epoch, cfg.end_epoch):
-            start = time.perf_counter()
-            generator = epoch_generator(cfg, model_idx, epoch)
-            with _tracing(profile_dir, exp.device, model_idx == 0
-                          and epoch == cfg.start_epoch, epoch):
-                train_one_epoch(exp, model_idx, logger, generator, epoch,
-                                log_every, dp_epoch)
-                test_one_epoch(exp, model_idx, logger, generator, epoch)
-                sync()
-            if model_idx == 0:
-                walls.append(time.perf_counter() - start)
-            if (eval_cadence_active(cfg)
-                    and (eval_breaks_after(cfg, epoch + 1)
-                         or epoch + 1 == cfg.end_epoch)):
-                run_eval_cadence(exp, model_idx, logger, epoch + 1)
-            if (epoch + 1) % 5 == 0 or (epoch + 1) == cfg.end_epoch:
-                _checkpoint_member(exp, model_idx, epoch)
+    with _checkpoints_on_disk():
+        for model_idx in range(cfg.num_models):
+            logger = MetricLogger(model_log_dir(cfg, model_idx),
+                                  use_tensorboard=use_tensorboard)
+            logger.add_text("FLAGS", cfg.describe())
+            t0 = time.time()
+            for epoch in range(cfg.start_epoch, cfg.end_epoch):
+                start = time.perf_counter()
+                generator = epoch_generator(cfg, model_idx, epoch)
+                with _tracing(profile_dir, exp.device, model_idx == 0
+                              and epoch == cfg.start_epoch, epoch):
+                    train_one_epoch(exp, model_idx, logger, generator, epoch,
+                                    log_every, dp_epoch)
+                    test_one_epoch(exp, model_idx, logger, generator, epoch)
+                    sync()
+                if model_idx == 0:
+                    walls.append(time.perf_counter() - start)
+                if (eval_cadence_active(cfg)
+                        and (eval_breaks_after(cfg, epoch + 1)
+                             or epoch + 1 == cfg.end_epoch)):
+                    run_eval_cadence(exp, model_idx, logger, epoch + 1)
+                if (epoch + 1) % 5 == 0 or (epoch + 1) == cfg.end_epoch:
+                    _checkpoint_member(exp, model_idx, epoch)
+                if progress:
+                    frac = (epoch + 1 - cfg.start_epoch) / max(
+                        cfg.end_epoch - cfg.start_epoch, 1)
+                    print(f"\r  model {model_idx}: epoch {epoch + 1}/"
+                          f"{cfg.end_epoch} ({100 * frac:.1f}%) "
+                          f"[{time.time() - t0:.1f}s]", end="", flush=True)
             if progress:
-                frac = (epoch + 1 - cfg.start_epoch) / max(
-                    cfg.end_epoch - cfg.start_epoch, 1)
-                print(f"\r  model {model_idx}: epoch {epoch + 1}/"
-                      f"{cfg.end_epoch} ({100 * frac:.1f}%) "
-                      f"[{time.time() - t0:.1f}s]", end="", flush=True)
-        if progress:
-            print()
-        logger.close()
+                print()
+            logger.close()
     return walls

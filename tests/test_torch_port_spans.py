@@ -63,7 +63,7 @@ TRAINER_PARENTS = ("trainer.steps", "trainer.test", "trainer.checkpoint")
 
 
 def test_an_epoch_writes_every_trainer_span_in_its_parent(traced_epoch):
-    spans, _, _ = traced_epoch
+    spans, counts, _ = traced_epoch
     by = {}
     for s in spans:
         by.setdefault(s[0], []).append(s)
@@ -96,8 +96,12 @@ def test_an_epoch_writes_every_trainer_span_in_its_parent(traced_epoch):
                        for s in by[name]), name
     assert all(inside(s, by["trainer.checkpoint.serialize"])
                for s in by["trainer.checkpoint.fetch"])
-    # six files (Adam's state, the model, enc_/dec_ of each modality)
-    assert len(by["trainer.checkpoint.write"]) == 6
+    # trainer.checkpoint.write is the trainer's wait for the writer thread:
+    # one in the checkpoint's submit, one as run_epochs ends; the writer
+    # thread writes six files (Adam's state, the model, enc_/dec_ of each
+    # modality)
+    assert len(by["trainer.checkpoint.write"]) == 2
+    assert counts["checkpoint_files_deferred"] == 6
 
 
 def epoch_copies(exp, epoch):
