@@ -2266,22 +2266,23 @@ def profile_epoch(datadir, run_dir, device):
     from multivae_tpu_torch.train import profiling, trainer
     from multivae_tpu_torch.train.config import Config
     from multivae_tpu_torch.train.experiment import MultimodalExperiment
+    from multivae_tpu_torch.train.routes import Routes
 
     cfg = Config.load(os.path.join(run_dir, "flags.json"))
     cfg.datasetdir = datadir
     exp = MultimodalExperiment(cfg, device)
     exp.set_datasets()
     exp.set_optimizers()
-    dp_epoch = trainer.make_dp_epoch(cfg, exp.models[0], exp.device)
+    routes = Routes(cfg, exp.models[0], exp.device)
     trainer.train_one_epoch(exp, 0, None, trainer.epoch_generator(cfg, 0, 0),
-                            dp_epoch=dp_epoch)
+                            routes=routes)
     torch.cuda.synchronize()
     with profiling.trace(os.path.join(run_dir, "profile"), device,
                          1) as prof:
         start = time.perf_counter()
         trainer.train_one_epoch(exp, 0, None,
                                 trainer.epoch_generator(cfg, 0, 1), 1,
-                                dp_epoch=dp_epoch)
+                                routes=routes)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
     WARM_UP_KEPT.append(profiling.warm_up_kept(prof))
@@ -3413,7 +3414,7 @@ def split_route_check(route, device, gen, phase, n=5):
     from multivae_tpu_torch.params import (FusedDims, dims_from,
                                            generic_dims, layout_index,
                                            model_flat_params)
-    from multivae_tpu_torch.train import trainer
+    from multivae_tpu_torch.train import routes
 
     cfg = flagship_cfg(route.method, seed=SEED, dropout_rate=MASK_RATE,
                        **route.cfg_kw)
@@ -3421,8 +3422,9 @@ def split_route_check(route, device, gen, phase, n=5):
     model = build_model(cfg, make_modalities(
         cfg.input_dim, cfg.style_dim, cfg.likelihood), device, seed=SEED)
     split, general = dims_from(cfg, 256), generic_dims(cfg, 256)
-    epoch = trainer.make_generic_epoch(cfg, model)
-    if not isinstance(split, FusedDims) or epoch is None:
+    [(_, _, step)] = routes.Routes(cfg, model, device).full_parts(n)
+    epoch = step.epoch
+    if not isinstance(split, FusedDims) or step.name != routes.LAYER_STACK:
         raise SystemExit("poe without unimodal ELBOs at the split layout's "
                          "architecture was to take the layer-stack step")
     index = layout_index(split, general, model.mod_names).to(device)
@@ -5136,7 +5138,7 @@ def general_route_run(phase, path, datadir, root, card, step_name, **kw):
     import pandas as pd
 
     from multivae_tpu_torch.models import build_model, make_modalities
-    from multivae_tpu_torch.train import trainer
+    from multivae_tpu_torch.train.routes import Routes
 
     width = dict(input_dim=kw.get("input_dims", SLICE_TRAIN["input_dims"]),
                  style_dim=kw.get("style_dim", SLICE_TRAIN["style_dim"]))
@@ -5146,7 +5148,7 @@ def general_route_run(phase, path, datadir, root, card, step_name, **kw):
             "out_scale_per_subject", False))
     model = build_model(cfg, make_modalities(cfg.input_dim, cfg.style_dim,
                                              cfg.likelihood), "cpu")
-    mesh = trainer.general_step_mesh(cfg, model, "cuda:0")
+    mesh = Routes(cfg, model, "cuda:0").step_mesh
     log(phase, f"{path}: mesh {mesh}")
     zero_launch_counts()
     with holding_general_steps(step_name) as rec:

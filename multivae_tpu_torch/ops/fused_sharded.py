@@ -1,5 +1,5 @@
-"""The step kernels over a mesh: data-parallel row shards and ensemble
-members.
+"""The step kernels over a mesh: data-parallel row shards, and the CUDA
+streams of ensemble members.
 
 Counterpart of ``multivae_tpu/ops/fused_sharded.py``.
 
@@ -16,18 +16,17 @@ Counterpart of ``multivae_tpu/ops/fused_sharded.py``.
   follows per step. The noise and the masks are the single-device streams,
   row-sliced, so a sharded run and an unsharded one from one seed agree to
   the order of the sums.
-* Ensemble (``make_fused_ensemble_epoch`` there): the members are
-  independent, each runs its epoch through the unsharded kernels on its
-  entry of the mesh's ``model`` axis, on a CUDA stream of its own
-  (:class:`MemberStreams`).
+* Ensemble: the members are independent; the trainer's ensemble runner
+  runs each member's epoch on its entry of the mesh's ``model`` axis, on a
+  CUDA stream of its own (:class:`MemberStreams`).
 
 The shards share one flat train state on the first entry's device. A shard
 whose entry is another device takes copies of the params and of its rows and
 returns its partial sums to the first device.
 
-``cfg.precision = "bfloat16"`` runs both on the kernels' bfloat16 branch
-(``bf16``, :mod:`.bf16`), as the JAX functions read ``matmul_bf16`` from
-it: a shard's rounded products are its local rows', summed over the
+``cfg.precision = "bfloat16"`` runs the shards on the kernels' bfloat16
+branch (``bf16``, :mod:`.bf16`), as the JAX functions read ``matmul_bf16``
+from it: a shard's rounded products are its local rows', summed over the
 shards after rounding, as ``psum`` sums the TPU kernels' partial
 gradients.
 """
@@ -40,7 +39,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from ..params import FusedDims, dims_from
-from . import fused_methods, fused_step
+from . import fused_step
 from .adam import AdamHyper, AdamState, adam_hyper, adam_update
 from .bf16 import cfg_bf16
 from .fused_methods import (
@@ -139,12 +138,6 @@ def dp_method_step_flat(method: str, p, mu, nu, t: int, x1, x2, noise,
     return _dp_update(shard_step, p, mu, nu, t, devices, local.b, hyper)
 
 
-def uses_mopoe_step(cfg) -> bool:
-    """Whether complete batches take the MoPoE step (``joint_elbo`` without
-    dropout) rather than the method step (``fused_sharded.py:169``)."""
-    return cfg.method == "joint_elbo" and float(cfg.dropout_rate) == 0.0
-
-
 def make_fused_dp_epoch(cfg, model, mesh):
     """The data-parallel epoch over full complete batches, the contract of
     ``make_fused_dp_scan_train_step`` in the flat-buffer form: ``fn(params,
@@ -159,7 +152,7 @@ def make_fused_dp_epoch(cfg, model, mesh):
     learn_scale = bool(cfg.learn_output_scale)
     mod_names = [m.name for m in model.modalities]
     method = cfg.method
-    use_hand = uses_mopoe_step(cfg)
+    use_hand = fused_step.takes_mopoe_step(cfg, model, cfg.batch_size)
     n_masks = 0 if use_hand else n_dropout_masks(method, cfg.dropout_rate)
     names = (metric_names(model) if use_hand
              else method_metric_names(model, method))
@@ -216,57 +209,3 @@ class MemberStreams:
         for dev, stream in zip(self.devices, self.streams):
             if stream is not None:
                 torch.cuda.current_stream(dev).wait_stream(stream)
-
-
-def make_fused_ensemble_epoch(cfg, model, mesh):
-    """The ensemble epoch over full complete batches, the contract of
-    ``make_fused_ensemble_epoch`` in the flat-buffer form: ``fn(params,
-    opts, xs, noise, masks=None) -> (opts, metrics, metric names)`` where
-    every argument is a list with one entry per member (``xs[m] = {mod: [n,
-    B, d]}``, ``noise[m] [n, B, w]``, ``masks[m]`` or None) on the member's
-    mesh device. Each member's epoch runs the unsharded step kernels (the
-    MoPoE step, or the method step) on its own stream; the members' params
-    and moments are updated in place. The member count must be the mesh's
-    ``model`` axis; ``cfg.precision`` picks the kernels' instance."""
-    consts = fused_step.consts_from(cfg)
-    bf16 = cfg_bf16(cfg)
-    hyper = adam_hyper(cfg)
-    learn_scale = bool(cfg.learn_output_scale)
-    mod_names = [m.name for m in model.modalities]
-    method = cfg.method
-    use_hand = uses_mopoe_step(cfg)
-    names = (metric_names(model) if use_hand
-             else method_metric_names(model, method))
-    members = MemberStreams(mesh)
-    n_model = mesh.shape["model"]
-
-    def epoch(params, opts, xs, noise, masks=None):
-        if len(params) != n_model:
-            raise ValueError(f"fused ensemble epoch needs n_models == mesh "
-                             f"model axis ({n_model}), got {len(params)}")
-        new_opts, metrics = [], []
-        for m in range(n_model):
-            with members.member(m) as dev:
-                if params[m].device != dev:
-                    raise ValueError(f"member {m}'s state is on "
-                                     f"{params[m].device}, its mesh entry "
-                                     f"is {dev}")
-                opt = opts[m]
-                x1s, x2s = xs[m][mod_names[0]], xs[m][mod_names[1]]
-                dims = dims_from(cfg, x1s.shape[1])
-                if use_hand:
-                    out = fused_step.epoch_flat(
-                        params[m], opt.mu, opt.nu, opt.count, x1s, x2s,
-                        noise[m], dims, consts, hyper, learn_scale,
-                        bf16=bf16)
-                else:
-                    out = fused_methods.method_epoch_flat(
-                        method, params[m], opt.mu, opt.nu, opt.count, x1s,
-                        x2s, noise[m], dims, consts, hyper, learn_scale,
-                        None if masks is None else masks[m], bf16=bf16)
-                metrics.append(out)
-                new_opts.append(AdamState(opt.count + len(noise[m]), opt.mu,
-                                          opt.nu))
-        members.join()
-        return new_opts, metrics, names
-    return epoch

@@ -46,7 +46,7 @@ from ..params import (
     split_layout,
 )
 from .adam import AdamHyper, adam_scalars, adam_update
-from .bf16 import dot
+from .bf16 import cfg_bf16, dot
 
 LOG2PI = math.log(2.0 * math.pi)
 POE_EPS = 1e-8
@@ -112,6 +112,18 @@ def supports_fused(cfg, model, batch) -> bool:
             and split_layout_ok(cfg, model)
             and all(n in batch for n in names)
             and cfg.dropout_rate == 0.0)
+
+
+def takes_mopoe_step(cfg, model, rows: int) -> bool:
+    """Whether complete batches of ``rows`` rows take this step rather than
+    the method step (``fused_methods``): :func:`supports_fused`'s configs,
+    under ``precision="bfloat16"`` only at ``cfg.batch_size`` rows, as the
+    JAX package's group policy never takes the MoPoE kernel (under float32
+    the two steps compute the same function, under bfloat16 they round
+    differently)."""
+    complete = {m.name: None for m in model.modalities}
+    return (supports_fused(cfg, model, complete)
+            and (rows == cfg.batch_size or not cfg_bf16(cfg)))
 
 
 def _uniform_bounds(b: int, k: int):

@@ -3,67 +3,14 @@
 Per member and epoch (``trainer.py:88-196, 347-414, 817-1008``):
 
 * the :class:`~multivae_tpu_torch.data.MissingModalitySampler` (seeded
-  ``cfg.seed + epoch``) emits subset-homogeneous batches; with
-  ``fused_training`` the full-size complete batches run first, in sampler
-  order, in one epoch call; the remaining batches then run grouped by
-  ``(presence pattern, rows)`` in :func:`canonical_group_order`, one epoch
-  call per group. Complete batches, full or partial, of ``joint_elbo``
-  without dropout take the MoPoE step kernel (``ops/fused_step.py``,
-  ``csrc/mopoe_step.cu``), those of moe, jsd, poe and of any method with
-  dropout the method step kernel (``ops/fused_methods.py``,
-  ``csrc/method_step.cu``); a single-present group takes the presence
-  kernel (``ops/fused_presence.py``, ``csrc/presence_step.cu``). The three
-  kernels are persistent: on a card a group's epoch call is ONE launch
-  that runs all its steps with Adam inside. Without ``fused_training``
-  every batch takes the general autograd step, in the same order with the
-  same noise and masks;
-* ``precision="bfloat16"`` takes the three kernels' bfloat16 branch (the
-  TPU kernels' ``matmul_bf16``, ``ops/bf16.py``) on the JAX package's
-  routes: the full complete batches of ``joint_elbo`` without dropout take
-  the MoPoE step (scheme A), every other complete batch, a partial
-  ``joint_elbo`` one too, the method step (scheme B;
-  ``trainer.py:63-66`` there: the group policy never takes the MoPoE
-  kernel), the single-present groups the presence step (scheme B). Under
-  ``data_parallel > 1`` the full complete batches take the row-slice
-  kernels in bfloat16 and the other groups stay float32 (the JAX package
-  runs them on its XLA step, ``trainer.py:925-940``); the ensemble runner
-  follows ``run_epochs_ensemble`` there (:func:`run_epochs_ensemble`).
-  The layer-stack step, the autograd step, the test pass and evaluation
-  read no precision;
-* a config the method step does not take (a modality count other than 2,
-  more encoder hidden layers, decoder hidden layers, a per-sample output
-  scale, the laplace, bernoulli or categorical likelihood, an unfactorized
-  latent, poe without its unimodal ELBOs) inside the layer-stack step's
-  envelope (``ops/fused_generic.py``) sends its full complete batches to
-  that kernel (``csrc/generic_step.cu``, persistent as well: one launch
-  with Adam inside; at the split layout's architecture the state is
-  gathered into the general layout around the launch) and every other batch
-  (the partial complete batch, the single-present groups) to the general
-  autograd step, as the JAX package does (``trainer.py:896-899,
-  925-944``);
-* with ``data_parallel = N > 1`` on a config the method step takes, the
-  full complete batches take the data-parallel epoch
-  (``ops/fused_sharded.py``): each batch's rows split over a data mesh of
-  ``N`` entries, every shard runs the row-slice entry point of the same
-  step kernel, the shards' gradients are summed in shard order and one
-  Adam update follows. Every other group (the partial complete batch, the
-  single-present groups) takes the unsharded kernels as above, on the
-  first device. ``batch_size`` must be a multiple of ``N``. Noise and
-  masks are the unsharded run's, row-sliced, so the two runs agree to the
-  order of the sums;
-* with ``data_parallel = N > 1`` on any other config, or with
-  ``fused_training=False``, every batch takes the data-parallel general
-  step (``train_step.dp_general_step``, the JAX package's XLA step over a
-  data mesh, ``trainer.py:860-865, 909-935, 181-186`` there) when its rows
-  divide ``N`` (``mesh_for_rows``) and the unsharded general step
-  otherwise; no step kernel runs, as JAX sends no group under a mesh to a
-  Pallas kernel there;
-* with ``tensor_parallel = T > 1`` every batch takes the tensor-parallel
-  step (:func:`multivae_tpu_torch.parallel.tensor.tp_step`) over a
-  ``("data", "tensor")`` mesh of ``data_parallel x T`` entries, its rows
-  sharded over ``data`` when they divide it (``trainer.py:834-859``); no
-  step kernel runs (the JAX TP path runs none) and it reads no precision.
-  Ensemble members then train in turn (:func:`resolve_ensemble`);
+  ``cfg.seed + epoch``) emits subset-homogeneous batches; the full-size
+  complete batches run first, in sampler order, then the remaining batches
+  grouped by ``(presence pattern, rows)`` in :func:`canonical_group_order`.
+  Which step takes each group, and in which precision, is read from the
+  member's :class:`~.routes.Routes`, built once per run; :mod:`.routes`
+  states the rules. A kernel group is one epoch call (on a card ONE launch
+  of a persistent kernel with Adam inside); on a general step each batch
+  is one step of autograd and Adam;
 * the batches come from each member's splits kept scaled on its device
   (:class:`~multivae_tpu_torch.train.device_cohort.DeviceCohort`, built at
   first use): the sampler runs on the host as before, and a batch is an
@@ -95,11 +42,8 @@ depend on its dropout rate; they are drawn in the same order and copied
 once per epoch; the general step takes the same masks (one per hidden layer
 of every network and pass,
 :func:`~multivae_tpu_torch.train.train_step.general_mask_count`). The test
-pass takes no mask. The
-metrics are fetched once for each pass. A configuration whose full
-complete batches would take the layer-stack step past its caps raises
-``NotImplementedError`` naming the ROADMAP item; nothing falls back.
-The chunked drivers are not ported: ``epoch_chunk`` is accepted and the
+pass takes no mask. The metrics are fetched once for each pass. The
+chunked drivers are not ported: ``epoch_chunk`` is accepted and the
 per-epoch driver runs (ROADMAP Queue 1 item 5).
 
 Ensembles (``trainer.py:199-238, 1011-1105``): :func:`run_epochs` trains
@@ -115,7 +59,6 @@ the result is the sequential run's, bit for bit. The JAX package's stacked
 from __future__ import annotations
 
 import contextlib
-import dataclasses
 import os
 import time
 import warnings
@@ -125,58 +68,24 @@ import numpy as np
 import torch
 
 from ..data import MissingModalitySampler, simple_batches
-from ..ops import (
-    fused_generic,
-    fused_methods,
-    fused_presence,
-    fused_sharded,
-    fused_step,
-)
+from ..ops import fused_methods, fused_presence, fused_sharded, fused_step
 from ..ops.adam import AdamState, adam_hyper
 from ..ops.bf16 import cfg_bf16
-from ..parallel import data_mesh, make_mesh, spread, tp_mesh, visible_cards
-from ..parallel.tensor import check_divides, tp_step
-from ..params import (
-    GenericDims,
-    dims_from,
-    generic_dims,
-    layout_index,
-    load_flat_params,
-    model_flat_params,
-)
+from ..parallel import make_mesh, spread, visible_cards
+from ..parallel.tensor import tp_step
+from ..params import dims_from, load_flat_params, model_flat_params
 from ..utils.filehandling import model_checkpoint_dir, model_log_dir
 from . import checkpoint, profiling
 from .device_cohort import DeviceCohort
 from .logging import MetricLogger
+from .routes import MOPOE, PRESENCE, Routes, check_supported, group_kernel
 from .train_step import (
     batch_noise_width,
     dp_general_step,
     eval_step,
     general_mask_count,
     general_step,
-    mesh_for_rows,
-    model_replicas,
 )
-
-
-def unported_features(cfg, model) -> List[str]:
-    """Each part of ``cfg`` whose route in the JAX package is a kernel the
-    port does not have yet, with its ROADMAP item: the layer-stack step's
-    caps, where that step would take the full complete batches (a config
-    the method step does not take, trained fused on one data shard)."""
-    example = {m.name: None for m in model.modalities}
-    if (general_step_mesh(cfg, model, "cpu") is None and cfg.fused_training
-            and not fused_methods.supports_method_fused(cfg, model,
-                                                        example)):
-        return fused_generic.envelope_gaps(cfg, model)
-    return []
-
-
-def check_supported(cfg, model) -> None:
-    missing = unported_features(cfg, model)
-    if missing:
-        raise NotImplementedError(
-            "not ported to multivae_tpu_torch yet: " + "; ".join(missing))
 
 
 def epoch_generator(cfg, model_idx: int, epoch: int) -> torch.Generator:
@@ -246,20 +155,13 @@ def canonical_group_order(keys, mod_names, batch_size):
 
 def make_group_fused_epoch(cfg, model, key):
     """The kernel epoch of the batches of one ``(presence pattern, rows)``
-    group (``trainer.py:41-72, 885-895``): complete batches, full or
-    partial, take the MoPoE step kernel for ``joint_elbo`` without dropout
-    and the method step kernel otherwise; single-present batches the
-    presence kernel. ``cfg.precision == "bfloat16"`` takes the kernels'
-    bfloat16 branch, where only the FULL complete batches of
-    ``joint_elbo`` without dropout take the MoPoE step, as in the JAX
-    package (its partial ones take the method step: under float32 the two
-    compute the same function, under bfloat16 they round differently).
-    Returns ``fn(params, opt, xs, noise, masks) -> (opt, metrics [n, k],
-    metric names)`` with ``xs = {mod: [n, B, d]}``, ``noise [n, B, w]``,
-    ``masks [n, n_masks, B, hidden]`` or None; ``params`` and the moments
-    are updated in place. A group the JAX package routes to a kernel the
-    port does not have raises."""
+    group on the step :func:`~.routes.group_kernel` names, in ``cfg``'s
+    precision. Returns ``fn(params, opt, xs, noise, masks) -> (opt, metrics
+    [n, k], metric names)`` with ``xs = {mod: [n, B, d]}``, ``noise [n, B,
+    w]``, ``masks [n, n_masks, B, hidden]`` or None; ``params`` and the
+    moments are updated in place."""
     mods, rows = key
+    kernel = group_kernel(cfg, model, key)
     bf16 = cfg_bf16(cfg)
     mod_names = [m.name for m in model.modalities]
     dims = dims_from(cfg, rows)
@@ -267,84 +169,29 @@ def make_group_fused_epoch(cfg, model, key):
     hyper = adam_hyper(cfg)
     learn_scale = bool(cfg.learn_output_scale)
     method = cfg.method
-    example = {m: None for m in mods}
-    if len(mods) == len(mod_names):
-        if not fused_methods.supports_method_fused(cfg, model, example):
-            check_supported(cfg, model)
-            raise NotImplementedError(f"no kernel for the group {key}")
+    if kernel == PRESENCE:
+        mod_idx = mod_names.index(mods[0])
+        names = fused_presence.presence_metric_names(model, method, mod_idx)
+    else:
         names = fused_methods.method_metric_names(model, method)
-        mopoe = (fused_step.supports_fused(cfg, model, example)
-                 and (rows == cfg.batch_size or not bf16))
 
-        def complete(p, opt, xs, noise, masks=None):
-            x1s, x2s = xs[mod_names[0]], xs[mod_names[1]]
-            if mopoe:
-                metrics = fused_step.epoch_flat(
-                    p, opt.mu, opt.nu, opt.count, x1s, x2s, noise, dims,
-                    consts, hyper, learn_scale, bf16=bf16)
-            else:
-                metrics = fused_methods.method_epoch_flat(
-                    method, p, opt.mu, opt.nu, opt.count, x1s, x2s, noise,
-                    dims, consts, hyper, learn_scale, masks, bf16=bf16)
-            return (AdamState(opt.count + len(noise), opt.mu, opt.nu),
-                    metrics, names)
-        return complete
-    if not fused_presence.supports_presence_fused(cfg, model, example):
-        check_supported(cfg, model)
-        raise NotImplementedError(f"no kernel for the group {key}")
-    mod_idx = mod_names.index(mods[0])
-    names = fused_presence.presence_metric_names(model, method, mod_idx)
-
-    def presence(p, opt, xs, noise, masks=None):
-        metrics = fused_presence.presence_epoch_flat(
-            p, opt.mu, opt.nu, opt.count, xs[mods[0]], noise, dims, consts,
-            hyper, learn_scale, mod_idx, method, masks, bf16=bf16)
+    def epoch(p, opt, xs, noise, masks=None):
+        state = (p, opt.mu, opt.nu, opt.count)
+        if kernel == PRESENCE:
+            metrics = fused_presence.presence_epoch_flat(
+                *state, xs[mods[0]], noise, dims, consts, hyper, learn_scale,
+                mod_idx, method, masks, bf16=bf16)
+        elif kernel == MOPOE:
+            metrics = fused_step.epoch_flat(
+                *state, xs[mod_names[0]], xs[mod_names[1]], noise, dims,
+                consts, hyper, learn_scale, bf16=bf16)
+        else:
+            metrics = fused_methods.method_epoch_flat(
+                method, *state, xs[mod_names[0]], xs[mod_names[1]], noise,
+                dims, consts, hyper, learn_scale, masks, bf16=bf16)
         return (AdamState(opt.count + len(noise), opt.mu, opt.nu), metrics,
                 names)
-    return presence
-
-
-def make_generic_epoch(cfg, model):
-    """The kernel epoch of the full complete batches of a config the method
-    step does not take (``trainer.py:896-899``): the layer-stack step
-    (``ops/fused_generic.py``), or None when the method step takes them or
-    the config is outside the layer-stack step's envelope. Same contract as
-    :func:`make_group_fused_epoch`'s functions; the metric rows are in the
-    TPU kernel's order. At the split layout's architecture (poe without its
-    unimodal ELBOs) the state is gathered into the general layout for the
-    launch and scattered back after it."""
-    example = {m.name: None for m in model.modalities}
-    if (fused_methods.supports_method_fused(cfg, model, example)
-            or not fused_generic.supports_generic_fused(cfg, model, example)):
-        return None
-    mod_names = [m.name for m in model.modalities]
-    dims = generic_dims(cfg, cfg.batch_size)
-    layout = dims_from(cfg, cfg.batch_size)
-    gather = (None if isinstance(layout, GenericDims)
-              else layout_index(layout, dims, mod_names))
-    consts = fused_step.consts_from(cfg)
-    hyper = adam_hyper(cfg)
-    learn_scale = bool(cfg.learn_output_scale)
-    method = cfg.method
-    uni = bool(cfg.poe_unimodal_elbos)
-    names = fused_generic.generic_metric_names(model, method, uni)
-    order = fused_generic.metric_permutation(model, method, uni)
-
-    def generic(p, opt, xs, noise, masks=None):
-        state = (p, opt.mu, opt.nu)
-        if gather is not None:
-            index = profiling.to_device(gather, p.device)
-            state = tuple(t[index] for t in state)
-        metrics = fused_generic.generic_epoch_flat(
-            method, *state, opt.count, [xs[m] for m in mod_names], noise,
-            dims, consts, hyper, learn_scale, masks, order,
-            unimodal_elbos=uni)
-        if gather is not None:
-            for t, g in zip((p, opt.mu, opt.nu), state):
-                t[index] = g
-        return (AdamState(opt.count + len(noise), opt.mu, opt.nu), metrics,
-                names)
-    return generic
+    return epoch
 
 
 def _rows(data) -> int:
@@ -432,50 +279,14 @@ class _Logs:
                     write(dict(sorted(zip(names, block[j]))))
 
 
-def make_dp_epoch(cfg, model, device):
-    """The data-parallel epoch of the full complete batches for
-    ``cfg.data_parallel > 1`` on the row-slice kernels
-    (``trainer.py:900-908``) over a data mesh that starts at ``device``, or
-    None where no batch takes it (``data_parallel == 1``, or the general
-    step's routes, :func:`general_step_mesh`). A ``batch_size`` the shards
-    do not divide raises."""
-    n = int(cfg.data_parallel)
-    if n <= 1 or general_step_mesh(cfg, model, device) is not None:
-        return None
-    if cfg.batch_size % n:
-        raise ValueError(
-            f"batch_size={cfg.batch_size} is not a multiple of "
-            f"data_parallel={n}: every shard takes batch_size / "
-            f"data_parallel rows of a full batch")
-    return fused_sharded.make_fused_dp_epoch(
-        cfg, model, data_mesh(n, spread(device, n)))
-
-
-def general_step_mesh(cfg, model, device):
-    """The mesh every batch's general step runs over, starting at
-    ``device``: the ``("data", "tensor")`` mesh under ``tensor_parallel >
-    1`` (``trainer.py:834-859``); the data mesh under ``data_parallel > 1``
-    with ``fused_training=False`` or on a config the method step does not
-    take (``:860-865``); else None (the kernel routes)."""
-    n_data, n_tensor = int(cfg.data_parallel), int(cfg.tensor_parallel)
-    if n_tensor > 1:
-        check_divides(cfg, n_tensor)
-        return tp_mesh(n_tensor, n_data, spread(device, n_data * n_tensor))
-    example = {m.name: None for m in model.modalities}
-    if n_data > 1 and not (cfg.fused_training
-                           and fused_methods.supports_method_fused(
-                               cfg, model, example)):
-        return data_mesh(n_data, spread(device, n_data))
-    return None
-
-
 def train_one_epoch(exp, model_idx: int, logger: Optional[MetricLogger],
                     generator: torch.Generator, epoch: int = 0,
-                    log_every: int = 1, dp_epoch=None) -> int:
-    """One epoch of one member; returns the number of steps. ``dp_epoch``
-    (:func:`make_dp_epoch`) takes the full complete batches when given."""
+                    log_every: int = 1, routes: Optional[Routes] = None
+                    ) -> int:
+    """One epoch of one member on its ``routes`` (built here when not
+    given); returns the number of steps."""
     n_steps, logs = enqueue_train_epoch(exp, model_idx, generator, epoch,
-                                        log_every, dp_epoch)
+                                        log_every, routes)
     logs.write(logger, "train")
     return n_steps
 
@@ -507,32 +318,22 @@ def epoch_batches(exp, model_idx: int, epoch: int):
 
 @profiling.spanned("trainer.steps")
 def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
-                        epoch: int = 0, log_every: int = 1, dp_epoch=None,
-                        batches=None, bf16_full=None):
+                        epoch: int = 0, log_every: int = 1,
+                        routes: Optional[Routes] = None, batches=None,
+                        bf16_full=None):
     """Launch one epoch of one member on its device's current stream
     without fetching anything; returns ``(number of steps, the epoch's
-    logs)``, the logs still on the device. ``batches``: the epoch's
-    :func:`epoch_batches`, if already drawn. Under ``precision="bfloat16"``
-    the kernels take their bfloat16 branch: every group, or with
-    ``dp_epoch`` the full complete batches alone; ``bf16_full`` (the
-    ensemble runner's) limits it to the first ``bf16_full`` full complete
-    batches, every other batch taking float32."""
+    logs)``, the logs still on the device. ``routes``: the member's
+    :class:`~.routes.Routes`, built here when not given. ``batches``: the
+    epoch's :func:`epoch_batches`, if already drawn. ``bf16_full``: the
+    ensemble runner's count of full complete batches that may take the
+    bfloat16 branch (:meth:`~.routes.Routes.full_parts`)."""
     cfg = exp.cfg
     model = exp.models[model_idx]
     device = exp.params[model_idx].device
+    routes = routes or Routes(cfg, model, device)
     mod_names = [m.name for m in model.modalities]
-    # under a general step's mesh every batch takes that step, in the
-    # unfused order (the full complete batches, then the groups)
-    step_mesh = general_step_mesh(cfg, model, device)
-    fused = bool(cfg.fused_training) and step_mesh is None
-    replicas = model_replicas(model) if step_mesh is not None else None
     full, general = batches or epoch_batches(exp, model_idx, epoch)
-    bf16 = cfg_bf16(cfg)
-    # the config of the groups that take float32 under bfloat16
-    cfg_f32 = dataclasses.replace(cfg, precision="float32") if bf16 else cfg
-    rest_bf16 = bf16 and dp_epoch is None and bf16_full is None
-    n_bf16 = len(full) if bf16_full is None or not bf16 else min(
-        int(bf16_full), len(full))
     shapes = [(_rows(d), batch_noise_width(cfg, model, d))
               for d in full + general]
     noise = draw_noise(generator, shapes, device)
@@ -552,25 +353,18 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
     logs = _Logs()
     n_steps = 0
 
-    # on the layer-stack step only the full complete batches have a kernel
-    generic_epoch = make_generic_epoch(cfg, model) if fused else None
-
     @profiling.spanned("trainer.launch")
-    def run_general(data, eps, batch_masks, log: bool):
-        # autograd of the model, then flat Adam: fused_training=False, the
-        # batches of a deep architecture that are not full and complete,
-        # and every batch under a general step's mesh
+    def run_general(mesh, data, eps, batch_masks, log: bool):
+        # autograd of the model, then flat Adam, over the step's mesh
         nonlocal opt, n_steps
-        rows = _rows(data)
-        args = (p, opt, data, eps, dims_from(cfg, rows), hyper)
-        if step_mesh is not None and "tensor" in step_mesh.shape:
-            opt, _, metrics = tp_step(cfg, model, *args, step_mesh,
-                                      batch_masks)
-        elif mesh_for_rows(step_mesh, rows) is not None:
-            opt, _, metrics = dp_general_step(cfg, replicas, *args,
-                                              step_mesh, batch_masks)
-        else:
+        args = (p, opt, data, eps, dims_from(cfg, _rows(data)), hyper)
+        if mesh is None:
             opt, _, metrics = general_step(cfg, model, *args, batch_masks)
+        elif "tensor" in mesh.shape:
+            opt, _, metrics = tp_step(cfg, model, *args, mesh, batch_masks)
+        else:
+            opt, _, metrics = dp_general_step(cfg, routes.replicas, *args,
+                                              mesh, batch_masks)
         n_steps += 1
         if log:
             names = list(metrics)
@@ -578,51 +372,36 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
                      [0])
 
     @profiling.spanned("trainer.launch")
-    def run_group(key, batches, batch_noise, batch_masks, rows_to_log,
-                  epoch_fn=None, group_bf16=False):
+    def run_group(epoch_fn, batches, batch_noise, batch_masks, log):
         # one kernel epoch over the group's batches
         nonlocal opt, n_steps
-        epoch_fn = epoch_fn or make_group_fused_epoch(
-            cfg if group_bf16 else cfg_f32, model, key)
-        xs = {m: _stack(batches, m) for m in key[0]}
+        xs = {m: _stack(batches, m) for m in batches[0]}
         opt, metrics, names = epoch_fn(
             p, opt, xs, torch.stack(batch_noise),
             None if batch_masks[0] is None else torch.stack(batch_masks))
         n_steps += len(batches)
-        logs.add(names, metrics, rows_to_log)
+        logs.add(names, metrics, [j for j, on in enumerate(log) if on])
 
-    if fused and full:
-        # the first n_bf16 in the bfloat16 branch where it is on, the
-        # others (the ensemble's past its members' common prefix) in f32
-        key = (tuple(sorted(mod_names)), cfg.batch_size)
-        for lo, hi, part_bf16 in ((0, n_bf16, bf16), (n_bf16, len(full),
-                                                      False)):
-            if hi > lo:
-                run_group(key, full[lo:hi], noise_full[lo:hi],
-                          masks_full[lo:hi],
-                          [j - lo for j in range(lo, hi)
-                           if j % log_every == 0],
-                          dp_epoch or generic_epoch, part_bf16)
-    elif not fused:
-        for j, data in enumerate(full):
-            run_general(data, noise_full[j], masks_full[j],
-                        j % log_every == 0)
+    def run(step, batches, batch_noise, batch_masks, log):
+        # the batches on ``step``; ``log[j]``: whether the j-th is logged
+        if step.epoch is None:
+            for args in zip(batches, batch_noise, batch_masks, log):
+                run_general(step.mesh, *args)
+        else:
+            run_group(step.epoch, batches, batch_noise, batch_masks, log)
 
+    for lo, hi, step in routes.full_parts(len(full), bf16_full):
+        run(step, full[lo:hi], noise_full[lo:hi], masks_full[lo:hi],
+            [j % log_every == 0 for j in range(lo, hi)])
     groups: Dict = {}
     for i, data in enumerate(general):
         groups.setdefault((tuple(sorted(data)), _rows(data)), []).append(i)
     for key in canonical_group_order(groups, mod_names, cfg.batch_size):
         idx = groups[key]
-        if fused and generic_epoch is None:
-            run_group(key, [general[i] for i in idx],
-                      [noise_general[i] for i in idx],
-                      [masks_general[i] for i in idx],
-                      [j for j, i in enumerate(idx) if i % log_every == 0],
-                      group_bf16=rest_bf16)
-        else:
-            for i in idx:
-                run_general(general[i], noise_general[i], masks_general[i],
-                            i % log_every == 0)
+        run(routes.group(key, bf16_full), [general[i] for i in idx],
+            [noise_general[i] for i in idx],
+            [masks_general[i] for i in idx],
+            [i % log_every == 0 for i in idx])
 
     exp.opt_states[model_idx] = opt
     load_flat_params(model, p, dims_from(cfg, cfg.batch_size))
@@ -889,14 +668,7 @@ def resolve_ensemble(cfg, model) -> bool:
         return False
     if ensemble_mesh(cfg) is not None:
         return True
-    if cfg.fused_training:
-        example = {m.name: None for m in model.modalities}
-        if (fused_step.supports_fused(cfg, model, example)
-                or fused_methods.supports_method_fused(cfg, model, example)
-                or fused_generic.supports_generic_fused(cfg, model,
-                                                        example)):
-            return False
-    return True
+    return not Routes(cfg, model).kernel_config
 
 
 def ensemble_mesh(cfg):
@@ -963,22 +735,16 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
     the writer before it returns or raises, so every checkpoint is then on
     disk.
 
-    Under ``precision="bfloat16"`` the members follow the JAX runner
-    (``trainer.py:1011-1105, 241-343`` there): where the members spread
-    over the cards (its ``ensemble_mesh``) and the MoPoE or method step
-    takes the config, the first ``n_common`` full complete batches of each
-    member (the fewest any member has this epoch) take the kernels'
-    bfloat16 branch, unsharded (``make_fused_ensemble_epoch``); every other
-    batch, and every batch of an ensemble on one card (its vmapped XLA
-    step), takes float32. ``profile_dir``: the first epoch is traced
-    (:mod:`.profiling`), every member's training and test pass."""
+    Each member's routes are an ensemble member's
+    (:class:`~.routes.Routes`, ``ensemble``: whether the members spread over
+    the cards), which under ``precision="bfloat16"`` read the fewest full
+    complete batches any member has this epoch. ``profile_dir``: the first
+    epoch is traced (:mod:`.profiling`), every member's training and test
+    pass."""
     cfg = exp.cfg
     n_models = cfg.num_models
     mesh = ensemble_mesh(cfg) if exp.device.type == "cuda" else None
-    example = {m.name: None for m in exp.models[0].modalities}
-    member_bf16 = (cfg_bf16(cfg) and mesh is not None and cfg.fused_training
-                   and fused_methods.supports_method_fused(
-                       cfg, exp.models[0], example))
+    spread_members = mesh is not None
     if mesh is None:
         mesh = make_mesh(n_models, 1, spread(exp.device, 1) * n_models)
     members = fused_sharded.MemberStreams(mesh)
@@ -989,10 +755,8 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
             exp.params[m] = exp.params[m].to(dev)
             exp.opt_states[m] = AdamState(opt.count, opt.mu.to(dev),
                                           opt.nu.to(dev))
-    # the JAX runner's member epochs are unsharded
-    dp_epochs = [None if cfg_bf16(cfg) else make_dp_epoch(cfg, exp.models[m],
-                                                          dev)
-                 for m, dev in enumerate(members.devices)]
+    member_routes = [Routes(cfg, exp.models[m], dev, spread_members)
+                     for m, dev in enumerate(members.devices)]
     loggers = [MetricLogger(model_log_dir(cfg, m),
                             use_tensorboard=use_tensorboard)
                for m in range(n_models)]
@@ -1011,14 +775,13 @@ def run_epochs_ensemble(exp, use_tensorboard: bool = True,
                               for m in range(n_models)]
                 batches = [epoch_batches(exp, m, epoch)
                            for m in range(n_models)]
-                n_common = (min(len(full) for full, _ in batches)
-                            if member_bf16 else 0)
+                n_common = min(len(full) for full, _ in batches)
                 pending = []
                 for m in range(n_models):
                     with members.member(m):
                         pending.append(enqueue_train_epoch(
                             exp, m, generators[m], epoch, log_every,
-                            dp_epochs[m], batches[m], bf16_full=n_common))
+                            member_routes[m], batches[m], n_common))
                 for m in range(n_models):
                     with members.member(m):
                         # the fetches synchronize the member's stream
@@ -1086,7 +849,7 @@ def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
         return run_epochs_ensemble(exp, use_tensorboard=use_tensorboard,
                                    log_every=log_every, progress=progress,
                                    profile_dir=profile_dir)
-    dp_epoch = make_dp_epoch(cfg, exp.models[0], exp.device)
+    member_routes = [Routes(cfg, model, exp.device) for model in exp.models]
     sync = (torch.cuda.synchronize if exp.device.type == "cuda"
             else (lambda: None))
     walls: List[float] = []
@@ -1103,7 +866,7 @@ def run_epochs(exp, use_tensorboard: bool = True, log_every: int = 1,
                 with _tracing(profile_dir, exp.device, model_idx == 0
                               and epoch == cfg.start_epoch, epoch):
                     train_one_epoch(exp, model_idx, logger, generator, epoch,
-                                    log_every, dp_epoch)
+                                    log_every, member_routes[model_idx])
                     test_one_epoch(exp, model_idx, logger, generator, epoch)
                     sync()
                 if model_idx == 0:

@@ -66,7 +66,7 @@ def train_exp(dataset, datasetdir, outdir, input_dims, num_models=1,
     dumps (``fid/<group>/<modality>/NNNNNN.npy``) after training. A
     config past the layer-stack step's caps raises ``NotImplementedError``
     naming its ROADMAP item
-    (:func:`multivae_tpu_torch.train.trainer.unported_features`)."""
+    (:attr:`multivae_tpu_torch.train.routes.Routes.gaps`)."""
     dev = resolve_device(device)
     print_title(f"TRAIN: {dataset}")
     cfg = Config(

@@ -59,7 +59,7 @@ from multivae_tpu_torch.ops import (
     fused_sharded,
     fused_step,
 )
-from multivae_tpu_torch.train import trainer
+from multivae_tpu_torch.train import routes, trainer
 from multivae_tpu_torch.train.config import Config
 from multivae_tpu_torch.train.experiment import MultimodalExperiment
 from multivae_tpu_torch.utils.filehandling import create_dir_structure
@@ -938,7 +938,7 @@ def test_float16_and_other_precisions_train_float32(cohort):
     trainer.train_one_epoch(exp, 0, None,
                             trainer.epoch_generator(exp.cfg, 0, 0), 0)
     assert not torch.equal(exp.params[0], runs["float32"])
-    assert trainer.unported_features(exp.cfg, exp.models[0]) == []
+    assert routes.Routes(exp.cfg, exp.models[0]).gaps == []
 
 
 @pytest.mark.parametrize("kw", [
@@ -973,7 +973,7 @@ def test_data_parallel_remainders_stay_float32(cohort, monkeypatch):
     monkeypatch.setattr(fused_sharded, "slice_method_step_flat",
                         record_slice)
     exp = make_exp(cohort, method="moe", data_parallel=2)
-    dp = trainer.make_dp_epoch(exp.cfg, exp.models[0], exp.device)
+    dp = routes.Routes(exp.cfg, exp.models[0], exp.device)
     trainer.train_one_epoch(exp, 0, None,
                             trainer.epoch_generator(exp.cfg, 0, 0), 0, 1, dp)
     assert slices and all(slices)

@@ -50,7 +50,7 @@ from multivae_tpu_torch.data import make_synthetic_cohort
 from multivae_tpu_torch.models import build_model, make_modalities
 from multivae_tpu_torch.ops import fused_generic, fused_methods, fused_step
 from multivae_tpu_torch.ops import latent_multi
-from multivae_tpu_torch.train import train_step, trainer
+from multivae_tpu_torch.train import routes, train_step, trainer
 from multivae_tpu_torch.train.config import Config
 from multivae_tpu_torch.train.experiment import MultimodalExperiment
 
@@ -325,8 +325,8 @@ def test_poe_without_unimodal_elbos_at_the_split_architecture(rate):
     assert bridge.split_layout(cfg)
     example = {n: None for n in model.mod_names}
     assert not fused_methods.supports_method_fused(cfg, model, example)
-    assert trainer.make_generic_epoch(cfg, model) is not None
-    assert not trainer.unported_features(cfg, model)
+    assert routes.Routes(cfg, model, "cpu").full == routes.LAYER_STACK
+    assert not routes.Routes(cfg, model).gaps
     hold_step(kw, 64, uni=False)
 
 
@@ -535,7 +535,7 @@ def hold_trainer_epoch(exp, uni):
 
     cfg, model = exp.cfg, exp.models[0]
     names = list(exp.mod_names)
-    assert trainer.make_generic_epoch(cfg, model) is not None
+    assert routes.Routes(cfg, model, "cpu").full == routes.LAYER_STACK
     dims = bridge.dims_from(cfg, FOUR_BATCH)
     p0 = exp.params[0].clone()
     launches = (dict(adam.KERNEL_LAUNCHES),

@@ -441,52 +441,6 @@ def test_dp_epoch_checks_its_inputs():
                 p, opt, xs, noise, torch.ones(N_STEPS, 2, B, HIDDEN))
 
 
-# ------------------------------------------------------------ ensemble epoch
-@pytest.mark.parametrize("method,masked", [("joint_elbo", False),
-                                           ("poe", True)])
-def test_ensemble_epoch_is_the_members_epochs(method, masked):
-    """Each member's epoch through the ensemble epoch is, bit for bit, its
-    epoch alone (``tests/test_fused_sharded.py:106-112``)."""
-    from multivae_tpu_torch.train import trainer
-
-    cfg = make_cfg(method, dropout_rate=RATE if masked else 0.0)
-    model = port_model(cfg)
-    mesh = make_mesh(2, 1, [CPU] * 2)
-    inputs = [port_epoch_inputs(method, masked, 5 + m) for m in range(2)]
-    p0 = bridge.model_flat_params(model, dims())
-    params = [p0.clone(), (p0 * 1.01).clone()]
-    alone = []
-    for m in range(2):
-        p = params[m].clone()
-        fn = trainer.make_group_fused_epoch(cfg, model,
-                                            (("clinical", "rois"), B))
-        opt, metrics, names = fn(p, adam_ops.init_adam_state(p), *inputs[m])
-        alone.append((p, opt, metrics))
-    fn = fused_sharded.make_fused_ensemble_epoch(cfg, model, mesh)
-    opts, metrics, mnames = fn(
-        params, [adam_ops.init_adam_state(p) for p in params],
-        [i[0] for i in inputs], [i[1] for i in inputs],
-        None if not masked else [i[2] for i in inputs])
-    assert mnames == names
-    for m in range(2):
-        assert torch.equal(params[m], alone[m][0])
-        assert torch.equal(opts[m].mu, alone[m][1].mu)
-        assert torch.equal(opts[m].nu, alone[m][1].nu)
-        assert opts[m].count == N_STEPS
-        assert torch.equal(metrics[m], alone[m][2])
-
-
-def test_ensemble_epoch_rejects_wrong_member_count():
-    cfg = make_cfg()
-    model = port_model(cfg)
-    fn = fused_sharded.make_fused_ensemble_epoch(
-        cfg, model, make_mesh(2, 1, [CPU] * 2))
-    p = bridge.model_flat_params(model, dims())
-    xs, noise, _ = port_epoch_inputs("joint_elbo", False, 6)
-    with pytest.raises(ValueError, match="mesh model axis"):
-        fn([p] * 3, [adam_ops.init_adam_state(p)] * 3, [xs] * 3, [noise] * 3)
-
-
 # ---------------------------------------------------------------------- mesh
 def test_meshes():
     devs = [torch.device("cpu")] * 6

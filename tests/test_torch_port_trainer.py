@@ -38,7 +38,7 @@ from multivae_tpu.train.train_step import flat_adam
 from multivae_tpu_torch import params as bridge
 from multivae_tpu_torch import workflows
 from multivae_tpu_torch.data import make_synthetic_cohort
-from multivae_tpu_torch.train import checkpoint, train_step, trainer
+from multivae_tpu_torch.train import checkpoint, routes, train_step, trainer
 from multivae_tpu_torch.train.config import Config
 from multivae_tpu_torch.train.experiment import MultimodalExperiment
 
@@ -815,9 +815,9 @@ def test_deep_config_routes(cohort, monkeypatch, case):
     assert not fused_methods.supports_method_fused(cfg, model, example)
     assert fused_generic.supports_generic_fused(cfg, model, example)
     assert isinstance(bridge.dims_from(cfg, BATCH), bridge.GenericDims)
-    assert trainer.make_generic_epoch(cfg, model) is not None
-    assert trainer.make_generic_epoch(make_cfg(cohort),
-                                      make_exp(cohort).models[0]) is None
+    assert routes.Routes(cfg, model, "cpu").full == routes.LAYER_STACK
+    assert routes.Routes(make_cfg(cohort), make_exp(cohort).models[0],
+                         "cpu").full != routes.LAYER_STACK
 
     calls = {"generic": [], "general": []}
     step_fn, general_fn = (fused_generic.generic_step_flat,
