@@ -65,6 +65,8 @@ from .stats import (
 SAMPLING_STRATEGIES = ("linear", "uniform", "gaussian", "likelihood")
 ARTIFACT_MODES = ("full", "stats-only", "sampled")
 SUFFSTATS_FILE = "regression_suffstats.npz"
+SUFFSTATS_KEYS = ("ysum", "xysum", "yysum")
+AVATARS_FILE = "rois_digital_avatars.npy"
 SAMPLED_AVATARS_FILE = "rois_digital_avatars_sampled.npy"
 SAMPLED_ROIS_FILE = "sampled_rois_idx.npy"
 
@@ -105,6 +107,23 @@ def cohort_from_datasets(trainset, testset, datasetdir: str,
         test_data=test_data,
         metadata_columns=list(metadata.columns),
         test_metadata=metadata.to_numpy())
+
+
+@dataclass
+class RegressionInputs:
+    """The regression stage's inputs, as :func:`run_daa` writes them, each
+    ``[(n_models,) n_validation, ...]``: ``sampled_scores`` ``[..., B, P,
+    S]``, ``metadatas`` (object) ``[..., B, n_columns]``,
+    ``rois_reconstructions`` ``[..., B, R]``, and either ``avatars``, the
+    full artifact's memmap ``[..., B, S, P, R]``, or ``suffstats``, the
+    sufficient statistics ``{"ysum", "xysum", "yysum"}``, each ``[..., B, S,
+    R]`` float32."""
+
+    sampled_scores: np.ndarray
+    metadatas: np.ndarray
+    rois_reconstructions: np.ndarray
+    avatars: Optional[np.ndarray] = None
+    suffstats: Optional[Dict[str, np.ndarray]] = None
 
 
 def complete_indices(dataset) -> np.ndarray:
@@ -450,7 +469,7 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
     n_subjects = min(n_subjects, len(cohorts[0].test_metadata))
 
     stats_only = artifact in ("stats-only", "sampled")
-    rois_digital_avatars = roi_sub = None
+    rois_digital_avatars = roi_sub = suffstats = None
     if artifact == "sampled":
         # a stream of its own: the subjects drawn from np_rng stay those of
         # a full or stats-only run at the same seed
@@ -473,11 +492,15 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
             shape = shape[1:]
         with profiling.span("daa.files.save"):
             rois_digital_avatars = open_memmap(
-                os.path.join(resdir, "rois_digital_avatars.npy"),
+                os.path.join(resdir, AVATARS_FILE),
                 dtype="float32", mode="w+", shape=shape)
+    if stats_only:
+        # each round's statistics are fetched into their [B, S, R] slot
+        suffstats = {k: np.empty((n_models, n_validation, n_subjects,
+                                  n_scores, n_rois), np.float32)
+                     for k in SUFFSTATS_KEYS}
 
     all_sampled_scores, all_metadatas, all_rois_reconstructions = [], [], []
-    all_suffstats = []  # per model: list of per-round (ysum, xysum, yysum)
     all_sub_avatars = []  # sampled: per model, per-round [B, S, P, k]
     metadata_columns = None
     for model_idx, (model, cohort) in enumerate(zip(models, cohorts)):
@@ -493,8 +516,7 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
                 n_samples, n_subjects, np_rng)  # [B, S, P]
 
         n_complete = len(cohort.test_metadata)
-        sampled_scores, metadatas, rois_recs, suffstats_rounds = \
-            [], [], [], []
+        sampled_scores, metadatas, rois_recs = [], [], []
         sub_avatar_rounds = []
         for val_idx in range(n_validation):
             print_text(f"validation round {val_idx + 1}/{n_validation}")
@@ -530,9 +552,10 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
                                            chunk)
             if stats_only:
                 rt = None if wire == torch.float32 else wire
-                suffstats_rounds.append(tuple(
-                    _fetch(s) for s in _device_suffstats(
-                        avatars, scores_values, roundtrip_dtype=rt)))
+                for k, s in zip(SUFFSTATS_KEYS, _device_suffstats(
+                        avatars, scores_values, roundtrip_dtype=rt)):
+                    profiling.fetch_into(s, suffstats[k][model_idx, val_idx],
+                                         "daa.fetch")
                 if roi_sub is not None:
                     # gather the columns, then cast to the wire dtype: the
                     # full artifact's bits for these columns
@@ -549,22 +572,23 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
         all_sampled_scores.append(sampled_scores)
         all_metadatas.append(metadatas)
         all_rois_reconstructions.append(rois_recs)
-        all_suffstats.append(suffstats_rounds)
         all_sub_avatars.append(sub_avatar_rounds)
 
     if n_models == 1:
         all_sampled_scores = all_sampled_scores[0]
         all_metadatas = all_metadatas[0]
         all_rois_reconstructions = all_rois_reconstructions[0]
+        if suffstats is not None:
+            suffstats = {k: v[0] for k, v in suffstats.items()}
     with profiling.span("daa.files.save"):
+        # what the files hold is what the regression stage is handed
+        handed = RegressionInputs(
+            sampled_scores=np.asarray(all_sampled_scores),
+            metadatas=np.asarray(all_metadatas, dtype=object),
+            rois_reconstructions=np.asarray(all_rois_reconstructions),
+            avatars=rois_digital_avatars, suffstats=suffstats)
         if stats_only:
-            # [(n_models,) n_validation, B, S, R] per statistic
-            stacked = {name: np.asarray([[rnd[i] for rnd in rounds]
-                                         for rounds in all_suffstats])
-                       for i, name in enumerate(("ysum", "xysum", "yysum"))}
-            if n_models == 1:
-                stacked = {k: v[0] for k, v in stacked.items()}
-            np.savez(os.path.join(resdir, SUFFSTATS_FILE), **stacked)
+            np.savez(os.path.join(resdir, SUFFSTATS_FILE), **suffstats)
             if roi_sub is not None:
                 sub_arr = np.asarray(all_sub_avatars, dtype=np.float32)
                 np.save(os.path.join(resdir, SAMPLED_AVATARS_FILE),
@@ -572,17 +596,15 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
                 np.save(os.path.join(resdir, SAMPLED_ROIS_FILE), roi_sub)
         else:
             rois_digital_avatars.flush()
-            del rois_digital_avatars
         np.save(os.path.join(resdir, "sampled_scores.npy"),
-                np.asarray(all_sampled_scores))
-        np.save(os.path.join(resdir, "metadatas.npy"),
-                np.asarray(all_metadatas, dtype=object))
+                handed.sampled_scores)
+        np.save(os.path.join(resdir, "metadatas.npy"), handed.metadatas)
         np.save(os.path.join(resdir, "rois_reconstructions.npy"),
-                np.asarray(all_rois_reconstructions))
+                handed.rois_reconstructions)
 
     compute_significativity(
         resdir, cfg, clinical_names, rois_names, params_ns,
-        metadata_columns, trust_level, vote_prop, reg_method)
+        metadata_columns, trust_level, vote_prop, reg_method, inputs=handed)
     return resdir
 
 
@@ -622,12 +644,46 @@ def save_coef_records(path: str, meta: np.ndarray, betas: np.ndarray):
     profiling.count("daa.coef_records", int(np.prod(betas.shape[:-2])))
 
 
+def load_regression_inputs(resdir: str) -> RegressionInputs:
+    """The regression stage's inputs read from the files :func:`run_daa`
+    wrote under ``resdir``: the avatar artifact's memmap where it is there,
+    else the sufficient statistics."""
+    da_file = os.path.join(resdir, AVATARS_FILE)
+    suff_file = os.path.join(resdir, SUFFSTATS_FILE)
+    if not (os.path.exists(da_file) or os.path.exists(suff_file)):
+        raise FileNotFoundError(
+            f"{resdir} holds neither the avatar artifact "
+            f"('{AVATARS_FILE}', written by daa --artifact full) "
+            f"nor the sufficient statistics ('{SUFFSTATS_FILE}', written "
+            f"by --artifact stats-only or sampled); re-run the daa "
+            f"workflow before the regression stage")
+    rois_da = suffstats = None
+    with profiling.span("daa.files.load"):
+        if os.path.exists(da_file):
+            rois_da = np.load(da_file, mmap_mode="r")
+        else:
+            with np.load(suff_file) as fh:
+                suffstats = {k: fh[k] for k in SUFFSTATS_KEYS}
+        return RegressionInputs(
+            sampled_scores=np.load(os.path.join(resdir,
+                                                "sampled_scores.npy")),
+            metadatas=np.load(os.path.join(resdir, "metadatas.npy"),
+                              allow_pickle=True),
+            rois_reconstructions=np.load(os.path.join(
+                resdir, "rois_reconstructions.npy")),
+            avatars=rois_da, suffstats=suffstats)
+
+
 @profiling.spanned("daa.significance")
 def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
                             params_ns, metadata_columns, trust_level: float,
-                            vote_prop: float, reg_method: str):
-    """Regression + voting stage (``workflow.py:443-539``); reads the saved
-    artifacts so it can be re-run standalone. Writes ``pvalues.npy``,
+                            vote_prop: float, reg_method: str,
+                            inputs: Optional[RegressionInputs] = None):
+    """Regression + voting stage (``workflow.py:443-539``) on ``inputs``,
+    the arrays :func:`run_daa` just wrote (counted as
+    ``daa.inputs_in_memory``), or, when None, on those files read back from
+    ``resdir`` (:func:`load_regression_inputs`), so the stage can be re-run
+    standalone. Writes ``pvalues.npy``,
     ``coefs.npy``, ``all_coefs.npy`` (hierarchical) and
     ``significant_rois.tsv``; returns the significant rows as dicts.
 
@@ -642,28 +698,14 @@ def compute_significativity(resdir: str, cfg, clinical_names, rois_names,
     n_rois = len(rois_names)
     n_validation = params_ns.n_validation
 
-    da_file = os.path.join(resdir, "rois_digital_avatars.npy")
-    suff_file = os.path.join(resdir, SUFFSTATS_FILE)
-    rois_da = suffstats = None
-    if not (os.path.exists(da_file) or os.path.exists(suff_file)):
-        raise FileNotFoundError(
-            f"{resdir} holds neither the avatar artifact "
-            f"('rois_digital_avatars.npy', written by daa --artifact full) "
-            f"nor the sufficient statistics ('{SUFFSTATS_FILE}', written "
-            f"by --artifact stats-only or sampled); re-run the daa "
-            f"workflow before the regression stage")
-    with profiling.span("daa.files.load"):
-        if os.path.exists(da_file):
-            rois_da = np.load(da_file, mmap_mode="r")
-        else:
-            with np.load(suff_file) as fh:
-                suffstats = {k: fh[k] for k in ("ysum", "xysum", "yysum")}
-        all_sampled_scores = np.load(os.path.join(resdir,
-                                                  "sampled_scores.npy"))
-        all_metadatas = np.load(os.path.join(resdir, "metadatas.npy"),
-                                allow_pickle=True)
-        all_rois_recs = np.load(os.path.join(resdir,
-                                             "rois_reconstructions.npy"))
+    if inputs is None:
+        inputs = load_regression_inputs(resdir)
+    else:
+        profiling.count("daa.inputs_in_memory", 1)
+    rois_da, suffstats = inputs.avatars, inputs.suffstats
+    all_sampled_scores = inputs.sampled_scores
+    all_metadatas = inputs.metadatas
+    all_rois_recs = inputs.rois_reconstructions
     if n_models == 1:
         if rois_da is not None:
             rois_da = rois_da[np.newaxis]

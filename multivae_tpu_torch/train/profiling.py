@@ -20,9 +20,10 @@ Spans and counters. :func:`span` marks a stretch of host work by name: a
 ``torch.profiler.record_function`` while a profiler session is open, so it
 lands in the Chrome trace (``cat: user_annotation``) on the profiler's
 clock beside the device records, and one shared null context otherwise.
-:func:`count` adds to :data:`COUNTS` (always on); :func:`to_device` and
-:func:`fetch` copy and count the bytes (``h2d_bytes``, ``d2h_bytes``), a
-fetch in a span of its own. A :func:`trace` block keeps the window's
+:func:`count` adds to :data:`COUNTS` (always on); :func:`to_device`,
+:func:`fetch` and :func:`fetch_into` (a fetch into a host array the caller
+holds) copy and count the bytes (``h2d_bytes``, ``d2h_bytes``), a fetch in
+a span of its own. A :func:`trace` block keeps the window's
 counts, :func:`last_counts`: each of :data:`COUNTS`, and each ops module's
 kernel launches and steps (:func:`kernel_counters`) as
 ``launches.<kernel>`` / ``steps.<kernel>``, as differences of the counters
@@ -37,6 +38,7 @@ import importlib
 import os
 from typing import Dict
 
+import numpy as np
 import torch
 
 
@@ -93,6 +95,18 @@ def fetch(t: torch.Tensor, name: str) -> torch.Tensor:
         host = t.cpu()
     count("d2h_bytes", host.nbytes)
     return host
+
+
+def fetch_into(t: torch.Tensor, out: np.ndarray, name: str) -> None:
+    """:func:`fetch` into the writable host array ``out`` of ``t``'s shape
+    and dtype (a slot of a larger array, say), in the span ``name``."""
+    dst = torch.from_numpy(out)
+    if dst.shape != t.shape or dst.dtype != t.dtype:
+        raise ValueError(f"cannot fetch a {t.dtype} {tuple(t.shape)} tensor "
+                         f"into a {dst.dtype} {tuple(dst.shape)} array")
+    with span(name):
+        dst.copy_(t)
+    count("d2h_bytes", dst.nbytes)
 
 
 # the ops modules that count their kernels' launches (KERNEL_LAUNCHES) and
