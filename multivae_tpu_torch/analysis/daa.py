@@ -224,7 +224,8 @@ def reconstruction_stats(model, data, M: int, generator: torch.Generator,
 
     On configurations the sweep kernel takes, the mean is computed in
     closed form (:func:`analytic_reconstruction_stats`); ``exact=False``
-    forces the Monte-Carlo passes, ``exact=True`` the closed form.
+    forces the Monte-Carlo passes, ``exact=True`` the closed form. The
+    Monte-Carlo passes are counted as ``daa.reconstruction_passes``.
     """
     if exact is True:
         if cfg is not None and not supports_fused_sweep(cfg, model, data):
@@ -236,6 +237,7 @@ def reconstruction_stats(model, data, M: int, generator: torch.Generator,
     if exact is not False and cfg is not None \
             and supports_fused_sweep(cfg, model, data):
         return analytic_reconstruction_stats(model, data)
+    profiling.count("daa.reconstruction_passes", M)
     names = model.mod_names
     sums = None
     for _ in range(M):
@@ -271,7 +273,7 @@ def general_sweep_cells(model, cdata, rois, eps, sample_latents: bool,
     block), so every row partition is the batch's own (``daa.py:210-265``,
     the general branch); with ``sample_latents`` cell ``i`` takes the noise
     ``eps[i]``. ``chunk`` cells at a time go through one ``torch.func.vmap``
-    of the forward."""
+    of the forward. The cells are counted as ``daa.general_sweep_cells``."""
     names = model.mod_names
 
     def one(clinical, noise):
@@ -280,6 +282,7 @@ def general_sweep_cells(model, cdata, rois, eps, sample_latents: bool,
                     noise=noise if sample_latents else None)
         return out["rec"][names[1]][0]
 
+    profiling.count("daa.general_sweep_cells", cdata.shape[0])
     batched = torch.func.vmap(one)
     step = max(int(chunk), 1)
     return torch.cat([batched(cdata[i:i + step], eps[i:i + step])
@@ -291,15 +294,17 @@ def avatar_sweep(model, data, scores_values, sample_latents: bool,
     """ROI avatars ``[B, n_scores, n_samples, n_rois]`` for every (sample,
     score) perturbation of ``scores_values [n_samples, B, n_scores]``: on
     the avatar-sweep kernel where it takes the configuration, else on the
-    general sweep (:func:`general_sweep_cells`, ``chunk`` cells at a
-    time)."""
+    general sweep (:func:`general_sweep_cells`, ``chunk`` cells at a time,
+    in a ``daa.sweep.general`` span)."""
     if supports_fused_sweep(cfg, model, data):
         return fused_avatar_sweep(model, data, scores_values, sample_latents,
                                   generator, cfg)
     n_samples, _, n_scores = scores_values.shape
-    cdata, eps = general_sweep_inputs(model, data, scores_values, generator)
-    out = general_sweep_cells(model, cdata, data[model.mod_names[1]], eps,
-                              sample_latents, chunk)
+    with profiling.span("daa.sweep.general"):
+        cdata, eps = general_sweep_inputs(model, data, scores_values,
+                                          generator)
+        out = general_sweep_cells(model, cdata, data[model.mod_names[1]],
+                                  eps, sample_latents, chunk)
     return avatar_layout(out, n_samples, n_scores)
 
 
@@ -311,10 +316,11 @@ def avatar_sweep_sharded(model, data, scores_values, sample_latents: bool,
     mesh's ``data`` axis (``daa.py:268-360``): every entry decodes an equal
     slice of the cell grid, on the avatar-sweep kernel where it takes the
     configuration, else on the general sweep (a copy of the model on each
-    entry's device). The noise is the unsharded sweep's one draw, so the
-    result does not depend on the mesh; a cell count the mesh does not
-    divide is padded with repeated cells (zero noise) that are dropped. The
-    data and the result live on the first entry's device; a slice whose
+    entry's device; each slice in a ``daa.sweep.general`` span). The noise
+    is the unsharded sweep's one draw, so the result does not depend on the
+    mesh; a cell count the mesh does not divide is padded with repeated
+    cells (zero noise) that are dropped. The data and the result live on
+    the first entry's device; a slice whose
     entry is another device takes copies of what it reads."""
     devices = mesh.axis_devices("data")
     n_samples, _, n_scores = scores_values.shape
@@ -349,9 +355,10 @@ def avatar_sweep_sharded(model, data, scores_values, sample_latents: bool,
             if dev not in models:
                 models[dev] = (model if dev == first
                                else copy.deepcopy(model).to(dev))
-            out = general_sweep_cells(models[dev], cdata[cells].to(dev),
-                                      rois.to(dev), eps[cells].to(dev),
-                                      sample_latents, chunk)
+            with profiling.span("daa.sweep.general"):
+                out = general_sweep_cells(models[dev], cdata[cells].to(dev),
+                                          rois.to(dev), eps[cells].to(dev),
+                                          sample_latents, chunk)
         parts.append(out.to(first))
     return avatar_layout(torch.cat(parts)[:n_cells], n_samples, n_scores)
 
@@ -526,9 +533,10 @@ def run_daa(cfg, models: Sequence[torch.nn.Module],
                     for k, v in cohort.test_data.items()}
             metadatas.append(cohort.test_metadata[sel])
 
-            loc_hat, scale_hat, rois_reconstruction = reconstruction_stats(
-                model, data, M, generator, cfg=cfg,
-                exact=exact_reconstruction)
+            with profiling.span("daa.reconstruction"):
+                loc_hat, scale_hat, rois_reconstruction = \
+                    reconstruction_stats(model, data, M, generator, cfg=cfg,
+                                         exact=exact_reconstruction)
             rois_recs.append(_fetch(rois_reconstruction))
 
             if sampling_strategy == "likelihood":

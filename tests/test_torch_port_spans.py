@@ -1,8 +1,9 @@
 """The port's spans and counters inside the trainer and the DAA, on the
 CPU: a traced ``run_epochs`` epoch and a traced ``stats-only`` ``run_daa``
-write every span (``train/profiling.py``) into the Chrome trace, nested in
-their parents, and the window's counts equal the bytes reckoned here from
-the shapes."""
+(the flagship's routes and deep-A's) write every span
+(``train/profiling.py``) into the Chrome trace, nested in their parents,
+the window's counts equal the bytes, passes and cells reckoned here from
+the shapes, and a profiler session changes no file a call writes."""
 
 import json
 import os
@@ -167,8 +168,14 @@ N_SCORES, N_ROIS, N_TEST = 3, 12, 30
 B, P, ROUNDS = 8, 10, 2
 
 
-def daa_inputs():
-    """``(cfg, model, cohort)``: a tiny model and cohort for ``run_daa``."""
+# deep-A: a decoder hidden layer and a per-sample output scale, so that
+# run_daa takes the Monte-Carlo reconstruction and the general sweep
+DEEP_A = dict(num_hidden_layer_decoder=1, learn_output_sample_scale=True)
+
+
+def daa_inputs(**arch):
+    """``(cfg, model, cohort)``: a tiny model (the flagship's architecture,
+    or ``arch``'s) and cohort for ``run_daa``."""
     rng = np.random.default_rng(3)
     cohort = DaaCohort(
         clinical_names=np.array([f"score_{i}" for i in range(N_SCORES)],
@@ -185,45 +192,126 @@ def daa_inputs():
                                 for i in range(N_TEST)], dtype=object))
     cfg = Config(dataset="synthetic", input_dim=[N_SCORES, N_ROIS],
                  class_dim=CD, style_dim=list(STYLE),
-                 hidden_dim=HIDDEN).derive()
+                 hidden_dim=HIDDEN, **arch).derive()
     torch.manual_seed(0)
     model = build_model(cfg, make_modalities(cfg.input_dim, cfg.style_dim,
                                              cfg.likelihood), "cpu")
     return cfg, model, cohort
 
 
-DAA_KW = dict(n_validation=ROUNDS, n_samples=P, n_subjects=B, M=4,
+M_PASSES = 4
+DAA_KW = dict(n_validation=ROUNDS, n_samples=P, n_subjects=B, M=M_PASSES,
               trust_level=0.5, seed=11)
 
 
-@pytest.fixture(scope="module")
-def traced_daa(tmp_path_factory):
-    root = tmp_path_factory.mktemp("daa")
-    cfg, model, cohort = daa_inputs()
+def traced_daa_call(root, **arch):
+    cfg, model, cohort = daa_inputs(**arch)
     with profiling.trace(str(root / "trace"), "cpu"):
         run_daa(cfg, [model], [cohort], str(root / "out"),
                 artifact="stats-only", fetch_dtype="float32", **DAA_KW)
     return spans_of(str(root / "trace")), profiling.last_counts()
 
 
+@pytest.fixture(scope="module")
+def traced_daa(tmp_path_factory):
+    return traced_daa_call(tmp_path_factory.mktemp("daa"))
+
+
+@pytest.fixture(scope="module")
+def traced_deep_daa(tmp_path_factory):
+    return traced_daa_call(tmp_path_factory.mktemp("deep_daa"), **DEEP_A)
+
+
 def test_a_daa_call_writes_every_daa_span(traced_daa):
     spans, _ = traced_daa
     names = {s[0] for s in spans}
     # no daa.files.load: the regression stage is handed what run_daa wrote
-    assert names == {"daa.sweep", "daa.fetch", "daa.significance",
-                     "daa.regress", "daa.records", "daa.files.save"}
+    assert names == {"daa.reconstruction", "daa.sweep", "daa.fetch",
+                     "daa.significance", "daa.regress", "daa.records",
+                     "daa.files.save"}
     sig = [s for s in spans if s[0] == "daa.significance"]
     assert len(sig) == 1
     for s in spans:
         if s[0] in ("daa.regress", "daa.records"):
             assert inside(s, sig), s
-        if s[0] in ("daa.sweep", "daa.fetch"):
+        if s[0] in ("daa.reconstruction", "daa.sweep", "daa.fetch"):
             assert not inside(s, sig), s
     # a regression and a record (its betas into the records' array) per
     # round and score
     assert sum(s[0] == "daa.regress" for s in spans) == ROUNDS * N_SCORES
     assert sum(s[0] == "daa.records" for s in spans) == ROUNDS * N_SCORES
     assert sum(s[0] == "daa.sweep" for s in spans) == ROUNDS
+    assert sum(s[0] == "daa.reconstruction" for s in spans) == ROUNDS
+
+
+def test_a_deep_daa_call_spans_both_deep_routes(traced_deep_daa):
+    """Deep-A: each round's reconstruction span holds the Monte-Carlo
+    passes, and the general sweep's span lies inside the round's sweep."""
+    spans, _ = traced_deep_daa
+    by = {}
+    for s in spans:
+        by.setdefault(s[0], []).append(s)
+    assert len(by["daa.reconstruction"]) == ROUNDS
+    assert len(by["daa.sweep.general"]) == ROUNDS
+    assert all(inside(s, by["daa.sweep"]) for s in by["daa.sweep.general"])
+    assert not any(inside(s, by["daa.sweep"])
+                   for s in by["daa.reconstruction"])
+
+
+def test_each_daa_route_counts_its_passes_and_cells(traced_daa,
+                                                    traced_deep_daa):
+    """Deep-A counts ``M`` passes and ``P x S`` general cells a round; the
+    flagship's closed form and sweep kernel count neither."""
+    _, deep = traced_deep_daa
+    assert deep["daa.reconstruction_passes"] == ROUNDS * M_PASSES
+    assert deep["daa.general_sweep_cells"] == ROUNDS * P * N_SCORES
+    _, flagship = traced_daa
+    assert flagship.get("daa.reconstruction_passes", 0) == 0
+    assert flagship.get("daa.general_sweep_cells", 0) == 0
+
+
+def test_each_general_slice_of_a_sharded_sweep_is_spanned_and_counted(
+        tmp_path):
+    """Over a 4-entry CPU mesh, 30 cells and 2 pad cells: one span and
+    8 cells a slice."""
+    from multivae_tpu_torch.analysis import daa
+    from multivae_tpu_torch.parallel import data_mesh
+
+    cfg, model, cohort = daa_inputs(**DEEP_A)
+    data = {k: torch.from_numpy(v[:B]) for k, v in cohort.test_data.items()}
+    scores = torch.randn(P, B, N_SCORES,
+                         generator=torch.Generator().manual_seed(2))
+    mesh = data_mesh(4, [torch.device("cpu")] * 4)
+    with profiling.trace(str(tmp_path / "trace"), "cpu"):
+        daa.avatar_sweep_sharded(model, data, scores, True,
+                                 torch.Generator().manual_seed(3), mesh, cfg)
+    spans = spans_of(str(tmp_path / "trace"))
+    assert sum(s[0] == "daa.sweep.general" for s in spans) == 4
+    assert profiling.last_counts()["daa.general_sweep_cells"] == 32
+
+
+@pytest.mark.parametrize("arch", [{}, DEEP_A], ids=["flagship", "deep-A"])
+def test_a_daa_call_writes_the_same_bytes_traced_and_not(tmp_path, arch):
+    """The spans and counters change no output: every file of a call
+    inside a profiler session equals, byte for byte, that of the same call
+    outside one."""
+    cfg, model, cohort = daa_inputs(**arch)
+    files = {}
+    for traced in (False, True):
+        out = str(tmp_path / f"out{int(traced)}")
+        if traced:
+            with profiling.trace(str(tmp_path / "trace"), "cpu"):
+                resdir = run_daa(cfg, [model], [cohort], out,
+                                 artifact="stats-only", **DAA_KW)
+        else:
+            resdir = run_daa(cfg, [model], [cohort], out,
+                             artifact="stats-only", **DAA_KW)
+        files[traced] = {}
+        for name in sorted(os.listdir(resdir)):
+            with open(os.path.join(resdir, name), "rb") as fh:
+                files[traced][name] = fh.read()
+    assert "regression_suffstats.npz" in files[False]
+    assert files[True] == files[False]
 
 
 def test_a_daa_call_counts_its_fetches_and_copies(traced_daa):
