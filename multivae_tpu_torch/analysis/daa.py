@@ -69,6 +69,10 @@ SUFFSTATS_KEYS = ("ysum", "xysum", "yysum")
 AVATARS_FILE = "rois_digital_avatars.npy"
 SAMPLED_AVATARS_FILE = "rois_digital_avatars_sampled.npy"
 SAMPLED_ROIS_FILE = "sampled_rois_idx.npy"
+# rows of one block of Monte-Carlo reconstruction passes: enough that a
+# deep-A round's 1000 passes of 50 subjects decode as one block, few enough
+# that a block's widest decoder output (888 columns) stays near 230 MB
+RECONSTRUCTION_BLOCK_ROWS = 1 << 16
 
 
 @dataclass
@@ -206,13 +210,8 @@ def analytic_reconstruction_stats(model, data):
     decoders and a per-feature output scale, the mean of the decodes is the
     decode of the latent means (joint via the deterministic mixture
     partition). Returns ``(clinical loc, clinical scale, rois loc)``."""
-    latents = model.inference(data)
-    joint_mu = latents["joint"][0]
-    outs = []
-    for mod in model.modalities:
-        s_mu, _ = latents["modalities"][mod.name + "_style"]
-        outs.append(model.decoders[mod.name](s_mu, joint_mu))
-    (c_loc, c_scale), (r_loc, _) = outs
+    rec = model.reconstruct(model.inference(data), data)
+    (c_loc, c_scale), (r_loc, _) = (rec[n] for n in model.mod_names)
     return c_loc, c_scale, r_loc
 
 
@@ -224,8 +223,19 @@ def reconstruction_stats(model, data, M: int, generator: torch.Generator,
 
     On configurations the sweep kernel takes, the mean is computed in
     closed form (:func:`analytic_reconstruction_stats`); ``exact=False``
-    forces the Monte-Carlo passes, ``exact=True`` the closed form. The
-    Monte-Carlo passes are counted as ``daa.reconstruction_passes``.
+    forces the Monte-Carlo passes, ``exact=True`` the closed form.
+
+    The Monte-Carlo passes share one inference: only the reparameterised
+    latents and the decodes depend on a pass's noise. Each pass's noise
+    ``[B, noise_width]`` is drawn from ``generator`` in its own call, in
+    pass order, as a per-pass ``model(data, sample_latents=True,
+    generator=generator)`` loop draws it, so the passes and the
+    generator's state after them are that loop's. The passes decode in
+    blocks of about :data:`RECONSTRUCTION_BLOCK_ROWS` rows
+    (:meth:`~multivae_tpu_torch.models.mmvae.MultimodalVAE.reconstruct`
+    on ``[k, B, noise_width]``), summed over the passes in float32. The
+    passes are counted as ``daa.reconstruction_passes``, the blocks as
+    ``daa.reconstruction_blocks``.
     """
     if exact is True:
         if cfg is not None and not supports_fused_sweep(cfg, model, data):
@@ -239,12 +249,22 @@ def reconstruction_stats(model, data, M: int, generator: torch.Generator,
         return analytic_reconstruction_stats(model, data)
     profiling.count("daa.reconstruction_passes", M)
     names = model.mod_names
+    latents = model.inference(data, sample=True)
+    joint_mu = latents["joint"][0]
+    rows = joint_mu.shape[0]
+    eps = torch.empty((M, rows, model.noise_width(data)),
+                      dtype=joint_mu.dtype, device=joint_mu.device)
+    for i in range(M):
+        torch.randn(eps.shape[1:], generator=generator, out=eps[i])
+    block = max(1, RECONSTRUCTION_BLOCK_ROWS // rows)
     sums = None
-    for _ in range(M):
-        rec = model(data, sample_latents=True, generator=generator)["rec"]
-        parts = (rec[names[0]][0], rec[names[0]][1], rec[names[1]][0])
+    for lo in range(0, M, block):
+        rec = model.reconstruct(latents, data, eps[lo:lo + block])
+        parts = tuple(p.sum(dim=0) for p in (
+            rec[names[0]][0], rec[names[0]][1], rec[names[1]][0]))
         sums = parts if sums is None else tuple(
             s + p for s, p in zip(sums, parts))
+        profiling.count("daa.reconstruction_blocks", 1)
     return tuple(s / M for s in sums)
 
 

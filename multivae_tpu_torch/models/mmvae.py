@@ -236,31 +236,49 @@ class MultimodalVAE(nn.Module):
         latents = self.inference(batch, sample=sample_latents,
                                  use_expert=use_expert, masks=masks,
                                  rows=rows)
-        joint_mu, joint_logvar = latents["joint"]
         eps = None
         if sample_latents:
             eps = noise
             if eps is None:
+                joint_mu = latents["joint"][0]
                 eps = torch.randn(
                     (joint_mu.shape[0], self.noise_width(batch)),
                     generator=generator, dtype=joint_mu.dtype,
                     device=joint_mu.device)
-            class_z = joint_mu + eps[:, :self.class_dim] * torch.exp(
-                0.5 * joint_logvar)
-        else:
-            class_z = joint_mu
         divs = self._calc_joint_divergence(
             latents["mus"], latents["logvars"], latents["weights"], rows)
+        rec = self.reconstruct(latents, batch, eps, masks)
 
+        out = {"latents": latents, "group_distr": latents["joint"],
+               "rec": rec}
+        out.update(divs)
+        return out
+
+    def reconstruct(self, latents, present, eps=None, masks=None):
+        """Each present modality's decoded ``(loc, scale)``, from
+        :meth:`inference`'s ``latents``: the tail of :meth:`forward`.
+
+        ``present`` holds the names of the modalities to decode (a batch
+        dict does). With ``eps [..., B, noise_width(present)]`` (the
+        content columns, then each present modality's style columns, in
+        modality order) the latents are reparameterised draws and the
+        outputs take ``eps``'s leading dimensions, so a block of ``k``
+        passes decodes as one ``[k, B, ...]`` call; without ``eps`` the
+        latent means are decoded. ``masks`` as in :meth:`forward`."""
+        joint_mu, joint_logvar = latents["joint"]
+        if eps is None:
+            class_z = joint_mu
+        else:
+            class_z = joint_mu + eps[..., :self.class_dim] * torch.exp(
+                0.5 * joint_logvar)
         rec = {}
         offset = self.class_dim
         for mod in self.modalities:
-            if mod.name not in batch:
+            if mod.name not in present:
                 continue
             s_mu, s_lv = latents["modalities"][mod.name + "_style"]
-            if (self.factorized_representation and sample_latents
-                    and mod.style_dim > 0):
-                style_z = s_mu + eps[:, offset:offset + mod.style_dim] \
+            if eps is not None and self._has_style(mod):
+                style_z = s_mu + eps[..., offset:offset + mod.style_dim] \
                     * torch.exp(0.5 * s_lv)
                 offset += mod.style_dim
             else:
@@ -268,11 +286,7 @@ class MultimodalVAE(nn.Module):
             rec[mod.name] = self.decoders[mod.name](
                 style_z, class_z,
                 None if masks is None else masks[mod.name][1])
-
-        out = {"latents": latents, "group_distr": latents["joint"],
-               "rec": rec}
-        out.update(divs)
-        return out
+        return rec
 
     # -------------------------------------------------------------- generation
     def _device(self) -> torch.device:

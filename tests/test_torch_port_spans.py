@@ -260,13 +260,16 @@ def test_a_deep_daa_call_spans_both_deep_routes(traced_deep_daa):
 
 def test_each_daa_route_counts_its_passes_and_cells(traced_daa,
                                                     traced_deep_daa):
-    """Deep-A counts ``M`` passes and ``P x S`` general cells a round; the
-    flagship's closed form and sweep kernel count neither."""
+    """Deep-A counts ``M`` passes, decoded in one block, and ``P x S``
+    general cells a round; the flagship's closed form and sweep kernel
+    count none of them."""
     _, deep = traced_deep_daa
     assert deep["daa.reconstruction_passes"] == ROUNDS * M_PASSES
+    assert deep["daa.reconstruction_blocks"] == ROUNDS
     assert deep["daa.general_sweep_cells"] == ROUNDS * P * N_SCORES
     _, flagship = traced_daa
     assert flagship.get("daa.reconstruction_passes", 0) == 0
+    assert flagship.get("daa.reconstruction_blocks", 0) == 0
     assert flagship.get("daa.general_sweep_cells", 0) == 0
 
 
