@@ -358,13 +358,17 @@ def enqueue_train_epoch(exp, model_idx: int, generator: torch.Generator,
         # autograd of the model, then flat Adam, over the step's mesh
         nonlocal opt, n_steps
         args = (p, opt, data, eps, dims_from(cfg, _rows(data)), hyper)
-        if mesh is None:
-            opt, _, metrics = general_step(cfg, model, *args, batch_masks)
-        elif "tensor" in mesh.shape:
-            opt, _, metrics = tp_step(cfg, model, *args, mesh, batch_masks)
-        else:
-            opt, _, metrics = dp_general_step(cfg, routes.replicas, *args,
-                                              mesh, batch_masks)
+        with profiling.span("trainer.general_step"):
+            if mesh is None:
+                opt, _, metrics = general_step(cfg, model, *args,
+                                               batch_masks)
+            elif "tensor" in mesh.shape:
+                opt, _, metrics = tp_step(cfg, model, *args, mesh,
+                                          batch_masks)
+            else:
+                opt, _, metrics = dp_general_step(cfg, routes.replicas,
+                                                  *args, mesh, batch_masks)
+        profiling.count("trainer.general_steps", 1)
         n_steps += 1
         if log:
             names = list(metrics)

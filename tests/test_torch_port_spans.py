@@ -39,25 +39,48 @@ def inside(span, parents):
     return any(pa <= a and b <= pb for _, pa, pb in parents)
 
 
-@pytest.fixture(scope="module")
-def traced_epoch(tmp_path_factory):
-    """One traced ``run_epochs`` epoch (training, test pass, checkpoint) of
-    a tiny cohort, its spans, its counts and the experiment."""
-    root = tmp_path_factory.mktemp("epoch")
+def tiny_experiment(root, end_epoch=1, **arch):
+    """A tiny cohort under ``root`` and its experiment (the flagship's
+    architecture, or ``arch``'s), ready to train."""
     make_synthetic_cohort(str(root / "data"), n_subjects=100,
                           n_scores=DIMS[0], n_rois=DIMS[1], missing_rate=0.2,
                           seed=1)
     cfg = Config(dataset="synthetic", datasetdir=str(root / "data"),
                  dir_experiment=str(root / "runs"), input_dim=list(DIMS),
                  class_dim=CD, style_dim=list(STYLE), hidden_dim=HIDDEN,
-                 batch_size=BATCH, end_epoch=1, seed=7).derive()
+                 batch_size=BATCH, end_epoch=end_epoch, seed=7,
+                 **arch).derive()
     create_dir_structure(cfg)
     exp = MultimodalExperiment(cfg, "cpu")
     exp.set_datasets()
     exp.set_optimizers()
+    return exp
+
+
+def traced_run_epochs(root, **arch):
+    """One traced ``run_epochs`` epoch (training, test pass, checkpoint) of
+    a tiny cohort, its spans, its counts and the experiment."""
+    exp = tiny_experiment(root, **arch)
     with profiling.trace(str(root / "trace"), "cpu"):
         trainer.run_epochs(exp, use_tensorboard=False, progress=False)
     return spans_of(str(root / "trace")), profiling.last_counts(), exp
+
+
+@pytest.fixture(scope="module")
+def traced_epoch(tmp_path_factory):
+    return traced_run_epochs(tmp_path_factory.mktemp("epoch"))
+
+
+# deep-A: a decoder hidden layer and a per-sample output scale, so that the
+# full complete batches take the layer-stack step and the others the
+# autograd general step (run_daa: the Monte-Carlo reconstruction and the
+# general sweep)
+DEEP_A = dict(num_hidden_layer_decoder=1, learn_output_sample_scale=True)
+
+
+@pytest.fixture(scope="module")
+def traced_deep_epoch(tmp_path_factory):
+    return traced_run_epochs(tmp_path_factory.mktemp("deep_epoch"), **DEEP_A)
 
 
 TRAINER_PARENTS = ("trainer.steps", "trainer.test", "trainer.checkpoint")
@@ -164,13 +187,78 @@ def test_train_exp_prints_the_traced_epochs_counts(tmp_path, capsys):
     assert int(counts["h2d_bytes"]) > 0 and int(counts["d2h_bytes"]) > 0
 
 
+def test_a_deep_epoch_spans_and_counts_each_general_step(traced_deep_epoch):
+    """Deep-A: every batch outside the full complete ones takes the
+    autograd general step, each in a ``trainer.general_step`` span inside
+    its ``trainer.launch`` and counted once; the full complete batches take
+    the layer-stack step's group, which opens no such span. (On a card the
+    group is one ``generic_step`` launch and each general step one
+    ``flat_adam``; here the plain versions count no launch.)"""
+    spans, counts, exp = traced_deep_epoch
+    by = {}
+    for s in spans:
+        by.setdefault(s[0], []).append(s)
+    full, general = trainer.epoch_batches(exp, 0, 0)
+    assert full and general
+    assert len(by["trainer.general_step"]) == len(general)
+    assert all(inside(s, by["trainer.launch"])
+               for s in by["trainer.general_step"])
+    # one launch span per general step and one for the full batches' group
+    assert len(by["trainer.launch"]) == len(general) + 1
+    assert counts["trainer.general_steps"] == len(general)
+    assert set(by) - {"trainer.general_step"} == {
+        "trainer.batches", "trainer.gather", "trainer.steps",
+        "trainer.noise", "trainer.launch", "trainer.test",
+        "trainer.test.forward", "trainer.fetch", "trainer.log_rows",
+        "trainer.checkpoint", "trainer.checkpoint.serialize",
+        "trainer.checkpoint.fetch", "trainer.checkpoint.write"}
+
+
+def test_a_flagship_epoch_takes_no_general_step(traced_epoch):
+    _, counts, _ = traced_epoch
+    assert counts.get("trainer.general_steps", 0) == 0
+
+
+def run_files(root):
+    """``metrics.csv``'s bytes and every checkpoint's arrays of the run
+    under ``root``."""
+    runs = root / "runs"
+    (run,) = [d for d in runs.iterdir() if d.is_dir()]
+    with open(run / "logs" / "metrics.csv", "rb") as fh:
+        csv = fh.read()
+    arrays = {}
+    for path in sorted((run / "checkpoints").rglob("*.npz")):
+        with np.load(path) as fh:
+            for k in fh.files:
+                arrays[f"{path.relative_to(run)}:{k}"] = fh[k]
+    return csv, arrays
+
+
+@pytest.mark.parametrize("arch", [{}, DEEP_A], ids=["flagship", "deep-A"])
+def test_training_writes_the_same_files_traced_and_not(tmp_path, arch):
+    """The spans and counters change no number: two epochs, the first in a
+    profiler session, write ``metrics.csv`` byte for byte as two epochs
+    outside one, and checkpoints whose every array is equal."""
+    got = {}
+    for traced in (False, True):
+        root = tmp_path / f"run{int(traced)}"
+        root.mkdir()
+        exp = tiny_experiment(root, end_epoch=2, **arch)
+        trainer.run_epochs(exp, use_tensorboard=False, progress=False,
+                           profile_dir=str(root / "trace") if traced
+                           else None)
+        got[traced] = run_files(root)
+    assert (tmp_path / "run1" / "trace" / "epoch_0000.pt.trace.json"
+            ).is_file()
+    (csv0, arrays0), (csv1, arrays1) = got[False], got[True]
+    assert csv0.count(b"\n") > 10 and csv1 == csv0
+    assert len(arrays0) >= 6 and set(arrays1) == set(arrays0)
+    for k, v in arrays0.items():
+        np.testing.assert_array_equal(arrays1[k], v, err_msg=k)
+
+
 N_SCORES, N_ROIS, N_TEST = 3, 12, 30
 B, P, ROUNDS = 8, 10, 2
-
-
-# deep-A: a decoder hidden layer and a per-sample output scale, so that
-# run_daa takes the Monte-Carlo reconstruction and the general sweep
-DEEP_A = dict(num_hidden_layer_decoder=1, learn_output_sample_scale=True)
 
 
 def daa_inputs(**arch):
